@@ -1,0 +1,53 @@
+"""JAX parameter pytree (as numpy arrays) -> the port's parameters.
+
+The structure (nested dicts and lists, None for parameter-free layers) is
+kept; every leaf is mapped by its key and rank, and a leaf that no rule
+covers raises, so an unported parameter form (int8 weights, batch-norm
+stats, a new head) can never be loaded silently wrong.
+
+Layouts (the JAX conventions are NHWC, HWIO convs, (in, out) linears):
+conv weights HWIO -> OIHW, transposed once here; linear weights stay
+(in, out), the layout core/nn.linear and kernel K2 take; vectors and
+embeddings are copied as they are. Values stay float32.
+"""
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+# (key, rank) -> transform of the numpy leaf
+_RULES = {
+    ("w", 4): lambda a: a.transpose(3, 2, 0, 1),  # HWIO -> OIHW
+    ("w", 2): lambda a: a,                        # (in, out) linear
+    ("b", 1): lambda a: a,
+    ("scale", 1): lambda a: a,
+    ("bias", 1): lambda a: a,
+    ("pos_embed", 3): lambda a: a,
+    ("init_hand_pose", 2): lambda a: a,
+    ("init_betas", 2): lambda a: a,
+    ("init_cam", 2): lambda a: a,
+}
+
+
+def _convert(node: Any, path: Tuple[str, ...], device) -> Any:
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _convert(v, path + (str(k),), device) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_convert(v, path + (str(i),), device) for i, v in enumerate(node)]
+    arr = np.asarray(node)
+    key = path[-1] if path else ""
+    rule = _RULES.get((key, arr.ndim))
+    if rule is None or arr.dtype.kind != "f":
+        raise KeyError(f"bridge: no mapping for leaf {'/'.join(path)} "
+                       f"(shape {arr.shape}, dtype {arr.dtype})")
+    return torch.from_numpy(np.array(rule(arr), dtype=np.float32, order="C")).to(device)
+
+
+def from_jax_params(tree: Any, device="cpu") -> Any:
+    """Convert a JAX parameter pytree whose leaves are numpy arrays (or
+    anything ``np.asarray`` takes) into the port's tensors on ``device``."""
+    return _convert(tree, (), device)

@@ -1,0 +1,48 @@
+"""Camera models on tensors (port of hamer_yolo_tpu/geometry/camera.py):
+projection and the crop-camera -> full-image lift under real intrinsics."""
+from __future__ import annotations
+
+import torch
+
+
+def perspective_projection(points: torch.Tensor, translation: torch.Tensor,
+                           focal_length: torch.Tensor) -> torch.Tensor:
+    """(B, N, 3) points, (B, 3) translation, (B, 2) focal -> (B, N, 2) crop-space
+    pixels about the crop center (HaMeR's projection, no camera center)."""
+    points = points + translation[:, None, :]
+    proj = points / points[..., 2:3]
+    return proj[..., :2] * focal_length[:, None, :]
+
+
+def project_with_intrinsics(points_cam: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
+                            cx: torch.Tensor, cy: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    """u = fx X / (Z + eps) + cx, v = fy Y / (Z + eps) + cy for (B, N, 3)."""
+    z = points_cam[..., 2:3] + eps
+    u = points_cam[..., 0:1] / z * fx.reshape(-1, 1, 1) + cx.reshape(-1, 1, 1)
+    v = points_cam[..., 1:2] / z * fy.reshape(-1, 1, 1) + cy.reshape(-1, 1, 1)
+    return torch.cat([u, v], dim=-1)
+
+
+def cam_to_translation(pred_cam: torch.Tensor, focal_length: float,
+                       image_size: float) -> torch.Tensor:
+    """Weak-perspective (s, tx, ty) -> (tx, ty, 2 f / (image_size s + 1e-9))."""
+    s, tx, ty = pred_cam[:, 0], pred_cam[:, 1], pred_cam[:, 2]
+    tz = 2.0 * focal_length / (image_size * s + 1e-9)
+    return torch.stack([tx, ty, tz], dim=-1)
+
+
+def custom_cam_crop_to_full(cam_bbox: torch.Tensor, box_center: torch.Tensor,
+                            box_size: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
+                            cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
+    """Real-intrinsics crop camera -> full-image translation (B, 3).
+
+    All of box_size, fx, fy, cx, cy are (B,). The fx != fy correction
+    ty *= fx / fy is applied unconditionally, as in JAX. The depth-refine
+    form waits for the RootNet port.
+    """
+    bs = box_size * cam_bbox[:, 0] + 1e-9
+    tz = 2.0 * fx / bs
+    tx = (2.0 * (box_center[:, 0] - cx) / bs) + cam_bbox[:, 1]
+    ty = (2.0 * (box_center[:, 1] - cy) / bs) + cam_bbox[:, 2]
+    ty = ty * (fx / fy)
+    return torch.stack([tx, ty, tz], dim=-1)

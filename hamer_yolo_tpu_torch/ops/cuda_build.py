@@ -1,0 +1,111 @@
+"""Build and load the port's hand-written CUDA kernels (csrc/*.cu).
+
+Each source is compiled by ``nvcc`` into its own shared library with a plain
+C interface and loaded with ``ctypes``. Nothing is built at import: the first
+call that launches a kernel builds it, into ``_build/`` beside this package
+(listed in ``.gitignore``), under a name keyed by a hash of the source and
+the flags. A file lock keeps concurrent processes from building the same
+library twice.
+"""
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+_COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                 "-shared", "-Xcompiler", "-fPIC"]
+# nms.cu must not contract its IoU arithmetic into FMAs (bit-exact keep sets).
+_EXTRA_FLAGS: Dict[str, List[str]] = {"nms.cu": ["--fmad=false"], "attn_block.cu": []}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of every exported function, per source.
+_SIGNATURES = {
+    "nms.cu": {"hyt_nms_keep": [_P, _P, _F, _P, _I, _I, _P]},
+    "attn_block.cu": {
+        "hyt_ln_qkv": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "hyt_attention": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
+        "hyt_attn_smem_bytes": [_I, _I],
+    },
+}
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                           "CUDA toolkit is installed")
+    return path
+
+
+def library_path(source: str) -> Path:
+    flags = _COMMON_FLAGS + _EXTRA_FLAGS[source]
+    digest = hashlib.sha256((CSRC_DIR / source).read_bytes()
+                            + " ".join(flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+
+
+def _build(source: str, out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if out.exists():
+                return
+            tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+            cmd = [_nvcc(), *_COMMON_FLAGS, *_EXTRA_FLAGS[source], "-o", str(tmp),
+                   str(CSRC_DIR / source)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {source}:\n{res.stderr}")
+            os.replace(tmp, out)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>``, built first if needed."""
+    lib = _LOADED.get(source)
+    if lib is not None:
+        return lib
+    path = library_path(source)
+    if not path.exists():
+        _build(source, path)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _LOADED[source] = lib
+    return lib
+
+
+def build_all() -> List[Path]:
+    """Build (or find) and load every kernel library; returns their paths."""
+    for source in _SIGNATURES:
+        load(source)
+    return [library_path(s) for s in _SIGNATURES]
+
+
+def aligned16(t):
+    """``t`` contiguous and 16-byte aligned: the kernels read 16-byte vectors,
+    and a view into another tensor may start at any element."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

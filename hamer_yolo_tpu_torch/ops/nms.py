@@ -1,0 +1,154 @@
+"""Batched class-aware NMS with fixed-capacity outputs, and kernel K1.
+
+Port of hamer_yolo_tpu/ops/nms.py (``non_max_suppression`` without the
+merge and keypoint variants) and of the TPU kernel
+hamer_yolo_tpu/ops/nms_pallas.py:greedy_nms_keep, whose CUDA counterpart is
+``csrc/nms.cu``. Steps: score = obj * cls, best class, class whitelist and
+conf threshold as masks, static top-K (K = min(max_nms_static, N)) by a
+stable descending sort (lower index first on ties, as ``jax.lax.top_k``),
+class-offset boxes, greedy keep mask, then the kept boxes compacted to the
+front and capped at ``max_det``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from hamer_yolo_tpu_torch.geometry.boxes import box_iou, xywh2xyxy
+from hamer_yolo_tpu_torch.ops import cuda_build
+
+MAX_WH = 4096.0  # class-offset multiplier
+MAX_K = 512      # the kernel's shared-memory bitmask holds 512 x 512 bits
+
+
+class NmsOutput(NamedTuple):
+    boxes: torch.Tensor    # (B, max_det, 4) xyxy in input-pixel space
+    scores: torch.Tensor   # (B, max_det)
+    classes: torch.Tensor  # (B, max_det) int32
+    valid: torch.Tensor    # (B, max_det) bool
+
+
+def greedy_nms_keep_ref(boxes: torch.Tensor, active: torch.Tensor,
+                        iou_thres: float) -> torch.Tensor:
+    """Plain version of K1: the f32 greedy scan of the JAX ``_greedy_suppress``.
+
+    boxes (B, K, 4) score-sorted xyxy; active (B, K) {0, 1}. Returns the
+    keep mask (B, K) f32. Candidate i, if still alive and active, kills every
+    j with iou(i, j) > thres (diagonal excluded).
+    """
+    B, K, _ = boxes.shape
+    sup = box_iou(boxes, boxes) > iou_thres
+    sup &= ~torch.eye(K, dtype=torch.bool, device=boxes.device)
+    act = active > 0.5
+    alive = torch.ones((B, K), dtype=torch.bool, device=boxes.device)
+    for i in range(K):
+        keep_i = alive[:, i] & act[:, i]
+        alive &= ~(keep_i[:, None] & sup[:, i])
+    return (alive & act).to(torch.float32)
+
+
+def greedy_nms_keep(boxes: torch.Tensor, active: torch.Tensor,
+                    iou_thres: float) -> torch.Tensor:
+    """K1: keep mask (B, K) f32 of score-sorted candidates.
+
+    CPU tensors take the plain version; CUDA tensors launch ``csrc/nms.cu``
+    (one CTA per image) and raise on anything it does not take.
+    """
+    if boxes.device.type == "cpu":
+        return greedy_nms_keep_ref(boxes, active, iou_thres)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"greedy_nms_keep: unsupported device {boxes.device}")
+    B, K, four = boxes.shape
+    if four != 4 or active.shape != (B, K) or boxes.dtype != torch.float32:
+        raise ValueError(f"greedy_nms_keep: boxes {tuple(boxes.shape)} {boxes.dtype}, "
+                         f"active {tuple(active.shape)}")
+    if active.device != boxes.device:
+        raise ValueError(f"greedy_nms_keep: active on {active.device}, boxes on {boxes.device}")
+    if not 0 < K <= MAX_K:
+        raise ValueError(f"greedy_nms_keep: K={K} outside 1..{MAX_K}")
+    lib = cuda_build.load("nms.cu")
+    boxes = cuda_build.aligned16(boxes)  # the kernel reads one float4 per box
+    active = active.to(torch.float32).contiguous()
+    keep = torch.empty((B, K), dtype=torch.float32, device=boxes.device)
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.hyt_nms_keep(boxes.data_ptr(), active.data_ptr(), ctypes.c_float(iou_thres),
+                              keep.data_ptr(), B, K, stream)
+    cuda_build.check(rc, "nms_keep_kernel")
+    greedy_nms_keep.launches += 1
+    return keep
+
+
+greedy_nms_keep.launches = 0
+
+
+def _topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last dim, lower index first on ties (jax.lax.top_k)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+class NmsCandidates(NamedTuple):
+    scores: torch.Tensor   # (B, K) score-sorted, 0 where filtered out
+    boxes: torch.Tensor    # (B, K, 4) xyxy
+    classes: torch.Tensor  # (B, K) int32
+    active: torch.Tensor   # (B, K) bool
+    shifted: torch.Tensor  # (B, K, 4) class-offset boxes, the input of K1
+
+
+def nms_candidates(prediction: torch.Tensor, conf_thres: float = 0.25,
+                   classes: Optional[Tuple[int, ...]] = None, agnostic: bool = False,
+                   max_nms_static: int = 512) -> NmsCandidates:
+    """The static top-K candidate set of ``non_max_suppression``."""
+    B, N, no = prediction.shape
+    nc = no - 5
+    xywh, obj, cls_scores = prediction[..., :4], prediction[..., 4], prediction[..., 5:]
+    if nc == 1:
+        score = obj
+        cls_id = torch.zeros((B, N), dtype=torch.int32, device=prediction.device)
+    else:
+        conf = cls_scores * obj[..., None]
+        score = torch.amax(conf, dim=-1)
+        cls_id = torch.argmax(conf, dim=-1).to(torch.int32)
+
+    keep_mask = (obj > conf_thres) & (score > conf_thres)
+    if classes is not None:
+        cls_ok = torch.zeros((B, N), dtype=torch.bool, device=prediction.device)
+        for c in classes:
+            cls_ok |= cls_id == c
+        keep_mask &= cls_ok
+    score = torch.where(keep_mask, score, torch.zeros_like(score))
+    boxes = xywh2xyxy(xywh)
+
+    K = min(max_nms_static, N)
+    top_scores, top_idx = _topk_stable(score, K)
+    top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(B, K, 4))
+    top_cls = torch.gather(cls_id, 1, top_idx)
+    offset = 0.0 if agnostic else MAX_WH
+    shifted = top_boxes + top_cls[..., None].to(top_boxes.dtype) * offset
+    return NmsCandidates(top_scores, top_boxes, top_cls, top_scores > conf_thres, shifted)
+
+
+def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25,
+                        iou_thres: float = 0.45, classes: Optional[Tuple[int, ...]] = None,
+                        agnostic: bool = False, max_det: int = 300,
+                        max_nms_static: int = 512) -> NmsOutput:
+    """prediction: (B, N, 5 + nc) decoded xywh + obj + class scores."""
+    cand = nms_candidates(prediction, conf_thres, classes, agnostic, max_nms_static)
+    B, K = cand.scores.shape
+    keep = greedy_nms_keep(cand.shifted, cand.active.to(torch.float32), iou_thres) > 0.5
+
+    keep_score = torch.where(keep, cand.scores, torch.full_like(cand.scores, -1.0))
+    m = min(max_det, K)
+    out_scores, order = _topk_stable(keep_score, m)
+    out_boxes = torch.gather(cand.boxes, 1, order[..., None].expand(B, m, 4))
+    out_cls = torch.gather(cand.classes, 1, order)
+    if m < max_det:
+        pad = max_det - m
+        out_scores = torch.nn.functional.pad(out_scores, (0, pad), value=-1.0)
+        out_boxes = torch.nn.functional.pad(out_boxes, (0, 0, 0, pad))
+        out_cls = torch.nn.functional.pad(out_cls, (0, pad))
+    return NmsOutput(boxes=out_boxes, scores=torch.clamp(out_scores, min=0.0),
+                     classes=out_cls, valid=out_scores > 0.0)

@@ -1,0 +1,135 @@
+"""The exact-bf16 frame pipeline on tensors (port of
+hamer_yolo_tpu/pipeline/frame.py, without the RootNet depth branch):
+
+  raw frames (bucket-padded) -> device letterbox -> YOLOv7 -> NMS (K1)
+    -> S fixed, masked hand slots -> HaMeR crops -> ViT-H (K2 on CUDA)
+    -> MANO head -> MANO LBS -> flip corrections -> camera lift with the
+    real intrinsics -> full-image projection -> npy-schema fields.
+
+Every stage runs over a batch dimension: the detector over frames, the
+HaMeR stage over all B*S crops at once (the flat formulation the JAX tests
+pin equal to the per-frame vmap), the epilogue over crops.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Tuple
+
+import torch
+
+from hamer_yolo_tpu_torch.core import nn
+from hamer_yolo_tpu_torch.geometry.boxes import hamer_box_params, scale_coords
+from hamer_yolo_tpu_torch.geometry.camera import custom_cam_crop_to_full, project_with_intrinsics
+from hamer_yolo_tpu_torch.geometry.flip import correct_pred_cam, flip_keypoints3d
+from hamer_yolo_tpu_torch.geometry.rotations import rotmat_to_aa
+from hamer_yolo_tpu_torch.models.hamer import HamerConfig, hamer_forward
+from hamer_yolo_tpu_torch.models.mano import ManoModel
+from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig, yolov7_forward
+from hamer_yolo_tpu_torch.ops.nms import non_max_suppression
+from hamer_yolo_tpu_torch.pipeline.preprocess import device_letterbox, hamer_crop
+
+Tensors = Dict[str, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    max_hands: int = 4
+    det_size: int = 640
+    conf_thres: float = 0.25
+    iou_thres: float = 0.35
+    classes: Tuple[int, ...] = (0, 1, 2)
+    agnostic_nms: bool = True
+    max_nms_static: int = 512
+    right_class: int = 1  # cls == 1 -> right hand
+    crop_size: int = 256
+    yolo: YoloConfig = field(default_factory=lambda: YoloConfig(nc=3))
+    hamer: HamerConfig = field(default_factory=HamerConfig)
+
+
+def detect_hands_batched(yolo_params: nn.Params, images_bgr: torch.Tensor,
+                         orig_hws: torch.Tensor, cfg: PipelineConfig) -> Tensors:
+    """Detector over a frame batch: images_bgr (B, Hb, Wb, 3) f32 0..255,
+    orig_hws (B, 2) -> per-slot boxes (B, S, 4) xyxy in the original frame,
+    scores, is_right, classes and valid (B, S)."""
+    lb, gain, pad = device_letterbox(images_bgr, orig_hws, cfg.det_size)
+    pred = yolov7_forward(yolo_params, lb.flip(-1) / 255.0, cfg.yolo)  # BGR -> RGB in [0, 1]
+    nms = non_max_suppression(pred, conf_thres=cfg.conf_thres, iou_thres=cfg.iou_thres,
+                              classes=cfg.classes, agnostic=cfg.agnostic_nms,
+                              max_det=cfg.max_hands, max_nms_static=cfg.max_nms_static)
+    boxes = torch.round(scale_coords(nms.boxes, gain, pad, orig_hws))  # detector rounds
+    return {"boxes": boxes, "scores": nms.scores,
+            "is_right": (nms.classes == cfg.right_class).to(torch.float32),
+            "classes": nms.classes, "valid": nms.valid}
+
+
+def detect_hands(yolo_params: nn.Params, image_bgr: torch.Tensor, orig_hw: torch.Tensor,
+                 cfg: PipelineConfig) -> Tensors:
+    """One frame (Hb, Wb, 3), orig_hw (2,) -> per-slot detections (S, ...)."""
+    dets = detect_hands_batched(yolo_params, image_bgr[None], orig_hw[None], cfg)
+    return {k: v[0] for k, v in dets.items()}
+
+
+def recover_hands(hamer_params: nn.Params, mano_model: ManoModel, images_bgr: torch.Tensor,
+                  dets: Tensors, Ks: torch.Tensor, cfg: PipelineConfig) -> Tensors:
+    """HaMeR stage over all B*S hand slots in one batch: images_bgr
+    (B, Hb, Wb, 3), dets (B, S, ...), Ks (B, 3, 3) -> per-crop outputs
+    flattened to (B*S, ...)."""
+    B, S = dets["valid"].shape
+    do_flip = 1.0 - dets["is_right"]  # left hands are flipped
+    center, size = hamer_box_params(dets["boxes"])
+    crops = hamer_crop(images_bgr, center, size, do_flip, cfg.crop_size)
+    out = hamer_forward(hamer_params, mano_model, crops.reshape(B * S, *crops.shape[2:]),
+                        cfg.hamer)
+    do_flip, center, size = do_flip.reshape(-1), center.reshape(-1, 2), size.reshape(-1)
+    K = Ks.repeat_interleave(S, dim=0)
+    fx, fy, cx, cy = K[:, 0, 0], K[:, 1, 1], K[:, 0, 2], K[:, 1, 2]
+    kp3d = flip_keypoints3d(out["pred_keypoints_3d"], do_flip)
+    pred_cam = correct_pred_cam(out["pred_cam"], do_flip)
+    cam_t_full = custom_cam_crop_to_full(pred_cam, center, size, fx, fy, cx, cy)
+    kp2d_full = project_with_intrinsics(kp3d + cam_t_full[:, None], fx, fy, cx, cy)
+    return {
+        "pred_cam": pred_cam,
+        "pred_cam_t_full": cam_t_full,
+        "pred_keypoints_3d": kp3d,
+        "pred_keypoints_2d_full": kp2d_full,
+        "pred_vertices": out["pred_vertices"],
+        "global_orient": out["pred_mano_params"]["global_orient"],
+        "hand_pose": out["pred_mano_params"]["hand_pose"],
+        "betas": out["pred_mano_params"]["betas"],
+    }
+
+
+def _npy_fields(dets: Tensors, rec: Tensors) -> Tensors:
+    """Save-side axis-angle conversion and the npy-schema dict, (B, S, ...)."""
+    B, S = dets["valid"].shape
+    global_aa = rotmat_to_aa(rec["global_orient"][:, 0])            # (B*S, 3)
+    hand_aa = rotmat_to_aa(rec["hand_pose"]).reshape(B * S, -1)     # (B*S, 45)
+    flat = {
+        "betas": rec["betas"],
+        "theta": torch.cat([global_aa, hand_aa], dim=-1),
+        "pose_hand": hand_aa,
+        "pose_global": global_aa,
+        "cam_t": rec["pred_cam_t_full"],
+        "pred_cam": rec["pred_cam"],
+        "keypoints_3d": rec["pred_keypoints_3d"],
+        "keypoints_2d": rec["pred_keypoints_2d_full"],
+        "vertices": rec["pred_vertices"],
+    }
+    return {**dets, **{k: v.reshape(B, S, *v.shape[1:]) for k, v in flat.items()}}
+
+
+def infer_frames(params: nn.Params, mano_model: ManoModel, images_bgr: torch.Tensor,
+                 orig_hws: torch.Tensor, Ks: torch.Tensor, cfg: PipelineConfig) -> Tensors:
+    """The full program over a frame batch: images_bgr (B, Hb, Wb, 3) f32
+    raw BGR 0..255 (bucket-padded), orig_hws (B, 2), Ks (B, 3, 3) ->
+    per-slot outputs (B, S, ...) with the npy-schema fields as masked arrays."""
+    dets = detect_hands_batched(params["yolo"], images_bgr, orig_hws, cfg)
+    rec = recover_hands(params["hamer"], mano_model, images_bgr, dets, Ks, cfg)
+    return _npy_fields(dets, rec)
+
+
+def infer_frame(params: nn.Params, mano_model: ManoModel, image_bgr: torch.Tensor,
+                orig_hw: torch.Tensor, K: torch.Tensor, cfg: PipelineConfig) -> Tensors:
+    """One frame: image_bgr (Hb, Wb, 3), orig_hw (2,), K (3, 3) -> (S, ...)."""
+    out = infer_frames(params, mano_model, image_bgr[None], orig_hw[None], K[None], cfg)
+    return {k: v[0] for k, v in out.items()}

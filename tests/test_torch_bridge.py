@@ -1,0 +1,195 @@
+"""The JAX -> torch parameter bridge, the port's import hygiene, and the
+helpers the other test_torch_* files share.
+
+Inputs are made with numpy from a seed and handed to both packages; both
+sides run on the CPU (JAX in interpret mode where it reaches a Pallas
+kernel, the port through each kernel's plain twin).
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from hamer_yolo_tpu_torch.core.bridge import from_jax_params
+
+torch.set_num_threads(1)  # tier-1 runs 6 xdist workers on 8 cores
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def to_port(tree):
+    """JAX parameter pytree -> port parameters (through numpy)."""
+    return from_jax_params(jax.tree_util.tree_map(np.asarray, tree))
+
+
+def numpy_params(init_fn, seed: int = 0):
+    """Weights for both packages, made with numpy in the structure of a JAX
+    init function (traced by eval_shape: nothing is compiled). Weights follow
+    the JAX initialisers' distributions; biases, LN affines and the head's
+    mean parameters get small random values so every term is exercised."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(init_fn, jax.random.PRNGKey(0))
+
+    def leaf(path, s):
+        key, shape = path[-1].key, s.shape
+        if key == "w":
+            fan_in = int(np.prod(shape[:-1]))
+            bound = np.sqrt(6.0 / fan_in)
+            v = rng.uniform(-bound, bound, shape)
+        elif key == "scale":
+            v = 1.0 + 0.1 * rng.normal(size=shape)
+        elif key in ("b", "bias", "init_betas"):
+            v = 0.05 * rng.normal(size=shape)
+        elif key == "pos_embed":
+            v = 0.02 * rng.normal(size=shape)
+        elif key == "init_hand_pose":
+            v = np.tile([1.0, 0, 0, 0, 1, 0], shape[1] // 6)[None] + 0.05 * rng.normal(size=shape)
+        elif key == "init_cam":
+            v = np.array([[0.9, 0.0, 0.0]]) + 0.01 * rng.normal(size=shape)
+        else:
+            raise KeyError(path)
+        return v.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def pipeline_params(jcfg, seed: int = 0):
+    """numpy weights for the tiny detector + HaMeR (no SAR), JAX layout."""
+    from hamer_yolo_tpu.core.checkpoint import init_pipeline_params
+
+    jmano, _ = mano_pair()
+    return numpy_params(lambda k: init_pipeline_params(
+        k, jmano, yolo_cfg=jcfg.yolo, hamer_cfg=jcfg.hamer, with_sar=False), seed)
+
+
+def jax_exact(fn, *args):
+    """Run ``fn`` jitted with XLA's excess precision off, so that every bf16
+    op rounds where the JAX source says, as the port's ops do (with it on,
+    XLA keeps fused intermediates in f32 at places no other program can
+    follow). f32 programs are unaffected."""
+    compiled = jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+    return compiled(*args)
+
+
+def np_tree(tree):
+    """Dict of arrays/tensors -> dict of float64/bool numpy arrays."""
+    out = {}
+    for k, v in tree.items():
+        a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        out[k] = a if a.dtype == bool else a.astype(np.float64)
+    return out
+
+
+def tiny_configs(dtype: str = "bfloat16", max_hands: int = 2):
+    """The --tiny pipeline config (hamer_yolo_tpu/cli/main.py:47-61 without
+    SAR) in both packages, at one compute dtype for detector and ViT."""
+    from hamer_yolo_tpu.models.hamer import HamerConfig as JH
+    from hamer_yolo_tpu.models.mano_head import ManoHeadConfig as JM
+    from hamer_yolo_tpu.models.vit import ViTConfig as JV
+    from hamer_yolo_tpu.models.yolov7 import YoloConfig as JY
+    from hamer_yolo_tpu.pipeline.frame import PipelineConfig as JP
+    from hamer_yolo_tpu_torch.models.hamer import HamerConfig as TH
+    from hamer_yolo_tpu_torch.models.mano_head import ManoHeadConfig as TM
+    from hamer_yolo_tpu_torch.models.vit import ViTConfig as TV
+    from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig as TY
+    from hamer_yolo_tpu_torch.pipeline.frame import PipelineConfig as TP
+
+    def build(P, Y, H, V, M):
+        return P(max_hands=max_hands, det_size=64, crop_size=64,
+                 yolo=Y(nc=3, img_size=64, compute_dtype=dtype),
+                 hamer=H(image_size=64, crop_margin=8,
+                         vit=V(img_size=(64, 48), embed_dim=64, depth=2, num_heads=4,
+                               compute_dtype=dtype),
+                         head=M(dim=32, context_dim=64, depth=2, heads=2, dim_head=8,
+                                mlp_dim=32)))
+
+    return build(JP, JY, JH, JV, JM), build(TP, TY, TH, TV, TM)
+
+
+def mano_pair():
+    """The same MANO arrays as a JAX ManoModel and a port ManoModel."""
+    from hamer_yolo_tpu.core.mano_assets import load_mano_model, synthetic_mano_model
+    from hamer_yolo_tpu.models.mano import ManoModel as JMano
+    from hamer_yolo_tpu_torch.models.mano import ManoModel as TMano
+
+    try:
+        data = load_mano_model("right")
+    except Exception:
+        data = synthetic_mano_model()
+    return JMano.from_arrays(data), TMano.from_arrays(data)
+
+
+class TestBridge:
+    def test_layouts(self):
+        rng = np.random.default_rng(0)
+        tree = {"conv": {"w": rng.normal(size=(3, 5, 2, 7)).astype(np.float32),
+                         "b": np.zeros(7, np.float32)},
+                "layers": [None, {"w": rng.normal(size=(4, 6)).astype(np.float32)}],
+                "pos_embed": np.ones((1, 3, 4), np.float32)}
+        out = from_jax_params(tree)
+        np.testing.assert_array_equal(out["conv"]["w"].numpy(),
+                                      tree["conv"]["w"].transpose(3, 2, 0, 1))
+        assert out["layers"][0] is None
+        np.testing.assert_array_equal(out["layers"][1]["w"].numpy(), tree["layers"][1]["w"])
+        assert out["pos_embed"].shape == (1, 3, 4)
+
+    @pytest.mark.parametrize("leaf", [
+        {"w": {"q": np.zeros((4, 4), np.int8), "scale": np.ones(4, np.float32)}},
+        {"bn": {"mean": np.zeros(4, np.float32)}},
+        {"w": np.zeros((2, 2, 2), np.float32)},
+    ], ids=["int8_weight", "batchnorm_stats", "rank3_weight"])
+    def test_unmapped_leaf_raises(self, leaf):
+        with pytest.raises(KeyError, match="bridge: no mapping"):
+            from_jax_params({"layer": leaf})
+
+    def test_full_jax_tiny_pipeline_maps(self):
+        """Every leaf of the JAX tiny detector + HaMeR tree has a rule, and
+        the conv / linear leaves land in the port's layouts."""
+        jcfg, _ = tiny_configs()
+        params = pipeline_params(jcfg)
+        port = to_port(params)
+        n_jax = len(jax.tree_util.tree_leaves(params))
+        n_port = len([x for x in jax.tree_util.tree_leaves(port) if isinstance(x, torch.Tensor)])
+        assert n_jax == n_port
+        w = params["yolo"]["layers"][0]["conv"]["w"]
+        assert tuple(port["yolo"]["layers"][0]["conv"]["w"].shape) == (
+            w.shape[3], w.shape[2], w.shape[0], w.shape[1])
+        q = params["hamer"]["backbone"]["blocks"][0]["attn"]["qkv"]["w"]
+        assert tuple(port["hamer"]["backbone"]["blocks"][0]["attn"]["qkv"]["w"].shape) == q.shape
+
+
+class TestMano:
+    def test_synthetic_model_byte_identical(self):
+        from hamer_yolo_tpu.core.mano_assets import synthetic_mano_model as jsyn
+        from hamer_yolo_tpu_torch.core.mano_assets import synthetic_mano_model as tsyn
+
+        a, b = jsyn(3), tsyn(3)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes(), k
+
+
+def test_port_imports_without_jax():
+    """Every port module imports with jax made unimportable, and none of
+    them pulls in the JAX package."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "import hamer_yolo_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'hamer_yolo_tpu' or m.startswith('hamer_yolo_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 25
