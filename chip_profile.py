@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's exact-bf16 ``infer`` path on one GPU.
+"""Where the time goes in the port's ``infer`` paths on one GPU.
 
-    python3 chip_profile.py [--batches 1 4 16] [--out chiprun_out]
+    python3 chip_profile.py [--batches 1 4 16] [--paths bf16 int8-static int8-dynamic]
+                            [--out chiprun_out]
 
 Run from the root of a checkout on a machine with an NVIDIA card. For each
 batch size B it builds the full-width path of ``chip_smoke.py`` (YOLOv7 at
@@ -11,17 +12,21 @@ weights, synthetic MANO) on B numpy-made 720p frames and prints one JSON line:
 - ``e2e_ms``: median of ``infer_frames`` over the batch, CUDA events around
   each call (2 warm-up, 5 timed), and ``frames_per_s`` from it;
 - ``stage_ms``: the same median for each stage called alone on the batch's
-  own inputs: letterbox, yolo, nms, crops, the ViT on its K2 path and on its
-  plain path, and the whole HaMeR forward (ViT + head + MANO);
+  own inputs: letterbox, yolo, nms, crops, the ViT on its kernel path and on
+  its plain path (bf16: K2 against nn's attention; int8: K3 + K4, or K5 +
+  K7, against the unfused composition), and the whole HaMeR forward;
 - from ``torch.profiler`` over 3 calls of ``infer_frames``:
   ``device_ms_per_batch`` (device time of every kernel and copy per call),
   ``launches_per_batch`` (device events per call) and the device ms per call
   of each kernel that took 1% or more; the full table goes to
-  ``<out>/profile_b<B>.txt``. ``busy`` is device_ms_per_batch over e2e_ms:
+  ``<out>/profile_<path>_b<B>.txt``. ``busy`` is device_ms_per_batch over e2e_ms:
   the profiler slows the host loop, so the profiled calls' own wall time
   (``profiled_wall_ms_per_batch``) would understate it.
 
-The first line is the card's name and power limit as nvidia-smi gives them.
+Paths: ``bf16`` (the exact path), ``int8-static`` (the int8 ViT with the
+static scales calibrated on the batch's own crops) and ``int8-dynamic`` (the
+int8 ViT without scales). The first line is the card's name and power limit
+as nvidia-smi gives them.
 """
 import argparse
 import dataclasses
@@ -37,10 +42,12 @@ from chip_smoke import SEED, cuda_time_ms, frames_720p
 PROFILED_CALLS = 3
 
 
-def profile_batch(B, params, mano, cfg, dev, out_dir):
+def profile_batch(B, params, mano, cfg, dev, out_dir, path="bf16"):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from hamer_yolo_tpu_torch.cli.main import apply_fast_path
+    from hamer_yolo_tpu_torch.core.quant import attach_static_act_scales, vit_forward_int8
     from hamer_yolo_tpu_torch.geometry.boxes import hamer_box_params
     from hamer_yolo_tpu_torch.models.hamer import hamer_forward
     from hamer_yolo_tpu_torch.models.vit import vit_forward
@@ -49,8 +56,16 @@ def profile_batch(B, params, mano, cfg, dev, out_dir):
     from hamer_yolo_tpu_torch.pipeline.frame import detect_hands_batched, infer_frames
     from hamer_yolo_tpu_torch.pipeline.preprocess import device_letterbox, hamer_crop
     from hamer_yolo_tpu_torch.pipeline.runner import default_intrinsics
+    from hamer_yolo_tpu_torch.tools.calibrate_int8 import calibrate_frames
 
     frames = frames_720p(B, SEED)
+    if path != "bf16":
+        qparams, cfg = apply_fast_path(params, cfg, "int8")
+        if path == "int8-static":
+            stats, _ = calibrate_frames(params, frames, cfg, dev, batch=4 * B)
+            qparams["hamer"]["backbone"] = attach_static_act_scales(
+                qparams["hamer"]["backbone"], stats)
+        params = qparams
     imgs = torch.from_numpy(np.stack(frames)).to(dev).to(torch.float32)
     hws = torch.tensor([[720.0, 1280.0]] * B, device=dev)
     Ks = torch.from_numpy(np.stack([default_intrinsics(frames[0].shape)] * B)).to(dev)
@@ -66,6 +81,7 @@ def profile_batch(B, params, mano, cfg, dev, out_dir):
         crops = crops.reshape(-1, *crops.shape[2:])
         body = crops[:, :, m:-m, :]
         plain = dataclasses.replace(vcfg, fused_attn=False)
+        vit = vit_forward_int8 if path != "bf16" else vit_forward
         stages = {
             "letterbox": lambda: device_letterbox(imgs, hws, cfg.det_size),
             "yolo": lambda: yolov7_forward(params["yolo"], rgb, cfg.yolo),
@@ -74,8 +90,8 @@ def profile_batch(B, params, mano, cfg, dev, out_dir):
                 agnostic=cfg.agnostic_nms, max_det=cfg.max_hands,
                 max_nms_static=cfg.max_nms_static),
             "crops": lambda: hamer_crop(imgs, center, size, flip, cfg.crop_size),
-            "vit_k2": lambda: vit_forward(hp["backbone"], body, vcfg),
-            "vit_plain": lambda: vit_forward(hp["backbone"], body, plain),
+            "vit_kernels": lambda: vit(hp["backbone"], body, vcfg),
+            "vit_plain": lambda: vit(hp["backbone"], body, plain),
             "hamer_fwd": lambda: hamer_forward(hp, mano, crops, cfg.hamer),
         }
         stage_ms = {k: cuda_time_ms(fn, iters=5) for k, fn in stages.items()}
@@ -98,10 +114,10 @@ def profile_batch(B, params, mano, cfg, dev, out_dir):
     top = {k[:80]: v / PROFILED_CALLS for k, v in sorted(per_kernel.items(), key=lambda kv: -kv[1])
            if v >= 0.01 * device_ms}
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_b{B}.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_{path}_b{B}.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
-    return {"B": B, "e2e_ms": e2e_ms, "frames_per_s": B / e2e_ms * 1e3, "stage_ms": stage_ms,
-            "busy": device_ms / PROFILED_CALLS / e2e_ms,
+    return {"path": path, "B": B, "e2e_ms": e2e_ms, "frames_per_s": B / e2e_ms * 1e3,
+            "stage_ms": stage_ms, "busy": device_ms / PROFILED_CALLS / e2e_ms,
             "launches_per_batch": len(dev_events) / PROFILED_CALLS,
             "device_ms_per_batch": device_ms / PROFILED_CALLS,
             "profiled_wall_ms_per_batch": wall_ms / PROFILED_CALLS, "kernel_ms_per_batch": top}
@@ -110,6 +126,8 @@ def profile_batch(B, params, mano, cfg, dev, out_dir):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 4, 16])
+    ap.add_argument("--paths", nargs="+", default=["bf16"],
+                    choices=["bf16", "int8-static", "int8-dynamic"])
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
 
@@ -129,8 +147,9 @@ def main() -> int:
     cfg = pipeline_config(tiny=False)
     params = init_pipeline_params(SEED, cfg.yolo, cfg.hamer, dev)
     mano = ManoModel.from_arrays(synthetic_mano_model(SEED), dev)
-    for B in args.batches:
-        print(json.dumps(profile_batch(B, params, mano, cfg, dev, args.out)), flush=True)
+    for path in args.paths:
+        for B in args.batches:
+            print(json.dumps(profile_batch(B, params, mano, cfg, dev, args.out, path)), flush=True)
     return 0
 
 

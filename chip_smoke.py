@@ -4,18 +4,29 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the port's CUDA kernels from
-csrc/, checks each against its plain PyTorch twin on the card, drives the
-exact-bf16 ``infer`` path at full width (YOLOv7 at 640, ViT-H with 32
-blocks, the MANO head, 4 hand slots; seeded random weights, synthetic MANO)
-through the runner and through one ``infer_frames`` batch, checks that the
-path launched the kernels and that its outputs agree with the port's CPU
-path on a small input, and times the path and each kernel beside its twin.
+csrc/ (one nvcc per source, all at once), checks each against its plain
+PyTorch version on the card, and drives two paths at full width (YOLOv7 at
+640, ViT-H with 32 blocks, the MANO head, 4 hand slots; seeded random
+weights, synthetic MANO, numpy-made 720p frames):
+
+- the exact-bf16 ``infer`` path, through the runner and one ``infer_frames``
+  batch (kernels K1, K2);
+- the int8 fast path: the ViT quantized to W8A8, calibrated on the crops of
+  the frames (K7), then ``infer_frames`` with the static scales (K3, K4) and
+  without them (K5, K7).
+
+Each path runs with the launch counts set to 0 just before it and read just
+after, and fails unless every kernel of the path launched as often as the
+path needs. It then checks the outputs against the port's CPU path on a small
+input, and times each path and each kernel beside its plain version, a
+PyTorch library call where one computes the same function, and its bound.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the kernels' JSON record. Any failed phase raises and the script exits
 non-zero. Without a CUDA device, or without the package beside it, it exits
 non-zero before printing anything.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -32,12 +43,29 @@ KERNELS = {
     "K2": {"name": "fused_bf16_attn_block", "route": "cuda",
            "source": "hamer_yolo_tpu_torch/csrc/attn_block.cu",
            "replaces": "hamer_yolo_tpu/ops/attention_pallas.py:255"},
+    "K3": {"name": "fused_int8_attn_proj_block", "route": "cuda",
+           "source": "hamer_yolo_tpu_torch/csrc/int8_gemm.cu, "
+                     "hamer_yolo_tpu_torch/csrc/short_attention.cu",
+           "replaces": "hamer_yolo_tpu/ops/attention_pallas.py:543"},
+    "K4": {"name": "fused_int8_mlp_block", "route": "cuda",
+           "source": "hamer_yolo_tpu_torch/csrc/int8_gemm.cu",
+           "replaces": "hamer_yolo_tpu/ops/int8_matmul.py:286"},
+    "K5": {"name": "fused_int8_matmul", "route": "cuda",
+           "source": "hamer_yolo_tpu_torch/csrc/int8_gemm.cu",
+           "replaces": "hamer_yolo_tpu/ops/int8_matmul.py:589"},
+    "K7": {"name": "fused_short_attention", "route": "cuda",
+           "source": "hamer_yolo_tpu_torch/csrc/short_attention.cu",
+           "replaces": "hamer_yolo_tpu/ops/attention_pallas.py:94"},
 }
 SEED = 0
 N_FRAMES = 3          # frames through the runner (FrameProgram)
 BATCH = 4             # frames in the infer_frames batch
 TIMED_ITERS = 10
 AXIS_ANGLE_KEYS = ("theta", "pose_hand", "pose_global")
+# Peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): bytes/s of
+# HBM3, operations/s of the tensor cores in bf16 and int8, f32 outside them.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def cuda_time_ms(fn, iters=TIMED_ITERS, warmup=2):
@@ -57,9 +85,46 @@ def cuda_time_ms(fn, iters=TIMED_ITERS, warmup=2):
     return float(np.median(times))
 
 
+def bound(nbytes, ops):
+    """The least time the card could take: (ms, "bytes" or "operations"),
+    bytes over the HBM rate against the operations of each type over its
+    peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+
+
 def frames_720p(n, seed):
     rng = np.random.default_rng(seed)
     return [rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8) for _ in range(n)]
+
+
+def launch_counters():
+    from hamer_yolo_tpu_torch.ops.attn_block import fused_bf16_attn_block
+    from hamer_yolo_tpu_torch.ops.attn_proj_block import fused_int8_attn_proj_block
+    from hamer_yolo_tpu_torch.ops.int8_matmul import fused_int8_matmul, fused_int8_mlp_block
+    from hamer_yolo_tpu_torch.ops.nms import greedy_nms_keep
+    from hamer_yolo_tpu_torch.ops.short_attention import fused_short_attention
+
+    return {"K1": greedy_nms_keep, "K2": fused_bf16_attn_block, "K3": fused_int8_attn_proj_block,
+            "K4": fused_int8_mlp_block, "K5": fused_int8_matmul, "K7": fused_short_attention}
+
+
+def run_counted(fn):
+    """fn() with every launch count set to 0 just before and read just after."""
+    import torch
+
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in counters.items()}
+
+
+def expect_launches(what, got, want):
+    if any(got[k] != n for k, n in want.items()):
+        raise RuntimeError(f"{what}: launches {got}, expected {want}")
 
 
 def main() -> int:
@@ -68,21 +133,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from hamer_yolo_tpu_torch.cli.main import pipeline_config
+    from hamer_yolo_tpu_torch.cli.main import apply_fast_path, pipeline_config
     from hamer_yolo_tpu_torch.core.checkpoint import init_pipeline_params
     from hamer_yolo_tpu_torch.core.mano_assets import synthetic_mano_model
+    from hamer_yolo_tpu_torch.core.quant import attach_static_act_scales
+    from hamer_yolo_tpu_torch.geometry.boxes import hamer_box_params
     from hamer_yolo_tpu_torch.models.mano import ManoModel
     from hamer_yolo_tpu_torch.models.vit import embed_tokens
+    from hamer_yolo_tpu_torch.models.yolov7.model import yolov7_forward
     from hamer_yolo_tpu_torch.ops import cuda_build
-    from hamer_yolo_tpu_torch.ops import attn_block
-    from hamer_yolo_tpu_torch.ops.attn_block import (check_against_twin, fused_bf16_attn_block,
-                                                      fused_bf16_attn_block_ref)
-    from hamer_yolo_tpu_torch.ops.nms import greedy_nms_keep, greedy_nms_keep_ref, nms_candidates
+    from hamer_yolo_tpu_torch.ops.nms import nms_candidates
     from hamer_yolo_tpu_torch.pipeline.frame import detect_hands_batched, infer_frames
     from hamer_yolo_tpu_torch.pipeline.preprocess import device_letterbox, hamer_crop
-    from hamer_yolo_tpu_torch.geometry.boxes import box_iou, hamer_box_params
-    from hamer_yolo_tpu_torch.models.yolov7.model import yolov7_forward
     from hamer_yolo_tpu_torch.pipeline.runner import FrameProgram, default_intrinsics, process_frames
+    from hamer_yolo_tpu_torch.tools.calibrate_int8 import calibrate_frames
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
@@ -103,48 +167,68 @@ def main() -> int:
     params = init_pipeline_params(SEED, cfg.yolo, cfg.hamer, dev)
     mano = ManoModel.from_arrays(synthetic_mano_model(SEED), dev)
     torch.cuda.synchronize()
+    depth = cfg.hamer.vit.depth
     print(f"init: full-width params in {time.perf_counter() - t0:.1f} s "
-          f"(vit depth {len(params['hamer']['backbone']['blocks'])}, "
-          f"embed {cfg.hamer.vit.embed_dim}, det {cfg.det_size}, slots {cfg.max_hands})")
+          f"(vit depth {depth}, embed {cfg.hamer.vit.embed_dim}, det {cfg.det_size}, "
+          f"slots {cfg.max_hands})")
     frames = frames_720p(max(N_FRAMES, BATCH), SEED)
     K = default_intrinsics(frames[0].shape)
     imgs = torch.from_numpy(np.stack(frames[:BATCH])).to(dev).to(torch.float32)
     hws = torch.tensor([[720.0, 1280.0]] * BATCH, device=dev)
     Ks = torch.from_numpy(np.stack([K] * BATCH)).to(dev)
+    launches = {}
 
-    # -- main path: runner (npy + OBJ) and one infer_frames batch ------------
-    greedy_nms_keep.launches = 0
-    fused_bf16_attn_block.launches = 0
-    with tempfile.TemporaryDirectory() as out_dir, torch.inference_mode():
-        program = FrameProgram(params, mano, cfg, dev)
-        stats = process_frames(((f"frame{i}", f) for i, f in enumerate(frames[:N_FRAMES])),
-                               out_dir, program, K=K, progress=False)
-        batch_out = infer_frames(params, mano, imgs, hws, Ks, cfg)
-        torch.cuda.synchronize()
-        launches = {"K1": greedy_nms_keep.launches, "K2": fused_bf16_attn_block.launches}
-        npys = sorted(f for f in os.listdir(out_dir) if f.endswith(".npy"))
-        objs = sorted(os.listdir(os.path.join(out_dir, "obj")))
-    detector_calls = N_FRAMES + 1
+    # -- path 1, exact bf16: runner (npy + OBJ) and one infer_frames batch ---
+    def bf16_path():
+        with tempfile.TemporaryDirectory() as out_dir, torch.inference_mode():
+            program = FrameProgram(params, mano, cfg, dev)
+            stats = process_frames(((f"frame{i}", f) for i, f in enumerate(frames[:N_FRAMES])),
+                                   out_dir, program, K=K, progress=False)
+            batch_out = infer_frames(params, mano, imgs, hws, Ks, cfg)
+            npys = sorted(f for f in os.listdir(out_dir) if f.endswith(".npy"))
+            objs = sorted(os.listdir(os.path.join(out_dir, "obj")))
+        return program, stats, batch_out, npys, objs
+
+    (program, stats, batch_out, npys, objs), n = run_counted(bf16_path)
+    launches.update(K1=n["K1"], K2=n["K2"])
     vit_forwards = N_FRAMES + 1
-    depth = cfg.hamer.vit.depth
-    print(f"main path: {stats.frames} frames, {stats.hands} hands via the runner -> "
+    print(f"bf16 path: {stats.frames} frames, {stats.hands} hands via the runner -> "
           f"{len(npys)} npy, {len(objs)} obj; infer_frames batch {BATCH} -> "
-          f"{int(batch_out['valid'].sum())} valid slots")
-    print(f"launches: K1 {launches['K1']} (detector calls {detector_calls}), "
-          f"K2 {launches['K2']} (ViT forwards {vit_forwards} x depth {depth})")
+          f"{int(batch_out['valid'].sum())} valid slots; launches {n}")
     if len(npys) != N_FRAMES or not objs:
         raise RuntimeError(f"runner wrote {len(npys)} npy and {len(objs)} obj files")
-    if launches["K1"] < detector_calls:
-        raise RuntimeError(f"K1 launched {launches['K1']} times for {detector_calls} detector calls")
-    if launches["K2"] != depth * vit_forwards:
-        raise RuntimeError(f"K2 launched {launches['K2']} times, expected {depth * vit_forwards}")
-    for k, v in batch_out.items():
-        if v.is_floating_point() and not torch.isfinite(v).all():
-            raise RuntimeError(f"infer_frames output {k} is not finite")
-    if batch_out["vertices"].shape != (BATCH, cfg.max_hands, 778, 3):
-        raise RuntimeError(f"vertices shape {tuple(batch_out['vertices'].shape)}")
-    if not batch_out["valid"].any():
-        raise RuntimeError("no valid hand slot in the infer_frames batch")
+    if n["K1"] < vit_forwards:
+        raise RuntimeError(f"K1 launched {n['K1']} times for {vit_forwards} detector calls")
+    expect_launches("bf16 path", n, {"K2": depth * vit_forwards, "K3": 0, "K4": 0, "K5": 0,
+                                     "K7": 0})
+    check_batch(batch_out, cfg, "bf16 infer_frames")
+
+    # -- path 2, int8: calibrate, then static and dynamic infer_frames -------
+    qparams, qcfg = apply_fast_path(params, cfg, "int8")
+    (calib, n_crops), n = run_counted(lambda: calibrate_frames(params, frames[:BATCH], cfg, dev,
+                                                               batch=16))
+    print(f"int8 calibration on {n_crops} crops of {BATCH} frames: launches {n}")
+    if calib is None or n["K7"] < depth or n["K7"] % depth:
+        raise RuntimeError(f"calibration ran K7 {n['K7']} times over {n_crops} crops")
+    sparams = {**qparams, "hamer": {**qparams["hamer"], "backbone": attach_static_act_scales(
+        qparams["hamer"]["backbone"], calib)}}
+    int8_runs = {"static": (sparams, {"K2": 0, "K3": depth, "K4": depth, "K5": 0, "K7": 0}),
+                 "dynamic": (qparams, {"K2": 0, "K3": 0, "K4": 0, "K5": 4 * depth, "K7": depth})}
+    int8_out = {}
+    for name, (p, want) in int8_runs.items():
+        with torch.inference_mode():
+            out, n = run_counted(lambda: infer_frames(p, mano, imgs, hws, Ks, qcfg))
+        print(f"int8 {name} infer_frames batch {BATCH}: {int(out['valid'].sum())} valid slots, "
+              f"launches per ViT forward {n}")
+        expect_launches(f"int8 {name} path", n, want)
+        check_batch(out, cfg, f"int8 {name} infer_frames")
+        int8_out[name] = out
+        for k in ("K3", "K4") if name == "static" else ("K5", "K7"):
+            launches[k] = n[k]
+    mpjpe = float((int8_out["static"]["keypoints_3d"] - batch_out["keypoints_3d"]).norm(dim=-1)
+                  [batch_out["valid"] & int8_out["static"]["valid"]].mean())
+    print(f"int8 static vs bf16 on the same batch: mean joint distance {mpjpe * 1e3:.3f} mm "
+          "(random weights)")
 
     # -- the main path's own kernel inputs -----------------------------------
     with torch.inference_mode():
@@ -158,11 +242,66 @@ def main() -> int:
         crops = crops.reshape(-1, *crops.shape[2:])
         m = cfg.hamer.crop_margin
         tok0 = embed_tokens(params["hamer"]["backbone"], crops[:, :, m:-m, :], cfg.hamer.vit)
-    blk0 = params["hamer"]["backbone"]["blocks"][0]
-    k2_args = (blk0["attn"]["qkv"]["w"], blk0["attn"]["qkv"]["b"], blk0["norm1"]["scale"],
-               blk0["norm1"]["bias"], cfg.hamer.vit.num_heads)
+    record = {}
+    record["K1"] = check_k1(cand, cfg)
+    record["K2"] = check_k2(params["hamer"]["backbone"]["blocks"][0], tok0, cfg.hamer.vit.num_heads)
+    sblk = sparams["hamer"]["backbone"]["blocks"][0]
+    record.update(check_int8_kernels(sblk, tok0, cfg.hamer.vit.num_heads))
 
-    # -- K1 against its twin -------------------------------------------------
+    # -- end to end timing ---------------------------------------------------
+    with torch.inference_mode():
+        batch_ms = cuda_time_ms(lambda: infer_frames(params, mano, imgs, hws, Ks, cfg), iters=5)
+        int8_ms = {name: cuda_time_ms(lambda: infer_frames(p, mano, imgs, hws, Ks, qcfg), iters=5)
+                   for name, (p, _) in int8_runs.items()}
+        single = []
+        for _ in range(2):
+            program(frames[0], K)
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            program(frames[0], K)  # ends in a device-to-host copy
+            single.append((time.perf_counter() - t0) * 1e3)
+    print(f"e2e infer_frames b{BATCH} 720p, exact bf16: p50 {batch_ms:.2f} ms = "
+          f"{BATCH / batch_ms * 1e3:.2f} frames/s (CUDA events, 2 warm-up, 5 timed)")
+    for name, ms in int8_ms.items():
+        print(f"e2e infer_frames b{BATCH} 720p, int8 {name}: p50 {ms:.2f} ms = "
+              f"{BATCH / ms * 1e3:.2f} frames/s (CUDA events, 2 warm-up, 5 timed)")
+    print(f"e2e FrameProgram single 720p frame incl. upload and copy back: p50 "
+          f"{float(np.median(single)):.2f} ms (host clock, 2 warm-up, 5 timed)")
+
+    # -- reference checks on a small input: the card against the CPU path ----
+    check_reference(dev)
+    check_reference_int8(dev)
+
+    print(json.dumps({"kernels": [dict(KERNELS[k], launches=launches[k], **record[k])
+                                  for k in KERNELS]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def check_batch(out, cfg, what):
+    import torch
+
+    for k, v in out.items():
+        if v.is_floating_point() and not torch.isfinite(v).all():
+            raise RuntimeError(f"{what}: output {k} is not finite")
+    if out["vertices"].shape != (BATCH, cfg.max_hands, 778, 3):
+        raise RuntimeError(f"{what}: vertices shape {tuple(out['vertices'].shape)}")
+    if not out["valid"].any():
+        raise RuntimeError(f"{what}: no valid hand slot")
+
+
+def check_k1(cand, cfg):
+    """K1 against its plain version on random, on-threshold, ragged and the
+    detector's own candidates; timings at the detector's shape."""
+    import torch
+
+    from hamer_yolo_tpu_torch.geometry.boxes import box_iou
+    from hamer_yolo_tpu_torch.ops.nms import greedy_nms_keep, greedy_nms_keep_ref
+
+    dev = cand.shifted.device
     rng = np.random.default_rng(SEED)
     B1, K1n = 4, 512
     boxes = np.zeros((B1, K1n, 4), np.float32)
@@ -183,75 +322,247 @@ def main() -> int:
                        torch.ones((B1, 252), device=dev), 0.45),
         "detector": (cand.shifted.contiguous(), cand.active.to(torch.float32), cfg.iou_thres),
     }
-    k1_err = 0.0
+    err = 0.0
     for name, (bx, act, thr) in cases.items():
         got = greedy_nms_keep(bx, act, thr)
         torch.cuda.synchronize()
         ref = greedy_nms_keep_ref(bx, act, thr)
-        k1_err = max(k1_err, float((got - ref).abs().max()))
+        err = max(err, float((got - ref).abs().max()))
         if not torch.equal(got, ref):
             raise RuntimeError(f"K1 keep set differs from its twin on {name}: "
                                f"{int((got != ref).sum())} candidates")
         print(f"K1 {name}: B {bx.shape[0]} K {bx.shape[1]} keep sets identical "
               f"({int(got.sum())} kept of {int(act.sum())} active)")
-    k1_bx, k1_act, k1_thr = cases["detector"]
-    k1_ms = cuda_time_ms(lambda: greedy_nms_keep(k1_bx, k1_act, k1_thr))
-    k1_plain_ms = cuda_time_ms(lambda: greedy_nms_keep_ref(k1_bx, k1_act, k1_thr), iters=3)
+    bx, act, thr = cases["detector"]
+    ms = cuda_time_ms(lambda: greedy_nms_keep(bx, act, thr))
+    plain_ms = cuda_time_ms(lambda: greedy_nms_keep_ref(bx, act, thr), iters=3)
+    B, Kn = act.shape
+    # boxes and mask in, keep mask out; an IoU (about 12 f32 operations) for
+    # every candidate pair
+    bound_ms, by = bound(B * Kn * (16 + 4 + 4), {"f32": 12 * B * Kn * Kn})
+    print(f"K1 timing at the main path's shape {tuple(bx.shape)}: kernel {ms:.4f} ms, twin "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}); no PyTorch call computes it")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": None}
 
-    # -- K2 against its twin -------------------------------------------------
+
+def check_k2(blk0, tok0, heads):
+    """K2 against its plain version (ulp limits of ops/attn_block.py) on
+    random tokens and the main path's block-0 tokens; timings there."""
+    import torch
+
+    from hamer_yolo_tpu_torch.ops import attn_block
+    from hamer_yolo_tpu_torch.ops.attn_block import (check_against_twin, fused_bf16_attn_block,
+                                                      fused_bf16_attn_block_ref)
+
+    dev = tok0.device
+    args = (blk0["attn"]["qkv"]["w"], blk0["attn"]["qkv"]["b"], blk0["norm1"]["scale"],
+            blk0["norm1"]["bias"], heads)
+    rng = np.random.default_rng(SEED + 2)
     tok_rand = torch.from_numpy(rng.normal(size=(8, 192, 1280)).astype(np.float32)).to(dev)
-    k2_cases = {"random_b8_bf16": tok_rand.to(torch.bfloat16), "random_b8_f32": tok_rand,
-                "block0_tokens": tok0}
+    cases = {"random_b8_bf16": tok_rand.to(torch.bfloat16), "random_b8_f32": tok_rand,
+             "block0_tokens": tok0}
     print(f"K2 limits against its twin (ops/attn_block.py): every element within "
           f"{attn_block.MAX_ULPS} bf16 ulps of max(|twin|, mean |twin|); at most "
           f"{attn_block.MAX_FRAC_OVER_1ULP} of elements beyond 1 ulp of their own |twin|; "
           f"bf16 outputs: at most {attn_block.MAX_FRAC_DIFFERING} of elements differing")
-    k2_err = 0.0
-    for name, tok in k2_cases.items():
-        got = fused_bf16_attn_block(tok, *k2_args)
+    err = 0.0
+    for name, tok in cases.items():
+        got = fused_bf16_attn_block(tok, *args)
         torch.cuda.synchronize()
-        ref = fused_bf16_attn_block_ref(tok, *k2_args)
+        ref = fused_bf16_attn_block_ref(tok, *args)
         r = check_against_twin(got, ref)
-        k2_err = max(k2_err, r["max_abs_err"])
+        err = max(err, r["max_abs_err"])
         print(f"K2 {name}: tokens {tuple(tok.shape)} {tok.dtype}, max |twin| "
               f"{float(ref.abs().max()):.4g}: " + ", ".join(f"{k} {v:.6g}" for k, v in r.items()))
-    k2_ms = cuda_time_ms(lambda: fused_bf16_attn_block(tok0, *k2_args))
-    k2_plain_ms = cuda_time_ms(lambda: fused_bf16_attn_block_ref(tok0, *k2_args))
-    print(f"K2 timing at the main path's shape {tuple(tok0.shape)}: kernel {k2_ms:.4f} ms, "
-          f"twin {k2_plain_ms:.4f} ms")
-    print(f"K1 timing at the main path's shape {tuple(k1_bx.shape)}: kernel {k1_ms:.4f} ms, "
-          f"twin {k1_plain_ms:.4f} ms")
+    ms = cuda_time_ms(lambda: fused_bf16_attn_block(tok0, *args))
+    plain_ms = cuda_time_ms(lambda: fused_bf16_attn_block_ref(tok0, *args))
+    B, N, Kd = tok0.shape
+    td = args[0].shape[1]
+    D = td // 3
+    bound_ms, by = bound(2 * (B * N * Kd + Kd * td + B * N * D),
+                         {"bf16": 2 * B * N * Kd * td + 4 * B * N * N * D})
+    print(f"K2 timing at the main path's shape {tuple(tok0.shape)}: kernel {ms:.4f} ms, twin "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}); no PyTorch call computes it")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": None}
 
-    # -- end to end timing ---------------------------------------------------
-    with torch.inference_mode():
-        batch_ms = cuda_time_ms(lambda: infer_frames(params, mano, imgs, hws, Ks, cfg), iters=5)
-        single = []
-        for _ in range(2):
-            program(frames[0], K)
-        for _ in range(5):
+
+def check_int8_kernels(blk, tok0, heads):
+    """K3, K4, K5 and K7 against their plain versions at the main path's
+    shapes (16 crops x 192 tokens, ViT-H), on random data and the int8
+    weights and calibrated scales of block 0; timings there."""
+    import torch
+
+    from hamer_yolo_tpu_torch.core.quant import quantize_weight_int8
+    from hamer_yolo_tpu_torch.ops import int8_matmul as im
+    from hamer_yolo_tpu_torch.ops import attn_proj_block as apb
+    from hamer_yolo_tpu_torch.ops.attn_proj_block import (fused_int8_attn_proj_block,
+                                                           fused_int8_attn_proj_block_ref)
+    from hamer_yolo_tpu_torch.ops.short_attention import (fused_short_attention,
+                                                          fused_short_attention_ref)
+
+    dev = tok0.device
+    B, N, Kd = tok0.shape
+    M = B * N
+    hd = Kd // heads
+    rng = np.random.default_rng(SEED + 3)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
+    print(f"int8 limits against the plain versions (ops/int8_matmul.py): float outputs, at most "
+          f"{im.MAX_FRAC_ROWS_FLIPPED} of rows (K3 end to end: {apb.MAX_FRAC_ROWS_FLIPPED}) "
+          f"beyond one rounding of max(|plain|, mean |plain|) and every error within "
+          f"{im.MAX_ERR_OVER_MEAN} of the mean |plain|; int8 outputs, +-1 on at most "
+          f"{im.MAX_FRAC_INT8_FLIPPED} of elements; K3's qkv, attention and proj steps each "
+          "against the plain version of the step on the kernel's own input of it")
+    a, mlp = blk["attn"], blk["mlp"]
+    lin = {k: (p["wq"]["q"], p["wq"]["scale"], p["b"], p["sx"])
+           for k, p in (("qkv", a["qkv"]), ("proj", a["proj"]), ("fc1", mlp["fc1"]),
+                        ("fc2", mlp["fc2"]))}
+    ln1 = (blk["norm1"]["scale"], blk["norm1"]["bias"])
+    ln2 = (blk["norm2"]["scale"], blk["norm2"]["bias"])
+    out = {}
+
+    # K5: each prologue, dynamic and static, bf16 rows (the path's dtype)
+    x_ln, x_id = randn(M, Kd).bfloat16(), randn(M, Kd).bfloat16()
+    x_gelu = randn(M, 4 * Kd).bfloat16()
+    k5_cases = {"ln": ("qkv", x_ln, ln1), "id": ("proj", x_id, (None, None)),
+                "gelu": ("fc2", x_gelu, (None, None)), "gelu_poly": ("fc2", x_gelu, (None, None))}
+    err = 0.0
+    for pro, (name, x, (g, bt)) in k5_cases.items():
+        q, s, b, sx = lin[name]
+        for static in (None, sx):
+            got = im.fused_int8_matmul(x, q, s, b, g, bt, prologue=pro, static_scale=static)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            program(frames[0], K)  # ends in a device-to-host copy
-            single.append((time.perf_counter() - t0) * 1e3)
-    print(f"e2e infer_frames b{BATCH} 720p: p50 {batch_ms:.2f} ms = "
-          f"{BATCH / batch_ms * 1e3:.2f} frames/s (CUDA events, 2 warm-up, 5 timed)")
-    print(f"e2e FrameProgram single 720p frame incl. upload and copy back: p50 "
-          f"{float(np.median(single)):.2f} ms (host clock, 2 warm-up, 5 timed)")
+            r = im.check_against_plain(got, im.fused_int8_matmul_ref(
+                x, q, s, b, g, bt, prologue=pro, static_scale=static), f"K5 {pro}")
+            err = max(err, r["max_abs_err"])
+            print(f"K5 {pro} {'static' if static is not None else 'dynamic'} "
+                  f"({M}, {x.shape[1]}) x {tuple(q.shape)}: " + _fmt(r))
+    # one block of the dynamic path: qkv (ln), proj (id), fc1 (ln), fc2 (gelu_poly)
+    block = [("qkv", x_ln, "ln", ln1), ("proj", x_id, "id", (None, None)),
+             ("fc1", x_ln, "ln", ln2), ("fc2", x_gelu, "gelu_poly", (None, None))]
+    ms = plain_ms = gemm_ms = bound_ms = 0.0
+    for name, x, pro, (g, bt) in block:
+        q, s, b, _ = lin[name]
+        ms += cuda_time_ms(lambda: im.fused_int8_matmul(x, q, s, b, g, bt, prologue=pro))
+        plain_ms += cuda_time_ms(lambda: im.fused_int8_matmul_ref(x, q, s, b, g, bt, prologue=pro),
+                                 iters=3)
+        xq = torch.randint(-127, 128, x.shape, dtype=torch.int8, device=dev)
+        gemm_ms += cuda_time_ms(lambda: torch._int_mm(xq, q))
+        Kx, Nx = q.shape
+        bound_ms += bound(M * Kx * 2 + Kx * Nx + M * Nx * 2 + 8 * Nx, {"int8": 2 * M * Kx * Nx})[0]
+    print(f"K5 timing over one block of the dynamic path (qkv, proj, fc1, fc2 at M = {M}): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms (operations); "
+          f"torch._int_mm on the bare int8 GEMMs (a GEMM only, no prologue, quantize or "
+          f"dequant) {gemm_ms:.4f} ms")
+    out["K5"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": "operations", "library_ms": None}
 
-    # -- reference check on a small input: the card against the CPU path -----
-    check_reference(dev)
+    # K4: both GELU flavours, on the block-0 tokens and on random tokens
+    (q1, s1, b1, sx1), (q2, s2, b2, sx2) = lin["fc1"], lin["fc2"]
+    args = (q1, s1, b1, q2, s2, b2, *ln2, sx1, sx2)
+    err = 0.0
+    for gelu in ("gelu", "gelu_poly"):
+        for tname, tok in (("block0_tokens", tok0), ("random", randn(B, N, Kd).bfloat16())):
+            got = im.fused_int8_mlp_block(tok, *args, gelu=gelu)
+            torch.cuda.synchronize()
+            r = im.check_against_plain(got, im.fused_int8_mlp_block_ref(tok, *args, gelu=gelu),
+                                       "K4")
+            err = max(err, r["max_abs_err"])
+            print(f"K4 {gelu} {tname} {tuple(tok.shape)}: " + _fmt(r))
+    ms = cuda_time_ms(lambda: im.fused_int8_mlp_block(tok0, *args, gelu="gelu_poly"))
+    plain_ms = cuda_time_ms(lambda: im.fused_int8_mlp_block_ref(tok0, *args, gelu="gelu_poly"),
+                            iters=3)
+    H = q1.shape[1]
+    bound_ms, by = bound(2 * M * Kd * 2 + 2 * Kd * H + 8 * (H + Kd), {"int8": 4 * M * Kd * H})
+    print(f"K4 timing at {tuple(tok0.shape)}, H {H}, gelu_poly: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}); no PyTorch call computes it")
+    out["K4"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": by, "library_ms": None}
 
-    record = {"kernels": [
-        dict(KERNELS["K1"], launches=launches["K1"], max_abs_err=k1_err, ms=k1_ms,
-             plain_ms=k1_plain_ms),
-        dict(KERNELS["K2"], launches=launches["K2"], max_abs_err=k2_err, ms=k2_ms,
-             plain_ms=k2_plain_ms),
-    ]}
-    print(json.dumps(record))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
-    return 0
+    # K7: bf16 and int8 outputs at the main path's (16, 16, 192, 80)
+    qkv = randn(B, N, 3, heads, hd).bfloat16()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    err = 0.0
+    for sx in (None, lin["proj"][3]):
+        got = fused_short_attention(q, k, v, out_scale=sx)
+        torch.cuda.synchronize()
+        ref = fused_short_attention_ref(q, k, v, out_scale=sx)
+        if sx is None:  # the limits of K2's attention, whose math this is
+            from hamer_yolo_tpu_torch.ops.attn_block import check_against_twin
+            r = check_against_twin(got, ref)
+        else:
+            r = im.check_against_plain(got, ref, "K7")
+        err = max(err, r["max_abs_err"])
+        print(f"K7 {'bf16' if sx is None else 'int8 (out_scale)'} {tuple(q.shape)}: " + _fmt(r))
+    ms = cuda_time_ms(lambda: fused_short_attention(q, k, v))
+    plain_ms = cuda_time_ms(lambda: fused_short_attention_ref(q, k, v))
+    sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    bound_ms, by = bound(4 * M * Kd * 2, {"bf16": 4 * B * heads * N * N * hd})
+    print(f"K7 timing at {tuple(q.shape)} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {sdpa_ms:.4f} ms, bound {bound_ms:.6f} ms ({by})")
+    out["K7"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": by, "library_ms": sdpa_ms}
+
+    # K3: the main path's block-0 tokens, random tokens, and the tiny N = 12
+    (q, s, b, sq), (pq, ps, pb, sp) = lin["qkv"], lin["proj"]
+    args = (q, s, b, *ln1, sq, sp, pq, ps, pb, heads)
+    err = 0.0
+    for tname, tok in (("block0_tokens", tok0), ("random", randn(B, N, Kd).bfloat16())):
+        steps = apb.fused_int8_attn_proj_block_steps(tok, *args)
+        torch.cuda.synchronize()
+        r = apb.check_against_plain(steps, tok, *args)
+        err = max(err, r["max_abs_err"])
+        print(f"K3 {tname} {tuple(tok.shape)}: " + _fmt(r))
+    t12 = randn(4, 12, 64).bfloat16()
+    wt, wp = quantize_weight_int8(randn(64, 192, scale=0.05)), quantize_weight_int8(
+        randn(64, 64, scale=0.05))
+    targs = (wt["q"], wt["scale"], 0.1 * randn(192), torch.ones(64, device=dev),
+             torch.zeros(64, device=dev), torch.tensor(0.03, device=dev),
+             torch.tensor(0.012, device=dev), wp["q"], wp["scale"], 0.1 * randn(64), 4)
+    steps = apb.fused_int8_attn_proj_block_steps(t12, *targs)
+    torch.cuda.synchronize()
+    r = apb.check_against_plain(steps, t12, *targs)
+    print(f"K3 tiny {tuple(t12.shape)}, 4 heads of 16: " + _fmt(r))
+    ms = cuda_time_ms(lambda: fused_int8_attn_proj_block(tok0, *args))
+    plain_ms = cuda_time_ms(lambda: fused_int8_attn_proj_block_ref(tok0, *args), iters=3)
+    bound_ms, by = bound(2 * M * Kd * 2 + 3 * Kd * Kd + Kd * Kd + 8 * 4 * Kd,
+                         {"int8": 2 * M * Kd * 4 * Kd, "bf16": 4 * B * N * N * Kd})
+    print(f"K3 timing at {tuple(tok0.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.6f} ms ({by}); no PyTorch call computes it")
+    out["K3"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": by, "library_ms": None}
+    return out
+
+
+def _fmt(r):
+    return ", ".join(f"{k} {v:.6g}" for k, v in r.items())
+
+
+def _small_config(dtype, vit=None):
+    """The tiny detector and MANO head with a 2-block ViT at 192 tokens."""
+    from hamer_yolo_tpu_torch.cli.main import pipeline_config
+    from hamer_yolo_tpu_torch.models.vit import ViTConfig
+
+    tiny = pipeline_config(tiny=True, max_hands=2)
+    vit = vit or ViTConfig(embed_dim=64, depth=2, num_heads=4, compute_dtype=dtype,
+                           fused_attn=False)
+    return dataclasses.replace(
+        tiny, crop_size=256,
+        yolo=dataclasses.replace(tiny.yolo, compute_dtype=dtype),
+        hamer=dataclasses.replace(tiny.hamer, image_size=256, crop_margin=32, vit=vit))
+
+
+def _small_inputs(rng):
+    import torch
+
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, 120, 160, 3)).astype(np.float32))
+    hws = torch.tensor([[120.0, 160.0]] * 2)
+    Ks = torch.from_numpy(np.stack([np.float32([[200, 0, 80], [0, 200, 60], [0, 0, 1]])] * 2))
+    return imgs, hws, Ks
 
 
 def check_reference(dev) -> None:
@@ -268,35 +579,25 @@ def check_reference(dev) -> None:
     |a2 - (b1.a2) b1|, which random weights can make small, so one bf16 ulp
     of the head output moves a rotation element by ~0.06.)
     """
-    import dataclasses
-
     import torch
 
-    from hamer_yolo_tpu_torch.cli.main import pipeline_config
     from hamer_yolo_tpu_torch.core.checkpoint import init_pipeline_params
     from hamer_yolo_tpu_torch.core.mano_assets import synthetic_mano_model
     from hamer_yolo_tpu_torch.geometry.rotations import aa_to_rotmat
     from hamer_yolo_tpu_torch.models.mano import ManoModel
-    from hamer_yolo_tpu_torch.models.vit import ViTConfig, vit_forward
+    from hamer_yolo_tpu_torch.models.vit import vit_forward
     from hamer_yolo_tpu_torch.ops.attn_block import fused_bf16_attn_block
     from hamer_yolo_tpu_torch.ops.nms import greedy_nms_keep
     from hamer_yolo_tpu_torch.pipeline.frame import infer_frames
 
-    tiny = pipeline_config(tiny=True, max_hands=2)
-    vit32 = ViTConfig(embed_dim=64, depth=2, num_heads=4, compute_dtype="float32",
-                      fused_attn=False)
-    cfg = dataclasses.replace(
-        tiny, crop_size=256,
-        yolo=dataclasses.replace(tiny.yolo, compute_dtype="float32"),
-        hamer=dataclasses.replace(tiny.hamer, image_size=256, crop_margin=32, vit=vit32))
+    cfg = _small_config("float32")
+    vit32 = cfg.hamer.vit
     cpu = torch.device("cpu")
     params = init_pipeline_params(SEED, cfg.yolo, cfg.hamer, cpu)
     params_gpu = _to(params, dev)
     mano_np = synthetic_mano_model(SEED)
     rng = np.random.default_rng(SEED + 1)
-    imgs = torch.from_numpy(rng.integers(0, 256, (2, 120, 160, 3)).astype(np.float32))
-    hws = torch.tensor([[120.0, 160.0]] * 2)
-    Ks = torch.from_numpy(np.stack([np.float32([[200, 0, 80], [0, 200, 60], [0, 0, 1]])] * 2))
+    imgs, hws, Ks = _small_inputs(rng)
     with torch.inference_mode():
         ref = infer_frames(params, ManoModel.from_arrays(mano_np, cpu), imgs, hws, Ks, cfg)
         before = greedy_nms_keep.launches
@@ -350,6 +651,94 @@ def check_reference(dev) -> None:
         print(f"reference check {dtype} ViT (K2 on the card vs its twin on the CPU, tokens "
               f"{tuple(got.shape)}): max abs diff {float((got - ref).abs().max()):.4g}, "
               f"max |ref| {float(ref.abs().max()):.4g}")
+
+
+def check_reference_int8(dev) -> None:
+    """The int8 slice on the card against the same slice on the CPU, at the
+    small config: an f32 detector (so both devices crop the same boxes) and a
+    bf16 int8 ViT (the CLI's dtype), calibrated on the CPU; the kernels on
+    the card, their plain versions on the CPU (fused), with the static scales
+    (K3, K4) and without (K5, K7); then the --tiny ViT (N = 12, heads of 16)
+    the same way. The devices part where a sum in another order moves a
+    value across an int8 rounding midpoint, and cuDNN's bf16 patch embedding
+    already differs from the CPU's in the last bit. So the ViT blocks are
+    compared on the same embedded tokens, with the card's polynomial GELU on
+    both devices, at the JAX package's limit for int8 rounding flips
+    (tests/test_int8_fused.py:330-334: 99% of elements within 0.02, all
+    within 0.2 relative and 0.1 absolute), and the slice's mesh and joints at
+    that limit's outer bound (random-weight MANO heads amplify the
+    backbone's differences). The slice takes each device's own GELU flavour,
+    as a user's run does (the polynomial on the card, the exact form on the
+    CPU), whose difference stays well inside that bound."""
+    import torch
+
+    from hamer_yolo_tpu_torch.cli.main import apply_fast_path, pipeline_config
+    from hamer_yolo_tpu_torch.core.checkpoint import init_pipeline_params
+    from hamer_yolo_tpu_torch.core.mano_assets import synthetic_mano_model
+    from hamer_yolo_tpu_torch.core.quant import attach_static_act_scales, vit_blocks_int8
+    from hamer_yolo_tpu_torch.models.mano import ManoModel
+    from hamer_yolo_tpu_torch.models.vit import ViTConfig, embed_tokens
+    from hamer_yolo_tpu_torch.pipeline.frame import infer_frames
+    from hamer_yolo_tpu_torch.tools.calibrate_int8 import calibrate_frames
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(SEED + 4)
+    imgs, hws, Ks = _small_inputs(rng)
+    mano_np = synthetic_mano_model(SEED)
+
+    def share_close(got, ref):
+        got, ref = got.float(), ref.float()
+        return float(torch.isclose(got, ref, rtol=0.02, atol=0.02).float().mean())
+
+    for name, vit in (("small, N 192", ViTConfig(embed_dim=64, depth=2, num_heads=4,
+                                                 fused_attn=True)),
+                      ("tiny, N 12", dataclasses.replace(pipeline_config(tiny=True).hamer.vit,
+                                                         fused_attn=True))):
+        cfg = _small_config("float32", vit)
+        if vit.img_size != (256, 192):
+            cfg = dataclasses.replace(cfg, crop_size=64, hamer=dataclasses.replace(
+                cfg.hamer, image_size=64, crop_margin=8))
+        params = init_pipeline_params(SEED, cfg.yolo, cfg.hamer, cpu)
+        qparams, qcfg = apply_fast_path(params, cfg, "int8")
+        frames = [f.numpy().astype(np.uint8) for f in imgs]
+        stats, _ = calibrate_frames(params, frames, cfg, cpu, batch=4)
+        sparams = {**qparams, "hamer": {**qparams["hamer"], "backbone": attach_static_act_scales(
+            qparams["hamer"]["backbone"], stats)}}
+        x = torch.from_numpy(rng.normal(size=(3, *vit.img_size, 3)).astype(np.float32))
+        for scales, p, kern in (("static", sparams, ("K3", "K4")),
+                                ("dynamic", qparams, ("K5", "K7"))):
+            pg = _to(p, dev)
+            with torch.inference_mode():
+                ref = infer_frames(p, ManoModel.from_arrays(mano_np, cpu), imgs, hws, Ks, qcfg)
+                tok = embed_tokens(pg["hamer"]["backbone"], x.to(dev), vit)
+                ref_vit = vit_blocks_int8(p["hamer"]["backbone"], tok.cpu(), vit,
+                                          gelu="gelu_poly")
+                (got, got_vit), n = run_counted(lambda: (
+                    infer_frames(pg, ManoModel.from_arrays(mano_np, dev), imgs.to(dev),
+                                 hws.to(dev), Ks.to(dev), qcfg),
+                    vit_blocks_int8(pg["hamer"]["backbone"], tok, vit)))
+            if any(n[k] == 0 for k in kern) or n["K2"]:
+                raise RuntimeError(f"int8 reference check {name} {scales}: launches {n}")
+            got = {k: v.cpu() for k, v in got.items()}
+            v = ref["valid"]
+            if not v.any() or not torch.equal(got["valid"], v) or not torch.equal(
+                    got["boxes"][v], ref["boxes"][v]):
+                raise RuntimeError(f"int8 reference check {name} {scales}: slots differ")
+            got_vit = got_vit.float().cpu()
+            frac = share_close(got_vit, ref_vit)
+            if frac < 0.99:
+                raise AssertionError(f"int8 ViT {name} {scales}: {frac:.4f} of elements within "
+                                     "0.02 (limit 0.99)")
+            torch.testing.assert_close(got_vit, ref_vit.float(), rtol=0.2, atol=0.1)
+            readings = [f"ViT blocks {frac:.4f} within 0.02, max abs diff "
+                        f"{float((got_vit - ref_vit.float()).abs().max()):.4g}"]
+            for k in ("vertices", "keypoints_3d"):
+                torch.testing.assert_close(got[k][v], ref[k][v], rtol=0.2, atol=0.1,
+                                           msg=lambda m: f"{name} {scales} {k}: {m}")
+                readings.append(f"{k} {share_close(got[k][v], ref[k][v]):.4f} within 0.02, max "
+                                f"abs diff {float((got[k][v] - ref[k][v]).abs().max()):.4g}")
+            print(f"int8 reference check {name} {scales} (card vs CPU, {int(v.sum())} valid "
+                  f"slots, launches {n}): " + "; ".join(readings))
 
 
 def _to(tree, dev):

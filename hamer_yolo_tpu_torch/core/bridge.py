@@ -3,12 +3,15 @@
 The structure (nested dicts and lists, None for parameter-free layers) is
 kept; every leaf is mapped by its key and rank, and a leaf that no rule
 covers raises, so an unported parameter form (int8 weights, batch-norm
-stats, a new head) can never be loaded silently wrong.
+stats, a new head) can never be loaded silently wrong. The int8 trees of
+core/quant (``quantize_vit_params``, ``attach_static_act_scales``) load as
+they are: "q" int8 weights, "scale" f32 vectors, "sx" f32 scalars.
 
 Layouts (the JAX conventions are NHWC, HWIO convs, (in, out) linears):
 conv weights HWIO -> OIHW, transposed once here; linear weights stay
 (in, out), the layout core/nn.linear and kernel K2 take; vectors and
-embeddings are copied as they are. Values stay float32.
+embeddings are copied as they are. Values stay float32, int8 weights int8
+in the same (in, out) layout.
 """
 from __future__ import annotations
 
@@ -28,7 +31,12 @@ _RULES = {
     ("init_hand_pose", 2): lambda a: a,
     ("init_betas", 2): lambda a: a,
     ("init_cam", 2): lambda a: a,
+    ("sx", 0): lambda a: a,                       # static activation scale
 }
+# int8 leaves: (parent key, key, rank) -> the rule. Only the int8 linears of
+# quantize_vit_params ({"wq": {"q", "scale"}}) are ported; the int8 convs of
+# JAX's quantize_yolo_params ({"w": {"q", "scale"}}) still raise.
+_INT8_RULES = {("wq", "q", 2): lambda a: a}       # (in, out) int8 linear
 
 
 def _convert(node: Any, path: Tuple[str, ...], device) -> Any:
@@ -40,11 +48,15 @@ def _convert(node: Any, path: Tuple[str, ...], device) -> Any:
         return [_convert(v, path + (str(i),), device) for i, v in enumerate(node)]
     arr = np.asarray(node)
     key = path[-1] if path else ""
-    rule = _RULES.get((key, arr.ndim))
-    if rule is None or arr.dtype.kind != "f":
+    if arr.dtype == np.int8:
+        parent = path[-2] if len(path) > 1 else ""
+        rule, dtype = _INT8_RULES.get((parent, key, arr.ndim)), np.int8
+    else:
+        rule, dtype = _RULES.get((key, arr.ndim)), np.float32
+    if rule is None or (dtype == np.float32 and arr.dtype.kind != "f"):
         raise KeyError(f"bridge: no mapping for leaf {'/'.join(path)} "
                        f"(shape {arr.shape}, dtype {arr.dtype})")
-    return torch.from_numpy(np.array(rule(arr), dtype=np.float32, order="C")).to(device)
+    return torch.from_numpy(np.array(rule(arr), dtype=dtype, order="C")).to(device)
 
 
 def from_jax_params(tree: Any, device="cpu") -> Any:

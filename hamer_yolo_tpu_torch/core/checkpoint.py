@@ -14,9 +14,10 @@ from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig, init_yolov7
 
 def init_pipeline_params(seed: int = 0, yolo_cfg: Optional[YoloConfig] = None,
                          hamer_cfg: Optional[HamerConfig] = None,
-                         device="cpu") -> Dict[str, Any]:
-    """Random-init detector and HaMeR parameters, drawn on ``device`` from
-    a generator seeded with ``seed``."""
+                         device="cuda") -> Dict[str, Any]:
+    """Random-init detector and HaMeR parameters, drawn on ``device`` (the
+    card unless the caller names another) from a generator seeded with
+    ``seed``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return {"yolo": init_yolov7(gen, yolo_cfg or YoloConfig()),

@@ -1,0 +1,275 @@
+"""W8A8 int8 ViT (port of hamer_yolo_tpu/core/quant.py, ViT part).
+
+- weights: per-output-channel symmetric int8, quantized once
+  (``quantize_vit_params``); the tree keeps JAX's structure, {"wq": {"q",
+  "scale"}, "b"} per linear, so JAX trees load through core/bridge.py;
+- activations: dynamic per-row absmax int8, or a calibrated static
+  per-tensor scale ("sx", attached by ``attach_static_act_scales`` from the
+  stats of ``collect_vit_act_stats``);
+- int32 sums, dequantized to the compute dtype.
+
+``vit_forward_int8`` runs either the unfused composition (``int8_linear`` +
+the einsum or K7 attention, in the compute dtype, as JAX's ``fused=False``)
+or the kernels, with JAX's accelerator dispatch: K3 for the attention block
+when both of its static scales are present, else K5 + K7 + K5; K4 for the
+MLP when both of its static scales are present, else K5 twice. ``fused=None``
+takes the kernels where the tokens are on CUDA (JAX: on a TPU); on CPU
+tensors each kernel runs its plain version. One divergence: with a static
+scale K5 quantizes by it at every M, as JAX's kernel does in interpret mode
+(on the TPU JAX's small-M kernel quantizes per row whatever it is given).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from hamer_yolo_tpu_torch.core import nn
+from hamer_yolo_tpu_torch.ops.attn_proj_block import fused_int8_attn_proj_block
+from hamer_yolo_tpu_torch.ops.int8_matmul import (RECIP_127, fused_int8_matmul,
+                                                  fused_int8_mlp_block, gelu_prologue,
+                                                  int8_dot_prequant, int_dot)
+from hamer_yolo_tpu_torch.ops.short_attention import softmax_attention_qkv
+
+Params = Dict[str, Any]
+STAT_KEYS = ("qkv", "proj", "fc1", "fc2")
+
+
+def _div127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127 as JAX's compiled program computes it: times f32(1 / 127),
+    rounded to t's dtype."""
+    return (t.float() * RECIP_127).to(t.dtype)
+
+
+def quantize_weight_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """(in, out) f32 -> {q (in, out) int8, scale (out,) f32} per channel."""
+    absmax = torch.amax(torch.abs(w), dim=0)
+    scale = torch.clamp(_div127(absmax), min=1e-8)
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return {"q": q, "scale": scale.float()}
+
+
+def quantize_act_int8(x: torch.Tensor):
+    """(..., d) -> (int8 values, per-row scale (..., 1)), in x's dtype."""
+    absmax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    scale = torch.clamp(_div127(absmax), min=nn.weak_scalar(1e-8, x.dtype))
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), scale
+
+
+def int8_linear(wq: Dict[str, torch.Tensor], x: torch.Tensor,
+                bias: Optional[torch.Tensor] = None,
+                sx_static: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = dequant(quant(x) @ wq) + b with int32 sums; ``sx_static`` a
+    calibrated per-tensor scale in place of the dynamic per-row one. The
+    int8 product is a plain exact torch op (ops/int8_matmul.int_dot), as
+    JAX leaves it to dot_general."""
+    if sx_static is None:
+        qx, sx = quantize_act_int8(x)
+    else:
+        sx = sx_static.float()
+        qx = torch.clamp(torch.round(x / sx.to(x.dtype)), -127, 127).to(torch.int8)
+    y = (int_dot(qx, wq["q"]) * sx * wq["scale"]).to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return y
+
+
+def quantize_linear_params(p: Params) -> Params:
+    out: Params = {"wq": quantize_weight_int8(p["w"])}
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
+
+
+def quantize_vit_params(vit_params: Params) -> Params:
+    """Quantize every transformer-block linear; embeddings and norms stay f32."""
+    qblocks = [{
+        "norm1": blk["norm1"],
+        "attn": {"qkv": quantize_linear_params(blk["attn"]["qkv"]),
+                 "proj": quantize_linear_params(blk["attn"]["proj"])},
+        "norm2": blk["norm2"],
+        "mlp": {"fc1": quantize_linear_params(blk["mlp"]["fc1"]),
+                "fc2": quantize_linear_params(blk["mlp"]["fc2"])},
+    } for blk in vit_params["blocks"]]
+    return {"patch_embed": vit_params["patch_embed"], "pos_embed": vit_params["pos_embed"],
+            "blocks": qblocks, "last_norm": vit_params["last_norm"]}
+
+
+def _attn_math(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, N, 3D) -> (B, N, D) pre-proj attention: K7 on the card (JAX's
+    accelerator default, "pallas_direct"), the einsum elsewhere."""
+    return softmax_attention_qkv(qkv, num_heads, force="pallas_direct" if qkv.is_cuda else "xla")
+
+
+def int8_mha_self_attention(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """nn.mha_self_attention over int8-quantized params."""
+    qkv = int8_linear(p["qkv"]["wq"], x, p["qkv"].get("b"), p["qkv"].get("sx"))
+    out = _attn_math(qkv, num_heads)
+    return int8_linear(p["proj"]["wq"], out, p["proj"].get("b"), p["proj"].get("sx"))
+
+
+def int8_mlp_gelu(p: Params, x: torch.Tensor) -> torch.Tensor:
+    h = nn.gelu(int8_linear(p["fc1"]["wq"], x, p["fc1"].get("b"), p["fc1"].get("sx")))
+    return int8_linear(p["fc2"]["wq"], h, p["fc2"].get("b"), p["fc2"].get("sx"))
+
+
+def collect_vit_act_stats(params_q: Params, x: torch.Tensor, cfg) -> Params:
+    """Calibration pass: the absmax of every quantized GEMM's input (post-LN
+    for qkv and fc1, the attention output for proj, post-GELU for fc2),
+    through the unfused int8 forward. ``x`` is the backbone input (the
+    256x192 crop). Returns {"blocks": [{"qkv", "proj", "fc1", "fc2"}: ()
+    f32]}; reduce batches with ``max_act_stats``."""
+    from hamer_yolo_tpu_torch.models.vit import embed_tokens
+
+    def amax(t):
+        return torch.amax(torch.abs(t.float()))
+
+    tok = embed_tokens(params_q, x, cfg)
+    stats = []
+    for blk in params_q["blocks"]:
+        s = {}
+        h = nn.layer_norm(blk["norm1"], tok)
+        s["qkv"] = amax(h)
+        p = blk["attn"]
+        ao = _attn_math(int8_linear(p["qkv"]["wq"], h, p["qkv"].get("b")), cfg.num_heads)
+        s["proj"] = amax(ao)
+        tok = tok + int8_linear(p["proj"]["wq"], ao, p["proj"].get("b"))
+        h2 = nn.layer_norm(blk["norm2"], tok)
+        s["fc1"] = amax(h2)
+        m = blk["mlp"]
+        g = nn.gelu(int8_linear(m["fc1"]["wq"], h2, m["fc1"].get("b")))
+        s["fc2"] = amax(g)
+        tok = tok + int8_linear(m["fc2"]["wq"], g, m["fc2"].get("b"))
+        stats.append(s)
+    return {"blocks": stats}
+
+
+def max_act_stats(a: Params, b: Params) -> Params:
+    """Elementwise max of two stats trees (reduction over batches)."""
+    return {"blocks": [{k: torch.maximum(x[k], y[k].to(x[k].device)) for k in x}
+                       for x, y in zip(a["blocks"], b["blocks"])]}
+
+
+def attach_static_act_scales(params_q: Params, stats: Params, margin: float = 1.0) -> Params:
+    """Attach calibrated per-tensor activation scales "sx" = max(absmax *
+    margin / 127, 1e-8) to quantized ViT params; every int8 path then skips
+    its dynamic absmax. The scales are f32 scalars on the device of each
+    block's weights."""
+    def scale(a, like):
+        a = torch.as_tensor(a, dtype=torch.float32, device=like.device)
+        return torch.clamp(_div127(a * margin), min=1e-8)
+
+    qblocks = []
+    for blk, s in zip(params_q["blocks"], stats["blocks"]):
+        like = blk["attn"]["qkv"]["wq"]["scale"]
+        attn = {k: {**blk["attn"][k], "sx": scale(s[k], like)} for k in ("qkv", "proj")}
+        mlp = {k: {**blk["mlp"][k], "sx": scale(s[k], like)} for k in ("fc1", "fc2")}
+        qblocks.append({**blk, "attn": attn, "mlp": mlp})
+    return {**params_q, "blocks": qblocks}
+
+
+def save_act_stats(path: str, stats: Params) -> None:
+    """collect_vit_act_stats output -> a flat .npz (``blk{i:02d}_{k}``), the
+    JAX package's format."""
+    flat = {f"blk{i:02d}_{k}": np.asarray(torch.as_tensor(v).detach().cpu().numpy(), np.float32)
+            for i, s in enumerate(stats["blocks"]) for k, v in s.items()}
+    np.savez(path, **flat)
+
+
+def load_act_stats(path: str, device="cpu") -> Params:
+    """Inverse of save_act_stats."""
+    z = np.load(path)
+    n = max(int(k[3:5]) for k in z.files) + 1
+    return {"blocks": [{k.split("_", 1)[1]: torch.from_numpy(np.asarray(z[k], np.float32))
+                        .to(device) for k in z.files if k.startswith(f"blk{i:02d}_")}
+                       for i in range(n)]}
+
+
+# ---------------------------------------------------------------- dispatch
+def int8_block_attn_fused(blk: Params, tok: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """LN(norm1) + qkv + attention + proj on the kernels, without the
+    residual: K5 (LN prologue) -> K7 -> K5; with a static proj scale K7
+    quantizes in its epilogue and proj is the plain pre-quantized product."""
+    p = blk["attn"]
+    sx_proj = p["proj"].get("sx")
+    qkv = fused_int8_matmul(tok, p["qkv"]["wq"]["q"], p["qkv"]["wq"]["scale"],
+                            p["qkv"].get("b"), blk["norm1"]["scale"], blk["norm1"]["bias"],
+                            prologue="ln", static_scale=p["qkv"].get("sx"))
+    if sx_proj is not None:
+        aq = softmax_attention_qkv(qkv, num_heads, force="pallas_direct", out_scale=sx_proj)
+        return int8_dot_prequant(aq, p["proj"]["wq"]["q"], p["proj"]["wq"]["scale"],
+                                 p["proj"].get("b"), sx_proj, out_dtype=tok.dtype)
+    out = softmax_attention_qkv(qkv, num_heads, force="pallas_direct")
+    return fused_int8_matmul(out, p["proj"]["wq"]["q"], p["proj"]["wq"]["scale"],
+                             p["proj"].get("b"), prologue="id")
+
+
+def int8_block_attn_residual(blk: Params, tok: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """tok + attention block: K3 with both static scales, else
+    tok + int8_block_attn_fused."""
+    p = blk["attn"]
+    sx_qkv, sx_proj = p["qkv"].get("sx"), p["proj"].get("sx")
+    if sx_qkv is not None and sx_proj is not None:
+        return fused_int8_attn_proj_block(
+            tok, p["qkv"]["wq"]["q"], p["qkv"]["wq"]["scale"], p["qkv"].get("b"),
+            blk["norm1"]["scale"], blk["norm1"]["bias"], sx_qkv, sx_proj,
+            p["proj"]["wq"]["q"], p["proj"]["wq"]["scale"], p["proj"].get("b"), num_heads)
+    return tok + int8_block_attn_fused(blk, tok, num_heads)
+
+
+def int8_block_mlp_fused(blk: Params, tok: torch.Tensor, gelu: str = "gelu") -> torch.Tensor:
+    """LN(norm2) + fc1 + GELU + fc2 on K5 twice (LN fused into fc1's
+    quantize, the GELU into fc2's), without the residual."""
+    p = blk["mlp"]
+    h = fused_int8_matmul(tok, p["fc1"]["wq"]["q"], p["fc1"]["wq"]["scale"], p["fc1"].get("b"),
+                          blk["norm2"]["scale"], blk["norm2"]["bias"], prologue="ln",
+                          static_scale=p["fc1"].get("sx"))
+    return fused_int8_matmul(h, p["fc2"]["wq"]["q"], p["fc2"]["wq"]["scale"], p["fc2"].get("b"),
+                             prologue=gelu, static_scale=p["fc2"].get("sx"))
+
+
+def int8_block_mlp_residual(blk: Params, tok: torch.Tensor, gelu: str = "gelu") -> torch.Tensor:
+    """tok + MLP block: K4 with both static scales, else
+    tok + int8_block_mlp_fused."""
+    m = blk["mlp"]
+    if m["fc1"].get("sx") is not None and m["fc2"].get("sx") is not None:
+        return fused_int8_mlp_block(
+            tok, m["fc1"]["wq"]["q"], m["fc1"]["wq"]["scale"], m["fc1"].get("b"),
+            m["fc2"]["wq"]["q"], m["fc2"]["wq"]["scale"], m["fc2"].get("b"),
+            blk["norm2"]["scale"], blk["norm2"]["bias"], m["fc1"]["sx"], m["fc2"]["sx"],
+            gelu=gelu)
+    return tok + int8_block_mlp_fused(blk, tok, gelu)
+
+
+def vit_forward_int8(params_q: Params, x: torch.Tensor, cfg, fused: Optional[bool] = None,
+                     gelu: Optional[str] = None) -> torch.Tensor:
+    """models/vit.vit_forward over quantize_vit_params output.
+
+    ``fused``: the kernels (None: ``cfg.fused_attn``, and where that is None
+    too, wherever the tokens are on CUDA) or the unfused composition.
+    ``gelu``: the MLP kernels' GELU, "gelu" or "gelu_poly"; None takes the
+    polynomial on the card and the exact form elsewhere, as JAX's
+    gelu_prologue picks on and off the TPU.
+    """
+    from hamer_yolo_tpu_torch.models.vit import embed_tokens
+
+    return vit_blocks_int8(params_q, embed_tokens(params_q, x, cfg), cfg, fused, gelu)
+
+
+def vit_blocks_int8(params_q: Params, tok: torch.Tensor, cfg, fused: Optional[bool] = None,
+                    gelu: Optional[str] = None) -> torch.Tensor:
+    """The blocks and the last LayerNorm of vit_forward_int8, from the
+    embedded tokens (B, N, D)."""
+    if fused is None:
+        fused = tok.is_cuda if cfg.fused_attn is None else cfg.fused_attn
+    gelu = gelu or gelu_prologue(tok.device)
+    for blk in params_q["blocks"]:
+        if fused:
+            tok = int8_block_attn_residual(blk, tok, cfg.num_heads)
+            tok = int8_block_mlp_residual(blk, tok, gelu)
+        else:
+            tok = tok + int8_mha_self_attention(blk["attn"], nn.layer_norm(blk["norm1"], tok),
+                                                cfg.num_heads)
+            tok = tok + int8_mlp_gelu(blk["mlp"], nn.layer_norm(blk["norm2"], tok))
+    return nn.layer_norm(params_q["last_norm"], tok)

@@ -9,23 +9,17 @@
 // ViT-H: tokens (B, 192, 1280), w (1280, 3840), 16 heads of width 80.
 //
 // Two launches in this first version:
-//  (a) ln_qkv_kernel: LN statistics per row in the prologue (two passes over
-//      the row, as the plain version does), then a 64 x 128 output tile per
-//      CTA, K stepped by 32. Each A tile is normalised on its way into shared
-//      memory and rounded to bf16 there, so the LN output never reaches device
-//      memory. bf16 x bf16 -> f32 on the tensor cores through nvcuda::wmma
-//      16x16x16 fragments, 8 warps each holding a 32 x 32 accumulator.
-//      Epilogue: f32 + bias -> bf16 qkv (B*N, 3D). Tokens are read as bf16 or
-//      f32 (template); the LN is f32 either way.
-//  (b) attention_kernel: one CTA per (query tile of 64 rows, head, crop). The
-//      head's K and V (192 x 80 bf16, 30 KB each), the Q tile, the 64 x 192
-//      f32 logits and the bf16 probabilities live in shared memory (142 KB).
-//      A whole head in one CTA would need about 237 KB with its 192 x 192
-//      logits, more than the 227 KB a block may have; hence the query tiles.
-//      N and the head width are padded to multiples of 16 in shared memory
-//      (zero rows and columns); logits of padded key columns are left out of
-//      the softmax and their probabilities are 0, so any N works (the tiny
-//      config has N = 12).
+//  (a) ln_qkv_kernel, here: LN statistics per row in the prologue (two passes
+//      over the row, as the plain version does), then a 64 x 128 output tile
+//      per CTA, K stepped by 32. Each A tile is normalised on its way into
+//      shared memory and rounded to bf16 there, so the LN output never reaches
+//      device memory. bf16 x bf16 -> f32 on the tensor cores through
+//      nvcuda::wmma 16x16x16 fragments, 8 warps each holding a 32 x 32
+//      accumulator. Epilogue: f32 + bias -> bf16 qkv (B*N, 3D). Tokens are
+//      read as bf16 or f32 (template); the LN is f32 either way.
+//  (b) the attention of csrc/short_attention.cu (which K3 and K7 launch
+//      too) on strided views of the qkv buffer, its output in the tokens'
+//      dtype; ops/attn_block.py makes both launches.
 //
 // What bounds it on the H100: at B*N = 1536 rows the QKV GEMM is 15 GFLOP
 // against 16 MB of operands, so it is compute-bound on the tensor cores; the
@@ -36,39 +30,19 @@
 // is later work. No cp.async pipelining yet either: simple and right first.
 //
 // Rounding points follow the TPU kernel exactly: LN in f32 then bf16; qkv in
-// f32 + bias then bf16; q * scale rounded to bf16 (scale itself is the bf16
-// value of hd^-0.5, as JAX's weak-typed bf16 * float gives); logits in f32;
-// max-subtracted exp, one reciprocal per row; p rounded to bf16 before p.v;
-// output rounded once from f32 to the tokens' dtype. Elementwise steps use the
-// _rn intrinsics so no FMA contraction changes a rounding that the plain
-// version does in two steps.
+// f32 + bias then bf16 (the attention's own: csrc/short_attention.cu).
+// Elementwise steps use the _rn intrinsics so no FMA contraction changes a
+// rounding that the plain version does in two steps.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 namespace {
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-union Pack8 {
-  uint4 u;
-  bf16 h[8];
-};
-
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(float v) { return v; }
 
 // Eight consecutive tokens (16-byte aligned) as f32.
 __device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
@@ -84,11 +58,6 @@ __device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
   x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
 }
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16_rn(v); }
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-
-// ---------------------------------------------------------------- (a) LN+QKV
 constexpr int BM = 64, BN = 128, BK = 32, GT = 256;
 constexpr int LDA = BK + 8;  // bf16 elements; row stride 80 B keeps 16 B / 32 B alignment
 constexpr int LDB = BN + 8;
@@ -202,144 +171,7 @@ ln_qkv_kernel(const TokT* __restrict__ tok, const bf16* __restrict__ w,
   }
 }
 
-// ------------------------------------------------------------ (b) attention
-constexpr int QT = 64, AT = 256;
-
-__host__ __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
-
-// Shared-memory layout of one CTA: K and V (Np x Hp bf16), the Q tile
-// (QT x Hp bf16), the f32 logits, later the f32 output (QT x max(Np, Hp)),
-// and the bf16 probabilities (QT x Np). Np, Hp: N and hd rounded up to 16.
-__host__ __device__ __forceinline__ int attention_smem_bytes(int N, int hd) {
-  const int Np = round16(N), Hp = round16(hd), Sw = Np > Hp ? Np : Hp;
-  return (2 * Np * Hp + QT * Hp) * 2 + QT * Sw * 4 + QT * Np * 2;
-}
-
-template <typename OutT>
-__global__ void __launch_bounds__(AT)
-attention_kernel(const bf16* __restrict__ qkv, OutT* __restrict__ out, int N, int H, int hd,
-                 float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int D = H * hd, ld = 3 * D;
-  const int Np = round16(N), Hp = round16(hd), Sw = Np > Hp ? Np : Hp;
-
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // Np x Hp
-  bf16* Vs = Ks + Np * Hp;                    // Np x Hp
-  bf16* Qs = Vs + Np * Hp;                    // QT x Hp
-  float* S = reinterpret_cast<float*>(Qs + QT * Hp);  // QT x Np logits, later QT x Hp output
-  bf16* P = reinterpret_cast<bf16*>(S + QT * Sw);     // QT x Np probabilities
-
-  // K, V and the scaled Q tile, 16-byte chunks (hd % 8 == 0); the padding
-  // rows (>= N) and columns (>= hd) are zeros.
-  const bf16* base = qkv + (size_t)b * N * ld;
-  const int cpr = Hp / 8;
-  for (int c = tid; c < Np * cpr; c += AT) {
-    const int r = c / cpr, cc = (c % cpr) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-    if (r < N && cc < hd) {
-      const bf16* src = base + (size_t)r * ld + h * hd + cc;
-      kv = *reinterpret_cast<const uint4*>(src + D);
-      vv = *reinterpret_cast<const uint4*>(src + 2 * D);
-    }
-    *reinterpret_cast<uint4*>(Ks + r * Hp + cc) = kv;
-    *reinterpret_cast<uint4*>(Vs + r * Hp + cc) = vv;
-  }
-  for (int c = tid; c < QT * cpr; c += AT) {
-    const int r = c / cpr, cc = (c % cpr) * 8;
-    const int row = qt * QT + r;
-    Pack8 v;
-    if (row < N && cc < hd) {
-      Pack8 in;
-      in.u = *reinterpret_cast<const uint4*>(base + (size_t)row * ld + h * hd + cc);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        v.h[i] = __float2bfloat16_rn(__fmul_rn(__bfloat162float(in.h[i]), scale));
-    } else {
-      v.u = make_uint4(0, 0, 0, 0);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * Hp + cc) = v.u;
-  }
-  __syncthreads();
-
-  // Logits S = Qs . Ks^T (f32), one 16 x 16 fragment at a time per warp.
-  const int nc16 = Np / 16;
-  for (int f = warp; f < (QT / 16) * nc16; f += AT / 32) {
-    const int fr = f / nc16, fc = f % nc16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int k = 0; k < Hp; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-      wmma::load_matrix_sync(a, Qs + fr * 16 * Hp + k, Hp);
-      wmma::load_matrix_sync(kb, Ks + fc * 16 * Hp + k, Hp);
-      wmma::mma_sync(acc, a, kb, acc);
-    }
-    wmma::store_matrix_sync(S + fr * 16 * Np + fc * 16, acc, Np, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // Row softmax over the N real keys: max-subtracted exp, one reciprocal per
-  // row, p -> bf16; padded key columns get p = 0.
-  for (int r = warp; r < QT; r += AT / 32) {
-    float* srow = S + r * Np;
-    float m = -INFINITY;
-    for (int c = lane; c < N; c += 32) m = fmaxf(m, srow[c]);
-    m = warp_max(m);
-    float s = 0.0f;
-    for (int c = lane; c < N; c += 32) {
-      const float e = expf(__fsub_rn(srow[c], m));
-      srow[c] = e;
-      s = __fadd_rn(s, e);
-    }
-    const float inv = __fdiv_rn(1.0f, warp_sum(s));
-    for (int c = lane; c < Np; c += 32)
-      P[r * Np + c] = c < N ? __float2bfloat16_rn(__fmul_rn(srow[c], inv)) : __float2bfloat16_rn(0.0f);
-  }
-  __syncthreads();
-
-  // O = P . Vs (f32), staged in the logits buffer (QT x Sw floats).
-  float* O = S;
-  const int hc16 = Hp / 16;
-  for (int f = warp; f < (QT / 16) * hc16; f += AT / 32) {
-    const int fr = f / hc16, fc = f % hc16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int k = 0; k < Np; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-      wmma::load_matrix_sync(a, P + fr * 16 * Np + k, Np);
-      wmma::load_matrix_sync(vb, Vs + k * Hp + fc * 16, Hp);
-      wmma::mma_sync(acc, a, vb, acc);
-    }
-    wmma::store_matrix_sync(O + fr * 16 * Hp + fc * 16, acc, Hp, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  for (int e = tid; e < QT * hd; e += AT) {
-    const int r = e / hd, c = e % hd;
-    const int row = qt * QT + r;
-    if (row < N) out[((size_t)b * N + row) * D + h * hd + c] = from_f32<OutT>(O[r * Hp + c]);
-  }
-}
-
-template <typename OutT>
-int launch_attention(const void* qkv, void* out, int B, int N, int H, int hd, float scale,
-                     cudaStream_t stream) {
-  const int smem = attention_smem_bytes(N, hd);
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<OutT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + QT - 1) / QT, H, B);
-  attention_kernel<OutT><<<grid, AT, smem, stream>>>((const bf16*)qkv, (OutT*)out, N, H, hd,
-                                                     scale);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
-
-extern "C" int hyt_attn_smem_bytes(int N, int hd) { return attention_smem_bytes(N, hd); }
 
 // tok_f32: the tokens are f32 (else bf16).
 extern "C" int hyt_ln_qkv(const void* tok, int tok_f32, const void* w, const void* bias,
@@ -357,13 +189,4 @@ extern "C" int hyt_ln_qkv(const void* tok, int tok_f32, const void* w, const voi
                                              (const float*)bias, (const float*)gamma,
                                              (const float*)beta, (bf16*)qkv, M, K, N);
   return (int)cudaGetLastError();
-}
-
-// out_f32: write the output as f32 (else bf16).
-extern "C" int hyt_attention(const void* qkv, void* out, int out_f32, int B, int N, int H, int hd,
-                             float scale, void* stream) {
-  if (B <= 0 || N <= 0 || H <= 0 || hd <= 0 || hd % 8) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  return out_f32 ? launch_attention<float>(qkv, out, B, N, H, hd, scale, st)
-                 : launch_attention<bf16>(qkv, out, B, N, H, hd, scale, st);
 }

@@ -1,7 +1,8 @@
 """HaMeR: ViT-H backbone + MANO head + MANO LBS (port of
 hamer_yolo_tpu/models/hamer.py): center-crop 256x256 -> 256x192, ViT
-tokens, MANO head, crop-space camera tz = 2 f / (IMAGE_SIZE s + 1e-9),
-MANO forward, crop-space 2D projection with focal f / IMAGE_SIZE."""
+tokens (the W8A8 int8 backbone with ``int8_backbone``), MANO head,
+crop-space camera tz = 2 f / (IMAGE_SIZE s + 1e-9), MANO forward,
+crop-space 2D projection with focal f / IMAGE_SIZE."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -10,6 +11,7 @@ from typing import Dict
 import torch
 
 from hamer_yolo_tpu_torch.core import nn
+from hamer_yolo_tpu_torch.core.quant import vit_forward_int8
 from hamer_yolo_tpu_torch.geometry.camera import cam_to_translation, perspective_projection
 from hamer_yolo_tpu_torch.models.mano import ManoModel, mano_forward_rotmat
 from hamer_yolo_tpu_torch.models.mano_head import ManoHeadConfig, init_mano_head, mano_head_forward
@@ -23,6 +25,9 @@ class HamerConfig:
     crop_margin: int = 32
     vit: ViTConfig = field(default_factory=ViTConfig)
     head: ManoHeadConfig = field(default_factory=ManoHeadConfig)
+    # W8A8 int8 backbone (core/quant.py): params["backbone"] must hold
+    # quantize_vit_params output, with or without attached static scales.
+    int8_backbone: bool = False
 
 
 def init_hamer(gen: torch.Generator, cfg: HamerConfig = HamerConfig()) -> nn.Params:
@@ -34,7 +39,10 @@ def hamer_forward(params: nn.Params, mano_model: ManoModel, img: torch.Tensor,
     """img (B, S, S, 3) normalised RGB crops (NHWC) -> the reference's output dict."""
     B = img.shape[0]
     m = cfg.crop_margin
-    context = vit_forward(params["backbone"], img[:, :, m:-m, :], cfg.vit)
+    if cfg.int8_backbone:
+        context = vit_forward_int8(params["backbone"], img[:, :, m:-m, :], cfg.vit)
+    else:
+        context = vit_forward(params["backbone"], img[:, :, m:-m, :], cfg.vit)
     pred_mano, pred_cam = mano_head_forward(params["mano_head"], context, cfg.head)
     pred_cam_t = cam_to_translation(pred_cam, cfg.focal_length, cfg.image_size)
     focal = torch.full((B, 2), cfg.focal_length, device=img.device)

@@ -34,8 +34,9 @@ class ViTConfig:
     mlp_ratio: float = 4.0
     qkv_bias: bool = True
     compute_dtype: str = "bfloat16"
-    # K2 for the attention blocks: None picks it where the tokens are on a
-    # CUDA device; True / False force it on / off on any device.
+    # The blocks' kernels (K2 on the bf16 path; K3, K4, K5, K7 on the int8
+    # path, core/quant.vit_forward_int8): None picks them where the tokens
+    # are on a CUDA device; True / False force them on / off on any device.
     fused_attn: Optional[bool] = None
 
     @property

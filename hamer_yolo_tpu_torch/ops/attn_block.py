@@ -1,22 +1,21 @@
 """Kernel K2: exact-bf16 fused LN + QKV GEMM + softmax attention (pre-proj).
 
 Port of the TPU kernel
-hamer_yolo_tpu/ops/attention_pallas.py:fused_bf16_attn_block, whose CUDA
-counterpart is ``csrc/attn_block.cu`` (two launches: LN + QKV GEMM, then
-attention per (query tile, head, crop)). The proj linear stays outside, as
-in JAX.
+hamer_yolo_tpu/ops/attention_pallas.py:fused_bf16_attn_block, in two
+launches: LN + QKV GEMM (``csrc/attn_block.cu``), then attention per (query
+tile, head, crop) on views of the qkv buffer (``csrc/short_attention.cu``,
+the kernel K3 and K7 launch too). The proj linear stays outside, as in JAX.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from hamer_yolo_tpu_torch.core.nn import weak_scalar
 from hamer_yolo_tpu_torch.ops import cuda_build
+from hamer_yolo_tpu_torch.ops.short_attention import launch_attention
 
-MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
 TOKEN_DTYPES = (torch.bfloat16, torch.float32)  # what the kernel reads and writes
 
 
@@ -62,9 +61,9 @@ def fused_bf16_attn_block(tok: torch.Tensor, w: torch.Tensor, bias: Optional[tor
     (in, out) linear layout, bias (3D,), LN scale/bias (K,) -> (B, N, D).
 
     CPU tensors take the plain version. CUDA tensors launch
-    ``csrc/attn_block.cu``: bf16 or f32 tokens (the output has their dtype,
-    as in JAX), any N, K and the head width multiples of 8; anything else
-    raises.
+    ``csrc/attn_block.cu`` and ``csrc/short_attention.cu``: bf16 or f32
+    tokens (the output has their dtype, as in JAX), any N, K and the head
+    width multiples of 8; anything else raises.
     """
     if tok.device.type == "cpu":
         return fused_bf16_attn_block_ref(tok, w, bias, ln_scale, ln_bias, num_heads)
@@ -87,9 +86,6 @@ def fused_bf16_attn_block(tok: torch.Tensor, w: torch.Tensor, bias: Optional[tor
     if any(t is not None and t.device != tok.device for t in (w, bias, ln_scale, ln_bias)):
         raise ValueError(f"fused_bf16_attn_block: every tensor must be on {tok.device}")
     lib = cuda_build.load("attn_block.cu")
-    smem = lib.hyt_attn_smem_bytes(N, hd)
-    if smem > MAX_SMEM:
-        raise ValueError(f"fused_bf16_attn_block: N={N}, hd={hd} needs {smem} B of shared memory")
     dev = tok.device
     tok = cuda_build.aligned16(tok)
     w16 = cuda_build.aligned16(w.to(torch.bfloat16))
@@ -98,16 +94,16 @@ def fused_bf16_attn_block(tok: torch.Tensor, w: torch.Tensor, bias: Optional[tor
     bt32 = ln_bias.to(torch.float32).contiguous()
     qkv = torch.empty((B * N, td), dtype=torch.bfloat16, device=dev)
     out = torch.empty((B, N, D), dtype=tok.dtype, device=dev)
-    f32 = int(tok.dtype == torch.float32)
-    scale = weak_scalar(hd ** -0.5, torch.bfloat16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        cuda_build.check(lib.hyt_ln_qkv(tok.data_ptr(), f32, w16.data_ptr(), b32.data_ptr(),
-                                        g32.data_ptr(), bt32.data_ptr(), qkv.data_ptr(),
-                                        B * N, K, td, stream), "ln_qkv_kernel")
-        cuda_build.check(lib.hyt_attention(qkv.data_ptr(), out.data_ptr(), f32, B, N,
-                                           num_heads, hd, ctypes.c_float(scale), stream),
-                         "attention_kernel")
+        cuda_build.check(lib.hyt_ln_qkv(tok.data_ptr(), int(tok.dtype == torch.float32),
+                                        w16.data_ptr(), b32.data_ptr(), g32.data_ptr(),
+                                        bt32.data_ptr(), qkv.data_ptr(), B * N, K, td, stream),
+                         "fused_bf16_attn_block: ln_qkv_kernel")
+    heads = qkv.reshape(B, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)  # (3, B, h, N, hd)
+    launch_attention(heads[0], heads[1], heads[2],
+                     out.reshape(B, N, num_heads, hd).transpose(1, 2), None,
+                     "fused_bf16_attn_block")
     fused_bf16_attn_block.launches += 1
     return out
 

@@ -3,9 +3,9 @@
 Each source is compiled by ``nvcc`` into its own shared library with a plain
 C interface and loaded with ``ctypes``. Nothing is built at import: the first
 call that launches a kernel builds it, into ``_build/`` beside this package
-(listed in ``.gitignore``), under a name keyed by a hash of the source and
-the flags. A file lock keeps concurrent processes from building the same
-library twice.
+(listed in ``.gitignore``), under a name keyed by a hash of the source, the
+shared header ``csrc/common.cuh`` and the flags. A file lock keeps
+concurrent processes from building the same library twice.
 """
 from __future__ import annotations
 
@@ -15,26 +15,38 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
 
 _COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                  "-shared", "-Xcompiler", "-fPIC"]
-# nms.cu must not contract its IoU arithmetic into FMAs (bit-exact keep sets).
-_EXTRA_FLAGS: Dict[str, List[str]] = {"nms.cu": ["--fmad=false"], "attn_block.cu": []}
+# nms.cu must not contract its IoU arithmetic into FMAs (bit-exact keep sets),
+# nor int8_gemm.cu its prologue and dequant arithmetic (the int8 roundings).
+_EXTRA_FLAGS: Dict[str, List[str]] = {"nms.cu": ["--fmad=false"], "attn_block.cu": [],
+                                      "int8_gemm.cu": ["--fmad=false"],
+                                      "short_attention.cu": []}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signatures of every exported function, per source.
 _SIGNATURES = {
     "nms.cu": {"hyt_nms_keep": [_P, _P, _F, _P, _I, _I, _P]},
     "attn_block.cu": {
         "hyt_ln_qkv": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "hyt_attention": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
-        "hyt_attn_smem_bytes": [_I, _I],
+    },
+    "int8_gemm.cu": {
+        "hyt_quantize_rows": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+        "hyt_int8_gemm": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
+    },
+    "short_attention.cu": {
+        "hyt_short_attention": [_P, _P, _P, _L, _L, _L, _P, _I, _P, _L, _L, _L, _I, _I, _I,
+                                _I, _F, _P],
+        "hyt_short_attn_smem_bytes": [_I, _I],
     },
 }
 
@@ -51,14 +63,14 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     flags = _COMMON_FLAGS + _EXTRA_FLAGS[source]
-    digest = hashlib.sha256((CSRC_DIR / source).read_bytes()
-                            + " ".join(flags).encode()).hexdigest()[:16]
+    text = (CSRC_DIR / source).read_bytes() + (CSRC_DIR / "common.cuh").read_bytes()
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
 def _build(source: str, out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".lock", "w") as lock:
+    with open(BUILD_DIR / f".{Path(source).stem}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if out.exists():
@@ -92,9 +104,10 @@ def load(source: str) -> ctypes.CDLL:
 
 
 def build_all() -> List[Path]:
-    """Build (or find) and load every kernel library; returns their paths."""
-    for source in _SIGNATURES:
-        load(source)
+    """Build (or find) and load every kernel library, one nvcc per source,
+    all started together; returns their paths."""
+    with ThreadPoolExecutor(len(_SIGNATURES)) as pool:
+        list(pool.map(load, _SIGNATURES))
     return [library_path(s) for s in _SIGNATURES]
 
 

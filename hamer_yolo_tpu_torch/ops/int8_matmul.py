@@ -1,0 +1,390 @@
+"""Kernels K5 and K4: the fused W8A8 int8 GEMMs of the int8 ViT (port of
+hamer_yolo_tpu/ops/int8_matmul.py).
+
+- K5 ``fused_int8_matmul``: an f32 [ln | gelu | gelu_poly | id] prologue,
+  a per-row dynamic (or static) int8 quantize, the int8 GEMM with int32
+  sums, and the per-channel dequant + bias.
+- K4 ``fused_int8_mlp_block``: tok + fc2(GELU(fc1(LN(tok)))) with static
+  scales: LN -> quantize (sx1) -> fc1 -> dequant -> GELU -> quantize (sx2)
+  -> int8 (M, H); then fc2 -> dequant -> + residual in f32.
+
+Both run on ``csrc/int8_gemm.cu``: a quantize-rows launch (prologue and
+quantize, one warp per row) and an int8 GEMM launch (mma.sync s8, dequant
+epilogue); K4 is one quantize launch and two GEMMs. Each ``*_ref`` function
+is the plain version, in the f32 op order of its TPU kernel, which the CPU
+takes and the card's checks compare against. JAX's ``FUSED_GEMM_MAX_M``
+switch to an XLA chain is not carried over: K5 runs at every M on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from hamer_yolo_tpu_torch.ops import cuda_build
+
+PROLOGUES = ("id", "ln", "gelu", "gelu_poly")
+_TOKEN_DTYPES = (torch.bfloat16, torch.float32)
+_OUT_KIND = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+# Epilogues of csrc/int8_gemm.cu
+EPI_DEQ_ROW, EPI_DEQ_FOLD, EPI_GELU_Q, EPI_RESID, EPI_PROJ = range(5)
+
+# Even-polynomial GELU: GELU(x) = x/2 + E(x), E(u = x^2) of degree 8, a
+# Chebyshev least-squares fit on |x| <= 4 (hamer_yolo_tpu/ops/int8_matmul.py
+# _GELU_POLY_U); |x| > 4 takes the asymptotes x and 0.
+GELU_POLY_U = (
+    3.138923846637831e-05, 0.3985892442238482, -0.0658308598919238,
+    0.009491168272223864, -0.001005431695009259, 7.497100545436031e-05,
+    -3.6818665106501106e-06, 1.0570036565177172e-07,
+    -1.3327008826321846e-09)
+# erf by Abramowitz & Stegun 7.1.26 (|err| <= 1.5e-7): the TPU kernel has
+# no erf, so its exact GELU uses this rational form.
+_ERF_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
+_ERF_P = 0.3275911
+_SQRT2 = 1.4142135623730951
+
+
+def recip_f32(c: float) -> float:
+    """f32(1 / c): JAX's compiled programs divide by a constant as a product
+    with its f32 reciprocal (XLA's simplifier rewrites x / c, and mean's
+    sum / n, that way), so the port multiplies where the JAX source divides
+    by a constant."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+RECIP_127 = recip_f32(127.0)
+_RECIP_SQRT2 = recip_f32(_SQRT2)
+
+
+def gelu_prologue(device) -> str:
+    """The GELU flavour of the int8 MLP on ``device``: the polynomial on the
+    card, as the JAX package takes it on the TPU, the A&S-erf form
+    elsewhere."""
+    return "gelu_poly" if torch.device(device).type == "cuda" else "gelu"
+
+
+def _f32(v: float) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def gelu_poly_f32(x: torch.Tensor) -> torch.Tensor:
+    u = torch.clamp(x * x, max=16.0)
+    e = _f32(GELU_POLY_U[-1]).to(x.device)
+    for c in GELU_POLY_U[-2::-1]:
+        e = e * u + _f32(c).to(x.device)
+    y = 0.5 * x + e
+    y = torch.where(x > 4.0, x, y)
+    return torch.where(x < -4.0, torch.zeros_like(y), y)
+
+
+def erf_f32(x: torch.Tensor) -> torch.Tensor:
+    a1, a2, a3, a4, a5 = _ERF_A
+    ax = torch.abs(x)
+    t = 1.0 / (1.0 + _ERF_P * ax)
+    poly = ((((a5 * t + a4) * t + a3) * t + a2) * t + a1) * t
+    return torch.sign(x) * (1.0 - poly * torch.exp(-ax * ax))
+
+
+def layer_norm_f32(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """LN of the TPU kernels' prologue in f32, eps 1e-6: means as sums
+    times f32(1 / K); rsqrt correctly rounded on either device, as in the
+    kernel (XLA's own f32 rsqrt is within 1 ulp of it, and equal in most
+    rows)."""
+    inv_k = recip_f32(x.shape[-1])
+    mu = x.sum(dim=-1, keepdim=True) * inv_k
+    var = torch.square(x - mu).sum(dim=-1, keepdim=True) * inv_k
+    rstd = torch.rsqrt((var + 1e-6).double()).float()
+    return (x - mu) * rstd * g.float() + b.float()
+
+
+def prologue_f32(x: torch.Tensor, prologue: str, g=None, b=None) -> torch.Tensor:
+    """x f32 -> f32 after the fused elementwise stage (_prologue_f32)."""
+    if prologue == "ln":
+        return layer_norm_f32(x, g, b)
+    if prologue == "gelu":
+        return 0.5 * x * (1.0 + erf_f32(x * _RECIP_SQRT2))
+    if prologue == "gelu_poly":
+        return gelu_poly_f32(x)
+    if prologue != "id":
+        raise ValueError(f"unknown prologue {prologue!r}")
+    return x
+
+
+def quantize_rows_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """clip(round(x * (1 / scale)), +-127) as int8: the kernels multiply by
+    one reciprocal (core/quant's unfused form divides)."""
+    return torch.clamp(torch.round(x * (1.0 / scale)), -127, 127).to(torch.int8)
+
+
+def int_dot(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """(..., K) int8 @ (K, N) int8 with exact integer sums, as f32 (the
+    int32 sum rounded to nearest): an f64 product on either device, exact
+    at these sizes (|sum| <= 127^2 K < 2^53) and free of the shape rules of
+    cuBLASLt's int8 product (torch._int_mm refuses some small shapes)."""
+    lead, K = xq.shape[:-1], xq.shape[-1]
+    acc = xq.reshape(-1, K).double() @ wq.double()
+    return acc.float().reshape(*lead, wq.shape[1])
+
+
+def _as_scale(s, device) -> torch.Tensor:
+    return torch.as_tensor(s, dtype=torch.float32, device=device).reshape(())
+
+
+# --------------------------------------------------------------------- K5
+def fused_int8_matmul_ref(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          ln_scale: Optional[torch.Tensor] = None,
+                          ln_bias: Optional[torch.Tensor] = None, *, prologue: str = "id",
+                          out_dtype=None, static_scale=None) -> torch.Tensor:
+    """Plain version of K5 (the TPU kernel's _kernel, f32 op order kept)."""
+    K, N = wq.shape
+    x2 = prologue_f32(x.reshape(-1, K).float(), prologue, ln_scale, ln_bias)
+    if static_scale is None:
+        absmax = torch.amax(torch.abs(x2), dim=-1, keepdim=True)
+        scale = torch.clamp(absmax * RECIP_127, min=1e-8)
+    else:
+        scale = _as_scale(static_scale, x.device)
+    acc = int_dot(quantize_rows_ref(x2, scale), wq)
+    y = acc * scale * wscale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype or x.dtype).reshape(*x.shape[:-1], N)
+
+
+def fused_int8_matmul(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None,
+                      ln_scale: Optional[torch.Tensor] = None,
+                      ln_bias: Optional[torch.Tensor] = None, *, prologue: str = "id",
+                      out_dtype=None, static_scale=None) -> torch.Tensor:
+    """[LN | GELU | id](x) @ dequant-int8 wq + bias, quantizing x per row
+    (or by ``static_scale``), with the JAX signature: x (..., K) bf16/f32,
+    wq (K, N) int8 in the (in, out) layout, wscale (N,), bias (N,) or None,
+    ln_scale/ln_bias (K,) for the "ln" prologue. Returns (..., N) in
+    out_dtype (default x.dtype).
+
+    CPU tensors take the plain version. CUDA tensors launch
+    ``csrc/int8_gemm.cu``: K and N multiples of 16; anything else raises.
+    """
+    if x.device.type == "cpu":
+        return fused_int8_matmul_ref(x, wq, wscale, bias, ln_scale, ln_bias, prologue=prologue,
+                                     out_dtype=out_dtype, static_scale=static_scale)
+    K, N = wq.shape
+    out_dtype = out_dtype or x.dtype
+    if prologue not in PROLOGUES:
+        raise ValueError(f"fused_int8_matmul: unknown prologue {prologue!r}")
+    if out_dtype not in _TOKEN_DTYPES:
+        raise ValueError(f"fused_int8_matmul: out_dtype {out_dtype} (bf16 or f32)")
+    x2 = x.reshape(-1, K)
+    xq, row_scale, s = quantize_rows(x2, prologue, ln_scale, ln_bias, static_scale,
+                                     "fused_int8_matmul")
+    out = torch.empty((x2.shape[0], N), dtype=out_dtype, device=x.device)
+    int8_gemm(xq, wq, EPI_DEQ_ROW, out, wscale, bias, row_scale=row_scale, s=s,
+              what="fused_int8_matmul")
+    fused_int8_matmul.launches += 1
+    return out.reshape(*x.shape[:-1], N)
+
+
+fused_int8_matmul.launches = 0
+
+
+# --------------------------------------------------------------------- K4
+def fused_int8_mlp_block_ref(tok: torch.Tensor, w1q, w1scale, b1, w2q, w2scale, b2,
+                             ln_scale, ln_bias, sx1, sx2, gelu: str = "gelu") -> torch.Tensor:
+    """Plain version of K4 (_mlp1_kernel then _mlp2_kernel)."""
+    K = tok.shape[-1]
+    x0 = tok.reshape(-1, K).float()
+    s1, s2 = _as_scale(sx1, tok.device), _as_scale(sx2, tok.device)
+    x = layer_norm_f32(x0, ln_scale, ln_bias)
+    acc = int_dot(quantize_rows_ref(x, s1), w1q)
+    y = acc * (s1 * w1scale.float())
+    if b1 is not None:
+        y = y + b1.float()
+    yq = quantize_rows_ref(prologue_f32(y, gelu), s2)
+    z = int_dot(yq, w2q) * (s2 * w2scale.float())
+    if b2 is not None:
+        z = z + b2.float()
+    return (x0 + z).to(tok.dtype).reshape(tok.shape)
+
+
+def fused_int8_mlp_block(tok: torch.Tensor, w1q, w1scale, b1, w2q, w2scale, b2,
+                         ln_scale, ln_bias, sx1, sx2, gelu: str = "gelu") -> torch.Tensor:
+    """tok + fc2(GELU(fc1(LN(tok)))) with the static scales sx1 (post-LN)
+    and sx2 (post-GELU), the JAX signature: tok (..., K) bf16/f32; w1q
+    (K, H), w2q (H, K) int8; scales and biases per output channel; ``gelu``
+    "gelu" (A&S erf) or "gelu_poly".
+
+    CPU tensors take the plain version. CUDA tensors launch
+    ``csrc/int8_gemm.cu`` three times (quantize, fc1 + GELU + quantize, fc2
+    + residual): K and H multiples of 16; anything else raises.
+    """
+    if tok.device.type == "cpu":
+        return fused_int8_mlp_block_ref(tok, w1q, w1scale, b1, w2q, w2scale, b2, ln_scale,
+                                        ln_bias, sx1, sx2, gelu)
+    if gelu not in ("gelu", "gelu_poly"):
+        raise ValueError(f"fused_int8_mlp_block: unknown gelu {gelu!r}")
+    K, H = w1q.shape
+    if w2q.shape != (H, K):
+        raise ValueError(f"fused_int8_mlp_block: w1q {tuple(w1q.shape)}, w2q {tuple(w2q.shape)}")
+    x2 = cuda_build.aligned16(tok.reshape(-1, K))
+    s2 = _device_scale(sx2, tok.device, "fused_int8_mlp_block")
+    xq, _, s1 = quantize_rows(x2, "ln", ln_scale, ln_bias, sx1, "fused_int8_mlp_block")
+    yq = torch.empty((x2.shape[0], H), dtype=torch.int8, device=tok.device)
+    int8_gemm(xq, w1q, EPI_GELU_Q, yq, w1scale, b1, s=s1, out_scale=s2,
+              gelu_poly=gelu == "gelu_poly", what="fused_int8_mlp_block")
+    out = torch.empty_like(x2)
+    int8_gemm(yq, w2q, EPI_RESID, out, w2scale, b2, s=s2, res=x2, what="fused_int8_mlp_block")
+    fused_int8_mlp_block.launches += 1
+    return out.reshape(tok.shape)
+
+
+fused_int8_mlp_block.launches = 0
+
+
+def int8_dot_prequant(xq: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
+                      bias: Optional[torch.Tensor], sx, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """(..., K) int8 already quantized by the static scale ``sx`` @ (K, N)
+    int8 -> (..., N): the plain exact int8 product and its dequant,
+    ((acc * sx) * wscale + bias) in f32. Not a kernel: JAX computes it with
+    dot_general outside Pallas."""
+    y = int_dot(xq, wq) * _as_scale(sx, xq.device) * wscale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype)
+
+
+# --------------------------------------- kernels against their plain versions
+# How far an int8 kernel may sit from its plain version on the card. Both
+# round at the same points in the same f32 op order, so they differ only
+# where a sum taken in another order (an LN mean or variance, a softmax
+# sum, the attention products) moves a value that sits within an ulp of an
+# int8 rounding midpoint to the neighbouring int8 value. Such a flip moves
+# every output of its row (a GEMM input) or one element (an int8 output) by
+# one int8 step. Elsewhere the outputs agree to one rounding of the output
+# dtype (K5 with the GELU and id prologues read bit-identical). Limits:
+# float outputs, the share of rows with any element beyond one rounding of
+# max(|plain|, mean |plain|) (bf16: 2^-8; f32: 2^-19, a few ulps for the
+# per-row scales' own sums) and the largest error over the output's mean
+# magnitude (one int8 step of a K-long product is about 0.06 / sqrt(K) of
+# it, and bf16 outputs of a residual sum round at up to 1/128 of their own
+# magnitude, a few times the mean; a wrong tile or row is off by the order
+# of 1); int8 outputs, +-1 at most, on a capped share of elements. Readings
+# of chip_smoke.py on an H100 at ViT-H shapes: K5 and K4 at most 0.52% of
+# rows, errors at most 0.023 of the mean (K3: 0.051); K7's int8 output 2e-6
+# of elements. tests/test_torch_int8_kernels.py::TestLimits holds the limits
+# to both sides: a plain version with its LN sums in f64 passes (1.0% of
+# rows), one with the LN's eps left out fails (6.3%). K3 sets its own row
+# limit (ops/attn_proj_block.py).
+MAX_FRAC_ROWS_FLIPPED = 0.02
+MAX_ERR_OVER_MEAN = 0.1
+MAX_FRAC_INT8_FLIPPED = 0.01
+
+
+def check_against_plain(got: torch.Tensor, ref: torch.Tensor, what: str,
+                        max_frac_rows: float = MAX_FRAC_ROWS_FLIPPED) -> dict:
+    """Raise unless an int8 kernel's output ``got`` agrees with its plain
+    version's ``ref`` to the limits above; returns the readings."""
+    if ref.dtype == torch.int8:
+        d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+        r = {"max_abs_err": float(d.max()), "frac_flipped": float((d > 0).float().mean())}
+        if r["max_abs_err"] > 1 or r["frac_flipped"] > MAX_FRAC_INT8_FLIPPED:
+            raise AssertionError(f"{what} disagrees with its plain version: {r} (limits: "
+                                 f"+-1 on at most {MAX_FRAC_INT8_FLIPPED} of elements)")
+        return r
+    err = (got.float() - ref.float()).abs()
+    mag = ref.float().abs()
+    mean = float(mag.mean()) + 1e-30
+    ulp = 2.0 ** -8 if ref.dtype == torch.bfloat16 else 2.0 ** -19
+    beyond = err > ulp * torch.maximum(mag, torch.full_like(mag, mean))
+    r = {"max_abs_err": float(err.max()), "err_over_mean": float(err.max()) / mean,
+         "frac_rows_flipped": float(beyond.reshape(-1, ref.shape[-1]).any(-1).float().mean())}
+    if r["frac_rows_flipped"] > max_frac_rows or r["err_over_mean"] > MAX_ERR_OVER_MEAN:
+        raise AssertionError(f"{what} disagrees with its plain version: {r} (limits: at most "
+                             f"{max_frac_rows} of rows beyond one rounding, max error "
+                             f"{MAX_ERR_OVER_MEAN} of the mean magnitude)")
+    return r
+
+
+# ------------------------------------------------ launches of int8_gemm.cu
+def _device_scale(s, device, what: str) -> torch.Tensor:
+    """A static scale as a (1,) f32 tensor on ``device`` (the kernels read
+    it there, so no value crosses to the host)."""
+    t = (s if isinstance(s, torch.Tensor) else torch.tensor(float(s), device=device)).float()
+    if t.numel() != 1:
+        raise ValueError(f"{what}: a static scale has one element, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{what}: the static scale is on {t.device}, the tokens on {device}")
+    return t.reshape(1).contiguous()
+
+
+def _vec(v: Optional[torch.Tensor], n: int, device, what: str, name: str) -> torch.Tensor:
+    if v is None:
+        return torch.zeros(n, dtype=torch.float32, device=device)
+    if v.shape != (n,) or v.device != device:
+        raise ValueError(f"{what}: {name} must be ({n},) on {device}, got "
+                         f"{tuple(v.shape)} on {v.device}")
+    return v.to(torch.float32).contiguous()
+
+
+def quantize_rows(x2: torch.Tensor, prologue: str, g, b, static_scale, what: str):
+    """Launch the prologue + quantize of csrc/int8_gemm.cu on x2 (M, K) bf16
+    or f32: -> (int8 (M, K), per-row scales (M,) or None, static scale (1,)
+    or None)."""
+    M, K = x2.shape
+    dev = x2.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if x2.dtype not in _TOKEN_DTYPES:
+        raise ValueError(f"{what}: the kernel takes bf16 or f32 rows, got {x2.dtype}")
+    if K % 16:
+        raise ValueError(f"{what}: K = {K} is not a multiple of 16")
+    x2 = x2.contiguous()
+    pid = PROLOGUES.index(prologue)
+    gb = (None, None)
+    if prologue == "ln":
+        gb = tuple(_vec(v, K, dev, what, "the LN vectors") for v in (g, b))
+    xq = torch.empty((M, K), dtype=torch.int8, device=dev)
+    if static_scale is None:
+        row_scale, s = torch.empty(M, dtype=torch.float32, device=dev), None
+    else:
+        row_scale, s = None, _device_scale(static_scale, dev, what)
+    lib = cuda_build.load("int8_gemm.cu")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        cuda_build.check(lib.hyt_quantize_rows(
+            x2.data_ptr(), int(x2.dtype == torch.float32), _ptr(gb[0]), _ptr(gb[1]), pid, M, K,
+            int(static_scale is None), _ptr(s), xq.data_ptr(), _ptr(row_scale), stream),
+            f"{what}: quantize_rows_kernel")
+    return xq, row_scale, s
+
+
+def int8_gemm(a: torch.Tensor, w: torch.Tensor, epi: int, out: torch.Tensor,
+              wscale: torch.Tensor, bias: Optional[torch.Tensor], *, row_scale=None, s=None,
+              res=None, out_scale=None, gelu_poly: bool = False, what: str = "int8_gemm") -> None:
+    """Launch the int8 GEMM of csrc/int8_gemm.cu: out (M, N) = epilogue(a
+    (M, K) int8 @ w (K, N) int8)."""
+    M, K = a.shape
+    dev = a.device
+    if w.dtype != torch.int8 or w.dim() != 2 or w.shape[0] != K or w.device != dev:
+        raise ValueError(f"{what}: the weight must be int8 ({K}, N) on {dev}, got "
+                         f"{w.dtype} {tuple(w.shape)} on {w.device}")
+    N = w.shape[1]
+    if K % 16 or N % 16:
+        raise ValueError(f"{what}: K = {K} and N = {N} must be multiples of 16")
+    if res is not None and (res.shape != (M, N) or res.dtype != out.dtype):
+        raise ValueError(f"{what}: the residual must be ({M}, {N}) {out.dtype}")
+    a = cuda_build.aligned16(a)
+    w = w.contiguous()
+    wscale = _vec(wscale, N, dev, what, "the weight scales")
+    bias = _vec(bias, N, dev, what, "the bias")
+    lib = cuda_build.load("int8_gemm.cu")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        cuda_build.check(lib.hyt_int8_gemm(
+            a.data_ptr(), w.data_ptr(), M, N, K, epi, _OUT_KIND[out.dtype], _ptr(row_scale),
+            _ptr(s), wscale.data_ptr(), bias.data_ptr(), _ptr(res), _ptr(out_scale),
+            int(gelu_poly), out.data_ptr(), stream), f"{what}: int8_gemm_kernel")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()

@@ -52,10 +52,11 @@ def default_intrinsics(shape) -> np.ndarray:
 
 
 class FrameProgram:
-    """One frame through the pipeline on ``device``: numpy in, numpy out."""
+    """One frame through the pipeline on ``device`` (the card unless the
+    caller names another): numpy in, numpy out."""
 
     def __init__(self, params: nn.Params, mano_model: ManoModel, cfg: PipelineConfig,
-                 device="cpu"):
+                 device="cuda"):
         self.params = params
         self.mano_model = mano_model
         self.cfg = cfg
@@ -124,7 +125,7 @@ def process_frames(frames: Iterable[Tuple[str, Optional[np.ndarray]]], output_di
 def process_image_dir(input_dir: str, output_dir: str, params: nn.Params,
                       mano_model: ManoModel, cfg: Optional[PipelineConfig] = None,
                       intrinsics_path: Optional[str] = None, save_obj: bool = True,
-                      device="cpu", progress: bool = True) -> RunStats:
+                      device="cuda", progress: bool = True) -> RunStats:
     """CLI-parity inference over an image dir: per-image .npy + .obj."""
     K = load_intrinsics(intrinsics_path) if intrinsics_path and os.path.exists(intrinsics_path) \
         else None

@@ -40,7 +40,8 @@ def test_process_image_dir_matches_jax(image_dir, tmp_path):
     out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "torch")
     sj = jax_process_image_dir(image_dir, out_j, jax.tree_util.tree_map(jnp.asarray, params), jm,
                                jcfg, progress=False)
-    st = process_image_dir(image_dir, out_t, to_port(params), tm, tcfg, progress=False)
+    st = process_image_dir(image_dir, out_t, to_port(params), tm, tcfg, device="cpu",
+                           progress=False)
     assert (st.frames, st.hands, st.skipped) == (sj.frames, sj.hands, sj.skipped) == (3, st.hands, 0)
     assert st.hands > 0, "no hand found: the comparison would be empty"
     for name in sorted(os.listdir(out_j)):
