@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's ``infer`` paths on one GPU.
 
-    python3 chip_profile.py [--batches 1 4 16] [--paths bf16 int8-static int8-dynamic]
+    python3 chip_profile.py [--batches 1 4 16]
+                            [--paths bf16 int8-static int8-dynamic path-a path-b]
                             [--out chiprun_out]
 
 Run from the root of a checkout on a machine with an NVIDIA card. For each
@@ -24,8 +25,11 @@ weights, synthetic MANO) on B numpy-made 720p frames and prints one JSON line:
   (``profiled_wall_ms_per_batch``) would understate it.
 
 Paths: ``bf16`` (the exact path), ``int8-static`` (the int8 ViT with the
-static scales calibrated on the batch's own crops) and ``int8-dynamic`` (the
-int8 ViT without scales). The first line is the card's name and power limit
+static scales calibrated on the batch's own crops), ``int8-dynamic`` (the
+int8 ViT without scales), and the opt-in kernel paths of ``chip_smoke.py``:
+``path-a`` (int8-static under HYT_ATTN=megakernel, HYT_INT8_MLP=megakernel1
+and ``fused_mano``: K6, K10, K9) and ``path-b`` (int8-dynamic under
+HYT_ATTN=pallas_fusedqkv: K5, K8). The first line is the card's name and power limit
 as nvidia-smi gives them.
 """
 import argparse
@@ -37,7 +41,7 @@ import sys
 
 import numpy as np
 
-from chip_smoke import SEED, cuda_time_ms, frames_720p
+from chip_smoke import PATH_A_ENV, PATH_B_ENV, SEED, cuda_time_ms, frames_720p, switches
 
 PROFILED_CALLS = 3
 
@@ -61,7 +65,9 @@ def profile_batch(B, params, mano, cfg, dev, out_dir, path="bf16"):
     frames = frames_720p(B, SEED)
     if path != "bf16":
         qparams, cfg = apply_fast_path(params, cfg, "int8")
-        if path == "int8-static":
+        if path == "path-a":
+            cfg = dataclasses.replace(cfg, hamer=dataclasses.replace(cfg.hamer, fused_mano=True))
+        if path in ("int8-static", "path-a"):
             stats, _ = calibrate_frames(params, frames, cfg, dev, batch=4 * B)
             qparams["hamer"]["backbone"] = attach_static_act_scales(
                 qparams["hamer"]["backbone"], stats)
@@ -127,7 +133,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 4, 16])
     ap.add_argument("--paths", nargs="+", default=["bf16"],
-                    choices=["bf16", "int8-static", "int8-dynamic"])
+                    choices=["bf16", "int8-static", "int8-dynamic", "path-a", "path-b"])
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
 
@@ -149,7 +155,10 @@ def main() -> int:
     mano = ManoModel.from_arrays(synthetic_mano_model(SEED), dev)
     for path in args.paths:
         for B in args.batches:
-            print(json.dumps(profile_batch(B, params, mano, cfg, dev, args.out, path)), flush=True)
+            env = {"path-a": PATH_A_ENV, "path-b": PATH_B_ENV}.get(path, {})
+            with switches(env):
+                print(json.dumps(profile_batch(B, params, mano, cfg, dev, args.out, path)),
+                      flush=True)
     return 0
 
 

@@ -4,16 +4,20 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the port's CUDA kernels from
-csrc/ (one nvcc per source, all at once), checks each against its plain
-PyTorch version on the card, and drives two paths at full width (YOLOv7 at
-640, ViT-H with 32 blocks, the MANO head, 4 hand slots; seeded random
-weights, synthetic MANO, numpy-made 720p frames):
+csrc/ (one nvcc per source, all at once), checks each of the ten against its
+plain PyTorch version on the card, and drives these paths at full width
+(YOLOv7 at 640, ViT-H with 32 blocks, the MANO head, 4 hand slots; seeded
+random weights, synthetic MANO, numpy-made 720p frames):
 
 - the exact-bf16 ``infer`` path, through the runner and one ``infer_frames``
   batch (kernels K1, K2);
 - the int8 fast path: the ViT quantized to W8A8, calibrated on the crops of
   the frames (K7), then ``infer_frames`` with the static scales (K3, K4) and
-  without them (K5, K7).
+  without them (K5, K7);
+- the opt-in kernel paths on the same batch: A, static scales with
+  HYT_ATTN=megakernel, HYT_INT8_MLP=megakernel1 and ``fused_mano`` (K6, K10,
+  K9); B, no scales with HYT_ATTN=pallas_fusedqkv (K5, K8). Each is held to
+  the default int8 path of the same batch.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails unless every kernel of the path launched as often as the
@@ -26,6 +30,7 @@ is the kernels' JSON record. Any failed phase raises and the script exits
 non-zero. Without a CUDA device, or without the package beside it, it exits
 non-zero before printing anything.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -53,10 +58,35 @@ KERNELS = {
     "K5": {"name": "fused_int8_matmul", "route": "cuda",
            "source": "hamer_yolo_tpu_torch/csrc/int8_gemm.cu",
            "replaces": "hamer_yolo_tpu/ops/int8_matmul.py:589"},
+    "K6": {"name": "fused_int8_attn_block", "route": "cuda",
+           "source": "hamer_yolo_tpu_torch/csrc/int8_gemm.cu, "
+                     "hamer_yolo_tpu_torch/csrc/short_attention.cu",
+           "replaces": "hamer_yolo_tpu/ops/attention_pallas.py:353"},
     "K7": {"name": "fused_short_attention", "route": "cuda",
            "source": "hamer_yolo_tpu_torch/csrc/short_attention.cu",
            "replaces": "hamer_yolo_tpu/ops/attention_pallas.py:94"},
+    "K8": {"name": "fused_qkv_attention", "route": "cuda",
+           "source": "hamer_yolo_tpu_torch/csrc/short_attention.cu",
+           "replaces": "hamer_yolo_tpu/ops/attention_pallas.py:173"},
+    "K9": {"name": "mano_lbs_fused", "route": "cuda",
+           "source": "hamer_yolo_tpu_torch/csrc/mano_lbs.cu",
+           "replaces": "hamer_yolo_tpu/ops/mano_pallas.py:76"},
+    "K10": {"name": "fused_int8_mlp_block1", "route": "cuda",
+            "source": "hamer_yolo_tpu_torch/csrc/int8_gemm.cu",
+            "replaces": "hamer_yolo_tpu/ops/int8_matmul.py:408"},
 }
+# The switches of the two opt-in paths (core/quant.py reads them per call).
+PATH_A_ENV = {"HYT_ATTN": "megakernel", "HYT_INT8_MLP": "megakernel1"}
+PATH_B_ENV = {"HYT_ATTN": "pallas_fusedqkv"}
+# Paths A and B against the default int8 path of the same batch: K10 equals
+# K4 and K8 equals K7 bit for bit, K6 + the pre-quantized proj product is
+# K3's arithmetic, and K9 differs from the einsum LBS by f32 sum order, so the
+# joints should agree to far less than this.
+MAX_OPTIN_JOINT_DIST_MM = 0.1
+# f32 attention against its plain version: f32 products and sums of 80 and
+# 192 terms in another order, outputs of magnitude <= 1.
+F32_ATTN_ATOL = 2e-5
+INT8_KERNELS = ("K3", "K4", "K5", "K6", "K7", "K8", "K10")
 SEED = 0
 N_FRAMES = 3          # frames through the runner (FrameProgram)
 BATCH = 4             # frames in the infer_frames batch
@@ -99,15 +129,35 @@ def frames_720p(n, seed):
     return [rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8) for _ in range(n)]
 
 
+@contextlib.contextmanager
+def switches(env):
+    """The environment switches ``env`` set for the block, then restored."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
 def launch_counters():
     from hamer_yolo_tpu_torch.ops.attn_block import fused_bf16_attn_block
+    from hamer_yolo_tpu_torch.ops.attn_block_int8 import fused_int8_attn_block
     from hamer_yolo_tpu_torch.ops.attn_proj_block import fused_int8_attn_proj_block
-    from hamer_yolo_tpu_torch.ops.int8_matmul import fused_int8_matmul, fused_int8_mlp_block
+    from hamer_yolo_tpu_torch.ops.int8_matmul import (fused_int8_matmul, fused_int8_mlp_block,
+                                                      fused_int8_mlp_block1)
+    from hamer_yolo_tpu_torch.ops.mano_lbs import mano_lbs_fused
     from hamer_yolo_tpu_torch.ops.nms import greedy_nms_keep
-    from hamer_yolo_tpu_torch.ops.short_attention import fused_short_attention
+    from hamer_yolo_tpu_torch.ops.short_attention import fused_qkv_attention, fused_short_attention
 
     return {"K1": greedy_nms_keep, "K2": fused_bf16_attn_block, "K3": fused_int8_attn_proj_block,
-            "K4": fused_int8_mlp_block, "K5": fused_int8_matmul, "K7": fused_short_attention}
+            "K4": fused_int8_mlp_block, "K5": fused_int8_matmul, "K6": fused_int8_attn_block,
+            "K7": fused_short_attention, "K8": fused_qkv_attention, "K9": mano_lbs_fused,
+            "K10": fused_int8_mlp_block1}
 
 
 def run_counted(fn):
@@ -138,6 +188,7 @@ def main() -> int:
     from hamer_yolo_tpu_torch.core.mano_assets import synthetic_mano_model
     from hamer_yolo_tpu_torch.core.quant import attach_static_act_scales
     from hamer_yolo_tpu_torch.geometry.boxes import hamer_box_params
+    from hamer_yolo_tpu_torch.models.hamer import hamer_forward
     from hamer_yolo_tpu_torch.models.mano import ManoModel
     from hamer_yolo_tpu_torch.models.vit import embed_tokens
     from hamer_yolo_tpu_torch.models.yolov7.model import yolov7_forward
@@ -199,8 +250,8 @@ def main() -> int:
         raise RuntimeError(f"runner wrote {len(npys)} npy and {len(objs)} obj files")
     if n["K1"] < vit_forwards:
         raise RuntimeError(f"K1 launched {n['K1']} times for {vit_forwards} detector calls")
-    expect_launches("bf16 path", n, {"K2": depth * vit_forwards, "K3": 0, "K4": 0, "K5": 0,
-                                     "K7": 0})
+    expect_launches("bf16 path", n, {"K2": depth * vit_forwards,
+                                     **dict.fromkeys(INT8_KERNELS + ("K9",), 0)})
     check_batch(batch_out, cfg, "bf16 infer_frames")
 
     # -- path 2, int8: calibrate, then static and dynamic infer_frames -------
@@ -212,23 +263,41 @@ def main() -> int:
         raise RuntimeError(f"calibration ran K7 {n['K7']} times over {n_crops} crops")
     sparams = {**qparams, "hamer": {**qparams["hamer"], "backbone": attach_static_act_scales(
         qparams["hamer"]["backbone"], calib)}}
-    int8_runs = {"static": (sparams, {"K2": 0, "K3": depth, "K4": depth, "K5": 0, "K7": 0}),
-                 "dynamic": (qparams, {"K2": 0, "K3": 0, "K4": 0, "K5": 4 * depth, "K7": depth})}
+    # the opt-in paths: the same batch under their switches, A with the fused LBS
+    acfg = dataclasses.replace(qcfg, hamer=dataclasses.replace(qcfg.hamer, fused_mano=True))
+    # name: (params, config, switches, launches per ViT forward and HaMeR forward)
+    int8_runs = {"static": (sparams, qcfg, {}, {"K3": depth, "K4": depth}),
+                 "dynamic": (qparams, qcfg, {}, {"K5": 4 * depth, "K7": depth}),
+                 "path A": (sparams, acfg, PATH_A_ENV, {"K6": depth, "K10": depth, "K9": 1}),
+                 "path B": (qparams, qcfg, PATH_B_ENV, {"K5": 4 * depth, "K8": depth})}
     int8_out = {}
-    for name, (p, want) in int8_runs.items():
-        with torch.inference_mode():
-            out, n = run_counted(lambda: infer_frames(p, mano, imgs, hws, Ks, qcfg))
-        print(f"int8 {name} infer_frames batch {BATCH}: {int(out['valid'].sum())} valid slots, "
-              f"launches per ViT forward {n}")
-        expect_launches(f"int8 {name} path", n, want)
+    for name, (p, c, env, want) in int8_runs.items():
+        with torch.inference_mode(), switches(env):
+            out, n = run_counted(lambda: infer_frames(p, mano, imgs, hws, Ks, c))
+        print(f"int8 {name} infer_frames batch {BATCH} {env}: {int(out['valid'].sum())} valid "
+              f"slots, launches per ViT forward {n}")
+        expect_launches(f"int8 {name}", n, {**dict.fromkeys(("K2", "K9") + INT8_KERNELS, 0),
+                                             **want})
         check_batch(out, cfg, f"int8 {name} infer_frames")
         int8_out[name] = out
-        for k in ("K3", "K4") if name == "static" else ("K5", "K7"):
-            launches[k] = n[k]
-    mpjpe = float((int8_out["static"]["keypoints_3d"] - batch_out["keypoints_3d"]).norm(dim=-1)
-                  [batch_out["valid"] & int8_out["static"]["valid"]].mean())
-    print(f"int8 static vs bf16 on the same batch: mean joint distance {mpjpe * 1e3:.3f} mm "
-          "(random weights)")
+        for k in want:
+            launches.setdefault(k, n[k])
+
+    def joint_dist_mm(a, b):
+        both = a["valid"] & b["valid"]
+        return float((a["keypoints_3d"] - b["keypoints_3d"]).norm(dim=-1)[both].mean()) * 1e3
+
+    print(f"int8 static vs bf16 on the same batch: mean joint distance "
+          f"{joint_dist_mm(int8_out['static'], batch_out):.3f} mm (random weights)")
+    for name, base in (("path A", "static"), ("path B", "dynamic")):
+        d = joint_dist_mm(int8_out[name], int8_out[base])
+        dv = float((int8_out[name]["vertices"] - int8_out[base]["vertices"]).abs().max()) * 1e3
+        print(f"int8 {name} vs the default int8 {base} path on the same batch: mean joint "
+              f"distance {d:.6f} mm, max vertex coordinate difference {dv:.6f} mm (limit "
+              f"{MAX_OPTIN_JOINT_DIST_MM} mm)")
+        if not torch.equal(int8_out[name]["valid"], int8_out[base]["valid"]) or not (
+                d <= MAX_OPTIN_JOINT_DIST_MM):
+            raise RuntimeError(f"int8 {name} departs from the default int8 {base} path")
 
     # -- the main path's own kernel inputs -----------------------------------
     with torch.inference_mode():
@@ -247,12 +316,19 @@ def main() -> int:
     record["K2"] = check_k2(params["hamer"]["backbone"]["blocks"][0], tok0, cfg.hamer.vit.num_heads)
     sblk = sparams["hamer"]["backbone"]["blocks"][0]
     record.update(check_int8_kernels(sblk, tok0, cfg.hamer.vit.num_heads))
+    with torch.inference_mode():
+        pred_mano = hamer_forward(sparams["hamer"], mano, crops, qcfg.hamer)["pred_mano_params"]
+    record.update(check_optin_kernels(sblk, tok0, cfg.hamer.vit.num_heads, mano, pred_mano,
+                                      record["K3"]["ms"], record["K4"]["ms"], record["K7"]["ms"]))
 
     # -- end to end timing ---------------------------------------------------
     with torch.inference_mode():
         batch_ms = cuda_time_ms(lambda: infer_frames(params, mano, imgs, hws, Ks, cfg), iters=5)
-        int8_ms = {name: cuda_time_ms(lambda: infer_frames(p, mano, imgs, hws, Ks, qcfg), iters=5)
-                   for name, (p, _) in int8_runs.items()}
+        int8_ms = {}
+        for name, (p, c, env, _) in int8_runs.items():
+            with switches(env):
+                int8_ms[name] = cuda_time_ms(lambda: infer_frames(p, mano, imgs, hws, Ks, c),
+                                             iters=5)
         single = []
         for _ in range(2):
             program(frames[0], K)
@@ -538,6 +614,165 @@ def check_int8_kernels(blk, tok0, heads):
     return out
 
 
+def check_optin_kernels(blk, tok0, heads, mano, pred_mano, k3_ms, k4_ms, k7_ms):
+    """K6, K8, K9 and K10 against their plain versions at the main path's
+    shapes (16 crops x 192 tokens of ViT-H, 16 hands), on the int8 weights and
+    calibrated scales of block 0 and the MANO head's own outputs; timings
+    there, beside the kernel each is an option to."""
+    import torch
+
+    from hamer_yolo_tpu_torch.models.mano import lbs
+    from hamer_yolo_tpu_torch.ops import attn_block_int8 as abi
+    from hamer_yolo_tpu_torch.ops import int8_matmul as im
+    from hamer_yolo_tpu_torch.ops import mano_lbs
+    from hamer_yolo_tpu_torch.ops.attn_block import check_against_twin
+    from hamer_yolo_tpu_torch.ops.short_attention import (fused_qkv_attention,
+                                                          fused_qkv_attention_ref,
+                                                          fused_short_attention)
+
+    dev = tok0.device
+    B, N, Kd = tok0.shape
+    M = B * N
+    hd = Kd // heads
+    rng = np.random.default_rng(SEED + 5)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    a, mlp = blk["attn"], blk["mlp"]
+    lin = {k: (p["wq"]["q"], p["wq"]["scale"], p["b"], p["sx"])
+           for k, p in (("qkv", a["qkv"]), ("proj", a["proj"]), ("fc1", mlp["fc1"]),
+                        ("fc2", mlp["fc2"]))}
+    ln1 = (blk["norm1"]["scale"], blk["norm1"]["bias"])
+    ln2 = (blk["norm2"]["scale"], blk["norm2"]["bias"])
+    out = {}
+
+    # K6: step by step at K3's limits, on the block-0 tokens and random tokens
+    (q, s, b, sq), (pq, ps, pb, sp) = lin["qkv"], lin["proj"]
+    args = (q, s, b, *ln1, sq, sp, heads)
+    print(f"K6 limits (ops/attn_block_int8.py): its qkv and attention steps at K3's limits for "
+          f"them; end to end at most {abi.MAX_INT8_STEPS_END_TO_END} int8 steps, on at most "
+          f"{im.MAX_FRAC_INT8_FLIPPED} of elements")
+    err = 0.0
+    for tname, tok in (("block0_tokens", tok0), ("random", randn(B, N, Kd).bfloat16())):
+        steps = abi.fused_int8_attn_block_steps(tok, *args)
+        torch.cuda.synchronize()
+        r = abi.check_against_plain(steps, tok, *args)
+        err = max(err, r["max_abs_err"])
+        print(f"K6 {tname} {tuple(tok.shape)}: " + _fmt(r))
+    ms = cuda_time_ms(lambda: abi.fused_int8_attn_block(tok0, *args))
+    plain_ms = cuda_time_ms(lambda: abi.fused_int8_attn_block_ref(tok0, *args), iters=3)
+    aq = abi.fused_int8_attn_block(tok0, *args)
+    proj_ms = cuda_time_ms(lambda: im.int8_dot_prequant(aq, pq, ps, pb, sp))
+    bound_ms, by = bound(M * Kd * 2 + 3 * Kd * Kd + M * Kd + 8 * 4 * Kd,
+                         {"int8": 2 * M * Kd * 3 * Kd, "bf16": 4 * B * N * N * Kd})
+    print(f"K6 timing at {tuple(tok0.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({by}); no PyTorch call computes it. The proj product that follows "
+          f"it on its path (int8_dot_prequant, a plain exact product as f64 matmul, not a "
+          f"kernel): {proj_ms:.4f} ms; K3, which it is an option to, {k3_ms:.4f} ms")
+    out["K6"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": by, "library_ms": None}
+
+    # K8: bf16, bf16 -> int8 and f32 at (16, 192, 3840); equal to K7 on views
+    qkv32 = randn(B, N, 3 * Kd)
+    err = 0.0
+    for name, x, sx in (("bf16", qkv32.bfloat16(), None), ("bf16 -> int8", qkv32.bfloat16(), sp),
+                        ("f32", qkv32, None)):
+        got = fused_qkv_attention(x, heads, out_scale=sx)
+        torch.cuda.synchronize()
+        ref = fused_qkv_attention_ref(x, heads, out_scale=sx)
+        if sx is not None:
+            r = im.check_against_plain(got, ref, "K8")
+        elif x.dtype == torch.bfloat16:  # the limits of K2's attention, whose math this is
+            r = check_against_twin(got, ref)
+        else:  # f32 products and sums of 80 and 192 terms in another order, |out| <= 1
+            r = {"max_abs_err": float((got - ref).abs().max())}
+            if not r["max_abs_err"] <= F32_ATTN_ATOL:
+                raise AssertionError(f"K8 f32 disagrees with its plain version: {r} (limit "
+                                     f"{F32_ATTN_ATOL})")
+        heads_view = x.reshape(B, N, 3, heads, hd)
+        k7 = fused_short_attention(*(heads_view[:, :, i].transpose(1, 2) for i in range(3)),
+                                   out_scale=sx)
+        if not torch.equal(k7.transpose(1, 2).reshape(B, N, Kd), got):
+            raise AssertionError(f"K8 {name} differs from K7 on views of the same tensor")
+        err = max(err, r["max_abs_err"])
+        print(f"K8 {name} {tuple(x.shape)} (equal to K7 bit for bit): " + _fmt(r))
+    x = qkv32.bfloat16()
+    qv, kv, vv = (x.reshape(B, N, 3, heads, hd)[:, :, i].transpose(1, 2) for i in range(3))
+    ms = cuda_time_ms(lambda: fused_qkv_attention(x, heads))
+    plain_ms = cuda_time_ms(lambda: fused_qkv_attention_ref(x, heads))
+    sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qv, kv, vv))
+    f32_ms = cuda_time_ms(lambda: fused_qkv_attention(qkv32, heads))
+    bound_ms, by = bound(4 * M * Kd * 2, {"bf16": 4 * B * heads * N * N * hd})
+    print(f"K8 timing at {tuple(x.shape)} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {sdpa_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}); K7, "
+          f"which it is an option to, {k7_ms:.4f} ms; with f32 inputs {f32_ms:.4f} ms")
+    out["K8"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": by, "library_ms": sdpa_ms}
+
+    # K9: the MANO head's own betas and rotations for the batch's 16 hands
+    betas = pred_mano["betas"]
+    rotmats = torch.cat([pred_mano["global_orient"], pred_mano["hand_pose"]], dim=1)
+    S, nb = betas.shape
+    verts, joints = mano_lbs.mano_lbs_fused(mano, betas, rotmats)
+    torch.cuda.synchronize()
+    ref_v, ref_j = mano_lbs.mano_lbs_fused_ref(mano, betas, rotmats)
+    r = mano_lbs.check_against_plain(verts, ref_v)
+    lbs_v, lbs_j = lbs(mano, betas, rotmats)
+    r["vs_einsum_lbs_verts"] = float((verts - lbs_v).abs().max())
+    r["vs_einsum_lbs_joints"] = float((joints - lbs_j).abs().max())
+    if max(r["vs_einsum_lbs_verts"], r["vs_einsum_lbs_joints"]) > mano_lbs.MAX_ABS_ERR_M:
+        raise AssertionError(f"K9 departs from the einsum LBS: {r}")
+    print(f"K9 {S} hands, nb {nb} (limit {mano_lbs.MAX_ABS_ERR_M} m, absolute): " + _fmt(r))
+    ms = cuda_time_ms(lambda: mano_lbs.mano_lbs_fused(mano, betas, rotmats))
+    plain_ms = cuda_time_ms(lambda: mano_lbs.mano_lbs_fused_ref(mano, betas, rotmats))
+    lbs_ms = cuda_time_ms(lambda: lbs(mano, betas, rotmats))
+    sd, pd, pose_feat, A_flat, _ = mano_lbs._kernel_inputs(mano, betas, rotmats)
+    fk_ms = cuda_time_ms(lambda: mano_lbs._kernel_inputs(mano, betas, rotmats))
+    kernel_ms = cuda_time_ms(lambda: mano_lbs.launch_blend_skin(
+        betas, pose_feat, A_flat, mano.v_template, sd, pd, mano.weights))
+    V = 778
+    # the model's arrays, the hand's betas, pose features and transforms in,
+    # the vertices out; two products per blendshape term, the blend, the affine
+    bound_ms, by = bound(4 * (3 * V * (nb + 135 + 1) + V * 16 + S * (nb + 135 + 16 * 12)
+                              + S * V * 3),
+                         {"f32": S * (2 * 3 * V * (nb + 135) + 2 * V * 16 * 12 + 18 * V)})
+    print(f"K9 timing at {S} hands: wrapper (forward kinematics + kernel) {ms:.4f} ms, of which "
+          f"the kinematics and input views outside the kernel {fk_ms:.4f} ms and the kernel's "
+          f"launch alone {kernel_ms:.4f} ms; plain {plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({by}); no PyTorch call computes it; the einsum LBS, "
+          f"which it is an option to, {lbs_ms:.4f} ms")
+    out["K9"] = {"max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+
+    # K10: equal to K4 bit for bit, both GELU flavours, and within K4's limits
+    (q1, s1, b1, sx1), (q2, s2, b2, sx2) = lin["fc1"], lin["fc2"]
+    args = (q1, s1, b1, q2, s2, b2, *ln2, sx1, sx2)
+    err = 0.0
+    for gelu in ("gelu", "gelu_poly"):
+        for tname, tok in (("block0_tokens", tok0), ("random", randn(B, N, Kd).bfloat16())):
+            got = im.fused_int8_mlp_block1(tok, *args, gelu=gelu)
+            torch.cuda.synchronize()
+            if not torch.equal(got, im.fused_int8_mlp_block(tok, *args, gelu=gelu)):
+                raise AssertionError(f"K10 {gelu} {tname} is not K4 bit for bit")
+            r = im.check_against_plain(got, im.fused_int8_mlp_block1_ref(tok, *args, gelu=gelu),
+                                       "K10")
+            err = max(err, r["max_abs_err"])
+            print(f"K10 {gelu} {tname} {tuple(tok.shape)} (equal to K4 bit for bit): " + _fmt(r))
+    ms = cuda_time_ms(lambda: im.fused_int8_mlp_block1(tok0, *args, gelu="gelu_poly"))
+    plain_ms = cuda_time_ms(lambda: im.fused_int8_mlp_block1_ref(tok0, *args, gelu="gelu_poly"),
+                            iters=3)
+    H = q1.shape[1]
+    bound_ms, by = bound(2 * M * Kd * 2 + 2 * Kd * H + 8 * (H + Kd), {"int8": 4 * M * Kd * H})
+    l2_bytes = -(-M // 16) * 2 * Kd * H
+    print(f"K10 timing at {tuple(tok0.shape)}, H {H}, gelu_poly: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}); no PyTorch call computes it; K4, "
+          f"which it is an option to, {k4_ms:.4f} ms. Its {-(-M // 16)} CTAs each read both "
+          f"weights: {l2_bytes / 1e9:.3f} GB from L2 a launch")
+    out["K10"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": by, "library_ms": None}
+    return out
+
+
 def _fmt(r):
     return ", ".join(f"{k} {v:.6g}" for k, v in r.items())
 
@@ -658,8 +893,9 @@ def check_reference_int8(dev) -> None:
     small config: an f32 detector (so both devices crop the same boxes) and a
     bf16 int8 ViT (the CLI's dtype), calibrated on the CPU; the kernels on
     the card, their plain versions on the CPU (fused), with the static scales
-    (K3, K4) and without (K5, K7); then the --tiny ViT (N = 12, heads of 16)
-    the same way. The devices part where a sum in another order moves a
+    (K3, K4) and without (K5, K7), and each again under the switches of the
+    opt-in paths (A: K6, K10 and the fused LBS K9; B: K5, K8); then the
+    --tiny ViT (N = 12, heads of 16) the same way. The devices part where a sum in another order moves a
     value across an int8 rounding midpoint, and cuDNN's bf16 patch embedding
     already differs from the CPU's in the last bit. So the ViT blocks are
     compared on the same embedded tokens, with the card's polynomial GELU on
@@ -705,17 +941,23 @@ def check_reference_int8(dev) -> None:
         sparams = {**qparams, "hamer": {**qparams["hamer"], "backbone": attach_static_act_scales(
             qparams["hamer"]["backbone"], stats)}}
         x = torch.from_numpy(rng.normal(size=(3, *vit.img_size, 3)).astype(np.float32))
-        for scales, p, kern in (("static", sparams, ("K3", "K4")),
-                                ("dynamic", qparams, ("K5", "K7"))):
+        for scales, p, kern, env in (("static", sparams, ("K3", "K4"), {}),
+                                     ("dynamic", qparams, ("K5", "K7"), {}),
+                                     ("static, path A", sparams, ("K6", "K9", "K10"), PATH_A_ENV),
+                                     ("dynamic, path B", qparams, ("K5", "K8"), PATH_B_ENV)):
             pg = _to(p, dev)
-            with torch.inference_mode():
-                ref = infer_frames(p, ManoModel.from_arrays(mano_np, cpu), imgs, hws, Ks, qcfg)
+            c = qcfg
+            if env == PATH_A_ENV:  # with the fused LBS, as the full-width path A
+                c = dataclasses.replace(qcfg, hamer=dataclasses.replace(qcfg.hamer,
+                                                                        fused_mano=True))
+            with torch.inference_mode(), switches(env):
+                ref = infer_frames(p, ManoModel.from_arrays(mano_np, cpu), imgs, hws, Ks, c)
                 tok = embed_tokens(pg["hamer"]["backbone"], x.to(dev), vit)
                 ref_vit = vit_blocks_int8(p["hamer"]["backbone"], tok.cpu(), vit,
                                           gelu="gelu_poly")
                 (got, got_vit), n = run_counted(lambda: (
                     infer_frames(pg, ManoModel.from_arrays(mano_np, dev), imgs.to(dev),
-                                 hws.to(dev), Ks.to(dev), qcfg),
+                                 hws.to(dev), Ks.to(dev), c),
                     vit_blocks_int8(pg["hamer"]["backbone"], tok, vit)))
             if any(n[k] == 0 for k in kern) or n["K2"]:
                 raise RuntimeError(f"int8 reference check {name} {scales}: launches {n}")

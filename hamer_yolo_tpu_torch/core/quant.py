@@ -17,19 +17,45 @@ takes the kernels where the tokens are on CUDA (JAX: on a TPU); on CPU
 tensors each kernel runs its plain version. One divergence: with a static
 scale K5 quantizes by it at every M, as JAX's kernel does in interpret mode
 (on the TPU JAX's small-M kernel quantizes per row whatever it is given).
+
+The dispatch functions read JAX's own switches from the environment, at call
+time, with JAX's values (where JAX asks "on a TPU, or interpret" the port is
+already inside the kernel path: its tokens are on CUDA or ``fused`` was
+forced):
+
+- ``HYT_ATTN``: unset or ``megaproj`` gives K3 with both static scales;
+  ``megakernel`` K6 + the pre-quantized proj product; ``pallas_fusedqkv`` K8
+  and ``pallas_direct`` K7 for the attention between two K5; ``xla`` (and any
+  other value) the einsum attention there. ``pallas`` and ``auto`` raise: they
+  need JAX's custom_vmap crop collapse, which is not ported (ROADMAP.md,
+  Queue 2).
+- ``HYT_ATTN_PREQUANT=0`` turns off K3, K6 and the int8 epilogue of K7 / K8:
+  the proj GEMM then quantizes its own input (K5 with the static scale).
+- ``HYT_INT8_MLP``: unset or ``megakernel`` gives K4 with both static scales,
+  ``megakernel1`` K10 (``HYT_INT8_MLP_HC``: the chunk of its plain version),
+  ``off`` (and any other value) K5 twice.
+
+One place where JAX's tree surprises, kept as it is: under
+``HYT_ATTN=megakernel`` with a static proj scale but no static qkv scale, K6
+cannot run, and the attention falls to K7 with the int8 epilogue (``force``
+becomes ``pallas_direct``), not to K8; with no static proj scale at all it is
+the einsum, since ``megakernel`` is not a value ``softmax_attention_qkv``
+knows.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from hamer_yolo_tpu_torch.core import nn
+from hamer_yolo_tpu_torch.ops.attn_block_int8 import fused_int8_attn_block
 from hamer_yolo_tpu_torch.ops.attn_proj_block import fused_int8_attn_proj_block
 from hamer_yolo_tpu_torch.ops.int8_matmul import (RECIP_127, fused_int8_matmul,
-                                                  fused_int8_mlp_block, gelu_prologue,
-                                                  int8_dot_prequant, int_dot)
+                                                  fused_int8_mlp_block, fused_int8_mlp_block1,
+                                                  gelu_prologue, int8_dot_prequant, int_dot)
 from hamer_yolo_tpu_torch.ops.short_attention import softmax_attention_qkv
 
 Params = Dict[str, Any]
@@ -96,10 +122,31 @@ def quantize_vit_params(vit_params: Params) -> Params:
             "blocks": qblocks, "last_norm": vit_params["last_norm"]}
 
 
-def _attn_math(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """(B, N, 3D) -> (B, N, D) pre-proj attention: K7 on the card (JAX's
-    accelerator default, "pallas_direct"), the einsum elsewhere."""
-    return softmax_attention_qkv(qkv, num_heads, force="pallas_direct" if qkv.is_cuda else "xla")
+_ATTN_FORCES = ("xla", "pallas_direct", "pallas_fusedqkv")
+
+
+def _attn_env() -> Optional[str]:
+    """HYT_ATTN, refusing the values whose path is not ported."""
+    env = os.environ.get("HYT_ATTN")
+    if env in ("pallas", "auto"):
+        raise NotImplementedError(
+            f"HYT_ATTN={env}: the custom_vmap crop collapse behind it is not ported "
+            "(ROADMAP.md, Queue 2); use pallas_direct or pallas_fusedqkv")
+    return env
+
+
+def _attn_math(qkv: torch.Tensor, num_heads: int, kernels: Optional[bool] = None) -> torch.Tensor:
+    """(B, N, 3D) -> (B, N, D) pre-proj attention. HYT_ATTN unset: K7 where
+    ``kernels`` (None: qkv is on the card; JAX's accelerator default,
+    "pallas_direct"), the einsum elsewhere. HYT_ATTN set: that form where
+    softmax_attention_qkv has it, else the einsum."""
+    env = _attn_env()
+    if env is None:
+        kernels = qkv.is_cuda if kernels is None else kernels
+        force = "pallas_direct" if kernels else "xla"
+    else:
+        force = env if env in _ATTN_FORCES else "xla"
+    return softmax_attention_qkv(qkv, num_heads, force=force)
 
 
 def int8_mha_self_attention(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -189,28 +236,47 @@ def load_act_stats(path: str, device="cpu") -> Params:
 # ---------------------------------------------------------------- dispatch
 def int8_block_attn_fused(blk: Params, tok: torch.Tensor, num_heads: int) -> torch.Tensor:
     """LN(norm1) + qkv + attention + proj on the kernels, without the
-    residual: K5 (LN prologue) -> K7 -> K5; with a static proj scale K7
-    quantizes in its epilogue and proj is the plain pre-quantized product."""
+    residual, by JAX's decision tree (the module docstring has the switches):
+    K6 + the pre-quantized proj product; or K5 (LN prologue), the attention
+    (K7 or K8 with the int8 epilogue where the proj scale is static and
+    HYT_ATTN_PREQUANT is not 0, then the pre-quantized product; else K7, K8
+    or the einsum, then K5)."""
     p = blk["attn"]
-    sx_proj = p["proj"].get("sx")
+    sx_qkv, sx_proj = p["qkv"].get("sx"), p["proj"].get("sx")
+    env = _attn_env()
+    if env in ("pallas_direct", "pallas_fusedqkv", "megakernel"):
+        kern = env
+    elif env is None:
+        kern = "megakernel" if sx_qkv is not None and sx_proj is not None else "pallas_direct"
+    else:
+        kern = None
+    prequant = (sx_proj is not None and kern is not None
+                and os.environ.get("HYT_ATTN_PREQUANT") != "0")
+    proj = (p["proj"]["wq"]["q"], p["proj"]["wq"]["scale"], p["proj"].get("b"))
+    if prequant and kern == "megakernel" and sx_qkv is not None:
+        aq = fused_int8_attn_block(tok, p["qkv"]["wq"]["q"], p["qkv"]["wq"]["scale"],
+                                   p["qkv"].get("b"), blk["norm1"]["scale"],
+                                   blk["norm1"]["bias"], sx_qkv, sx_proj, num_heads)
+        return int8_dot_prequant(aq, *proj, sx_proj, out_dtype=tok.dtype)
     qkv = fused_int8_matmul(tok, p["qkv"]["wq"]["q"], p["qkv"]["wq"]["scale"],
                             p["qkv"].get("b"), blk["norm1"]["scale"], blk["norm1"]["bias"],
-                            prologue="ln", static_scale=p["qkv"].get("sx"))
-    if sx_proj is not None:
-        aq = softmax_attention_qkv(qkv, num_heads, force="pallas_direct", out_scale=sx_proj)
-        return int8_dot_prequant(aq, p["proj"]["wq"]["q"], p["proj"]["wq"]["scale"],
-                                 p["proj"].get("b"), sx_proj, out_dtype=tok.dtype)
-    out = softmax_attention_qkv(qkv, num_heads, force="pallas_direct")
-    return fused_int8_matmul(out, p["proj"]["wq"]["q"], p["proj"]["wq"]["scale"],
-                             p["proj"].get("b"), prologue="id")
+                            prologue="ln", static_scale=sx_qkv)
+    if prequant:
+        aq = softmax_attention_qkv(qkv, num_heads, out_scale=sx_proj,
+                                   force="pallas_direct" if kern == "megakernel" else kern)
+        return int8_dot_prequant(aq, *proj, sx_proj, out_dtype=tok.dtype)
+    out = _attn_math(qkv, num_heads, kernels=True)
+    return fused_int8_matmul(out, *proj, prologue="id", static_scale=sx_proj)
 
 
 def int8_block_attn_residual(blk: Params, tok: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """tok + attention block: K3 with both static scales, else
+    """tok + attention block: K3 with both static scales under HYT_ATTN unset
+    or "megaproj" (and HYT_ATTN_PREQUANT not 0), else
     tok + int8_block_attn_fused."""
     p = blk["attn"]
     sx_qkv, sx_proj = p["qkv"].get("sx"), p["proj"].get("sx")
-    if sx_qkv is not None and sx_proj is not None:
+    if (_attn_env() in (None, "megaproj") and sx_qkv is not None and sx_proj is not None
+            and os.environ.get("HYT_ATTN_PREQUANT") != "0"):
         return fused_int8_attn_proj_block(
             tok, p["qkv"]["wq"]["q"], p["qkv"]["wq"]["scale"], p["qkv"].get("b"),
             blk["norm1"]["scale"], blk["norm1"]["bias"], sx_qkv, sx_proj,
@@ -230,15 +296,19 @@ def int8_block_mlp_fused(blk: Params, tok: torch.Tensor, gelu: str = "gelu") -> 
 
 
 def int8_block_mlp_residual(blk: Params, tok: torch.Tensor, gelu: str = "gelu") -> torch.Tensor:
-    """tok + MLP block: K4 with both static scales, else
-    tok + int8_block_mlp_fused."""
+    """tok + MLP block: with both static scales K4 (HYT_INT8_MLP unset or
+    "megakernel") or K10 ("megakernel1"), else tok + int8_block_mlp_fused."""
+    env = os.environ.get("HYT_INT8_MLP")
     m = blk["mlp"]
-    if m["fc1"].get("sx") is not None and m["fc2"].get("sx") is not None:
-        return fused_int8_mlp_block(
-            tok, m["fc1"]["wq"]["q"], m["fc1"]["wq"]["scale"], m["fc1"].get("b"),
-            m["fc2"]["wq"]["q"], m["fc2"]["wq"]["scale"], m["fc2"].get("b"),
-            blk["norm2"]["scale"], blk["norm2"]["bias"], m["fc1"]["sx"], m["fc2"]["sx"],
-            gelu=gelu)
+    if (env in (None, "megakernel", "megakernel1") and m["fc1"].get("sx") is not None
+            and m["fc2"].get("sx") is not None):
+        args = (tok, m["fc1"]["wq"]["q"], m["fc1"]["wq"]["scale"], m["fc1"].get("b"),
+                m["fc2"]["wq"]["q"], m["fc2"]["wq"]["scale"], m["fc2"].get("b"),
+                blk["norm2"]["scale"], blk["norm2"]["bias"], m["fc1"]["sx"], m["fc2"]["sx"])
+        if env == "megakernel1":
+            return fused_int8_mlp_block1(*args, gelu=gelu,
+                                         hc=int(os.environ.get("HYT_INT8_MLP_HC", "1280")))
+        return fused_int8_mlp_block(*args, gelu=gelu)
     return tok + int8_block_mlp_fused(blk, tok, gelu)
 
 

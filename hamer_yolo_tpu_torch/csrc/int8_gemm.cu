@@ -1,5 +1,5 @@
-// W8A8 int8 GEMM core of kernels K3, K4 and K5, with its f32 prologues and
-// dequantizing epilogues.
+// W8A8 int8 GEMM core of kernels K3, K4, K5, K6 and K10, with its f32
+// prologues and dequantizing epilogues.
 //
 // Replaces the int8 GEMMs of the TPU kernels
 //   hamer_yolo_tpu/ops/int8_matmul.py:fused_int8_matmul (K5; _kernel: an
@@ -10,7 +10,11 @@
 //     _mlp2_kernel: fc2, acc * (s2 * sw) + b, + f32 residual),
 //   hamer_yolo_tpu/ops/attention_pallas.py:fused_int8_attn_proj_block (K3's
 //     qkv GEMM, acc * (sq * sw) + b -> bf16, and its proj GEMM,
-//     (acc * sp) * pw + pb rounded to the token dtype, then + residual).
+//     (acc * sp) * pw + pb rounded to the token dtype, then + residual),
+//   hamer_yolo_tpu/ops/attention_pallas.py:fused_int8_attn_block (K6: K3's
+//     quantize and qkv GEMM),
+//   hamer_yolo_tpu/ops/int8_matmul.py:fused_int8_mlp_block1 (K10;
+//     _mlp1p_kernel: K4 in one call, see mlp_block1_kernel below).
 //
 // Two launches make each int8 product:
 //  (a) quantize_rows_kernel: one warp per row. It computes the row's LN
@@ -117,16 +121,15 @@ __device__ __forceinline__ float prologue(float x, float mu, float rstd, const f
   return x;
 }
 
+// One warp quantizes one row xr (K values) into qr: the row's LN statistics
+// (two passes), its absmax after the prologue where DYN, then the int8 values.
+// Returns the row's scale.
 template <typename TokT, int PRO, bool DYN>
-__global__ void __launch_bounds__(QW * 32)
-quantize_rows_kernel(const TokT* __restrict__ x, const float* __restrict__ g,
-                     const float* __restrict__ b, int M, int K,
-                     const float* __restrict__ s_static, int8_t* __restrict__ xq,
-                     float* __restrict__ row_scale) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * QW + (threadIdx.x >> 5);
-  if (row >= M) return;
-  const TokT* xr = x + (size_t)row * K;
+__device__ __forceinline__ float quantize_row(const TokT* __restrict__ xr,
+                                              const float* __restrict__ g,
+                                              const float* __restrict__ b, int K,
+                                              const float* __restrict__ s_static,
+                                              int8_t* __restrict__ qr, int lane) {
   float mu = 0.0f, rstd = 0.0f;
   if constexpr (PRO == PRO_LN) {
     const float inv_k = __fdiv_rn(1.0f, (float)K);  // means are sums times f32(1 / K)
@@ -147,14 +150,27 @@ quantize_rows_kernel(const TokT* __restrict__ x, const float* __restrict__ g,
     for (int k = lane; k < K; k += 32)
       m = fmaxf(m, fabsf(prologue<PRO>(to_f32(xr[k]), mu, rstd, g, b, k)));
     scale = fmaxf(__fmul_rn(warp_max(m), 1.0f / 127.0f), 1e-8f);
-    if (lane == 0) row_scale[row] = scale;
   } else {
     scale = *s_static;
   }
   const float inv = __fdiv_rn(1.0f, scale);
-  int8_t* qr = xq + (size_t)row * K;
   for (int k = lane; k < K; k += 32)
     qr[k] = quantize(prologue<PRO>(to_f32(xr[k]), mu, rstd, g, b, k), inv);
+  return scale;
+}
+
+template <typename TokT, int PRO, bool DYN>
+__global__ void __launch_bounds__(QW * 32)
+quantize_rows_kernel(const TokT* __restrict__ x, const float* __restrict__ g,
+                     const float* __restrict__ b, int M, int K,
+                     const float* __restrict__ s_static, int8_t* __restrict__ xq,
+                     float* __restrict__ row_scale) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * QW + (threadIdx.x >> 5);
+  if (row >= M) return;
+  const float scale = quantize_row<TokT, PRO, DYN>(x + (size_t)row * K, g, b, K, s_static,
+                                                   xq + (size_t)row * K, lane);
+  if (DYN && lane == 0) row_scale[row] = scale;
 }
 
 template <typename TokT, int PRO>
@@ -212,6 +228,18 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// acc * (s * sw) + b: the dequant with the scales folded.
+__device__ __forceinline__ float dequant_fold(int acc, float s, float sw, float b) {
+  return __fadd_rn(__fmul_rn(__int2float_rn(acc), __fmul_rn(s, sw)), b);
+}
+
+// fc1's epilogue (K4, K10): dequant -> GELU -> int8 by inv_out.
+__device__ __forceinline__ int8_t dequant_gelu_q(int acc, float s, float sw, float b, int poly,
+                                                 float inv_out) {
+  const float y = dequant_fold(acc, s, sw, b);
+  return quantize(poly ? gelu_poly(y) : gelu_exact(y), inv_out);
+}
+
 // s: the static scale (or this row's); inv_out: 1 / the int8 output's scale.
 template <int EPI, typename OutT>
 __device__ __forceinline__ void store_out(const GemmArgs& p, int row, int col, int acc, float s,
@@ -222,19 +250,40 @@ __device__ __forceinline__ void store_out(const GemmArgs& p, int row, int col, i
     const float y = __fadd_rn(__fmul_rn(__fmul_rn(af, s), p.wscale[col]), p.bias[col]);
     ((OutT*)p.out)[i] = from_f32<OutT>(y);
   } else if constexpr (EPI == EPI_DEQ_FOLD) {
-    const float y = __fadd_rn(__fmul_rn(af, __fmul_rn(s, p.wscale[col])), p.bias[col]);
-    ((OutT*)p.out)[i] = from_f32<OutT>(y);
+    ((OutT*)p.out)[i] = from_f32<OutT>(dequant_fold(acc, s, p.wscale[col], p.bias[col]));
   } else if constexpr (EPI == EPI_GELU_Q) {
-    float y = __fadd_rn(__fmul_rn(af, __fmul_rn(s, p.wscale[col])), p.bias[col]);
-    y = p.gelu_poly ? gelu_poly(y) : gelu_exact(y);
-    ((int8_t*)p.out)[i] = quantize(y, inv_out);
+    ((int8_t*)p.out)[i] =
+        dequant_gelu_q(acc, s, p.wscale[col], p.bias[col], p.gelu_poly, inv_out);
   } else if constexpr (EPI == EPI_RESID) {
-    const float z = __fadd_rn(__fmul_rn(af, __fmul_rn(s, p.wscale[col])), p.bias[col]);
+    const float z = dequant_fold(acc, s, p.wscale[col], p.bias[col]);
     ((OutT*)p.out)[i] = from_f32<OutT>(__fadd_rn(to_f32(((const OutT*)p.res)[i]), z));
   } else {  // EPI_PROJ
     const float y = __fadd_rn(__fmul_rn(__fmul_rn(af, s), p.wscale[col]), p.bias[col]);
     const float yt = to_f32(from_f32<OutT>(y));
     ((OutT*)p.out)[i] = from_f32<OutT>(__fadd_rn(to_f32(((const OutT*)p.res)[i]), yt));
+  }
+}
+
+// A KT x NT byte tile of the (K, N) weight w at (k0, n0), in 4 x 4 blocks
+// transposed to Bs[n][k] (rows of lds bytes); zeros past the edges.
+template <int KT, int NT, int THREADS>
+__device__ __forceinline__ void load_b_tile(const int8_t* __restrict__ w, int K, int N, int k0,
+                                            int n0, int8_t* Bs, int lds, int tid) {
+  for (int c = tid; c < (KT / 4) * (NT / 4); c += THREADS) {
+    const int nb = c % (NT / 4), kb = c / (NT / 4);
+    const int n = n0 + nb * 4, k = k0 + kb * 4;
+    uint32_t r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      r[i] = (n < N && k + i < K) ? *reinterpret_cast<const uint32_t*>(w + (size_t)(k + i) * N + n)
+                                  : 0u;
+    const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
+    const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
+    int8_t* dst = Bs + (nb * 4) * lds + kb * 4;
+    *reinterpret_cast<uint32_t*>(dst) = __byte_perm(t0, t1, 0x5410);
+    *reinterpret_cast<uint32_t*>(dst + lds) = __byte_perm(t0, t1, 0x7632);
+    *reinterpret_cast<uint32_t*>(dst + 2 * lds) = __byte_perm(t2, t3, 0x5410);
+    *reinterpret_cast<uint32_t*>(dst + 3 * lds) = __byte_perm(t2, t3, 0x7632);
   }
 }
 
@@ -265,24 +314,7 @@ __global__ void __launch_bounds__(GT) int8_gemm_kernel(const GemmArgs p) {
       if (row < M && k < K) v = *reinterpret_cast<const uint4*>(p.a + (size_t)row * K + k);
       *reinterpret_cast<uint4*>(As + r * LDS + kc) = v;
     }
-    // B tile: BK x BN bytes of W, in 4 x 4 blocks transposed to Bs[n][k].
-    for (int c = tid; c < (BK / 4) * (BN / 4); c += GT) {
-      const int nb = c % (BN / 4), kb = c / (BN / 4);
-      const int n = n0 + nb * 4, k = k0 + kb * 4;
-      uint32_t r[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        r[i] = (n < N && k + i < K)
-                   ? *reinterpret_cast<const uint32_t*>(p.w + (size_t)(k + i) * N + n)
-                   : 0u;
-      const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
-      const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
-      int8_t* dst = Bs + (nb * 4) * LDS + kb * 4;
-      *reinterpret_cast<uint32_t*>(dst) = __byte_perm(t0, t1, 0x5410);
-      *reinterpret_cast<uint32_t*>(dst + LDS) = __byte_perm(t0, t1, 0x7632);
-      *reinterpret_cast<uint32_t*>(dst + 2 * LDS) = __byte_perm(t2, t3, 0x5410);
-      *reinterpret_cast<uint32_t*>(dst + 3 * LDS) = __byte_perm(t2, t3, 0x7632);
-    }
+    load_b_tile<BK, BN, GT>(p.w, K, N, k0, n0, Bs, LDS, tid);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 32) {
@@ -333,6 +365,179 @@ int launch_gemm(const GemmArgs& p, cudaStream_t st) {
   const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM);
   int8_gemm_kernel<EPI, OutT><<<grid, GT, 0, st>>>(p);
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------- K10: the int8 MLP in one launch
+// fused_int8_mlp_block1 (_mlp1p_kernel): LN + quantize (s1) + fc1 + GELU +
+// quantize (s2) + fc2 + dequant + f32 residual, H taken in chunks with the fc2
+// partial sums added in int32, so the result is bit-identical to K4's two
+// GEMM launches: the same quantize_row, the same exact int32 sums, the same
+// dequant_gelu_q and residual arithmetic.
+//
+// Design. A CTA owns M1_TM = 16 token rows: one m16 mma tile. Its int8 LN
+// output (16 x K) stays in shared memory for the whole kernel. H goes in
+// chunks of M1_HC = 128 columns: fc1's 16 x 128 int32 tile (each of the 8
+// warps 16 columns) is dequantized, GELU'd and requantized into shared
+// memory (the (M, H) int8 tensor that K4 writes to device memory and reads
+// back never exists), then multiplied by the chunk's 128 x K row band of w2
+// into the CTA's 16 x K int32 accumulator, which lives in registers: each
+// warp owns K / 8 output columns, 80 registers a thread at K = 1280. That
+// accumulator is why the tile is 16 rows: at 64 rows it is 327 KB, more than
+// an SM's registers or shared memory (the TPU keeps it in VMEM at 128 rows).
+// w1's column band and w2's row band go through load_b_tile like any weight
+// tile. K up to 1280 (NT2 = 20 n8-tiles per warp; smaller K takes NT2 = 1, 2
+// or 4).
+//
+// What bounds it on the H100: the same 80.5 G int8 operations as K4 at
+// ViT-H's M = 3072, so the tensor cores. What it costs here: every CTA
+// re-reads both weights (13.1 MB at ViT-H), M / 16 = 192 times over, 2.5 GB
+// from L2 a launch, where K4's 128-row tiles read them 24 times; loads and
+// mma do not overlap. It is the simple form that is right; splitting fc2's
+// columns over a cluster that shares the GELU chunk through distributed
+// shared memory, with taller row tiles, is the follow-up.
+constexpr int M1_TM = 16, M1_T = 256, M1_HC = 128, M1_BK1 = 64, M1_BK2 = 32;
+constexpr int M1_LDB1 = M1_BK1 + 16, M1_LDY = M1_HC + 16, M1_LDB2 = M1_BK2 + 16;
+
+struct Mlp1Args {
+  const void* x;  // (M, K) tokens: the LN's input and the residual
+  const float *g, *b;                        // (K,) LN scale and bias
+  const int8_t *w1, *w2;                     // (K, H) and (H, K) int8
+  const float *w1scale, *b1, *w2scale, *b2;  // (H,), (H,), (K,), (K,)
+  const float *s1, *s2;                      // (1,) static scales, on the device
+  void* out;                                 // (M, K) in the tokens' dtype
+  int gelu_poly;
+  int M, K, H;
+};
+
+// Bytes of an Xq row: K rounded up to fc1's k step, plus 16 (16 mod 128 at
+// K = 1280, so the fragment loads are free of bank conflicts).
+__host__ __device__ __forceinline__ int mlp1_ldx(int K) { return ((K + 63) & ~63) + 16; }
+
+__host__ __device__ __forceinline__ int mlp1_smem_bytes(int K, int nt2) {
+  return M1_TM * mlp1_ldx(K) + M1_HC * M1_LDB1 + M1_TM * M1_LDY + 64 * nt2 * M1_LDB2;
+}
+
+__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], const int8_t* base, int ld) {
+  a[0] = *reinterpret_cast<const uint32_t*>(base);
+  a[1] = *reinterpret_cast<const uint32_t*>(base + 8 * ld);
+  a[2] = *reinterpret_cast<const uint32_t*>(base + 16);
+  a[3] = *reinterpret_cast<const uint32_t*>(base + 8 * ld + 16);
+}
+
+template <typename TokT, int NT2>
+__global__ void __launch_bounds__(M1_T) mlp_block1_kernel(const Mlp1Args p) {
+  extern __shared__ __align__(16) int8_t m1_smem[];
+  const int M = p.M, K = p.K, H = p.H;
+  const int ldx = mlp1_ldx(K);
+  int8_t* Xq = m1_smem;                 // 16 x ldx: the quantized LN output
+  int8_t* Bs1 = Xq + M1_TM * ldx;       // [128 n][64 k]: a tile of w1, transposed
+  int8_t* Yq = Bs1 + M1_HC * M1_LDB1;   // 16 x 128: the quantized GELU chunk
+  int8_t* Bs2 = Yq + M1_TM * M1_LDY;    // [64 NT2 n][32 k]: a row band of w2, transposed
+  const int m0 = blockIdx.x * M1_TM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const TokT* x = reinterpret_cast<const TokT*>(p.x);
+
+  for (int r = warp; r < M1_TM; r += M1_T / 32) {
+    int8_t* qr = Xq + r * ldx;
+    const int row = m0 + r;
+    if (row < M)
+      quantize_row<TokT, PRO_LN, false>(x + (size_t)row * K, p.g, p.b, K, p.s1, qr, lane);
+    for (int k = (row < M ? K : 0) + lane; k < ldx; k += 32) qr[k] = 0;
+  }
+  __syncthreads();
+
+  const float s1 = *p.s1, s2 = *p.s2;
+  const float inv2 = __fdiv_rn(1.0f, s2);
+  const int ncol0 = warp * 8 * NT2;  // this warp's first output column
+  int acc2[NT2][4];
+#pragma unroll
+  for (int ni = 0; ni < NT2; ++ni)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc2[ni][r] = 0;
+
+  for (int c0 = 0; c0 < H; c0 += M1_HC) {
+    // fc1: Xq (16 x K) @ w1[:, c0 : c0 + 128], each warp 16 columns
+    int acc1[2][4];
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc1[ni][r] = 0;
+    for (int k0 = 0; k0 < K; k0 += M1_BK1) {
+      load_b_tile<M1_BK1, M1_HC, M1_T>(p.w1, K, H, k0, c0, Bs1, M1_LDB1, tid);
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < M1_BK1; kk += 32) {
+        uint32_t a[4];
+        load_a_frag(a, Xq + g * ldx + k0 + kk + tig * 4, ldx);
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni) {
+          const int8_t* base = Bs1 + (warp * 16 + ni * 8 + g) * M1_LDB1 + kk + tig * 4;
+          mma_s8(acc1[ni], a, *reinterpret_cast<const uint32_t*>(base),
+                 *reinterpret_cast<const uint32_t*>(base + 16));
+        }
+      }
+      __syncthreads();
+    }
+    // dequant -> GELU -> quantize by s2, into Yq; zeros past H
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int cc = warp * 16 + ni * 8 + tig * 2 + (r & 1), col = c0 + cc;
+        Yq[(g + (r >> 1) * 8) * M1_LDY + cc] =
+            col < H ? dequant_gelu_q(acc1[ni][r], s1, p.w1scale[col], p.b1[col], p.gelu_poly, inv2)
+                    : (int8_t)0;
+      }
+    __syncthreads();
+    // fc2: Yq (16 x 128) @ w2[c0 : c0 + 128, :], summed in int32 over the chunks
+    for (int kk = 0; kk < M1_HC; kk += M1_BK2) {
+      load_b_tile<M1_BK2, 64 * NT2, M1_T>(p.w2, H, K, c0 + kk, 0, Bs2, M1_LDB2, tid);
+      __syncthreads();
+      uint32_t a[4];
+      load_a_frag(a, Yq + g * M1_LDY + kk + tig * 4, M1_LDY);
+#pragma unroll
+      for (int ni = 0; ni < NT2; ++ni) {
+        const int8_t* base = Bs2 + (ncol0 + ni * 8 + g) * M1_LDB2 + tig * 4;
+        mma_s8(acc2[ni], a, *reinterpret_cast<const uint32_t*>(base),
+               *reinterpret_cast<const uint32_t*>(base + 16));
+      }
+      __syncthreads();
+    }
+  }
+
+  // dequant + bias, then the residual added in f32 (K4's EPI_RESID)
+  TokT* out = reinterpret_cast<TokT*>(p.out);
+#pragma unroll
+  for (int ni = 0; ni < NT2; ++ni)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = m0 + g + (r >> 1) * 8, col = ncol0 + ni * 8 + tig * 2 + (r & 1);
+      if (row < M && col < K) {
+        const size_t i = (size_t)row * K + col;
+        const float z = dequant_fold(acc2[ni][r], s2, p.w2scale[col], p.b2[col]);
+        out[i] = from_f32<TokT>(__fadd_rn(to_f32(x[i]), z));
+      }
+    }
+}
+
+template <typename TokT, int NT2>
+int launch_mlp1(const Mlp1Args& p, cudaStream_t st) {
+  const int smem = mlp1_smem_bytes(p.K, NT2);
+  cudaError_t err = cudaFuncSetAttribute(mlp_block1_kernel<TokT, NT2>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  mlp_block1_kernel<TokT, NT2><<<(p.M + M1_TM - 1) / M1_TM, M1_T, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename TokT>
+int dispatch_mlp1(const Mlp1Args& p, cudaStream_t st) {
+  if (p.K <= 64) return launch_mlp1<TokT, 1>(p, st);
+  if (p.K <= 128) return launch_mlp1<TokT, 2>(p, st);
+  if (p.K <= 256) return launch_mlp1<TokT, 4>(p, st);
+  if (p.K <= 1280) return launch_mlp1<TokT, 20>(p, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -398,4 +603,36 @@ extern "C" int hyt_int8_gemm(const void* a, const void* w, int M, int N, int K, 
       return f32 ? launch_gemm<EPI_PROJ, float>(p, st) : launch_gemm<EPI_PROJ, bf16>(p, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K10: out (M, K) = x + fc2(GELU(fc1(LN(x)))) in one launch. x (M, K) f32
+// with x_f32, else bf16; out has its dtype. g, b (K,), w1 (K, H) int8 with
+// w1scale, b1 (H,), w2 (H, K) int8 with w2scale, b2 (K,), all f32; s1, s2:
+// (1,) f32 static scales on the device. K % 16 == 0, H % 16 == 0, K <= 1280.
+extern "C" int hyt_mlp_block1(const void* x, int x_f32, const void* g, const void* b,
+                              const void* w1, const void* w1scale, const void* b1,
+                              const void* w2, const void* w2scale, const void* b2,
+                              const void* s1, const void* s2, int gelu_poly, int M, int K, int H,
+                              void* out, void* stream) {
+  if (M <= 0 || K <= 0 || H <= 0 || K % 16 || H % 16 || !s1 || !s2)
+    return (int)cudaErrorInvalidValue;
+  Mlp1Args p;
+  p.x = x;
+  p.g = (const float*)g;
+  p.b = (const float*)b;
+  p.w1 = (const int8_t*)w1;
+  p.w2 = (const int8_t*)w2;
+  p.w1scale = (const float*)w1scale;
+  p.b1 = (const float*)b1;
+  p.w2scale = (const float*)w2scale;
+  p.b2 = (const float*)b2;
+  p.s1 = (const float*)s1;
+  p.s2 = (const float*)s2;
+  p.out = out;
+  p.gelu_poly = gelu_poly;
+  p.M = M;
+  p.K = K;
+  p.H = H;
+  cudaStream_t st = (cudaStream_t)stream;
+  return x_f32 ? dispatch_mlp1<float>(p, st) : dispatch_mlp1<bf16>(p, st);
 }

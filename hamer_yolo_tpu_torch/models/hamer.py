@@ -28,6 +28,8 @@ class HamerConfig:
     # W8A8 int8 backbone (core/quant.py): params["backbone"] must hold
     # quantize_vit_params output, with or without attached static scales.
     int8_backbone: bool = False
+    # The fused MANO LBS (kernel K9, ops/mano_lbs.py) in place of the einsums.
+    fused_mano: bool = False
 
 
 def init_hamer(gen: torch.Generator, cfg: HamerConfig = HamerConfig()) -> nn.Params:
@@ -47,7 +49,7 @@ def hamer_forward(params: nn.Params, mano_model: ManoModel, img: torch.Tensor,
     pred_cam_t = cam_to_translation(pred_cam, cfg.focal_length, cfg.image_size)
     focal = torch.full((B, 2), cfg.focal_length, device=img.device)
     out = mano_forward_rotmat(mano_model, pred_mano["global_orient"], pred_mano["hand_pose"],
-                              pred_mano["betas"])
+                              pred_mano["betas"], fused=cfg.fused_mano)
     kp2d = perspective_projection(out.joints, translation=pred_cam_t,
                                   focal_length=focal / cfg.image_size)
     return {

@@ -2,7 +2,8 @@
 
 smplx.MANOLayer convention as HaMeR uses it: rotation-matrix pose input,
 meters, 16 regressed joints + 5 fingertip vertices, OpenPose order. The
-LBS is the unfused einsum form (the JAX fused Pallas LBS is opt-in there).
+LBS is the einsum form (``lbs``) unless ``fused`` asks for kernel K9
+(ops/mano_lbs.py), which is opt-in as in the JAX package.
 """
 from __future__ import annotations
 
@@ -75,9 +76,17 @@ class ManoOutput(NamedTuple):
 
 
 def mano_forward_rotmat(model: ManoModel, global_orient: torch.Tensor,
-                        hand_pose: torch.Tensor, betas: torch.Tensor) -> ManoOutput:
-    """global_orient (B, 1, 3, 3), hand_pose (B, 15, 3, 3), betas (B, 10)."""
-    verts, joints16 = lbs(model, betas, torch.cat([global_orient, hand_pose], dim=1))
+                        hand_pose: torch.Tensor, betas: torch.Tensor,
+                        fused: bool = False) -> ManoOutput:
+    """global_orient (B, 1, 3, 3), hand_pose (B, 15, 3, 3), betas (B, 10).
+    ``fused`` routes through the single-kernel LBS (K9, ops/mano_lbs.py)."""
+    rotmats = torch.cat([global_orient, hand_pose], dim=1)
+    if fused:
+        from hamer_yolo_tpu_torch.ops.mano_lbs import mano_lbs_fused
+
+        verts, joints16 = mano_lbs_fused(model, betas, rotmats)
+    else:
+        verts, joints16 = lbs(model, betas, rotmats)
     tips = verts[:, SMPLX_TIP_IDS]
     joints = torch.cat([joints16, tips], dim=1)[:, MANO_TO_OPENPOSE]
     return ManoOutput(vertices=verts, joints=joints)

@@ -21,30 +21,10 @@ from typing import Optional
 
 import torch
 
-from hamer_yolo_tpu_torch.ops import cuda_build
 from hamer_yolo_tpu_torch.ops import int8_matmul as im
-from hamer_yolo_tpu_torch.ops.short_attention import fused_short_attention_ref, launch_attention
-
-
-def _qkv_ref(tok, wq, wscale, bias, ln_scale, ln_bias, sx_qkv) -> torch.Tensor:
-    """LN -> quantize -> int8 qkv GEMM -> acc * (sq * sw) + b -> bf16 (B*N, 3D)."""
-    B, N, K = tok.shape
-    sq = im._as_scale(sx_qkv, tok.device)
-    x = im.layer_norm_f32(tok.reshape(B * N, K).float(), ln_scale, ln_bias)
-    qkv = im.int_dot(im.quantize_rows_ref(x, sq), wq) * (sq * wscale.float())
-    if bias is not None:
-        qkv = qkv + bias.float()
-    return qkv.to(torch.bfloat16)
-
-
-def _attention_ref(qkv: torch.Tensor, B: int, num_heads: int, sx_proj) -> torch.Tensor:
-    """(B*N, 3D) bf16 -> softmax attention per head -> * (1 / sx_proj), int8
-    (B*N, D): K7's plain version with its int8 epilogue."""
-    hd = qkv.shape[1] // 3 // num_heads
-    heads = qkv.reshape(B, -1, 3, num_heads, hd).permute(2, 0, 3, 1, 4)  # (3, B, h, N, hd)
-    aq = fused_short_attention_ref(heads[0], heads[1], heads[2],
-                                   out_scale=im._as_scale(sx_proj, qkv.device))
-    return aq.transpose(1, 2).reshape(qkv.shape[0], num_heads * hd)
+from hamer_yolo_tpu_torch.ops.attn_block_int8 import attention_ref as _attention_ref
+from hamer_yolo_tpu_torch.ops.attn_block_int8 import launch_ln_qkv_attention
+from hamer_yolo_tpu_torch.ops.attn_block_int8 import qkv_ref as _qkv_ref
 
 
 def _proj_ref(aq: torch.Tensor, tok, wp, pscale, pbias, sx_proj) -> torch.Tensor:
@@ -109,25 +89,13 @@ fused_int8_attn_proj_block.launches = 0
 def _launch(tok, wq, wscale, bias, ln_scale, ln_bias, sx_qkv, sx_proj, wp, pscale, pbias,
             num_heads):
     what = "fused_int8_attn_proj_block"
-    if tok.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {tok.device}")
     B, N, K = tok.shape
-    td = wq.shape[1]
-    hd = td // 3 // num_heads
-    D = num_heads * hd
-    if td != 3 * D or wp.shape != (D, K):
+    if wp.shape != (wq.shape[1] // 3, K):
         raise ValueError(f"{what}: unsupported shapes wq {tuple(wq.shape)}, wp "
                          f"{tuple(wp.shape)}, heads {num_heads}")
-    dev = tok.device
-    x2 = cuda_build.aligned16(tok.reshape(B * N, K))
-    sp = im._device_scale(sx_proj, dev, what)
-    xq, _, sq = im.quantize_rows(x2, "ln", ln_scale, ln_bias, sx_qkv, what)
-    qkv = torch.empty((B * N, td), dtype=torch.bfloat16, device=dev)
-    im.int8_gemm(xq, wq, im.EPI_DEQ_FOLD, qkv, wscale, bias, s=sq, what=what)
-    heads = qkv.reshape(B, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)  # (3, B, h, N, hd)
-    aq = torch.empty((B * N, D), dtype=torch.int8, device=dev)
-    launch_attention(heads[0], heads[1], heads[2],
-                     aq.reshape(B, N, num_heads, hd).transpose(1, 2), sp, what)
+    sp = im._device_scale(sx_proj, tok.device, what)
+    x2, qkv, aq = launch_ln_qkv_attention(tok, wq, wscale, bias, ln_scale, ln_bias, sx_qkv, sp,
+                                          num_heads, what)
     out = torch.empty_like(x2)
     im.int8_gemm(aq, wp, im.EPI_PROJ, out, pscale, pbias, s=sp, res=x2, what=what)
     return qkv, aq, out.reshape(B, N, K)

@@ -30,7 +30,7 @@ _COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"
 # nor int8_gemm.cu its prologue and dequant arithmetic (the int8 roundings).
 _EXTRA_FLAGS: Dict[str, List[str]] = {"nms.cu": ["--fmad=false"], "attn_block.cu": [],
                                       "int8_gemm.cu": ["--fmad=false"],
-                                      "short_attention.cu": []}
+                                      "short_attention.cu": [], "mano_lbs.cu": []}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signatures of every exported function, per source.
@@ -42,11 +42,14 @@ _SIGNATURES = {
     "int8_gemm.cu": {
         "hyt_quantize_rows": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
         "hyt_int8_gemm": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
+        "hyt_mlp_block1": [_P, _I] + [_P] * 10 + [_I, _I, _I, _I, _P, _P],
     },
+    "mano_lbs.cu": {"hyt_mano_lbs": [_P] * 8 + [_I, _I, _P]},
     "short_attention.cu": {
-        "hyt_short_attention": [_P, _P, _P, _L, _L, _L, _P, _I, _P, _L, _L, _L, _I, _I, _I,
-                                _I, _F, _P],
-        "hyt_short_attn_smem_bytes": [_I, _I],
+        "hyt_short_attention": [_P, _P, _P, _I, _L, _L, _L, _P, _I, _P, _L, _L, _L, _I, _I,
+                                _I, _I, _F, _P],
+        "hyt_fused_qkv_attention": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _F, _P],
+        "hyt_short_attn_smem_bytes": [_I, _I, _I],
     },
 }
 

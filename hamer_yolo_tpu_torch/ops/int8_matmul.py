@@ -1,4 +1,4 @@
-"""Kernels K5 and K4: the fused W8A8 int8 GEMMs of the int8 ViT (port of
+"""Kernels K5, K4 and K10: the fused W8A8 int8 GEMMs of the int8 ViT (port of
 hamer_yolo_tpu/ops/int8_matmul.py).
 
 - K5 ``fused_int8_matmul``: an f32 [ln | gelu | gelu_poly | id] prologue,
@@ -7,10 +7,14 @@ hamer_yolo_tpu/ops/int8_matmul.py).
 - K4 ``fused_int8_mlp_block``: tok + fc2(GELU(fc1(LN(tok)))) with static
   scales: LN -> quantize (sx1) -> fc1 -> dequant -> GELU -> quantize (sx2)
   -> int8 (M, H); then fc2 -> dequant -> + residual in f32.
+- K10 ``fused_int8_mlp_block1``: K4 in one launch, H taken in chunks with
+  the fc2 partial sums added in int32, bit-identical to K4.
 
-Both run on ``csrc/int8_gemm.cu``: a quantize-rows launch (prologue and
+All run on ``csrc/int8_gemm.cu``: a quantize-rows launch (prologue and
 quantize, one warp per row) and an int8 GEMM launch (mma.sync s8, dequant
-epilogue); K4 is one quantize launch and two GEMMs. Each ``*_ref`` function
+epilogue); K4 is one quantize launch and two GEMMs; K10 is one launch of its
+own kernel there, a CTA per 16 token rows with the fc2 accumulator in
+registers. Each ``*_ref`` function
 is the plain version, in the f32 op order of its TPU kernel, which the CPU
 takes and the card's checks compare against. JAX's ``FUSED_GEMM_MAX_M``
 switch to an XLA chain is not carried over: K5 runs at every M on the card.
@@ -29,6 +33,7 @@ _TOKEN_DTYPES = (torch.bfloat16, torch.float32)
 _OUT_KIND = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 # Epilogues of csrc/int8_gemm.cu
 EPI_DEQ_ROW, EPI_DEQ_FOLD, EPI_GELU_Q, EPI_RESID, EPI_PROJ = range(5)
+MLP1_MAX_K = 1280  # widest token row of mlp_block1_kernel (its accumulator is in registers)
 
 # Even-polynomial GELU: GELU(x) = x/2 + E(x), E(u = x^2) of degree 8, a
 # Chebyshev least-squares fit on |x| <= 4 (hamer_yolo_tpu/ops/int8_matmul.py
@@ -239,6 +244,86 @@ def fused_int8_mlp_block(tok: torch.Tensor, w1q, w1scale, b1, w2q, w2scale, b2,
 
 
 fused_int8_mlp_block.launches = 0
+
+
+# -------------------------------------------------------------------- K10
+def fused_int8_mlp_block1_ref(tok: torch.Tensor, w1q, w1scale, b1, w2q, w2scale, b2,
+                              ln_scale, ln_bias, sx1, sx2, gelu: str = "gelu",
+                              hc: int = 1280) -> torch.Tensor:
+    """Plain version of K10 (_mlp1p_kernel): fc1, GELU, quantize and fc2 chunk
+    by chunk over ``hc`` columns of H, the fc2 partial sums added as exact
+    integers (an f64 sum here, exact below 2^53), one dequant at the end."""
+    K = tok.shape[-1]
+    H = w1q.shape[1]
+    if H % hc:
+        hc = H
+    x0 = tok.reshape(-1, K).float()
+    s1, s2 = _as_scale(sx1, tok.device), _as_scale(sx2, tok.device)
+    xq = quantize_rows_ref(layer_norm_f32(x0, ln_scale, ln_bias), s1)
+    acc = torch.zeros((x0.shape[0], K), dtype=torch.float64, device=tok.device)
+    for c in range(0, H, hc):
+        y = int_dot(xq, w1q[:, c:c + hc]) * (s1 * w1scale[c:c + hc].float())
+        if b1 is not None:
+            y = y + b1[c:c + hc].float()
+        yq = quantize_rows_ref(prologue_f32(y, gelu), s2)
+        acc = acc + yq.double() @ w2q[c:c + hc].double()
+    z = acc.float() * (s2 * w2scale.float())
+    if b2 is not None:
+        z = z + b2.float()
+    return (x0 + z).to(tok.dtype).reshape(tok.shape)
+
+
+def fused_int8_mlp_block1(tok: torch.Tensor, w1q, w1scale, b1, w2q, w2scale, b2,
+                          ln_scale, ln_bias, sx1, sx2, gelu: str = "gelu",
+                          hc: int = 1280) -> torch.Tensor:
+    """K4's function in one launch, the JAX signature (without the TPU's row
+    tile ``tm``): the (M, H) int8 GELU activations never reach device memory.
+    The result equals ``fused_int8_mlp_block``'s bit for bit, whatever the
+    chunking: the chunks' fc2 sums add in int32.
+
+    CPU tensors take the plain version, in chunks of ``hc`` columns (H where
+    hc does not divide it). CUDA tensors launch ``mlp_block1_kernel`` of
+    ``csrc/int8_gemm.cu``, which chunks H by 128 columns of its own whatever
+    ``hc`` says: K and H multiples of 16, K at most 1280; anything else
+    raises.
+    """
+    if tok.device.type == "cpu":
+        return fused_int8_mlp_block1_ref(tok, w1q, w1scale, b1, w2q, w2scale, b2, ln_scale,
+                                         ln_bias, sx1, sx2, gelu, hc)
+    what = "fused_int8_mlp_block1"
+    dev = tok.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if gelu not in ("gelu", "gelu_poly"):
+        raise ValueError(f"{what}: unknown gelu {gelu!r}")
+    if tok.dtype not in _TOKEN_DTYPES:
+        raise ValueError(f"{what}: the kernel takes bf16 or f32 tokens, got {tok.dtype}")
+    K, H = w1q.shape
+    if (tok.shape[-1] != K or w2q.shape != (H, K) or K % 16 or H % 16 or K > MLP1_MAX_K
+            or any(w.dtype != torch.int8 or w.device != dev for w in (w1q, w2q))):
+        raise ValueError(f"{what}: tok {tuple(tok.shape)}, w1q {w1q.dtype} {tuple(w1q.shape)}, "
+                         f"w2q {w2q.dtype} {tuple(w2q.shape)} on {w1q.device}: int8 (K, H) and "
+                         f"(H, K) on {dev}, multiples of 16, K <= {MLP1_MAX_K}")
+    x2 = cuda_build.aligned16(tok.reshape(-1, K))
+    g, b = (_vec(v, K, dev, what, "the LN vectors") for v in (ln_scale, ln_bias))
+    ws1, bs1 = _vec(w1scale, H, dev, what, "fc1's scales"), _vec(b1, H, dev, what, "fc1's bias")
+    ws2, bs2 = _vec(w2scale, K, dev, what, "fc2's scales"), _vec(b2, K, dev, what, "fc2's bias")
+    s1, s2 = _device_scale(sx1, dev, what), _device_scale(sx2, dev, what)
+    w1, w2 = cuda_build.aligned16(w1q), cuda_build.aligned16(w2q)
+    out = torch.empty_like(x2)
+    lib = cuda_build.load("int8_gemm.cu")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        cuda_build.check(lib.hyt_mlp_block1(
+            x2.data_ptr(), int(x2.dtype == torch.float32), g.data_ptr(), b.data_ptr(),
+            w1.data_ptr(), ws1.data_ptr(), bs1.data_ptr(), w2.data_ptr(), ws2.data_ptr(),
+            bs2.data_ptr(), s1.data_ptr(), s2.data_ptr(), int(gelu == "gelu_poly"),
+            x2.shape[0], K, H, out.data_ptr(), stream), f"{what}: mlp_block1_kernel")
+    fused_int8_mlp_block1.launches += 1
+    return out.reshape(tok.shape)
+
+
+fused_int8_mlp_block1.launches = 0
 
 
 def int8_dot_prequant(xq: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,

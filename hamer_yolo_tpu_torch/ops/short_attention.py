@@ -1,12 +1,26 @@
-"""Kernel K7: single-block softmax attention over short sequences, with an
-optional int8 epilogue (port of fused_short_attention and
-softmax_attention_qkv in hamer_yolo_tpu/ops/attention_pallas.py).
+"""Kernels K7 and K8: single-block softmax attention over short sequences,
+with an optional int8 epilogue (port of fused_short_attention,
+fused_qkv_attention and softmax_attention_qkv in
+hamer_yolo_tpu/ops/attention_pallas.py).
 
 The CUDA counterpart is ``csrc/short_attention.cu``: one launch, one CTA per
-(64-row query tile, head, crop), reading q, k and v through strides so that
-``softmax_attention_qkv`` hands it views of the fused qkv tensor without the
-transposes the TPU path materialises. ``launch_attention`` is also the
-attention launch of K2 (ops/attn_block.py) and K3 (ops/attn_proj_block.py).
+(64-row query tile, head, crop), for bf16 or f32 q, k, v (f32: both products
+in f32 on the CUDA cores, as the JAX kernels compute them for f32 inputs).
+``launch_attention`` is also the attention launch of K2 (ops/attn_block.py),
+K3 (ops/attn_proj_block.py) and K6 (ops/attn_block_int8.py).
+
+K7 against K8 on the card. On the TPU, K8 exists to spare K7's four
+transposes of (B, h, N, hd) tensors through device memory. The port's K7
+never made them: its kernel reads q, k and v through strides, so
+``softmax_attention_qkv(force="pallas_direct")`` hands it views of the fused
+qkv tensor. What still differs: K7 (``hyt_short_attention``) takes three
+pointers and one stride set computed by the wrapper from whatever views it
+is given, and returns a (B, h, N, hd) view that the caller transposes back
+and reshapes (no copy); K8 (``hyt_fused_qkv_attention``) takes the one
+contiguous (B, N, 3D) pointer and the head count, derives the head offsets
+(s * D + t * hd) in its entry and writes a contiguous (B, N, D) tensor. The
+device code and the addresses it touches are the same, so their times on the
+card should agree to the launch's host cost.
 """
 from __future__ import annotations
 
@@ -16,6 +30,7 @@ from hamer_yolo_tpu_torch.core import nn
 from hamer_yolo_tpu_torch.ops import cuda_build
 
 _OUT_KIND = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}  # of hyt_short_attention
+_IN_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def fused_short_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -42,15 +57,16 @@ def fused_short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     GEMM).
 
     CPU tensors take the plain version. CUDA tensors launch
-    ``csrc/short_attention.cu``: bf16 q, k, v of one shape and one stride
-    set with hd contiguous (views into a fused qkv tensor are fine), hd a
-    multiple of 8; anything else raises. The output is a (B, h, N, hd) view
-    of a (B, N, h, hd) tensor, the layout the proj GEMM reads.
+    ``csrc/short_attention.cu``: q, k, v of one float dtype (bf16 or f32),
+    one shape and one stride set with hd contiguous (views into a fused qkv
+    tensor are fine), hd a multiple of 8; anything else raises. The output
+    is a (B, h, N, hd) view of a (B, N, h, hd) tensor, the layout the proj
+    GEMM reads.
     """
     if q.device.type == "cpu":
         return fused_short_attention_ref(q, k, v, out_scale)
     B, H, N, hd = q.shape
-    out = torch.empty((B, N, H, hd), dtype=torch.bfloat16 if out_scale is None else torch.int8,
+    out = torch.empty((B, N, H, hd), dtype=q.dtype if out_scale is None else torch.int8,
                       device=q.device).transpose(1, 2)
     launch_attention(q, k, v, out, out_scale, "fused_short_attention")
     fused_short_attention.launches += 1
@@ -62,23 +78,18 @@ fused_short_attention.launches = 0
 
 def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                      out_scale, what: str) -> None:
-    """Launch csrc/short_attention.cu on (B, h, N, hd) views q, k, v into
-    ``out`` (any strides, hd contiguous): bf16 or f32, or int8 quantized by
-    ``out_scale``."""
+    """Launch csrc/short_attention.cu on (B, h, N, hd) views q, k, v (bf16
+    or f32) into ``out`` (any strides, hd contiguous): bf16 (bf16 inputs
+    only) or f32, or int8 quantized by ``out_scale``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
     if q.dim() != 4 or not (q.shape == k.shape == v.shape == out.shape):
         raise ValueError(f"{what}: q, k, v, out of one (B, h, N, hd) shape, got "
                          f"{[tuple(t.shape) for t in (q, k, v, out)]}")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise ValueError(f"{what}: the kernel takes bf16 q, k, v, got "
-                         f"{[t.dtype for t in (q, k, v)]}")
+    _check_in_out(q.dtype, (k.dtype, v.dtype), out.dtype, out_scale, what)
     if any(t.device != dev for t in (k, v, out)):
         raise ValueError(f"{what}: every tensor must be on {dev}")
-    if out.dtype not in _OUT_KIND or (out.dtype == torch.int8) != (out_scale is not None):
-        raise ValueError(f"{what}: the output is bf16 or f32, or int8 with an out_scale; got "
-                         f"{out.dtype} with out_scale {out_scale is not None}")
     B, H, N, hd = q.shape
     st = q.stride()
     if k.stride() != st or v.stride() != st or st[3] != 1 or out.stride(3) != 1:
@@ -87,34 +98,129 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: tor
     if hd % 8 or any(s % 8 for s in st[:3]) or any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{what}: hd = {hd} and the strides {st[:3]} must be multiples of 8, "
                          "the tensors 16-byte aligned")
-    lib = cuda_build.load("short_attention.cu")
-    smem = lib.hyt_short_attn_smem_bytes(N, hd)
-    if smem > cuda_build.MAX_SMEM:
-        raise ValueError(f"{what}: N={N}, hd={hd} needs {smem} B of shared memory")
-    s = None
-    if out_scale is not None:
-        s = out_scale if isinstance(out_scale, torch.Tensor) else torch.tensor(float(out_scale))
-        s = s.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
-    scale = nn.weak_scalar(hd ** -0.5, torch.bfloat16)
+    lib = _library(N, hd, q.dtype, what)
+    s = _scale_on(out_scale, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         cuda_build.check(lib.hyt_short_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), st[0], st[1], st[2], out.data_ptr(),
-            _OUT_KIND[out.dtype], None if s is None else s.data_ptr(), out.stride(0),
-            out.stride(1), out.stride(2),
-            B, H, N, hd, scale, stream), f"{what}: short_attention_kernel")
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), int(q.dtype == torch.float32), st[0], st[1],
+            st[2], out.data_ptr(), _OUT_KIND[out.dtype], None if s is None else s.data_ptr(),
+            out.stride(0), out.stride(1), out.stride(2), B, H, N, hd,
+            nn.weak_scalar(hd ** -0.5, q.dtype), stream), f"{what}: short_attention_kernel")
+
+
+def _check_in_out(in_dtype, other_dtypes, out_dtype, out_scale, what: str) -> None:
+    if in_dtype not in _IN_DTYPES or any(d != in_dtype for d in other_dtypes):
+        raise ValueError(f"{what}: the kernel takes q, k, v of one float dtype, bf16 or f32, "
+                         f"got {[in_dtype, *other_dtypes]}")
+    if (out_dtype not in _OUT_KIND or (out_dtype == torch.int8) != (out_scale is not None)
+            or (out_dtype == torch.bfloat16 and in_dtype != torch.bfloat16)):
+        raise ValueError(f"{what}: the output is bf16 (bf16 inputs) or f32, or int8 with an "
+                         f"out_scale; got {out_dtype} with out_scale {out_scale is not None}")
+
+
+def _library(N: int, hd: int, dtype, what: str):
+    """The loaded csrc/short_attention.cu, after the check that a head of
+    (N, hd) elements of ``dtype`` fits in a block's shared memory."""
+    lib = cuda_build.load("short_attention.cu")
+    smem = lib.hyt_short_attn_smem_bytes(N, hd, dtype.itemsize)
+    if smem > cuda_build.MAX_SMEM:
+        raise ValueError(f"{what}: N={N}, hd={hd} in {dtype} needs {smem} B of shared memory")
+    return lib
+
+
+def _scale_on(out_scale, dev):
+    """``out_scale`` as a (1,) f32 tensor on ``dev``, or None."""
+    if out_scale is None:
+        return None
+    s = out_scale if isinstance(out_scale, torch.Tensor) else torch.tensor(float(out_scale))
+    return s.to(device=dev, dtype=torch.float32).reshape(1).contiguous()
+
+
+# --------------------------------------------------------------------- K8
+def fused_qkv_attention_ref(qkv: torch.Tensor, num_heads: int, out_scale=None) -> torch.Tensor:
+    """Plain version of K8 (_attn_qkv_kernel): head by head on slices of the
+    fused (B, N, 3D) tensor, q of head t at t * hd, k at D + t * hd, v at
+    2 D + t * hd, each head's result written into its columns of the
+    (B, N, D) output."""
+    B, N, td = qkv.shape
+    hd = td // 3 // num_heads
+    D = num_heads * hd
+    scale = nn.weak_scalar(hd ** -0.5, qkv.dtype)
+    inv = None
+    if out_scale is not None:
+        inv = 1.0 / torch.as_tensor(out_scale, dtype=torch.float32, device=qkv.device).reshape(())
+    out = torch.empty((B, N, D), dtype=qkv.dtype if inv is None else torch.int8,
+                      device=qkv.device)
+    for t in range(num_heads):
+        q = qkv[:, :, t * hd:(t + 1) * hd]
+        k = qkv[:, :, D + t * hd:D + (t + 1) * hd]
+        v = qkv[:, :, 2 * D + t * hd:2 * D + (t + 1) * hd]
+        logits = torch.einsum("bnd,bmd->bnm", (q * scale).float(), k.float())
+        e = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
+        p = e * (1.0 / torch.sum(e, dim=-1, keepdim=True))
+        res = torch.einsum("bnm,bmd->bnd", p.to(v.dtype).float(), v.float())
+        if inv is not None:
+            res = torch.clamp(torch.round(res * inv), -127, 127)
+        out[:, :, t * hd:(t + 1) * hd] = res.to(out.dtype)
+    return out
+
+
+def fused_qkv_attention(qkv: torch.Tensor, num_heads: int, out_scale=None) -> torch.Tensor:
+    """softmax attention straight from the fused qkv tensor, the JAX
+    signature: qkv (B, N, 3D) as the qkv GEMM wrote it -> (B, N, D) in
+    qkv.dtype, or int8 quantized by the static scale ``out_scale``.
+
+    CPU tensors take the plain version. CUDA tensors launch the K8 entry of
+    ``csrc/short_attention.cu``: bf16 or f32, the head width a multiple of
+    8; anything else raises.
+    """
+    if qkv.device.type == "cpu":
+        return fused_qkv_attention_ref(qkv, num_heads, out_scale)
+    what = "fused_qkv_attention"
+    dev = qkv.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if qkv.dim() != 3 or qkv.shape[2] % (3 * num_heads):
+        raise ValueError(f"{what}: qkv must be (B, N, 3 * heads * hd), got {tuple(qkv.shape)} "
+                         f"for {num_heads} heads")
+    B, N, td = qkv.shape
+    hd = td // 3 // num_heads
+    out = torch.empty((B, N, td // 3), dtype=qkv.dtype if out_scale is None else torch.int8,
+                      device=dev)
+    _check_in_out(qkv.dtype, (), out.dtype, out_scale, what)
+    if hd % 8:
+        raise ValueError(f"{what}: the head width {hd} must be a multiple of 8")
+    qkv = cuda_build.aligned16(qkv)
+    lib = _library(N, hd, qkv.dtype, what)
+    s = _scale_on(out_scale, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        cuda_build.check(lib.hyt_fused_qkv_attention(
+            qkv.data_ptr(), int(qkv.dtype == torch.float32), out.data_ptr(),
+            _OUT_KIND[out.dtype], None if s is None else s.data_ptr(), B, N, num_heads, hd,
+            nn.weak_scalar(hd ** -0.5, qkv.dtype), stream), f"{what}: short_attention_kernel")
+    fused_qkv_attention.launches += 1
+    return out
+
+
+fused_qkv_attention.launches = 0
 
 
 def softmax_attention_qkv(qkv: torch.Tensor, num_heads: int, *, force: str = "xla",
                           out_scale=None) -> torch.Tensor:
     """(B, N, 3D) fused qkv -> (B, N, D) softmax attention, the JAX
-    function's "xla" and "pallas_direct" forms.
+    function's "xla", "pallas_direct" and "pallas_fusedqkv" forms.
 
     "xla": the plain einsum softmax in qkv's dtype (core/nn's op sequence),
     quantized by dividing by ``out_scale`` when it is given. "pallas_direct":
     K7 (its plain version on the CPU) on views of qkv; with ``out_scale`` the
-    int8 epilogue quantizes in the kernel.
+    int8 epilogue quantizes in the kernel. "pallas_fusedqkv": K8, the same
+    with the fused tensor handed over as it is. ``force`` is explicit: the
+    HYT_ATTN switch is read in core/quant.py.
     """
+    if force == "pallas_fusedqkv":
+        return fused_qkv_attention(qkv, num_heads, out_scale=out_scale)
     B, N, td = qkv.shape
     hd = td // 3 // num_heads
     x = qkv.reshape(B, N, 3, num_heads, hd)
@@ -124,7 +230,8 @@ def softmax_attention_qkv(qkv: torch.Tensor, num_heads: int, *, force: str = "xl
                                     out_scale=out_scale)
         return out.transpose(1, 2).reshape(B, N, num_heads * hd)
     if force != "xla":
-        raise ValueError(f"softmax_attention_qkv: force {force!r} (xla or pallas_direct)")
+        raise ValueError(f"softmax_attention_qkv: force {force!r} (xla, pallas_direct or "
+                         "pallas_fusedqkv)")
     out = nn._softmax_attention(nn._scaled(q, hd), k, v)
     if out_scale is None:
         return out

@@ -16,13 +16,19 @@ from hamer_yolo_tpu_torch.geometry.boxes import box_iou
 from hamer_yolo_tpu_torch.models.vit import ViTConfig, init_vit, vit_forward
 from hamer_yolo_tpu_torch.ops.attn_block import (check_against_twin, fused_bf16_attn_block,
                                                   fused_bf16_attn_block_ref)
-from hamer_yolo_tpu_torch.ops import attn_proj_block
+from hamer_yolo_tpu_torch.ops import attn_block_int8, attn_proj_block, mano_lbs
+from hamer_yolo_tpu_torch.ops.attn_block_int8 import fused_int8_attn_block
 from hamer_yolo_tpu_torch.ops.attn_proj_block import fused_int8_attn_proj_block
 from hamer_yolo_tpu_torch.ops.int8_matmul import (check_against_plain, fused_int8_matmul,
                                                   fused_int8_matmul_ref, fused_int8_mlp_block,
+                                                  fused_int8_mlp_block1,
+                                                  fused_int8_mlp_block1_ref,
                                                   fused_int8_mlp_block_ref)
+from hamer_yolo_tpu_torch.ops.mano_lbs import mano_lbs_fused, mano_lbs_fused_ref
 from hamer_yolo_tpu_torch.ops.nms import greedy_nms_keep, greedy_nms_keep_ref
-from hamer_yolo_tpu_torch.ops.short_attention import (fused_short_attention,
+from hamer_yolo_tpu_torch.ops.short_attention import (fused_qkv_attention,
+                                                      fused_qkv_attention_ref,
+                                                      fused_short_attention,
                                                       fused_short_attention_ref)
 
 pytestmark = pytest.mark.cuda
@@ -231,8 +237,10 @@ def test_int8_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="static scale is on cpu"):
         fused_int8_matmul(x[:, :64], q[:64], s, static_scale=torch.tensor(0.1))
     qkv = torch.zeros((2, 3, 12, 16), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError, match="bf16 q, k, v"):
-        fused_short_attention(qkv.float(), qkv.float(), qkv.float())
+    with pytest.raises(ValueError, match="one float dtype, bf16 or f32"):
+        fused_short_attention(qkv.half(), qkv.half(), qkv.half())
+    with pytest.raises(ValueError, match="one float dtype, bf16 or f32"):
+        fused_short_attention(qkv, qkv.float(), qkv)
 
 
 @pytest.mark.parametrize("img_size", [(64, 48), (256, 192)], ids=["N12", "N192"])
@@ -270,3 +278,238 @@ def test_int8_vit_on_cuda_runs_the_kernels(dev, img_size):
         # for int8 rounding flips (tests/test_int8_fused.py:330-334)
         assert torch.isclose(got, ref, rtol=0.02, atol=0.02).float().mean() > 0.99
         torch.testing.assert_close(got, ref, rtol=0.2, atol=0.1)
+
+
+# ------------------------------------------------- the opt-in kernel paths
+# f32 attention against its plain version: both take f32 products and sums
+# of 80 and 192 terms in another order; outputs of magnitude <= 1.
+F32_ATTN_ATOL = 2e-5
+
+
+@pytest.mark.parametrize("B,h,N,hd", [(16, 16, 192, 80), (3, 4, 12, 16), (2, 3, 70, 24)],
+                         ids=["vith", "tiny", "ragged"])
+@pytest.mark.parametrize("int8_out", [False, True], ids=["f32", "out_scale"])
+def test_k7_f32_inputs_match_plain(dev, B, h, N, hd, int8_out):
+    rng = np.random.default_rng(N + 1)
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3, h, hd)).astype(np.float32)).to(dev)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    sx = torch.tensor(0.011, device=dev) if int8_out else None
+    before = fused_short_attention.launches
+    got = fused_short_attention(q, k, v, out_scale=sx)
+    torch.cuda.synchronize()
+    assert fused_short_attention.launches == before + 1
+    ref = fused_short_attention_ref(q, k, v, out_scale=sx)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    if int8_out:
+        check_against_plain(got, ref, "K7 f32")
+    else:
+        torch.testing.assert_close(got, ref, rtol=0, atol=F32_ATTN_ATOL)
+
+
+@pytest.mark.parametrize("B,N,h,hd", [(16, 192, 16, 80), (3, 12, 4, 16), (2, 70, 3, 24)],
+                         ids=["vith", "tiny", "ragged"])
+@pytest.mark.parametrize("kind", ["bf16", "bf16_int8", "f32", "f32_int8"])
+def test_k8_matches_plain(dev, B, N, h, hd, kind):
+    rng = np.random.default_rng(N + 2)
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * h * hd)).astype(np.float32)).to(dev)
+    qkv = qkv.to(torch.bfloat16 if kind.startswith("bf16") else torch.float32)
+    sx = torch.tensor(0.011, device=dev) if kind.endswith("int8") else None
+    before, k7 = fused_qkv_attention.launches, fused_short_attention.launches
+    got = fused_qkv_attention(qkv, h, out_scale=sx)
+    torch.cuda.synchronize()
+    assert fused_qkv_attention.launches == before + 1
+    assert fused_short_attention.launches == k7  # K8 counts as K8 only
+    ref = fused_qkv_attention_ref(qkv, h, out_scale=sx)
+    assert got.dtype == ref.dtype and got.shape == ref.shape == (B, N, h * hd)
+    assert got.is_contiguous()
+    if sx is not None:
+        check_against_plain(got, ref, "K8")
+    elif kind == "bf16":  # the limits of K2's attention, whose math this is
+        check_against_twin(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, rtol=0, atol=F32_ATTN_ATOL)
+    # the same device code as K7 on views of the same tensor: bit-identical
+    x = qkv.reshape(B, N, 3, h, hd)
+    k7_out = fused_short_attention(*(x[:, :, i].transpose(1, 2) for i in range(3)), out_scale=sx)
+    assert torch.equal(k7_out.transpose(1, 2).reshape(B, N, h * hd), got)
+
+
+@pytest.mark.parametrize("B,N,K,h", [(16, 192, 1280, 16), (4, 12, 64, 4)], ids=["vith", "tiny"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_k6_matches_plain(dev, B, N, K, h, dtype):
+    rng = np.random.default_rng(N + K + 1)
+    tok = torch.from_numpy(rng.normal(size=(B, N, K)).astype(np.float32)).to(dev).to(dtype)
+    q, s, b = _qlinear(rng, dev, K, 3 * K)
+    args = (q, s, b, _vec(rng, dev, K, 1.0), _vec(rng, dev, K), torch.tensor(0.03, device=dev),
+            torch.tensor(0.012, device=dev), h)
+    before, k3 = fused_int8_attn_block.launches, fused_int8_attn_proj_block.launches
+    got = fused_int8_attn_block(tok, *args)
+    torch.cuda.synchronize()
+    assert fused_int8_attn_block.launches == before + 1
+    assert fused_int8_attn_proj_block.launches == k3
+    assert got.dtype == torch.int8 and got.shape == (B, N, K)
+    steps = attn_block_int8.fused_int8_attn_block_steps(tok, *args)
+    assert fused_int8_attn_block.launches == before + 1  # the steps count no launch
+    assert torch.equal(steps[1].reshape(B, N, K), got)
+    attn_block_int8.check_against_plain(steps, tok, *args)
+
+
+@pytest.mark.parametrize("M,K", [(3072, 1280), (384, 256), (40, 128), (24, 64)],
+                         ids=["vith", "k256", "k128_ragged_rows", "tiny"])
+@pytest.mark.parametrize("gelu", ["gelu", "gelu_poly"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_k10_equals_k4_bit_for_bit(dev, M, K, gelu, dtype):
+    rng = np.random.default_rng(M + 1)
+    tok = torch.from_numpy(rng.normal(size=(M // 8, 8, K)).astype(np.float32)).to(dev).to(dtype)
+    q1, s1, b1 = _qlinear(rng, dev, K, 4 * K)
+    q2, s2, b2 = _qlinear(rng, dev, 4 * K, K, scale=0.02)
+    args = (q1, s1, b1, q2, s2, b2, _vec(rng, dev, K, 1.0), _vec(rng, dev, K),
+            torch.tensor(0.034, device=dev), torch.tensor(0.021, device=dev))
+    before, k4 = fused_int8_mlp_block1.launches, fused_int8_mlp_block.launches
+    got = fused_int8_mlp_block1(tok, *args, gelu=gelu)
+    torch.cuda.synchronize()
+    assert fused_int8_mlp_block1.launches == before + 1
+    assert fused_int8_mlp_block.launches == k4 and got.dtype == dtype
+    assert torch.equal(got, fused_int8_mlp_block(tok, *args, gelu=gelu))
+    check_against_plain(got, fused_int8_mlp_block1_ref(tok, *args, gelu=gelu), "K10")
+
+
+def test_k10_ragged_h_chunk(dev):
+    """H = 208 is not a multiple of the kernel's chunk of 128 columns."""
+    rng = np.random.default_rng(5)
+    K, H = 64, 208
+    tok = torch.from_numpy(rng.normal(size=(3, 10, K)).astype(np.float32)).to(dev)
+    q1, s1, b1 = _qlinear(rng, dev, K, H)
+    q2, s2, b2 = _qlinear(rng, dev, H, K, scale=0.02)
+    args = (q1, s1, b1, q2, s2, b2, _vec(rng, dev, K, 1.0), _vec(rng, dev, K),
+            torch.tensor(0.034, device=dev), torch.tensor(0.021, device=dev))
+    assert torch.equal(fused_int8_mlp_block1(tok, *args), fused_int8_mlp_block(tok, *args))
+
+
+def _mano_inputs(rng, dev, S, nb=10):
+    from hamer_yolo_tpu_torch.core.mano_assets import synthetic_mano_model
+    from hamer_yolo_tpu_torch.geometry.rotations import aa_to_rotmat
+    from hamer_yolo_tpu_torch.models.mano import ManoModel
+
+    model = ManoModel.from_arrays(synthetic_mano_model(0), dev)
+    betas = torch.from_numpy(rng.normal(size=(S, nb)).astype(np.float32)).to(dev)
+    aa = torch.from_numpy((0.5 * rng.normal(size=(S * 16, 3))).astype(np.float32)).to(dev)
+    return model, betas, aa_to_rotmat(aa).reshape(S, 16, 3, 3)
+
+
+@pytest.mark.parametrize("S,nb", [(16, 10), (1, 10), (5, 4)], ids=["s16", "s1", "nb4"])
+def test_k9_matches_plain(dev, S, nb):
+    from hamer_yolo_tpu_torch.models.mano import lbs
+
+    model, betas, rotmats = _mano_inputs(np.random.default_rng(S), dev, S, nb)
+    before = mano_lbs_fused.launches
+    verts, joints = mano_lbs_fused(model, betas, rotmats)
+    torch.cuda.synchronize()
+    assert mano_lbs_fused.launches == before + 1
+    ref_v, ref_j = mano_lbs_fused_ref(model, betas, rotmats)
+    assert verts.shape == (S, 778, 3) and torch.equal(joints, ref_j)
+    mano_lbs.check_against_plain(verts, ref_v)
+    lbs_v, lbs_j = lbs(model, betas, rotmats)
+    torch.testing.assert_close(verts, lbs_v, rtol=0, atol=1e-5)
+    torch.testing.assert_close(joints, lbs_j, rtol=0, atol=1e-5)
+
+
+def test_optin_kernels_reject_what_they_do_not_take(dev):
+    model, betas, rotmats = _mano_inputs(np.random.default_rng(0), dev, 2)
+    with pytest.raises(ValueError, match="f32 betas and rotmats"):
+        mano_lbs_fused(model, betas.double(), rotmats)
+    with pytest.raises(ValueError, match="rotmats on cpu"):
+        mano_lbs_fused(model, betas, rotmats.cpu())
+    qkv = torch.zeros((2, 12, 3 * 4 * 16), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="one float dtype, bf16 or f32"):
+        fused_qkv_attention(qkv.half(), 4)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_qkv_attention(qkv[:, :, :3 * 4 * 12], 4)
+    rng = np.random.default_rng(1)
+    tok = torch.zeros((2, 12, 64), device=dev)
+    q1, s1, b1 = _qlinear(rng, dev, 64, 256)
+    q2, s2, b2 = _qlinear(rng, dev, 256, 64)
+    vec, sx = torch.ones(64, device=dev), torch.tensor(0.03, device=dev)
+    with pytest.raises(ValueError, match="bf16 or f32 tokens"):
+        fused_int8_mlp_block1(tok.half(), q1, s1, b1, q2, s2, b2, vec, vec, sx, sx)
+    with pytest.raises(ValueError, match="int8 .K, H. and .H, K. on"):
+        fused_int8_mlp_block1(tok, q1, s1, b1, q2.cpu(), s2, b2, vec, vec, sx, sx)
+    with pytest.raises(ValueError, match="static scale is on cpu"):
+        fused_int8_mlp_block1(tok, q1, s1, b1, q2, s2, b2, vec, vec, sx.cpu(), sx)
+    q, s, b = _qlinear(rng, dev, 64, 192)
+    with pytest.raises(ValueError, match="static scale is on cpu"):
+        fused_int8_attn_block(tok, q, s, b, vec, vec, sx, sx.cpu(), 4)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        fused_int8_attn_block(tok, q[:, :160], s[:160], b[:160], vec, vec, sx, sx, 4)
+
+
+def test_int8_dynamic_vit_on_f32_tokens(dev):
+    """The int8 ViT without static scales on f32 tokens: K5 and K7 on f32
+    rows, against the plain versions on the CPU fed the same tokens."""
+    cfg = ViTConfig(img_size=(64, 48), embed_dim=64, depth=2, num_heads=4,
+                    compute_dtype="float32")
+    params = quant.quantize_vit_params(init_vit(torch.Generator().manual_seed(0), cfg))
+    tok = torch.from_numpy(np.random.default_rng(0).normal(size=(3, 12, 64)).astype(np.float32))
+    before = fused_short_attention.launches
+    got = quant.vit_blocks_int8(_to(params, dev), tok.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert fused_short_attention.launches == before + cfg.depth
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    ref = quant.vit_blocks_int8(params, tok, cfg, fused=True, gelu="gelu_poly")
+    assert torch.isclose(got.cpu(), ref, rtol=0.02, atol=0.02).float().mean() > 0.99
+    torch.testing.assert_close(got.cpu(), ref, rtol=0.2, atol=0.1)
+
+
+@pytest.mark.parametrize("scales", ["static", "dynamic"])
+def test_optin_switches_on_cuda(dev, scales, monkeypatch):
+    """HYT_ATTN / HYT_INT8_MLP on the card: static scales with megakernel +
+    megakernel1 run K6 and K10 once per block (no K3, K4); without scales
+    pallas_fusedqkv runs K8 once and K5 four times per block (no K7)."""
+    cfg = ViTConfig(img_size=(64, 48), embed_dim=64, depth=2, num_heads=4)
+    params = quant.quantize_vit_params(init_vit(torch.Generator().manual_seed(0), cfg))
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(3, 64, 48, 3)).astype(np.float32))
+    if scales == "static":
+        stats = quant.collect_vit_act_stats(params, x, cfg)
+        params = quant.attach_static_act_scales(params, stats)
+        monkeypatch.setenv("HYT_ATTN", "megakernel")
+        monkeypatch.setenv("HYT_INT8_MLP", "megakernel1")
+        want = {"K3": 0, "K4": 0, "K5": 0, "K6": 1, "K7": 0, "K8": 0, "K10": 1}
+    else:
+        monkeypatch.setenv("HYT_ATTN", "pallas_fusedqkv")
+        want = {"K3": 0, "K4": 0, "K5": 4, "K6": 0, "K7": 0, "K8": 1, "K10": 0}
+    fns = {"K3": fused_int8_attn_proj_block, "K4": fused_int8_mlp_block, "K5": fused_int8_matmul,
+           "K6": fused_int8_attn_block, "K7": fused_short_attention, "K8": fused_qkv_attention,
+           "K10": fused_int8_mlp_block1}
+    before = {k: f.launches for k, f in fns.items()}
+    got = quant.vit_forward_int8(_to(params, dev), x.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert {k: f.launches - before[k] for k, f in fns.items()} == {
+        k: n * cfg.depth for k, n in want.items()}
+    monkeypatch.delenv("HYT_ATTN")
+    monkeypatch.delenv("HYT_INT8_MLP", raising=False)
+    ref = quant.vit_forward_int8(_to(params, dev), x.to(dev), cfg)  # the default kernels
+    assert torch.isclose(got.float(), ref.float(), rtol=0.02, atol=0.02).float().mean() > 0.99
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0.2, atol=0.1)
+
+
+def test_hamer_forward_fused_mano_on_cuda(dev):
+    import dataclasses as dc
+
+    from hamer_yolo_tpu_torch.cli.main import pipeline_config
+    from hamer_yolo_tpu_torch.core.mano_assets import synthetic_mano_model
+    from hamer_yolo_tpu_torch.models.hamer import hamer_forward, init_hamer
+    from hamer_yolo_tpu_torch.models.mano import ManoModel
+
+    cfg = pipeline_config(tiny=True).hamer
+    params = _to(init_hamer(torch.Generator().manual_seed(0), cfg), dev)
+    mano = ManoModel.from_arrays(synthetic_mano_model(0), dev)
+    img = torch.from_numpy(np.random.default_rng(0).normal(size=(3, 64, 64, 3))
+                           .astype(np.float32)).to(dev)
+    before = mano_lbs_fused.launches
+    ref = hamer_forward(params, mano, img, cfg)
+    assert mano_lbs_fused.launches == before  # off by default
+    got = hamer_forward(params, mano, img, dc.replace(cfg, fused_mano=True))
+    torch.cuda.synchronize()
+    assert mano_lbs_fused.launches == before + 1
+    for k in ("pred_vertices", "pred_keypoints_3d"):
+        torch.testing.assert_close(got[k], ref[k], rtol=0, atol=1e-5)
