@@ -115,6 +115,32 @@ def cuda_time_ms(fn, iters=TIMED_ITERS, warmup=2):
     return float(np.median(times))
 
 
+def graph_time_ms(fn, reps=20, iters=10):
+    """Median device time of fn() in ms with no host work in between: reps
+    calls captured once in a CUDA graph, CUDA events around each replay."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
 def bound(nbytes, ops):
     """The least time the card could take: (ms, "bytes" or "operations"),
     bytes over the HBM rate against the operations of each type over its
@@ -476,7 +502,7 @@ def check_int8_kernels(blk, tok0, heads):
     from hamer_yolo_tpu_torch.ops.attn_proj_block import (fused_int8_attn_proj_block,
                                                            fused_int8_attn_proj_block_ref)
     from hamer_yolo_tpu_torch.ops.short_attention import (fused_short_attention,
-                                                          fused_short_attention_ref)
+                                                          fused_short_attention_ref, occupancy)
 
     dev = tok0.device
     B, N, Kd = tok0.shape
@@ -559,27 +585,46 @@ def check_int8_kernels(blk, tok0, heads):
     out["K4"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": by, "library_ms": None}
 
-    # K7: bf16 and int8 outputs at the main path's (16, 16, 192, 80)
+    # K7: bf16 and int8 outputs at the main path's (16, 16, 192, 80), at unit
+    # scale and with q and k times 8 (large logits: the max subtraction decides)
+    from hamer_yolo_tpu_torch.ops.attn_block import check_against_twin
+
     qkv = randn(B, N, 3, heads, hd).bfloat16()
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     err = 0.0
-    for sx in (None, lin["proj"][3]):
-        got = fused_short_attention(q, k, v, out_scale=sx)
-        torch.cuda.synchronize()
-        ref = fused_short_attention_ref(q, k, v, out_scale=sx)
-        if sx is None:  # the limits of K2's attention, whose math this is
-            from hamer_yolo_tpu_torch.ops.attn_block import check_against_twin
-            r = check_against_twin(got, ref)
-        else:
-            r = im.check_against_plain(got, ref, "K7")
-        err = max(err, r["max_abs_err"])
-        print(f"K7 {'bf16' if sx is None else 'int8 (out_scale)'} {tuple(q.shape)}: " + _fmt(r))
+    for mult in (1, 8):
+        scaled = qkv * torch.tensor([mult, mult, 1], device=dev).reshape(3, 1, 1).bfloat16()
+        qm, km, vm = (scaled[:, :, i].transpose(1, 2) for i in range(3))
+        for sx in (None, lin["proj"][3]):
+            got = fused_short_attention(qm, km, vm, out_scale=sx)
+            torch.cuda.synchronize()
+            ref = fused_short_attention_ref(qm, km, vm, out_scale=sx)
+            if sx is None:  # the limits of K2's attention, whose math this is
+                r = check_against_twin(got, ref)
+            else:
+                r = im.check_against_plain(got, ref, "K7")
+            err = max(err, r["max_abs_err"])
+            print(f"K7 {'bf16' if sx is None else 'int8 (out_scale)'} {tuple(q.shape)}, q and k "
+                  f"x{mult}: " + _fmt(r))
     ms = cuda_time_ms(lambda: fused_short_attention(q, k, v))
+    int8_ms = cuda_time_ms(lambda: fused_short_attention(q, k, v, out_scale=lin["proj"][3]))
     plain_ms = cuda_time_ms(lambda: fused_short_attention_ref(q, k, v))
     sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
     bound_ms, by = bound(4 * M * Kd * 2, {"bf16": 4 * B * heads * N * N * hd})
+    occ = {name: occupancy(N, hd, dt) for name, dt in (("bf16", torch.bfloat16),
+                                                       ("int8", torch.int8))}
+    dev_ms = {"bf16": graph_time_ms(lambda: fused_short_attention(q, k, v)),
+              "int8": graph_time_ms(lambda: fused_short_attention(q, k, v,
+                                                                  out_scale=lin["proj"][3])),
+              "sdpa": graph_time_ms(
+                  lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))}
     print(f"K7 timing at {tuple(q.shape)} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"scaled_dot_product_attention {sdpa_ms:.4f} ms, bound {bound_ms:.6f} ms ({by})")
+          f"scaled_dot_product_attention {sdpa_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}); "
+          f"with the int8 epilogue {int8_ms:.4f} ms; device time alone (CUDA graph of 20 "
+          f"launches): bf16 {dev_ms['bf16']:.4f} ms, int8 {dev_ms['int8']:.4f} ms, "
+          f"scaled_dot_product_attention {dev_ms['sdpa']:.4f} ms; the kernel at N {N}, hd {hd}: "
+          + "; ".join(f"{name} out {o['registers']} registers a thread, {o['ctas_per_sm']} CTAs "
+                      "an SM" for name, o in occ.items()))
     out["K7"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": by, "library_ms": sdpa_ms}
 
@@ -704,9 +749,14 @@ def check_optin_kernels(blk, tok0, heads, mano, pred_mano, k3_ms, k4_ms, k7_ms):
     sdpa_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qv, kv, vv))
     f32_ms = cuda_time_ms(lambda: fused_qkv_attention(qkv32, heads))
     bound_ms, by = bound(4 * M * Kd * 2, {"bf16": 4 * B * heads * N * N * hd})
+    dev_ms = graph_time_ms(lambda: fused_qkv_attention(x, heads))
+    sdpa_dev_ms = graph_time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qv, kv, vv))
     print(f"K8 timing at {tuple(x.shape)} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"scaled_dot_product_attention {sdpa_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}); K7, "
-          f"which it is an option to, {k7_ms:.4f} ms; with f32 inputs {f32_ms:.4f} ms")
+          f"which it is an option to, {k7_ms:.4f} ms; with f32 inputs {f32_ms:.4f} ms; device "
+          f"time alone (CUDA graph of 20 launches) {dev_ms:.4f} ms, scaled_dot_product_attention "
+          f"{sdpa_dev_ms:.4f} ms")
     out["K8"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": by, "library_ms": sdpa_ms}
 

@@ -21,59 +21,93 @@
 // the same device code on the same addresses. ViT-H: 16 crops x 16 heads,
 // N = 192, hd = 80.
 //
+// What bounds it on the H100: per ViT-H layer the two products are 3.0 GFLOP
+// in bf16 (3.1 us at the tensor cores' peak) against 31.5 MB of q, k, v and
+// output (9.4 us at 3.35 TB/s), so it is bound by bytes, and by the latency
+// of getting them on chip: each CTA's work is small.
+//
+// bf16 inputs, the design for Hopper (sm_90a): one CTA of three warpgroups
+// (384 threads) per (192 query rows, head, crop), each warpgroup owning a
+// 64-row query tile; at N = 192 that is one CTA per (head, crop).
+// - q, k and v are read through (crop, head, row) strides, so a wrapper
+//   hands in views of a fused (B, N, 3D) qkv buffer without a transpose
+//   copy. The three Q tiles and the head's K and V land in shared memory by
+//   16-byte cp.async (rows past N and columns past hd zero-filled by the
+//   copy itself), never through registers, and K and V once for all three
+//   tiles. Q + K complete one mbarrier and V a second, so the logits'
+//   product starts while V is still in flight. Shared memory:
+//   (2 * Nk + 192) * Hp * 2 bytes, Nk = N rounded up to 64, Hp = hd rounded
+//   up to 16: 92 KB at N = 192, hd = 80 (the kernel this replaced staged f32
+//   logits and bf16 probabilities there too, 142 KB for one 64-row tile).
+//   With 106-168 registers a thread, one CTA (12 warps) runs on an SM.
+//   Measured against it at the main path's shape (H100, CUDA graph replay, in turns
+//   in one process): one warpgroup per CTA (three CTAs an SM, each loading
+//   K and V from L2) read 0.0455 ms against 0.0350; persistent CTAs that
+//   prefetch the next head into a second stage of shared memory read
+//   0.0366 against 0.0350 (and spilled at N = 256), so the loads are not
+//   what holds it back.
+// - Operands sit in wgmma's unswizzled core-matrix layout: 8 rows x 16
+//   bytes contiguous (128 B), core matrices along hd 128 B apart, groups of
+//   8 rows Hp * 16 B apart. The same layout serves K as a K-major B operand
+//   and V as an MN-major (transposed) one, so V needs no transpose pass.
+// - The Q tile is scaled in place (q * scale rounded to bf16), then
+//   S = Q K^T runs on wgmma.m64n64k16 from shared memory, Nk / 64
+//   accumulators of 64 x 64 f32: the logits stay in registers (96 a thread
+//   at N = 192).
+// - The softmax runs on those registers: each row lives in the 4 threads of
+//   a quad, so its max and sum take two shuffles each; padded keys get p = 0
+//   (the mask is compiled away when N fills the accumulators, as N = 192
+//   does). p is rounded to bf16 and packed straight into the A fragments of
+//   the second product (the accumulator layout of m64nNk16 is the
+//   A-register layout of the next k16 step).
+// - O = P V runs on wgmma.m64n16k16 in the RS form (P from registers, V from
+//   shared memory, transposed), one 64 x 16 f32 accumulator per 16 columns
+//   of hd: 40 registers a thread at hd = 80. This part and the epilogue are
+//   compiled for each of the 8 padded widths (a switch on Hp / 16), so no
+//   wgmma sits behind a runtime guard: with guards ptxas fenced every one of
+//   them, and the key mask and the guards together cost 14% (0.0352 ms
+//   against 0.0304 at the main path's shape, measured as above). The price:
+//   66 s of nvcc for this file, and the kernels for N > 192 (four logit
+//   accumulators) spill about 230 bytes a thread.
+// - The epilogue transposes each quad's accumulators by shuffles, so one
+//   thread holds 8 adjacent columns of a row, and writes them with one
+//   16-byte store (bf16), two (f32) or one 8-byte store (int8, quantize()
+//   from common.cuh), through the output strides.
+// N is at most 256 (four n64 accumulators) and hd a multiple of 8 up to 128.
+// Elementwise steps use the _rn intrinsics and expf, so no FMA contraction
+// or fast exp changes a rounding that the plain version does in two steps.
+//
 // f32 inputs (the JAX kernels take any float dtype): both products in f32
 // on the CUDA cores with explicit FMAs, p left in f32, K and V of the head
 // and a 64-row q tile in shared memory (193 KB at N = 192, hd = 80; K rows
-// padded by one float so the logits' reads are free of bank conflicts). It
-// is the slow and right form of a path the CLI does not take (its tokens are
-// bf16).
-//
-// Design: one CTA per (query tile of 64 rows, head, crop). q, k and v are
-// read through (crop, head, row) strides, so a wrapper hands in views of a
-// fused (B, N, 3D) qkv tensor (or (B, h, N, hd) tensors) without a
-// transpose copy, and the output is written through strides too, into the
-// (B, N, h, hd) layout the proj GEMM reads. The head's K and V, the scaled Q
-// tile, the f32 logits and the bf16 probabilities live in shared memory
-// (142 KB at N = 192, hd = 80; a whole head with its 192 x 192 logits would
-// need about 237 KB, more than the 227 KB a block may have, hence the query
-// tiles); N and hd are padded to multiples of 16 with zero rows and columns,
-// and padded keys are left out of the softmax, so the --tiny ViT (N = 12,
-// hd = 16) runs it too. bf16 products on the tensor cores through
-// nvcuda::wmma 16x16x16 fragments, f32 accumulation. Elementwise steps use
-// the _rn intrinsics, so no FMA contraction changes a rounding that the
-// plain version does in two steps.
-//
-// What bounds it on the H100: per ViT-H layer the two products are ~1 GFLOP
-// in bf16 (about 1 us at peak) against ~15 MB of q, k, v and output (about
-// 4.5 us at 3.35 TB/s), so it is bound by bytes. The design reads each q, k,
-// v element once per query tile (K and V of a head are read by 3 tiles at
-// N = 192, mostly from L2) and writes the output once, at 1 byte per
-// element with the int8 epilogue. The three phases are barrier-separated
-// and loads do not overlap math: pipelining is later work.
+// padded by one float so the logits' reads are free of bank conflicts), one
+// CTA of 256 threads per (query tile, head, crop). It is the slow and right
+// form of a path the CLI does not take (its tokens are bf16).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int QT = 64, AT = 256;
+constexpr int QT = 64;         // query rows of a warpgroup: one wgmma M extent
+constexpr int TPC = 3;         // query tiles of a bf16 CTA, one warpgroup each
+constexpr int CT = 128 * TPC;  // threads of the bf16 kernel
+constexpr int AT = 256;        // threads of the f32 kernel
+constexpr int MAX_N = 256;     // keys of the bf16 kernel: four n64 accumulators
+constexpr int MAX_HD = 128;    // head width of the bf16 kernel: eight n16 accumulators
 
 __host__ __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
 __host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
 
-// K and V (Np x Hp bf16), the Q tile (QT x Hp bf16), the f32 logits, later
-// the f32 output (QT x max(Np, Hp)), the bf16 probabilities (QT x Np).
-// With f32 inputs (elem 4): K (N x (hd + 1)), V (N x hd), the Q tile
-// (QT x hd) and the logits, later the probabilities (QT x N), all f32.
+// bf16: K and V (Nk x Hp), the Q tiles (TPC * QT x Hp), two mbarriers. f32: K
+// (N x (hd + 1)), V (N x hd), the Q tile (QT x hd) and the logits, later the
+// probabilities (QT x N).
 __host__ __device__ __forceinline__ int smem_bytes(int N, int hd, int elem) {
   if (elem == 4) return (round4(N * (hd + 1)) + N * hd + QT * hd + QT * N) * 4;
-  const int Np = round16(N), Hp = round16(hd), Sw = Np > Hp ? Np : Hp;
-  return (2 * Np * Hp + QT * Hp) * 2 + QT * Sw * 4 + QT * Np * 2;
+  const int Nk = (N + 63) & ~63, Hp = round16(hd);
+  return (2 * Nk + TPC * QT) * Hp * 2 + 16;
 }
 
 struct AttnArgs {
@@ -86,127 +120,373 @@ struct AttnArgs {
   const float* out_scale;  // (1,) scale of the int8 output, on the device
 };
 
-// The epilogue: o (f32) rounded to the output type; int8 quantized by inv.
-__device__ __forceinline__ void store_out(bf16* out, float o, float) {
-  *out = __float2bfloat16_rn(o);
+// ------------------------------------------------------ sm_90 primitives
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+// 16 bytes global -> shared, asynchronously; bytes past src_bytes are zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// The barrier's arrival of this thread fires once all its earlier cp.async
+// copies have landed (the count set at init includes it).
+__device__ __forceinline__ void mbar_arrive_on_copies(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// Orders this thread's generic-proxy view of shared memory (its stores, the
+// copies it has waited for) before wgmma's reads through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the wgmma fence, commit and wait around it.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A shared-memory matrix descriptor of the unswizzled layout: start address,
+// leading byte offset (between core matrices along the reduction axis) and
+// stride byte offset (between core matrices along M or N), each in 16-byte
+// units.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+// d (64 x 64 f32) (+)= A (64 x 16 bf16, K-major, shared) . B (16 x 64 bf16,
+// K-major, shared).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 16 f32) += A (64 x 16 bf16, registers) . B (16 x 16 bf16, MN-major
+// in shared memory: transposed).
+__device__ __forceinline__ void wgmma_rs_n16_tb(float (&d)[8], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Byte offset of element (r, c) in the core-matrix layout of a matrix with
+// Hp columns: 8-row groups Hp * 16 bytes apart, 8-column core matrices 128
+// bytes apart, rows of a core matrix 16 bytes apart.
+__device__ __forceinline__ uint32_t cm_off(int r, int c, int Hp) {
+  return (uint32_t)((r >> 3) * (Hp * 16) + (c >> 3) * 128 + (r & 7) * 16 + (c & 7) * 2);
+}
+
+// The epilogue: 8 adjacent outputs of a row, rounded to the output type or
+// quantized by inv, in one or two vector stores.
+__device__ __forceinline__ void store8(bf16* out, const float (&o)[8], float) {
+  Pack8 pk;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) pk.h[i] = __float2bfloat16_rn(o[i]);
+  *reinterpret_cast<uint4*>(out) = pk.u;
+}
+__device__ __forceinline__ void store8(float* out, const float (&o)[8], float) {
+  reinterpret_cast<float4*>(out)[0] = make_float4(o[0], o[1], o[2], o[3]);
+  reinterpret_cast<float4*>(out)[1] = make_float4(o[4], o[5], o[6], o[7]);
+}
+__device__ __forceinline__ void store8(int8_t* out, const float (&o)[8], float inv) {
+  union {
+    uint2 u;
+    int8_t b[8];
+  } pk;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) pk.b[i] = quantize(o[i], inv);
+  *reinterpret_cast<uint2*>(out) = pk.u;
+}
+
+template <typename T>
+__device__ __forceinline__ T pick4(const T (&a)[4], int i) {
+  return i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
+}
+
+// Softmax of this thread's logits, in place, then p rounded to bf16 as the A
+// fragments of the k16 steps of P . V. The thread holds rows g and g + 8 of
+// its warp's 16 (g = lane / 4), columns 8 j + 2 t and + 1 of each n8 block j
+// (t = lane % 4): s[c][4 j' + e], j' the block within chunk c, e = 0, 1 row g
+// and e = 2, 3 row g + 8. MASKED leaves keys past N out (only the last chunk
+// can hold them); with N = 64 NCH the mask is compiled away.
+template <int NCH, bool MASKED>
+__device__ __forceinline__ void softmax_to_p(float (&s)[NCH][32], uint32_t (&pa)[4 * NCH][4],
+                                             int N, int t4) {
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (!MASKED || c < NCH - 1 || c * 64 + 8 * j + 2 * t4 + e < N) {
+          m0 = fmaxf(m0, s[c][4 * j + e]);
+          m1 = fmaxf(m1, s[c][4 * j + 2 + e]);
+        }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+  }
+  float l0 = 0.0f, l1 = 0.0f;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = !MASKED || c < NCH - 1 || c * 64 + 8 * j + 2 * t4 + e < N;
+        const float e0 = in ? expf(__fsub_rn(s[c][4 * j + e], m0)) : 0.0f;
+        const float e1 = in ? expf(__fsub_rn(s[c][4 * j + 2 + e], m1)) : 0.0f;
+        s[c][4 * j + e] = e0;
+        s[c][4 * j + 2 + e] = e1;
+        l0 = __fadd_rn(l0, e0);
+        l1 = __fadd_rn(l1, e1);
+      }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    l0 = __fadd_rn(l0, __shfl_xor_sync(0xffffffffu, l0, o));
+    l1 = __fadd_rn(l1, __shfl_xor_sync(0xffffffffu, l1, o));
+  }
+  const float inv0 = __fdiv_rn(1.0f, l0), inv1 = __fdiv_rn(1.0f, l1);
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int kl = 0; kl < 4; ++kl) {
+      const float* x = &s[c][8 * kl];
+      pa[4 * c + kl][0] = pack_bf16(__fmul_rn(x[0], inv0), __fmul_rn(x[1], inv0));
+      pa[4 * c + kl][1] = pack_bf16(__fmul_rn(x[2], inv1), __fmul_rn(x[3], inv1));
+      pa[4 * c + kl][2] = pack_bf16(__fmul_rn(x[4], inv0), __fmul_rn(x[5], inv0));
+      pa[4 * c + kl][3] = pack_bf16(__fmul_rn(x[6], inv1), __fmul_rn(x[7], inv1));
+    }
+}
+
+// O = P . Vs for a head of HC * 16 padded columns, once V has landed, then
+// the epilogue: in each quad, thread t takes the 8 columns 16 j + 8 (t / 2)
+// .. + 7 of row g (t even) or g + 8 (t odd) from the quad's four threads and
+// stores them at once. ``row`` is that row's index, ``out`` its column 0.
+template <int NCH, int HC, typename OutT>
+__device__ __forceinline__ void pv_store(const uint32_t (&pa)[4 * NCH][4], uint32_t v_s,
+                                         uint32_t bar_v, int N, int hd, int row, OutT* out,
+                                         float inv_out, int t4) {
+  constexpr int Hp = HC * 16;
+  float o[HC][8];
+#pragma unroll
+  for (int j = 0; j < HC; ++j) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[j][i] = 0.0f;
+    fence_regs(o[j]);
+  }
+  // the k16 steps over the keys up to N rounded to 16 (the rest have p = 0)
+  const int nks = (N + 15) / 16;
+  mbar_wait(bar_v, 0);
+  fence_proxy_async();
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4 * NCH; ++ks)
+    if (ks < nks) {
+#pragma unroll
+      for (int j = 0; j < HC; ++j)
+        wgmma_rs_n16_tb(o[j], pa[ks], desc(v_s + ks * 2 * (Hp * 16) + j * 256, Hp * 16, 128));
+    }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int j = 0; j < HC; ++j) fence_regs(o[j]);
+
+#pragma unroll
+  for (int j = 0; j < HC; ++j) {
+    float2 x[4], got[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      x[k] = make_float2(o[j][4 * (k >> 1) + 2 * (k & 1)], o[j][4 * (k >> 1) + 2 * (k & 1) + 1]);
+    got[0] = pick4(x, t4);
+#pragma unroll
+    for (int r = 1; r < 4; ++r) {
+      const float2 send = pick4(x, t4 ^ r);
+      got[r] = make_float2(__shfl_xor_sync(0xffffffffu, send.x, r),
+                           __shfl_xor_sync(0xffffffffu, send.y, r));
+    }
+    float v[8];
+#pragma unroll
+    for (int src = 0; src < 4; ++src) {
+      const float2 y = pick4(got, src ^ t4);  // columns 2 src, 2 src + 1
+      v[2 * src] = y.x;
+      v[2 * src + 1] = y.y;
+    }
+    const int col = 16 * j + 8 * (t4 >> 1);
+    if (row < N && col < hd) store8(out + col, v, inv_out);
+  }
+}
+
+// bf16 inputs: NCH n64 accumulators of logits (N <= 64 * NCH).
+template <int NCH, typename OutT>
+__global__ void __launch_bounds__(CT) attention_bf16_kernel(const AttnArgs p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const bf16* pq = reinterpret_cast<const bf16*>(p.q);
+  const bf16* pk = reinterpret_cast<const bf16*>(p.k);
+  const bf16* pv = reinterpret_cast<const bf16*>(p.v);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int q0 = blockIdx.x * TPC * QT, qt = blockIdx.x * TPC + wg;  // this warpgroup's tile
+  const int N = p.N, hd = p.hd, Hp = round16(hd), hc = Hp / 16, cpr = Hp / 8;
+  constexpr int Nk = 64 * NCH;
+
+  unsigned char* Ks = smem;               // Nk x Hp
+  unsigned char* Vs = Ks + Nk * Hp * 2;   // Nk x Hp
+  unsigned char* Qs = Vs + Nk * Hp * 2;   // TPC * QT x Hp
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Qs + TPC * QT * Hp * 2);
+  const uint32_t k_s = smem_addr(Ks), v_s = smem_addr(Vs), q_s = smem_addr(Qs);
+  const uint32_t bar_qk = smem_addr(bars), bar_v = smem_addr(bars + 1);
+  if (tid == 0) {
+    mbar_init(bar_qk, CT);
+    mbar_init(bar_v, CT);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Asynchronous loads: Q tile and K on one barrier, V on the other.
+  const long long base = (long long)b * p.ib + (long long)h * p.ih;
+  for (int c = tid; c < TPC * QT * cpr; c += CT) {
+    const int r = c / cpr, cc = (c % cpr) * 8, row = q0 + r;
+    const bool in = row < N && cc < hd;
+    cp_async16(q_s + cm_off(r, cc, Hp), pq + (in ? base + (long long)row * p.in + cc : 0),
+               in ? 16 : 0);
+  }
+  for (int c = tid; c < Nk * cpr; c += CT) {
+    const int r = c / cpr, cc = (c % cpr) * 8;
+    const bool in = r < N && cc < hd;
+    cp_async16(k_s + cm_off(r, cc, Hp), pk + (in ? base + (long long)r * p.in + cc : 0),
+               in ? 16 : 0);
+  }
+  mbar_arrive_on_copies(bar_qk);
+  for (int c = tid; c < Nk * cpr; c += CT) {
+    const int r = c / cpr, cc = (c % cpr) * 8;
+    const bool in = r < N && cc < hd;
+    cp_async16(v_s + cm_off(r, cc, Hp), pv + (in ? base + (long long)r * p.in + cc : 0),
+               in ? 16 : 0);
+  }
+  mbar_arrive_on_copies(bar_v);
+
+  // q * scale, rounded to bf16, in place.
+  mbar_wait(bar_qk, 0);
+  for (int c = tid; c < TPC * QT * cpr; c += CT) {
+    uint4* qp = reinterpret_cast<uint4*>(Qs + cm_off(c / cpr, (c % cpr) * 8, Hp));
+    Pack8 v;
+    v.u = *qp;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v.h[i] = __float2bfloat16_rn(__fmul_rn(__bfloat162float(v.h[i]), p.scale));
+    *qp = v.u;
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  // S = Qs . Ks^T: NCH accumulators of 64 x 64 f32, hc k16 steps.
+  float s[NCH][32];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[c][i] = 0.0f;
+    fence_regs(s[c]);
+  }
+  wgmma_fence();
+  for (int kk = 0; kk < hc; ++kk) {
+    const uint64_t da = desc(q_s + wg * 8 * (Hp * 16) + kk * 256, 128, Hp * 16);
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+      wgmma_ss_n64(s[c], da, desc(k_s + c * 8 * (Hp * 16) + kk * 256, 128, Hp * 16), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) fence_regs(s[c]);
+
+  // Softmax in registers, then P . V and the epilogue at the head's width.
+  const int t4 = lane & 3;
+  uint32_t pa[4 * NCH][4];
+  if (N == 64 * NCH)
+    softmax_to_p<NCH, false>(s, pa, N, t4);
+  else
+    softmax_to_p<NCH, true>(s, pa, N, t4);
+  const int row = qt * QT + warp * 16 + (lane >> 2) + (t4 & 1) * 8;
+  OutT* out = reinterpret_cast<OutT*>(p.out) + (long long)b * p.ob + (long long)h * p.oh +
+              (long long)row * p.on;
+  const float inv_out = p.out_scale ? __fdiv_rn(1.0f, *p.out_scale) : 0.0f;
+  switch (hc) {
+    case 1: pv_store<NCH, 1>(pa, v_s, bar_v, N, hd, row, out, inv_out, t4); break;
+    case 2: pv_store<NCH, 2>(pa, v_s, bar_v, N, hd, row, out, inv_out, t4); break;
+    case 3: pv_store<NCH, 3>(pa, v_s, bar_v, N, hd, row, out, inv_out, t4); break;
+    case 4: pv_store<NCH, 4>(pa, v_s, bar_v, N, hd, row, out, inv_out, t4); break;
+    case 5: pv_store<NCH, 5>(pa, v_s, bar_v, N, hd, row, out, inv_out, t4); break;
+    case 6: pv_store<NCH, 6>(pa, v_s, bar_v, N, hd, row, out, inv_out, t4); break;
+    case 7: pv_store<NCH, 7>(pa, v_s, bar_v, N, hd, row, out, inv_out, t4); break;
+    default: pv_store<NCH, 8>(pa, v_s, bar_v, N, hd, row, out, inv_out, t4); break;
+  }
+}
+
 __device__ __forceinline__ void store_out(float* out, float o, float) { *out = o; }
 __device__ __forceinline__ void store_out(int8_t* out, float o, float inv) {
   *out = quantize(o, inv);
 }
 
-template <typename OutT>
-__device__ __forceinline__ void attention_bf16(const AttnArgs& p, unsigned char* smem) {
-  const bf16* pq = reinterpret_cast<const bf16*>(p.q);
-  const bf16* pk = reinterpret_cast<const bf16*>(p.k);
-  const bf16* pv = reinterpret_cast<const bf16*>(p.v);
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int N = p.N, hd = p.hd;
-  const int Np = round16(N), Hp = round16(hd), Sw = Np > Hp ? Np : Hp;
-
-  bf16* Ks = reinterpret_cast<bf16*>(smem);          // Np x Hp
-  bf16* Vs = Ks + Np * Hp;                           // Np x Hp
-  bf16* Qs = Vs + Np * Hp;                           // QT x Hp
-  float* S = reinterpret_cast<float*>(Qs + QT * Hp);  // QT x Np logits, later QT x Hp output
-  bf16* P = reinterpret_cast<bf16*>(S + QT * Sw);     // QT x Np probabilities
-
-  const long long base = (long long)b * p.ib + (long long)h * p.ih;
-  const int cpr = Hp / 8;  // 16-byte chunks per padded row (hd % 8 == 0)
-  for (int c = tid; c < Np * cpr; c += AT) {
-    const int r = c / cpr, cc = (c % cpr) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-    if (r < N && cc < hd) {
-      const long long off = base + (long long)r * p.in + cc;
-      kv = *reinterpret_cast<const uint4*>(pk + off);
-      vv = *reinterpret_cast<const uint4*>(pv + off);
-    }
-    *reinterpret_cast<uint4*>(Ks + r * Hp + cc) = kv;
-    *reinterpret_cast<uint4*>(Vs + r * Hp + cc) = vv;
-  }
-  for (int c = tid; c < QT * cpr; c += AT) {
-    const int r = c / cpr, cc = (c % cpr) * 8;
-    const int row = qt * QT + r;
-    Pack8 o;
-    if (row < N && cc < hd) {
-      Pack8 in;
-      in.u = *reinterpret_cast<const uint4*>(pq + base + (long long)row * p.in + cc);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        o.h[i] = __float2bfloat16_rn(__fmul_rn(__bfloat162float(in.h[i]), p.scale));
-    } else {
-      o.u = make_uint4(0, 0, 0, 0);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * Hp + cc) = o.u;
-  }
-  __syncthreads();
-
-  // Logits S = Qs . Ks^T (f32), one 16 x 16 fragment at a time per warp.
-  const int nc16 = Np / 16;
-  for (int f = warp; f < (QT / 16) * nc16; f += AT / 32) {
-    const int fr = f / nc16, fc = f % nc16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int k = 0; k < Hp; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-      wmma::load_matrix_sync(a, Qs + fr * 16 * Hp + k, Hp);
-      wmma::load_matrix_sync(kb, Ks + fc * 16 * Hp + k, Hp);
-      wmma::mma_sync(acc, a, kb, acc);
-    }
-    wmma::store_matrix_sync(S + fr * 16 * Np + fc * 16, acc, Np, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // Row softmax over the N real keys; padded key columns get p = 0.
-  for (int r = warp; r < QT; r += AT / 32) {
-    float* srow = S + r * Np;
-    float m = -INFINITY;
-    for (int c = lane; c < N; c += 32) m = fmaxf(m, srow[c]);
-    m = warp_max(m);
-    float s = 0.0f;
-    for (int c = lane; c < N; c += 32) {
-      const float e = expf(__fsub_rn(srow[c], m));
-      srow[c] = e;
-      s = __fadd_rn(s, e);
-    }
-    const float inv = __fdiv_rn(1.0f, warp_sum(s));
-    for (int c = lane; c < Np; c += 32)
-      P[r * Np + c] = c < N ? __float2bfloat16_rn(__fmul_rn(srow[c], inv)) : __float2bfloat16_rn(0.0f);
-  }
-  __syncthreads();
-
-  // O = P . Vs (f32), staged in the logits buffer.
-  float* O = S;
-  const int hc16 = Hp / 16;
-  for (int f = warp; f < (QT / 16) * hc16; f += AT / 32) {
-    const int fr = f / hc16, fc = f % hc16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int k = 0; k < Np; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-      wmma::load_matrix_sync(a, P + fr * 16 * Np + k, Np);
-      wmma::load_matrix_sync(vb, Vs + k * Hp + fc * 16, Hp);
-      wmma::mma_sync(acc, a, vb, acc);
-    }
-    wmma::store_matrix_sync(O + fr * 16 * Hp + fc * 16, acc, Hp, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  const long long obase = (long long)b * p.ob + (long long)h * p.oh;
-  OutT* out = reinterpret_cast<OutT*>(p.out);
-  const float inv_out = p.out_scale ? __fdiv_rn(1.0f, *p.out_scale) : 0.0f;
-  for (int e = tid; e < QT * hd; e += AT) {
-    const int r = e / hd, c = e % hd;
-    const int row = qt * QT + r;
-    if (row < N) store_out(out + obase + (long long)row * p.on + c, O[r * Hp + c], inv_out);
-  }
-}
-
 // f32 inputs: one thread per logit and per output element, f32 FMAs.
 template <typename OutT>
-__device__ __forceinline__ void attention_f32(const AttnArgs& p, unsigned char* smem) {
+__global__ void __launch_bounds__(AT) attention_f32_kernel(const AttnArgs p) {
+  extern __shared__ __align__(128) unsigned char smem[];
   const float* pq = reinterpret_cast<const float*>(p.q);
   const float* pk = reinterpret_cast<const float*>(p.k);
   const float* pv = reinterpret_cast<const float*>(p.v);
@@ -286,37 +566,50 @@ __device__ __forceinline__ void attention_f32(const AttnArgs& p, unsigned char* 
   }
 }
 
-template <typename InT, typename OutT>
-__global__ void __launch_bounds__(AT) short_attention_kernel(const AttnArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  if constexpr (sizeof(InT) == 4)
-    attention_f32<OutT>(p, smem);
-  else
-    attention_bf16<OutT>(p, smem);
-}
+typedef void (*Kernel)(const AttnArgs);
 
-template <typename InT, typename OutT>
-int launch(const AttnArgs& p, int B, int H, cudaStream_t st) {
-  const int smem = smem_bytes(p.N, p.hd, (int)sizeof(InT));
-  cudaError_t err = cudaFuncSetAttribute(short_attention_kernel<InT, OutT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// One launch of ``kernel`` (threads a CTA, rows query rows a CTA) over the
+// (query tile, head, crop) grid, after raising its shared-memory limit.
+int launch(Kernel kernel, int threads, int rows, const AttnArgs& p, int elem, int B, int H,
+           cudaStream_t st) {
+  const int smem = smem_bytes(p.N, p.hd, elem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.N + QT - 1) / QT, H, B);
-  short_attention_kernel<InT, OutT><<<grid, AT, smem, st>>>(p);
+  const dim3 grid((p.N + rows - 1) / rows, H, B);
+  kernel<<<grid, threads, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
+template <typename OutT>
+Kernel bf16_kernel(int N) {
+  const int nch = (N + 63) / 64;
+  return nch == 1   ? attention_bf16_kernel<1, OutT>
+         : nch == 2 ? attention_bf16_kernel<2, OutT>
+         : nch == 3 ? attention_bf16_kernel<3, OutT>
+                    : attention_bf16_kernel<4, OutT>;
+}
+
+// The bf16 kernel for N keys and out_kind (0 bf16, 1 f32, 2 int8).
+Kernel bf16_kernel_for(int N, int out_kind) {
+  return out_kind == 0 ? bf16_kernel<bf16>(N)
+         : out_kind == 1 ? bf16_kernel<float>(N)
+                         : bf16_kernel<int8_t>(N);
+}
+
 // in_f32: q, k, v are f32 (else bf16). out_kind 0 bf16 (bf16 inputs only),
-// 1 f32, 2 int8.
+// 1 f32, 2 int8. The output strides are multiples of 8 elements and the
+// output 16-byte aligned (the bf16 kernel stores 8 elements at a time).
 int dispatch(const AttnArgs& p, int in_f32, int out_kind, int B, int H, cudaStream_t st) {
   if (p.N <= 0 || p.hd <= 0 || B <= 0 || H <= 0 || p.hd % 8 || p.ib % 8 || p.ih % 8 ||
-      p.in % 8 || out_kind < 0 || out_kind > 2 || (out_kind == 2) != (p.out_scale != nullptr) ||
-      (in_f32 && out_kind == 0))
+      p.in % 8 || p.ob % 8 || p.oh % 8 || p.on % 8 || (uintptr_t)p.out % 16 || out_kind < 0 ||
+      out_kind > 2 || (out_kind == 2) != (p.out_scale != nullptr) || (in_f32 && out_kind == 0) ||
+      (!in_f32 && (p.N > MAX_N || p.hd > MAX_HD)))
     return (int)cudaErrorInvalidValue;
   if (in_f32)
-    return out_kind == 2 ? launch<float, int8_t>(p, B, H, st) : launch<float, float>(p, B, H, st);
-  if (out_kind == 1) return launch<bf16, float>(p, B, H, st);
-  return out_kind == 2 ? launch<bf16, int8_t>(p, B, H, st) : launch<bf16, bf16>(p, B, H, st);
+    return launch(out_kind == 2 ? attention_f32_kernel<int8_t> : attention_f32_kernel<float>, AT,
+                  QT, p, 4, B, H, st);
+  return launch(bf16_kernel_for(p.N, out_kind), CT, TPC * QT, p, 2, B, H, st);
 }
 
 }  // namespace
@@ -325,11 +618,27 @@ extern "C" int hyt_short_attn_smem_bytes(int N, int hd, int elem) {
   return smem_bytes(N, hd, elem);
 }
 
+// The bf16 kernel for (N, hd, out_kind): its registers a thread and the
+// CTAs that fit on one SM. Returns a cudaError_t.
+extern "C" int hyt_short_attn_occupancy(int N, int hd, int out_kind, int* regs, int* ctas) {
+  if (N <= 0 || N > MAX_N || hd <= 0 || hd > MAX_HD || out_kind < 0 || out_kind > 2)
+    return (int)cudaErrorInvalidValue;
+  const Kernel k = bf16_kernel_for(N, out_kind);
+  const int smem = smem_bytes(N, hd, 2);
+  cudaError_t err =
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, k);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, k, CT, smem);
+  if (err == cudaSuccess) *regs = attr.numRegs;
+  return (int)err;
+}
+
 // K7. q, k, v: bf16, or f32 with in_f32, with the element strides (ib, ih, in)
 // over (crop, head, row) and hd contiguous; out, written through (ob, oh,
 // on): out_kind 0 bf16, 1 f32, 2 int8 quantized by 1 / *out_scale (a (1,)
-// f32 on the device). hd % 8 == 0, the input strides multiples of 8 and the
-// pointers 16-byte aligned.
+// f32 on the device). hd % 8 == 0, the strides multiples of 8 and the
+// pointers 16-byte aligned; with bf16 inputs N <= 256 and hd <= 128.
 extern "C" int hyt_short_attention(const void* q, const void* k, const void* v, int in_f32,
                                    long long ib, long long ih, long long in, void* out,
                                    int out_kind, const void* out_scale, long long ob,

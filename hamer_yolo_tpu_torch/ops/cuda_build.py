@@ -50,6 +50,7 @@ _SIGNATURES = {
                                 _I, _I, _F, _P],
         "hyt_fused_qkv_attention": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _F, _P],
         "hyt_short_attn_smem_bytes": [_I, _I, _I],
+        "hyt_short_attn_occupancy": [_I, _I, _I, _P, _P],
     },
 }
 

@@ -3,11 +3,25 @@ with an optional int8 epilogue (port of fused_short_attention,
 fused_qkv_attention and softmax_attention_qkv in
 hamer_yolo_tpu/ops/attention_pallas.py).
 
-The CUDA counterpart is ``csrc/short_attention.cu``: one launch, one CTA per
-(64-row query tile, head, crop), for bf16 or f32 q, k, v (f32: both products
-in f32 on the CUDA cores, as the JAX kernels compute them for f32 inputs).
+The CUDA counterpart is ``csrc/short_attention.cu``: one launch.
 ``launch_attention`` is also the attention launch of K2 (ops/attn_block.py),
 K3 (ops/attn_proj_block.py) and K6 (ops/attn_block_int8.py).
+
+bf16 inputs run a kernel built for Hopper's warpgroup instructions, which
+replaced one that staged f32 logits and bf16 probabilities in shared memory
+(142 KB for each 64-row query tile, loads through registers with no
+overlap). The work is bound by bytes (31.5 MB for 3.0 GFLOP at ViT-H's
+shape), so the design keeps everything but q, k, v and the output on chip
+and overlaps the loads with math: a CTA of three warpgroups per (192 query
+rows, head, crop) lands its Q tiles and the head's K and V in shared memory
+once, by asynchronous 16-byte copies on two mbarriers (Q + K, then V);
+S = Q K^T and O = P V run on ``wgmma``; the logits and probabilities stay
+in registers (the softmax reduces each row over a quad by shuffles, and p is
+packed straight into the A fragments of P V); the epilogue writes 8
+adjacent outputs a thread. It takes N up to ``MAX_N`` keys and a head width
+up to ``MAX_HD``; the wrapper raises beyond. f32 inputs run both products in
+f32 on the CUDA cores (as the JAX kernels compute them for f32), one CTA per
+(64-row query tile, head, crop), as far as a head fits in shared memory.
 
 K7 against K8 on the card. On the TPU, K8 exists to spare K7's four
 transposes of (B, h, N, hd) tensors through device memory. The port's K7
@@ -19,10 +33,14 @@ is given, and returns a (B, h, N, hd) view that the caller transposes back
 and reshapes (no copy); K8 (``hyt_fused_qkv_attention``) takes the one
 contiguous (B, N, 3D) pointer and the head count, derives the head offsets
 (s * D + t * hd) in its entry and writes a contiguous (B, N, D) tensor. The
-device code and the addresses it touches are the same, so their times on the
-card should agree to the launch's host cost.
+device code and the addresses it touches are the same, so their outputs are
+equal bit for bit and their times on the card should agree to the launch's
+host cost.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -31,6 +49,8 @@ from hamer_yolo_tpu_torch.ops import cuda_build
 
 _OUT_KIND = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}  # of hyt_short_attention
 _IN_DTYPES = (torch.bfloat16, torch.float32)
+MAX_N = 256   # keys the bf16 kernel takes: four 64-wide wgmma accumulators of logits
+MAX_HD = 128  # head width the bf16 kernel takes
 
 
 def fused_short_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,7 +79,8 @@ def fused_short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take the plain version. CUDA tensors launch
     ``csrc/short_attention.cu``: q, k, v of one float dtype (bf16 or f32),
     one shape and one stride set with hd contiguous (views into a fused qkv
-    tensor are fine), hd a multiple of 8; anything else raises. The output
+    tensor are fine), hd a multiple of 8, bf16 up to MAX_N keys and MAX_HD
+    wide heads; anything else raises. The output
     is a (B, h, N, hd) view of a (B, N, h, hd) tensor, the layout the proj
     GEMM reads.
     """
@@ -79,34 +100,36 @@ fused_short_attention.launches = 0
 def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                      out_scale, what: str) -> None:
     """Launch csrc/short_attention.cu on (B, h, N, hd) views q, k, v (bf16
-    or f32) into ``out`` (any strides, hd contiguous): bf16 (bf16 inputs
-    only) or f32, or int8 quantized by ``out_scale``."""
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {dev}")
-    if q.dim() != 4 or not (q.shape == k.shape == v.shape == out.shape):
+    or f32) into ``out`` (strides multiples of 8, hd contiguous, 16-byte
+    aligned): bf16 (bf16 inputs only) or f32, or int8 quantized by
+    ``out_scale``."""
+    if not q.is_cuda:
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    shape = q.shape
+    if len(shape) != 4 or not (shape == k.shape == v.shape == out.shape):
         raise ValueError(f"{what}: q, k, v, out of one (B, h, N, hd) shape, got "
                          f"{[tuple(t.shape) for t in (q, k, v, out)]}")
     _check_in_out(q.dtype, (k.dtype, v.dtype), out.dtype, out_scale, what)
-    if any(t.device != dev for t in (k, v, out)):
-        raise ValueError(f"{what}: every tensor must be on {dev}")
-    B, H, N, hd = q.shape
-    st = q.stride()
-    if k.stride() != st or v.stride() != st or st[3] != 1 or out.stride(3) != 1:
+    idx = q.get_device()
+    if k.get_device() != idx or v.get_device() != idx or out.get_device() != idx:
+        raise ValueError(f"{what}: every tensor must be on {q.device}")
+    B, H, N, hd = shape
+    st, ost = q.stride(), out.stride()
+    if k.stride() != st or v.stride() != st or st[3] != 1 or ost[3] != 1:
         raise ValueError(f"{what}: q, k, v need one stride set with hd contiguous, got "
                          f"{[t.stride() for t in (q, k, v, out)]}")
-    if hd % 8 or any(s % 8 for s in st[:3]) or any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"{what}: hd = {hd} and the strides {st[:3]} must be multiples of 8, "
-                         "the tensors 16-byte aligned")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if hd % 8 or any(x % 8 for x in st[:3] + ost[:3]) or any(x % 16 for x in ptrs):
+        raise ValueError(f"{what}: hd = {hd} and the strides {st[:3]}, {ost[:3]} must be "
+                         "multiples of 8, the tensors 16-byte aligned")
     lib = _library(N, hd, q.dtype, what)
-    s = _scale_on(out_scale, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+    s = _scale_on(out_scale, q.device)
+    with torch.cuda.device(idx):  # an index, not a device: a third of the host cost
+        stream = torch.cuda.current_stream(idx).cuda_stream
         cuda_build.check(lib.hyt_short_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), int(q.dtype == torch.float32), st[0], st[1],
-            st[2], out.data_ptr(), _OUT_KIND[out.dtype], None if s is None else s.data_ptr(),
-            out.stride(0), out.stride(1), out.stride(2), B, H, N, hd,
-            nn.weak_scalar(hd ** -0.5, q.dtype), stream), f"{what}: short_attention_kernel")
+            ptrs[0], ptrs[1], ptrs[2], int(q.dtype == torch.float32), st[0], st[1], st[2],
+            ptrs[3], _OUT_KIND[out.dtype], None if s is None else s.data_ptr(), ost[0], ost[1],
+            ost[2], B, H, N, hd, _scale(hd, q.dtype), stream), f"{what}: short_attention_kernel")
 
 
 def _check_in_out(in_dtype, other_dtypes, out_dtype, out_scale, what: str) -> None:
@@ -120,13 +143,36 @@ def _check_in_out(in_dtype, other_dtypes, out_dtype, out_scale, what: str) -> No
 
 
 def _library(N: int, hd: int, dtype, what: str):
-    """The loaded csrc/short_attention.cu, after the check that a head of
-    (N, hd) elements of ``dtype`` fits in a block's shared memory."""
+    """The loaded csrc/short_attention.cu, after the check that it takes
+    (N, hd) in ``dtype``: bf16 up to MAX_N keys and MAX_HD wide heads (in
+    shared memory at any such shape), f32 as far as a head fits in a block's
+    shared memory."""
     lib = cuda_build.load("short_attention.cu")
+    if dtype == torch.bfloat16:
+        if N > MAX_N or hd > MAX_HD:
+            raise ValueError(f"{what}: N = {N}, hd = {hd} is beyond the bf16 kernel's limits "
+                             f"of N <= {MAX_N} keys and hd <= {MAX_HD}")
+        return lib
     smem = lib.hyt_short_attn_smem_bytes(N, hd, dtype.itemsize)
     if smem > cuda_build.MAX_SMEM:
         raise ValueError(f"{what}: N={N}, hd={hd} in {dtype} needs {smem} B of shared memory")
     return lib
+
+
+def occupancy(N: int, hd: int, out_dtype=torch.bfloat16) -> dict:
+    """The bf16 kernel for (N, hd) and ``out_dtype`` on the current card: its
+    registers a thread and the CTAs that fit on one SM."""
+    lib = _library(N, hd, torch.bfloat16, "occupancy")
+    regs, ctas = ctypes.c_int(), ctypes.c_int()
+    cuda_build.check(lib.hyt_short_attn_occupancy(N, hd, _OUT_KIND[out_dtype], ctypes.byref(regs),
+                                                  ctypes.byref(ctas)), "occupancy")
+    return {"registers": regs.value, "ctas_per_sm": ctas.value}
+
+
+@functools.lru_cache(maxsize=None)
+def _scale(hd: int, dtype) -> float:
+    """hd^-0.5 as JAX's weak typing rounds it next to ``dtype`` q."""
+    return nn.weak_scalar(hd ** -0.5, dtype)
 
 
 def _scale_on(out_scale, dev):
@@ -173,7 +219,7 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int, out_scale=None) -> to
 
     CPU tensors take the plain version. CUDA tensors launch the K8 entry of
     ``csrc/short_attention.cu``: bf16 or f32, the head width a multiple of
-    8; anything else raises.
+    8 (bf16: N <= MAX_N, hd <= MAX_HD); anything else raises.
     """
     if qkv.device.type == "cpu":
         return fused_qkv_attention_ref(qkv, num_heads, out_scale)
@@ -194,12 +240,13 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int, out_scale=None) -> to
     qkv = cuda_build.aligned16(qkv)
     lib = _library(N, hd, qkv.dtype, what)
     s = _scale_on(out_scale, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+    idx = qkv.get_device()
+    with torch.cuda.device(idx):  # an index, not a device: a third of the host cost
+        stream = torch.cuda.current_stream(idx).cuda_stream
         cuda_build.check(lib.hyt_fused_qkv_attention(
             qkv.data_ptr(), int(qkv.dtype == torch.float32), out.data_ptr(),
             _OUT_KIND[out.dtype], None if s is None else s.data_ptr(), B, N, num_heads, hd,
-            nn.weak_scalar(hd ** -0.5, qkv.dtype), stream), f"{what}: short_attention_kernel")
+            _scale(hd, qkv.dtype), stream), f"{what}: short_attention_kernel")
     fused_qkv_attention.launches += 1
     return out
 

@@ -29,7 +29,7 @@ from hamer_yolo_tpu_torch.ops.nms import greedy_nms_keep, greedy_nms_keep_ref
 from hamer_yolo_tpu_torch.ops.short_attention import (fused_qkv_attention,
                                                       fused_qkv_attention_ref,
                                                       fused_short_attention,
-                                                      fused_short_attention_ref)
+                                                      fused_short_attention_ref, launch_attention)
 
 pytestmark = pytest.mark.cuda
 
@@ -184,12 +184,30 @@ def test_k4_matches_plain(dev, M, K, gelu, dtype):
     check_against_plain(got, fused_int8_mlp_block_ref(tok, *args, gelu=gelu), "K4")
 
 
-@pytest.mark.parametrize("B,h,N,hd", [(16, 16, 192, 80), (3, 4, 12, 16), (2, 3, 70, 24)],
-                         ids=["vith", "tiny", "ragged"])
+# (B, h, N, hd, mult): ViT-H, the tiny config, ragged N with hd 24 padded to
+# 32 in shared memory; the bf16 kernel's edges: one and two 64-key
+# accumulators and one key past, its 256-key limit and one short of it, head
+# widths 16 to 128; q and k scaled by mult = 8 so that the max subtraction
+# decides the result.
+ATTN_SHAPES = {"vith": (16, 16, 192, 80, 1), "tiny": (3, 4, 12, 16, 1), "ragged": (2, 3, 70, 24, 1),
+               "n64": (2, 2, 64, 64, 1), "n65": (2, 2, 65, 64, 1),
+               "n128_hd128": (2, 2, 128, 128, 1), "n255_hd16": (2, 2, 255, 16, 1),
+               "n256_hd128": (2, 2, 256, 128, 1), "vith_x8": (16, 16, 192, 80, 8),
+               "n65_hd16_x8": (2, 2, 65, 16, 8), "n256_x8": (2, 2, 256, 64, 8)}
+
+
+def _qkv_heads(rng, B, N, h, hd, mult, dev):
+    """(B, N, 3, h, hd) f32 on ``dev``, q and k scaled by ``mult``."""
+    qkv = rng.normal(size=(B, N, 3, h, hd)).astype(np.float32)
+    qkv[:, :, :2] *= mult
+    return torch.from_numpy(qkv).to(dev)
+
+
+@pytest.mark.parametrize("B,h,N,hd,mult", list(ATTN_SHAPES.values()), ids=list(ATTN_SHAPES))
 @pytest.mark.parametrize("int8_out", [False, True], ids=["bf16", "out_scale"])
-def test_k7_matches_plain(dev, B, h, N, hd, int8_out):
+def test_k7_matches_plain(dev, B, h, N, hd, mult, int8_out):
     rng = np.random.default_rng(N)
-    qkv = torch.from_numpy(rng.normal(size=(B, N, 3, h, hd)).astype(np.float32)).to(dev)
+    qkv = _qkv_heads(rng, B, N, h, hd, mult, dev)
     q, k, v = (qkv[:, :, i].transpose(1, 2).to(torch.bfloat16) for i in range(3))
     sx = torch.tensor(0.011, device=dev) if int8_out else None
     before = fused_short_attention.launches
@@ -202,6 +220,37 @@ def test_k7_matches_plain(dev, B, h, N, hd, int8_out):
         check_against_plain(got, ref, "K7")
     else:  # the limits of K2's attention, whose math this is (ops/attn_block.py)
         check_against_twin(got, ref)
+
+
+@pytest.mark.parametrize("B,h,N,hd,mult", [ATTN_SHAPES[k] for k in ("vith", "ragged", "n256_hd128")],
+                         ids=["vith", "ragged", "n256_hd128"])
+def test_k7_f32_output_in_k2_strides(dev, B, h, N, hd, mult):
+    """bf16 q, k, v into an f32 output through the (B, N, h, hd) strides K2
+    hands in: the f32 epilogue writes the values the bf16 one rounds."""
+    rng = np.random.default_rng(N + 3)
+    qkv = _qkv_heads(rng, B, N, h, hd, mult, dev).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    out = torch.full((B, N, h * hd), float("nan"), device=dev)
+    launch_attention(q, k, v, out.reshape(B, N, h, hd).transpose(1, 2), None, "test")
+    torch.cuda.synchronize()
+    k7 = fused_short_attention(q, k, v).transpose(1, 2).reshape(B, N, h * hd)
+    assert torch.equal(out.to(torch.bfloat16), k7)
+    check_against_twin(out, fused_short_attention_ref(q, k, v).transpose(1, 2).reshape(B, N, -1))
+
+
+def test_attention_rejects_what_it_does_not_take(dev):
+    q = torch.zeros((1, 2, 257, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="N <= 256 keys"):
+        fused_short_attention(q, q, q)
+    with pytest.raises(ValueError, match="N <= 256 keys"):
+        fused_qkv_attention(torch.zeros((1, 257, 3 * 64), dtype=torch.bfloat16, device=dev), 1)
+    q = torch.zeros((1, 2, 64, 136), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="hd <= 128"):
+        fused_short_attention(q, q, q)
+    q = torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((1, 64, 2 * 64 + 4), dtype=torch.bfloat16, device=dev)[:, :, :128]
+    with pytest.raises(ValueError, match="must be multiples of 8"):  # output rows of 132
+        launch_attention(q, q, q, out.reshape(1, 64, 2, 64).transpose(1, 2), None, "test")
 
 
 @pytest.mark.parametrize("B,N,K,h", [(16, 192, 1280, 16), (4, 12, 64, 4)], ids=["vith", "tiny"])
@@ -306,12 +355,19 @@ def test_k7_f32_inputs_match_plain(dev, B, h, N, hd, int8_out):
         torch.testing.assert_close(got, ref, rtol=0, atol=F32_ATTN_ATOL)
 
 
-@pytest.mark.parametrize("B,N,h,hd", [(16, 192, 16, 80), (3, 12, 4, 16), (2, 70, 3, 24)],
-                         ids=["vith", "tiny", "ragged"])
-@pytest.mark.parametrize("kind", ["bf16", "bf16_int8", "f32", "f32_int8"])
-def test_k8_matches_plain(dev, B, N, h, hd, kind):
+# f32 inputs take the shapes at unit scale whose head fits in shared memory
+# as f32 (not N = 256 at hd = 128): F32_ATTN_ATOL holds for logits of unit
+# scale, and the f32 kernel is not the one with the 256-key limit.
+K8_CASES = [pytest.param(kind, *shape, id=f"{kind}-{name}")
+            for kind in ("bf16", "bf16_int8", "f32", "f32_int8")
+            for name, shape in ATTN_SHAPES.items()
+            if kind.startswith("bf16") or (shape[4] == 1 and name != "n256_hd128")]
+
+
+@pytest.mark.parametrize("kind,B,h,N,hd,mult", K8_CASES)
+def test_k8_matches_plain(dev, kind, B, h, N, hd, mult):
     rng = np.random.default_rng(N + 2)
-    qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * h * hd)).astype(np.float32)).to(dev)
+    qkv = _qkv_heads(rng, B, N, h, hd, mult, dev).reshape(B, N, 3 * h * hd)
     qkv = qkv.to(torch.bfloat16 if kind.startswith("bf16") else torch.float32)
     sx = torch.tensor(0.011, device=dev) if kind.endswith("int8") else None
     before, k7 = fused_qkv_attention.launches, fused_short_attention.launches

@@ -222,6 +222,34 @@ class TestK7:
         diff = np.abs(got.numpy().astype(np.int32) - np.asarray(ref, np.int32))
         assert diff.max() <= 1 and (diff > 0).mean() < 0.01
 
+    # The CUDA kernel's edges: one and two 64-key accumulators and one past,
+    # the 256-key limit and one short of it, head widths 16 to 128, and q and
+    # k scaled by 8 so that the max subtraction decides the result.
+    @pytest.mark.parametrize("N,hd,mult", [(64, 64, 1), (65, 64, 1), (128, 128, 1),
+                                           (255, 16, 1), (256, 128, 1), (192, 80, 8),
+                                           (65, 16, 8), (256, 64, 8)],
+                             ids=["n64", "n65", "n128_hd128", "n255_hd16", "n256_hd128",
+                                  "vith_x8", "n65_hd16_x8", "n256_x8"])
+    @pytest.mark.parametrize("out", ["bf16", "out_scale"])
+    def test_edge_shapes_match_jax(self, N, hd, mult, out):
+        rng = np.random.default_rng(N + hd)
+        q, k, v = (rng.normal(size=(1, 2, N, hd)).astype(np.float32) for _ in range(3))
+        q, k = q * mult, k * mult
+        qkv = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+        sx = np.float32(0.011) if out == "out_scale" else None
+        ref = jax_exact(lambda *t: jax_k7(*t, interpret=True,
+                                          out_scale=None if sx is None else jnp.asarray(sx)),
+                        *qkv)
+        got = fused_short_attention(*(_t(np.asarray(a, np.float32)).bfloat16() for a in qkv),
+                                    out_scale=None if sx is None else _t(sx))
+        assert got.shape == (1, 2, N, hd)
+        if sx is None:  # as test_bf16_matches_jax
+            np.testing.assert_allclose(_np(got), np.asarray(ref, np.float32), rtol=2.0 ** -8,
+                                       atol=2.0 ** -8)
+        else:  # as test_out_scale_matches_jax
+            diff = np.abs(got.numpy().astype(np.int32) - np.asarray(ref, np.int32))
+            assert diff.max() <= 1 and (diff > 0).mean() < 0.01
+
     def test_qkv_forms_match_jax(self):
         from hamer_yolo_tpu.ops.attention_pallas import softmax_attention_qkv as jax_sa
 
