@@ -21,9 +21,14 @@ random weights, synthetic MANO, numpy-made 720p frames):
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails unless every kernel of the path launched as often as the
-path needs. It then checks the outputs against the port's CPU path on a small
-input, and times each path and each kernel beside its plain version, a
-PyTorch library call where one computes the same function, and its bound.
+path needs; the int8 paths also fail if they make a K-major weight copy
+(quantizing on the card makes them all). It then checks the outputs against
+the port's CPU path on a small input, and times each path and each kernel
+beside its plain version, a PyTorch library call where one computes the same
+function, and its bound. A phase "int8 GEMM alone" holds the GEMM launch of
+K3-K6 to its plain version bit for bit at ViT-H's four GEMM shapes (M = 3072
+and 12288), times it by CUDA graph replay beside torch._int_mm's bare GEMM,
+and times the host work a call of the GEMM's two wrappers.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the kernels' JSON record. Any failed phase raises and the script exits
@@ -87,6 +92,10 @@ MAX_OPTIN_JOINT_DIST_MM = 0.1
 # 192 terms in another order, outputs of magnitude <= 1.
 F32_ATTN_ATOL = 2e-5
 INT8_KERNELS = ("K3", "K4", "K5", "K6", "K7", "K8", "K10")
+# ViT-H's int8 GEMMs, (K, N): the attention's qkv and proj, the MLP's fc1 and
+# fc2; and the rows of 16 and 64 crops of 192 tokens
+VITH_GEMMS = {"qkv": (1280, 3840), "proj": (1280, 1280), "fc1": (1280, 5120), "fc2": (5120, 1280)}
+GEMM_ROWS = (3072, 12288)
 SEED = 0
 N_FRAMES = 3          # frames through the runner (FrameProgram)
 BATCH = 4             # frames in the infer_frames batch
@@ -219,6 +228,7 @@ def main() -> int:
     from hamer_yolo_tpu_torch.models.vit import embed_tokens
     from hamer_yolo_tpu_torch.models.yolov7.model import yolov7_forward
     from hamer_yolo_tpu_torch.ops import cuda_build
+    from hamer_yolo_tpu_torch.ops.int8_matmul import kmajor_weight
     from hamer_yolo_tpu_torch.ops.nms import nms_candidates
     from hamer_yolo_tpu_torch.pipeline.frame import detect_hands_batched, infer_frames
     from hamer_yolo_tpu_torch.pipeline.preprocess import device_letterbox, hamer_crop
@@ -235,8 +245,9 @@ def main() -> int:
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
     libs = cuda_build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {', '.join(p.name for p in libs)}",
-          flush=True)
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {', '.join(p.name for p in libs)}; "
+          "nvcc per source, all at once: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in cuda_build.BUILD_SECONDS.items()), flush=True)
 
     # -- full-width setup ----------------------------------------------------
     cfg = pipeline_config(tiny=False)
@@ -298,12 +309,17 @@ def main() -> int:
                  "path B": (qparams, qcfg, PATH_B_ENV, {"K5": 4 * depth, "K8": depth})}
     int8_out = {}
     for name, (p, c, env, want) in int8_runs.items():
+        kmajor_weight.transposes = 0
         with torch.inference_mode(), switches(env):
             out, n = run_counted(lambda: infer_frames(p, mano, imgs, hws, Ks, c))
         print(f"int8 {name} infer_frames batch {BATCH} {env}: {int(out['valid'].sum())} valid "
-              f"slots, launches per ViT forward {n}")
+              f"slots, launches per ViT forward {n}; K-major weight copies made "
+              f"{kmajor_weight.transposes}")
         expect_launches(f"int8 {name}", n, {**dict.fromkeys(("K2", "K9") + INT8_KERNELS, 0),
                                              **want})
+        if kmajor_weight.transposes:
+            raise RuntimeError(f"int8 {name}: the forward made {kmajor_weight.transposes} "
+                               "K-major weight copies (the set-up makes them all)")
         check_batch(out, cfg, f"int8 {name} infer_frames")
         int8_out[name] = out
         for k in want:
@@ -346,6 +362,8 @@ def main() -> int:
         pred_mano = hamer_forward(sparams["hamer"], mano, crops, qcfg.hamer)["pred_mano_params"]
     record.update(check_optin_kernels(sblk, tok0, cfg.hamer.vit.num_heads, mano, pred_mano,
                                       record["K3"]["ms"], record["K4"]["ms"], record["K7"]["ms"]))
+    int8_gemm_alone(dev)
+    wrapper_host_us(dev)
 
     # -- end to end timing ---------------------------------------------------
     with torch.inference_mode():
@@ -546,20 +564,23 @@ def check_int8_kernels(blk, tok0, heads):
     # one block of the dynamic path: qkv (ln), proj (id), fc1 (ln), fc2 (gelu_poly)
     block = [("qkv", x_ln, "ln", ln1), ("proj", x_id, "id", (None, None)),
              ("fc1", x_ln, "ln", ln2), ("fc2", x_gelu, "gelu_poly", (None, None))]
-    ms = plain_ms = gemm_ms = bound_ms = 0.0
+    ms = plain_ms = gemm_ms = bound_ms = dev_ms = 0.0
     for name, x, pro, (g, bt) in block:
         q, s, b, _ = lin[name]
         ms += cuda_time_ms(lambda: im.fused_int8_matmul(x, q, s, b, g, bt, prologue=pro))
+        dev_ms += graph_time_ms(lambda: im.fused_int8_matmul(x, q, s, b, g, bt, prologue=pro))
         plain_ms += cuda_time_ms(lambda: im.fused_int8_matmul_ref(x, q, s, b, g, bt, prologue=pro),
                                  iters=3)
         xq = torch.randint(-127, 128, x.shape, dtype=torch.int8, device=dev)
-        gemm_ms += cuda_time_ms(lambda: torch._int_mm(xq, q))
+        gemm_ms += min(cuda_time_ms(lambda: torch._int_mm(xq, q)),
+                       cuda_time_ms(lambda: torch._int_mm(xq, im.kmajor_weight(q).t())))
         Kx, Nx = q.shape
         bound_ms += bound(M * Kx * 2 + Kx * Nx + M * Nx * 2 + 8 * Nx, {"int8": 2 * M * Kx * Nx})[0]
     print(f"K5 timing over one block of the dynamic path (qkv, proj, fc1, fc2 at M = {M}): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms (operations); "
-          f"torch._int_mm on the bare int8 GEMMs (a GEMM only, no prologue, quantize or "
-          f"dequant) {gemm_ms:.4f} ms")
+          f"kernel {ms:.4f} ms, device time alone (CUDA graph of 20 launches) {dev_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms (operations); torch._int_mm on the "
+          f"bare int8 GEMMs (a GEMM only, no prologue, quantize or dequant; the faster of the "
+          f"weight as (K, N) and as the transposed view of its (N, K) copy) {gemm_ms:.4f} ms")
     out["K5"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": "operations", "library_ms": None}
 
@@ -576,12 +597,14 @@ def check_int8_kernels(blk, tok0, heads):
             err = max(err, r["max_abs_err"])
             print(f"K4 {gelu} {tname} {tuple(tok.shape)}: " + _fmt(r))
     ms = cuda_time_ms(lambda: im.fused_int8_mlp_block(tok0, *args, gelu="gelu_poly"))
+    dev_ms = graph_time_ms(lambda: im.fused_int8_mlp_block(tok0, *args, gelu="gelu_poly"))
     plain_ms = cuda_time_ms(lambda: im.fused_int8_mlp_block_ref(tok0, *args, gelu="gelu_poly"),
                             iters=3)
     H = q1.shape[1]
     bound_ms, by = bound(2 * M * Kd * 2 + 2 * Kd * H + 8 * (H + Kd), {"int8": 4 * M * Kd * H})
-    print(f"K4 timing at {tuple(tok0.shape)}, H {H}, gelu_poly: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}); no PyTorch call computes it")
+    print(f"K4 timing at {tuple(tok0.shape)}, H {H}, gelu_poly: kernel {ms:.4f} ms, device time "
+          f"alone (CUDA graph of 20 launches) {dev_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({by}); no PyTorch call computes it")
     out["K4"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": by, "library_ms": None}
 
@@ -657,6 +680,120 @@ def check_int8_kernels(blk, tok0, heads):
     out["K3"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": by, "library_ms": None}
     return out
+
+
+def int8_gemm_alone(dev, check=True):
+    """The int8 GEMM launch of K3-K6 alone (ops/int8_matmul.int8_gemm), at
+    ViT-H's four GEMM shapes for each M in GEMM_ROWS, with each GEMM's
+    epilogue on the static int8 path (qkv: K3's folded dequant to bf16;
+    proj: K3's residual in bf16; fc1: K4's GELU and int8 requantize; fc2:
+    K4's f32-added residual) and with K5's per-row dequant (the dynamic
+    path's, for all four): held bit for bit to int8_gemm_ref (EPI_GELU_Q:
+    within +-1 on at most MAX_FRAC_INT8_FLIPPED of elements, its GELU may sit
+    on an int8 rounding midpoint) where ``check``, and timed by CUDA graph
+    replay beside torch._int_mm's bare GEMM (no epilogue), fed the weight as
+    (K, N) and as the transposed view of its (N, K) copy, the faster being
+    the yardstick. Returns {(shape, M): readings}."""
+    import torch
+
+    from hamer_yolo_tpu_torch.ops import int8_matmul as im
+
+    rng = np.random.default_rng(SEED + 6)
+    epilogues = {"qkv": im.EPI_DEQ_FOLD, "proj": im.EPI_PROJ, "fc1": im.EPI_GELU_Q,
+                 "fc2": im.EPI_RESID}
+    peak = PEAK_OPS_PER_S["int8"]
+    out = {}
+    for M in GEMM_ROWS:
+        for name, (K, N) in VITH_GEMMS.items():
+            a = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8)).to(dev)
+            w = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8)).to(dev)
+            ws = torch.from_numpy((1e-4 + 1e-3 * rng.random(N)).astype(np.float32)).to(dev)
+            b = torch.from_numpy((0.1 * rng.normal(size=N)).astype(np.float32)).to(dev)
+            res = torch.from_numpy(rng.normal(size=(M, N)).astype(np.float32)).to(dev).bfloat16()
+            row_scale = torch.from_numpy((1e-3 + 0.02 * rng.random(M)).astype(np.float32)).to(dev)
+            s = torch.tensor([0.02], device=dev)
+            epi = epilogues[name]
+            cases = {"static": (epi, {"s": s, "res": res if epi in (im.EPI_RESID, im.EPI_PROJ)
+                                      else None,
+                                      "out_scale": (torch.tensor([0.05], device=dev)
+                                                    if epi == im.EPI_GELU_Q else None)}),
+                     "dynamic": (im.EPI_DEQ_ROW, {"row_scale": row_scale})}
+            r = {}
+            for case, (e, kw) in cases.items():
+                o = torch.empty((M, N), dtype=torch.int8 if e == im.EPI_GELU_Q else torch.bfloat16,
+                                device=dev)
+                im.int8_gemm(a, w, e, o, ws, b, **kw, gelu_poly=True)
+                torch.cuda.synchronize()
+                if check:
+                    ref = im.int8_gemm_ref(a, w, e, ws, b, gelu="gelu_poly", **kw)
+                    if e == im.EPI_GELU_Q:
+                        im.check_against_plain(o, ref, f"the int8 GEMM {name} M {M}")
+                    elif not torch.equal(o, ref):
+                        raise AssertionError(f"the int8 GEMM {name} M {M} {case} differs from "
+                                             f"int8_gemm_ref: max abs diff "
+                                             f"{float((o.float() - ref.float()).abs().max())}")
+                r[case] = graph_time_ms(lambda: im.int8_gemm(a, w, e, o, ws, b, **kw,
+                                                             gelu_poly=True))
+            w_nk = w.t().contiguous()
+            r["int_mm_kn"] = graph_time_ms(lambda: torch._int_mm(a, w))
+            r["int_mm_nk"] = graph_time_ms(lambda: torch._int_mm(a, w_nk.t()))
+            ops = 2 * M * K * N
+            rate = {k: ops / (v * 1e-3) for k, v in r.items()}
+            lib = min(r["int_mm_kn"], r["int_mm_nk"])
+            print(f"int8 GEMM alone {name} M {M} K {K} N {N}"
+                  + (" (bit-identical to int8_gemm_ref; GELU within +-1)" if check else "")
+                  + ": " + ", ".join(f"{k} {v:.4f} ms = {rate[k] / 1e12:.0f} TOP/s "
+                                     f"({rate[k] / peak:.3f} of peak)" for k, v in r.items())
+                  + f"; yardstick torch._int_mm {lib:.4f} ms (device time, CUDA graph of 20 "
+                  f"launches)", flush=True)
+            out[(name, M)] = r
+    return out
+
+
+def wrapper_host_us(dev, calls=200, rounds=7):
+    """Host time of one call of the int8 GEMM's two wrappers,
+    ops/int8_matmul.quantize_rows (LN prologue, static scale) and int8_gemm
+    (K3's proj epilogue), at ViT-H's proj shape with 64 rows, where a
+    launch's device time (printed beside, by CUDA graph replay) is below the
+    wrapper's host time: the median over ``rounds`` of ``calls`` calls back
+    to back on the host clock, the launches queueing on the card (a sync
+    only between rounds). Returns {wrapper: microseconds}."""
+    import torch
+
+    from hamer_yolo_tpu_torch.ops import int8_matmul as im
+
+    rng = np.random.default_rng(SEED + 7)
+    M, (K, N) = 64, VITH_GEMMS["proj"]
+
+    def put(v):
+        return torch.from_numpy(v).to(dev)
+
+    x = put(rng.normal(size=(M, K)).astype(np.float32)).bfloat16()
+    g, b = put(np.ones(K, np.float32)), put(np.zeros(K, np.float32))
+    a = put(rng.integers(-127, 128, (M, K)).astype(np.int8))
+    w = put(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    ws, bias = put(np.full(N, 1e-3, np.float32)), put(np.zeros(N, np.float32))
+    res = put(rng.normal(size=(M, N)).astype(np.float32)).bfloat16()
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    s = torch.tensor([0.02], device=dev)
+    fns = {"quantize_rows": lambda: im.quantize_rows(x, "ln", g, b, s, "quantize_rows"),
+           "int8_gemm": lambda: im.int8_gemm(a, w, im.EPI_PROJ, out, ws, bias, s=s, res=res)}
+    us = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        us[name] = float(np.median(times))
+        print(f"host time a call of {name} at M {M} K {K} N {N}: {us[name]:.2f} us (median of "
+              f"{rounds} x {calls} calls; spread {min(times):.2f}-{max(times):.2f}); device "
+              f"time a launch {graph_time_ms(fn) * 1e3:.2f} us", flush=True)
+    return us
 
 
 def check_optin_kernels(blk, tok0, heads, mano, pred_mano, k3_ms, k4_ms, k7_ms):

@@ -1,8 +1,10 @@
 """W8A8 int8 ViT (port of hamer_yolo_tpu/core/quant.py, ViT part).
 
 - weights: per-output-channel symmetric int8, quantized once
-  (``quantize_vit_params``); the tree keeps JAX's structure, {"wq": {"q",
-  "scale"}, "b"} per linear, so JAX trees load through core/bridge.py;
+  (``quantize_vit_params``; on the card with the K-major copies the int8
+  GEMM reads, ops/int8_matmul.kmajor_weight); the tree keeps JAX's
+  structure, {"wq": {"q", "scale"}, "b"} per linear, so JAX trees load
+  through core/bridge.py;
 - activations: dynamic per-row absmax int8, or a calibrated static
   per-tensor scale ("sx", attached by ``attach_static_act_scales`` from the
   stats of ``collect_vit_act_stats``);
@@ -55,7 +57,8 @@ from hamer_yolo_tpu_torch.ops.attn_block_int8 import fused_int8_attn_block
 from hamer_yolo_tpu_torch.ops.attn_proj_block import fused_int8_attn_proj_block
 from hamer_yolo_tpu_torch.ops.int8_matmul import (RECIP_127, fused_int8_matmul,
                                                   fused_int8_mlp_block, fused_int8_mlp_block1,
-                                                  gelu_prologue, int8_dot_prequant, int_dot)
+                                                  gelu_prologue, int8_dot_prequant, int_dot,
+                                                  kmajor_weight)
 from hamer_yolo_tpu_torch.ops.short_attention import softmax_attention_qkv
 
 Params = Dict[str, Any]
@@ -102,7 +105,12 @@ def int8_linear(wq: Dict[str, torch.Tensor], x: torch.Tensor,
 
 
 def quantize_linear_params(p: Params) -> Params:
+    """A linear's int8 weight and its bias. On the card it also makes the
+    weight's K-major copy, which the int8 GEMM reads
+    (ops/int8_matmul.kmajor_weight), so that no forward makes one."""
     out: Params = {"wq": quantize_weight_int8(p["w"])}
+    if out["wq"]["q"].is_cuda:
+        kmajor_weight(out["wq"]["q"])
     if "b" in p:
         out["b"] = p["b"]
     return out

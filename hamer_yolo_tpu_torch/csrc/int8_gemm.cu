@@ -22,24 +22,29 @@
 //      absmax after the prologue (dynamic quantize), then writes the int8
 //      row, x * (1 / scale) rounded half to even and clipped to +-127, and
 //      the row's scale. The TPU kernel keeps this int8 block in VMEM; here
-//      it goes through device memory once (M x K bytes), a known cost that
-//      a later version removes by quantizing into the GEMM's A tiles.
-//  (b) int8_gemm_kernel: a 128 x 128 output tile per CTA, K stepped by 64.
-//      8 warps, each a 64 x 32 tile of mma.sync.m16n8k32 s8 x s8 -> s32
-//      fragments (exact int32 sums). A tiles are copied as 16-byte rows.
-//      The weight stays in JAX's (K, N) layout in device memory; mma wants
-//      B k-contiguous, so each thread loads a 4 x 4 byte block and
-//      transposes it with __byte_perm on its way into shared memory. The
-//      epilogue dequantizes straight from the accumulator registers.
+//      it goes through device memory once (M x K bytes), a known cost.
+//  (b) int8_gemm_kernel, designed for Hopper (sm_90a): a persistent CTA
+//      per SM walks 128 x 128 output tiles; K goes in 128-byte steps through
+//      a 4-stage ring of shared-memory tiles that a producer warp fills with
+//      TMA (cp.async.bulk.tensor on mbarriers, the 128-byte swizzle); two
+//      MMA warpgroups run wgmma m64n128k32 s8 x s8 -> s32 (exact int32 sums)
+//      from shared-memory descriptors, and two epilogue warpgroups dequantize
+//      one tile while the next one's products run (see the kernel below).
+//      8-bit wgmma reads both operands K-major only, so the kernel takes the
+//      weight as a K-major (N, K) copy that the wrapper makes once per weight
+//      (ops/int8_matmul.kmajor_weight), with its TMA map; the public
+//      functions keep JAX's (K, N) layout. TMA's zero fill takes the ragged
+//      M, N and K edges. Outputs and residuals move as 16-byte vectors.
 //
-// What bounds it on the H100: the ViT-H GEMMs at M = 3072 rows (16 crops x
-// 192 tokens) are 10-40 G int8 ops against 5-30 MB of operands, so the
-// tensor cores bound them (1,979 TOP/s int8 peak). This first version has
-// no cp.async / TMA pipelining and no wgmma, so it runs far below that; the
-// mma.sync tiles, the conflict-free fragment loads (rows of 80 bytes) and
-// the 128 x 128 tile that re-reads each weight byte M/128 times from L2 are
-// what it does about it now. wgmma with TMA-fed multi-stage tiles is the
-// follow-up.
+// What bounds it on the H100: the ViT-H GEMMs at M = 3072-12288 rows (16-64
+// crops x 192 tokens) are 10-161 G int8 ops against 5-80 MB of operands, so
+// the tensor cores bound them (1,979 TOP/s int8 peak). What the design does
+// about it: wgmma (mma.sync reaches a fraction of that rate); loads that run
+// stages ahead of the products, and across tiles; no transpose on the way to
+// shared memory; an epilogue that overlaps the next tile's products. Measured
+// on an H100 at 700 W (PERF.md; chip_gemm.py): at M = 12288 the products alone
+// run at 1,166-1,290 TOP/s, with the epilogue at 714-1,162: the GELU (fc1)
+// and the residual (proj) keep the two epilogue warpgroups behind them.
 //
 // Rounding follows the plain versions in ops/int8_matmul.py and
 // ops/attn_proj_block.py: every f32 step uses the _rn intrinsics (and the
@@ -51,9 +56,11 @@
 // a constant (absmax / 127, x / sqrt 2, a mean's sum / K), its compiled
 // program multiplies by the f32 reciprocal, and so do the kernel and the
 // plain version.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "common.cuh"
 
@@ -201,33 +208,7 @@ int dispatch_quantize(const void* x, const float* g, const float* b, int prologu
   return (int)cudaErrorInvalidValue;
 }
 
-// ----------------------------------------------------------- (b) int8 GEMM
-constexpr int BM = 128, BN = 128, BK = 64, GT = 256;
-constexpr int LDS = BK + 16;  // bytes per shared row: 80, conflict-free fragment loads
-
-struct GemmArgs {
-  const int8_t* a;         // (M, K) int8
-  const int8_t* w;         // (K, N) int8, JAX's (in, out) layout
-  const float* row_scale;  // (M,) per-row scales, or null for the scalar s
-  const float* wscale;     // (N,)
-  const float* bias;       // (N,)
-  const void* res;         // (M, N) residual in the output dtype (EPI_RESID, EPI_PROJ)
-  void* out;               // (M, N)
-  const float* s;          // (1,) static activation scale, used where row_scale is null
-  const float* out_scale;  // (1,) scale of the int8 output (EPI_GELU_Q)
-  int gelu_poly;           // EPI_GELU_Q: the polynomial GELU (else exact)
-  int M, N, K;
-};
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
+// ----------------------------------------------- epilogue arithmetic (K3-K6, K10)
 // acc * (s * sw) + b: the dequant with the scales folded.
 __device__ __forceinline__ float dequant_fold(int acc, float s, float sw, float b) {
   return __fadd_rn(__fmul_rn(__int2float_rn(acc), __fmul_rn(s, sw)), b);
@@ -240,28 +221,465 @@ __device__ __forceinline__ int8_t dequant_gelu_q(int acc, float s, float sw, flo
   return quantize(poly ? gelu_poly(y) : gelu_exact(y), inv_out);
 }
 
-// s: the static scale (or this row's); inv_out: 1 / the int8 output's scale.
+// One output element of the GEMM: s the static scale (or this row's), sw
+// and b the column's weight scale and bias, res the residual (EPI_RESID,
+// EPI_PROJ), inv_out 1 / the int8 output's scale (EPI_GELU_Q).
 template <int EPI, typename OutT>
-__device__ __forceinline__ void store_out(const GemmArgs& p, int row, int col, int acc, float s,
-                                          float inv_out) {
+__device__ __forceinline__ OutT epi_value(int acc, float s, float sw, float b, OutT res,
+                                          float inv_out, int poly) {
   const float af = __int2float_rn(acc);
-  const size_t i = (size_t)row * p.N + col;
   if constexpr (EPI == EPI_DEQ_ROW) {
-    const float y = __fadd_rn(__fmul_rn(__fmul_rn(af, s), p.wscale[col]), p.bias[col]);
-    ((OutT*)p.out)[i] = from_f32<OutT>(y);
+    return from_f32<OutT>(__fadd_rn(__fmul_rn(__fmul_rn(af, s), sw), b));
   } else if constexpr (EPI == EPI_DEQ_FOLD) {
-    ((OutT*)p.out)[i] = from_f32<OutT>(dequant_fold(acc, s, p.wscale[col], p.bias[col]));
+    return from_f32<OutT>(dequant_fold(acc, s, sw, b));
   } else if constexpr (EPI == EPI_GELU_Q) {
-    ((int8_t*)p.out)[i] =
-        dequant_gelu_q(acc, s, p.wscale[col], p.bias[col], p.gelu_poly, inv_out);
+    return dequant_gelu_q(acc, s, sw, b, poly, inv_out);
   } else if constexpr (EPI == EPI_RESID) {
-    const float z = dequant_fold(acc, s, p.wscale[col], p.bias[col]);
-    ((OutT*)p.out)[i] = from_f32<OutT>(__fadd_rn(to_f32(((const OutT*)p.res)[i]), z));
+    return from_f32<OutT>(__fadd_rn(to_f32(res), dequant_fold(acc, s, sw, b)));
   } else {  // EPI_PROJ
-    const float y = __fadd_rn(__fmul_rn(__fmul_rn(af, s), p.wscale[col]), p.bias[col]);
-    const float yt = to_f32(from_f32<OutT>(y));
-    ((OutT*)p.out)[i] = from_f32<OutT>(__fadd_rn(to_f32(((const OutT*)p.res)[i]), yt));
+    const float y = __fadd_rn(__fmul_rn(__fmul_rn(af, s), sw), b);
+    return from_f32<OutT>(__fadd_rn(to_f32(res), to_f32(from_f32<OutT>(y))));
   }
+}
+
+// ----------------------------------------------------------- (b) int8 GEMM
+constexpr int BM = 128, BN = 128;  // a CTA's output tile: two warpgroups of 64 x 128
+constexpr int BK = 128;            // K bytes of a ring stage: one 128-byte swizzle row
+constexpr int STAGES = 4;          // ring stages
+constexpr int BOX_ROWS = 64;       // rows of one TMA box, of A and of the weight alike
+constexpr int MMA_THREADS = 256, EPI_THREADS = 256;           // two warpgroups each
+constexpr int GEMM_THREADS = MMA_THREADS + EPI_THREADS + 32;  // and the producer warp
+constexpr int PITCH = BN * 4 + 16;  // bytes of a staged int32 row (16 of padding)
+// Diagnostic builds only (chip_gemm.py --variant, outputs wrong): 1 leaves out
+// the epilogue's arithmetic and stores, 2 the producer's TMA copies.
+#ifndef HYT_GEMM_DIAG
+#define HYT_GEMM_DIAG 0
+#endif
+
+struct GemmArgs {
+  const float* row_scale;  // (M,) per-row scales, or null for the scalar s
+  const float* wscale;     // (N,), 16-byte aligned
+  const float* bias;       // (N,), 16-byte aligned
+  const void* res;         // (M, N) residual in the output dtype (EPI_RESID, EPI_PROJ)
+  void* out;               // (M, N)
+  const float* s;          // (1,) static activation scale, used where row_scale is null
+  const float* out_scale;  // (1,) scale of the int8 output (EPI_GELU_Q)
+  int gelu_poly;           // EPI_GELU_Q: the polynomial GELU (else exact)
+  int M, N, K;
+};
+
+// Dynamic shared memory of a CTA, from a 1024-byte aligned base: the ring
+// (STAGES x (A 128 x 128 B, B 128 x 128 B)), two staging tiles of 64 x 128
+// int32 (one per MMA warpgroup), then the mbarriers.
+struct GemmLayout {
+  static constexpr int A_BYTES = BM * BK;
+  static constexpr int STAGE_BYTES = A_BYTES + BN * BK;
+  static constexpr int STAGING = STAGES * STAGE_BYTES;
+  static constexpr int BARS = STAGING + 2 * 64 * PITCH;
+  static constexpr int BYTES = BARS + 8 * (2 * STAGES + 4) + 1024;  // + room to align
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// The producer's arrival on a full barrier: the stage's copies bring bytes.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// A 64-row x 128-byte box of a K-major int8 matrix (coordinates: K byte,
+// row) into shared memory under the map's 128-byte swizzle; rows and K
+// bytes past the matrix's edges arrive as zeros. Completes on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k, int row,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the wgmma fence, commit and wait around them.
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// The shared-memory descriptor of a K-major operand under the 128-byte
+// swizzle, as TMA writes it: rows of 128 bytes, 8-row atoms 1024 bytes apart
+// (the stride byte offset, in 16-byte units), layout type 1 in bits 62-63;
+// the leading byte offset is unused for this layout. The tile bases are
+// 1024-byte aligned, so stepping K by 32 bytes inside the swizzle row adds 2
+// to the start address.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x N s32) += A (64 x 32 s8) . B (N x 32 s8)^T: wgmma from shared
+// memory, both operands K-major (8-bit wgmma has no transpose), exact int32
+// sums.
+__device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// CV output columns of one row from the staged int32 accumulators at a
+// (16-byte aligned), with the columns' weight scales sw, biases b and the
+// residual r: epi_value on each, written to out as 16-byte vectors.
+template <int EPI, typename OutT, int CV, bool POLY>
+__device__ __forceinline__ void epilogue_vector(const int* a, const float (&sw)[CV],
+                                                const float (&b)[CV], const OutT (&r)[CV],
+                                                OutT* out, float s, float inv_out) {
+  alignas(16) int acc[CV];
+  alignas(16) OutT o[CV];
+#pragma unroll
+  for (int i = 0; i < CV; i += 4)
+    *reinterpret_cast<int4*>(acc + i) = *reinterpret_cast<const int4*>(a + i);
+#pragma unroll
+  for (int i = 0; i < CV; ++i)
+    o[i] = epi_value<EPI, OutT>(acc[i], s, sw[i], b[i], r[i], inv_out, POLY);
+#pragma unroll
+  for (int i = 0; i < CV * (int)sizeof(OutT); i += 16)
+    *reinterpret_cast<uint4*>(reinterpret_cast<uint8_t*>(out) + i) =
+        *reinterpret_cast<const uint4*>(reinterpret_cast<const uint8_t*>(o) + i);
+}
+
+// The kernel. One CTA per SM (at most one per output tile) walks output
+// tiles of 128 x 128: tile blockIdx.x + i * gridDim.x, n fastest, so that
+// the CTAs at work share A's rows and the weight in L2. Four roles:
+// - a producer warp (its first lane) fills the ring with TMA for tile after
+//   tile: it waits for a stage's empty barrier, announces the stage's bytes
+//   on its full barrier and issues the copies (A: two 64-row boxes, the
+//   weight: two), which complete on that barrier;
+// - two MMA warpgroups, 64 rows of the tile each, wait on the full barrier,
+//   issue four wgmma m64n128k32 on the stage, commit them and, once the
+//   group before has retired (wait_group 1), release that stage with one
+//   arrival each; after the tile's last stage they write their int32
+//   accumulators to their staging tile and go on to the next tile;
+// - two epilogue warpgroups turn the staged tiles into outputs while the
+//   next tile's products run.
+// Each MMA warpgroup and its epilogue warpgroup pass their staging tile back
+// and forth on two mbarriers (staged, drained). The producer and the MMA
+// warpgroups count ring uses across tiles, so stage and phase carry over.
+// Waves on 132 SMs: ViT-H's N = 1280 at M = 3072 is 240 tiles (the second
+// round 108 CTAs), at M = 12288 960 (7.3 a CTA); N = 3840 and 5120 at M =
+// 12288 are 2880 and 3840 tiles.
+//
+// Shared memory: 128 KB of ring and 66 KB of staging, 195 KB; one CTA of
+// 17 warps an SM, at most 120 registers a thread (the MMA warpgroups hold
+// 64 accumulators). No setmaxnreg: the producer is a single warp.
+
+// An epilogue warpgroup's share of each tile: 64 rows x 128 columns of
+// int32 in its staging tile. Thread t always takes the same CV columns (its
+// weight scales and biases load once a tile) of rows t / VPR + RSTEP k, k <
+// ITERS; with a residual, all of its ITERS residual vectors are loaded
+// before any is used, so the loads' latency is paid once a tile.
+template <int EPI, typename OutT, bool POLY>
+__device__ __forceinline__ void gemm_epilogue(const GemmArgs& p, const uint8_t* stage,
+                                              uint64_t* staged, uint64_t* drained, int wg, int t,
+                                              int nt, int tiles) {
+  constexpr int CV = sizeof(OutT) == 1 ? 16 : 8;  // 16 bytes of bf16 or int8, 32 of f32
+  constexpr int VPR = BN / CV;                     // vectors a row
+  constexpr int RSTEP = 128 / VPR, ITERS = 64 / RSTEP;
+  constexpr bool RES = EPI == EPI_RESID || EPI == EPI_PROJ;
+  const float s_static = p.row_scale ? 0.0f : *p.s;
+  float inv_out = 0.0f;
+  if constexpr (EPI == EPI_GELU_Q) inv_out = __fdiv_rn(1.0f, *p.out_scale);
+  const int c = (t % VPR) * CV, rt = t / VPR;
+  int n = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
+    const int row0 = tile / nt * BM + wg * 64, col = tile % nt * BN + c;
+    const bool col_ok = col < p.N;  // N is a multiple of 16: no vector crosses it
+    alignas(16) float w[CV], b[CV];
+    alignas(16) OutT res[RES ? ITERS : 1][CV] = {};
+    if (col_ok) {
+#pragma unroll
+      for (int i = 0; i < CV; i += 4) {
+        *reinterpret_cast<float4*>(w + i) = *reinterpret_cast<const float4*>(p.wscale + col + i);
+        *reinterpret_cast<float4*>(b + i) = *reinterpret_cast<const float4*>(p.bias + col + i);
+      }
+      if constexpr (RES) {
+#pragma unroll
+        for (int k = 0; k < ITERS; ++k) {
+          const int row = row0 + rt + RSTEP * k;
+          if (row < p.M) {
+            const uint8_t* src = reinterpret_cast<const uint8_t*>(
+                static_cast<const OutT*>(p.res) + (size_t)row * p.N + col);
+#pragma unroll
+            for (int i = 0; i < CV * (int)sizeof(OutT); i += 16)
+              *reinterpret_cast<uint4*>(reinterpret_cast<uint8_t*>(res[k]) + i) =
+                  *reinterpret_cast<const uint4*>(src + i);
+          }
+        }
+      }
+    }
+    mbar_wait(smem_u32(staged), n & 1);
+#pragma unroll(EPI == EPI_GELU_Q ? 1 : ITERS)
+    for (int k = 0; k < ITERS; ++k) {
+      const int r = rt + RSTEP * k, row = row0 + r;
+      if (HYT_GEMM_DIAG == 1 || !col_ok || row >= p.M) continue;
+      epilogue_vector<EPI, OutT, CV, POLY>(
+          reinterpret_cast<const int*>(stage + r * PITCH) + c, w, b, res[RES ? k : 0],
+          static_cast<OutT*>(p.out) + (size_t)row * p.N + col,
+          p.row_scale ? p.row_scale[row] : s_static, inv_out);
+    }
+    mbar_arrive(smem_u32(drained));
+  }
+}
+
+template <int EPI, typename OutT>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    int8_gemm_kernel(const __grid_constant__ CUtensorMap amap,
+                     const __grid_constant__ CUtensorMap wmap, const GemmArgs p) {
+  using L = GemmLayout;
+  extern __shared__ __align__(16) uint8_t gemm_smem_raw[];
+  uint8_t* smem = gemm_smem_raw + ((1024 - (smem_u32(gemm_smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* staged = empty + STAGES;  // [2]: a staging tile holds accumulators
+  uint64_t* drained = staged + 2;     // [2]: its epilogue is done with it
+  const int tid = threadIdx.x;
+  const int nt = (p.N + BN - 1) / BN, tiles = (p.M + BM - 1) / BM * nt;
+  const int KT = (p.K + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), 2);  // one arrival per MMA warpgroup
+    }
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(smem_u32(staged + w), 128);
+      mbar_init(smem_u32(drained + w), 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= MMA_THREADS + EPI_THREADS) {  // the producer warp
+    if (tid == MMA_THREADS + EPI_THREADS) {
+      int it = 0;  // ring uses so far
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / nt * BM, n0 = tile % nt * BN;
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(smem_u32(empty + s), ((it / STAGES) & 1) ^ 1);
+          const uint32_t bar = smem_u32(full + s);
+          mbar_arrive_expect_tx(bar, HYT_GEMM_DIAG == 2 ? 0 : L::STAGE_BYTES);
+          if (HYT_GEMM_DIAG == 2) continue;
+          const uint32_t a = smem_u32(smem + s * L::STAGE_BYTES), b = a + L::A_BYTES;
+#pragma unroll
+          for (int r = 0; r < BM; r += BOX_ROWS) tma_load(a + r * BK, &amap, kt * BK, m0 + r, bar);
+#pragma unroll
+          for (int r = 0; r < BN; r += BOX_ROWS)
+            tma_load(b + r * BK, &wmap, kt * BK, n0 + r, bar);
+        }
+      }
+    }
+    return;
+  }
+
+  if (tid >= MMA_THREADS) {  // the epilogue warpgroups
+    const int wg = (tid - MMA_THREADS) >> 7;
+    const uint8_t* stage = smem + L::STAGING + wg * 64 * PITCH;
+    if (EPI == EPI_GELU_Q && p.gelu_poly)
+      gemm_epilogue<EPI, OutT, true>(p, stage, staged + wg, drained + wg, wg, tid & 127, nt,
+                                     tiles);
+    else
+      gemm_epilogue<EPI, OutT, false>(p, stage, staged + wg, drained + wg, wg, tid & 127, nt,
+                                      tiles);
+    return;
+  }
+
+  // the MMA warpgroups
+  const int wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
+  uint8_t* stage = smem + L::STAGING + wg * 64 * PITCH;
+  int it = 0, n = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
+    int acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    for (int kt = 0; kt < KT; ++kt, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(smem_u32(full + s), (it / STAGES) & 1);
+      const uint32_t a = smem_u32(smem + s * L::STAGE_BYTES);
+      const uint64_t da = sw128_desc(a + wg * 64 * BK), db = sw128_desc(a + L::A_BYTES);
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk) wgmma_s8(acc, da + 2 * kk, db + 2 * kk);
+      wgmma_commit();
+      fence_acc(acc);
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (kt > 0 && t == 0) mbar_arrive(smem_u32(empty + (it - 1) % STAGES));
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (t == 0) mbar_arrive(smem_u32(empty + (it - 1) % STAGES));  // the tile's last stage
+    // hand the accumulators over, once the epilogue is done with the last ones
+    mbar_wait(smem_u32(drained + wg), (n & 1) ^ 1);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<int2*>(stage + (warp * 16 + h * 8 + g) * PITCH + (j * 8 + q * 2) * 4) =
+            make_int2(acc[j * 4 + h * 2], acc[j * 4 + h * 2 + 1]);
+    mbar_arrive(smem_u32(staged + wg));
+  }
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// The current device and its SM count, read from the runtime once per device.
+int current_sms(int* dev, int* sms) {
+  static int cached[MAX_DEVICES] = {};
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return (int)err;
+  if (*dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!cached[*dev]) {
+    err = cudaDeviceGetAttribute(&cached[*dev], cudaDevAttrMultiProcessorCount, *dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  *sms = cached[*dev];
+  return 0;
+}
+
+template <int EPI, typename OutT>
+int launch_gemm(const CUtensorMap& amap, const CUtensorMap& wmap, const GemmArgs& p,
+                cudaStream_t st) {
+  auto kernel = int8_gemm_kernel<EPI, OutT>;
+  static bool smem_set[MAX_DEVICES] = {};  // the shared-memory limit raised on the device
+  int dev = 0, sms = 0;
+  if (const int rc = current_sms(&dev, &sms)) return rc;
+  if (!smem_set[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GemmLayout::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
+  const int tiles = (p.M + BM - 1) / BM * ((p.N + BN - 1) / BN);
+  kernel<<<tiles < sms ? tiles : sms, GEMM_THREADS, GemmLayout::BYTES, st>>>(amap, wmap, p);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_gemm(int epi, int out_kind, const CUtensorMap& amap, const CUtensorMap& wmap,
+                  const GemmArgs& p, cudaStream_t st) {
+  const bool f32 = out_kind == 1;
+  switch (epi) {
+    case EPI_DEQ_ROW:
+      return f32 ? launch_gemm<EPI_DEQ_ROW, float>(amap, wmap, p, st)
+                 : launch_gemm<EPI_DEQ_ROW, bf16>(amap, wmap, p, st);
+    case EPI_DEQ_FOLD:
+      return f32 ? launch_gemm<EPI_DEQ_FOLD, float>(amap, wmap, p, st)
+                 : launch_gemm<EPI_DEQ_FOLD, bf16>(amap, wmap, p, st);
+    case EPI_GELU_Q: return launch_gemm<EPI_GELU_Q, int8_t>(amap, wmap, p, st);
+    case EPI_RESID:
+      return f32 ? launch_gemm<EPI_RESID, float>(amap, wmap, p, st)
+                 : launch_gemm<EPI_RESID, bf16>(amap, wmap, p, st);
+    case EPI_PROJ:
+      return f32 ? launch_gemm<EPI_PROJ, float>(amap, wmap, p, st)
+                 : launch_gemm<EPI_PROJ, bf16>(amap, wmap, p, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime, so
+// the library links against nothing but the CUDA runtime.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)f;
+  }
+  return fn;
+}
+
+// The TMA map of a K-major (rows, K) int8 matrix at base: boxes of 64 rows
+// x 128 bytes, the 128-byte swizzle, zeros past the edges.
+int encode_kmajor(CUtensorMap* map, const void* base, int rows, int K) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K};
+  const cuuint32_t box[2] = {BK, BOX_ROWS};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------ mma.sync pieces of K10
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // A KT x NT byte tile of the (K, N) weight w at (k0, n0), in 4 x 4 blocks
@@ -287,86 +705,6 @@ __device__ __forceinline__ void load_b_tile(const int8_t* __restrict__ w, int K,
   }
 }
 
-template <int EPI, typename OutT>
-__global__ void __launch_bounds__(GT) int8_gemm_kernel(const GemmArgs p) {
-  __shared__ __align__(16) int8_t As[BM * LDS];
-  __shared__ __align__(16) int8_t Bs[BN * LDS];  // [n][k]: the weight tile transposed
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
-  const int M = p.M, N = p.N, K = p.K;
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // A tile: BM x BK bytes as 16-byte chunks (K % 16 == 0); zeros past the edges.
-    for (int c = tid; c < BM * BK / 16; c += GT) {
-      const int r = c / (BK / 16), kc = (c % (BK / 16)) * 16;
-      const int row = m0 + r, k = k0 + kc;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (row < M && k < K) v = *reinterpret_cast<const uint4*>(p.a + (size_t)row * K + k);
-      *reinterpret_cast<uint4*>(As + r * LDS + kc) = v;
-    }
-    load_b_tile<BK, BN, GT>(p.w, K, N, k0, n0, Bs, LDS, tid);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int8_t* base = As + (wm * 64 + mi * 16 + g) * LDS + kk + tig * 4;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(base);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(base + 8 * LDS);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(base + 16);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(base + 8 * LDS + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* base = Bs + (wn * 32 + ni * 8 + g) * LDS + kk + tig * 4;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(base);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(base + 16);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) mma_s8(acc[mi][ni], a[mi], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-  const float s_static = p.row_scale ? 0.0f : *p.s;
-  float inv_out = 0.0f;
-  if constexpr (EPI == EPI_GELU_Q) inv_out = __fdiv_rn(1.0f, *p.out_scale);
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * 64 + mi * 16 + g + h * 8;
-      if (row >= M) continue;
-      const float s = p.row_scale ? p.row_scale[row] : s_static;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn * 32 + ni * 8 + tig * 2;
-        if (col < N) {  // N is even: col + 1 < N too
-          store_out<EPI, OutT>(p, row, col, acc[mi][ni][h * 2], s, inv_out);
-          store_out<EPI, OutT>(p, row, col + 1, acc[mi][ni][h * 2 + 1], s, inv_out);
-        }
-      }
-    }
-}
-
-template <int EPI, typename OutT>
-int launch_gemm(const GemmArgs& p, cudaStream_t st) {
-  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM);
-  int8_gemm_kernel<EPI, OutT><<<grid, GT, 0, st>>>(p);
-  return (int)cudaGetLastError();
-}
-
 // ------------------------------------------- K10: the int8 MLP in one launch
 // fused_int8_mlp_block1 (_mlp1p_kernel): LN + quantize (s1) + fc1 + GELU +
 // quantize (s2) + fc2 + dequant + f32 residual, H taken in chunks with the fc2
@@ -384,14 +722,14 @@ int launch_gemm(const GemmArgs& p, cudaStream_t st) {
 // warp owns K / 8 output columns, 80 registers a thread at K = 1280. That
 // accumulator is why the tile is 16 rows: at 64 rows it is 327 KB, more than
 // an SM's registers or shared memory (the TPU keeps it in VMEM at 128 rows).
-// w1's column band and w2's row band go through load_b_tile like any weight
-// tile. K up to 1280 (NT2 = 20 n8-tiles per warp; smaller K takes NT2 = 1, 2
+// w1's column band and w2's row band are read from JAX's (K, N) layout by
+// load_b_tile, transposed on their way to shared memory. K up to 1280 (NT2 = 20 n8-tiles per warp; smaller K takes NT2 = 1, 2
 // or 4).
 //
 // What bounds it on the H100: the same 80.5 G int8 operations as K4 at
 // ViT-H's M = 3072, so the tensor cores. What it costs here: every CTA
 // re-reads both weights (13.1 MB at ViT-H), M / 16 = 192 times over, 2.5 GB
-// from L2 a launch, where K4's 128-row tiles read them 24 times; loads and
+// from L2 a launch, where K4's 128-row GEMM tiles read them 24 times; loads and
 // mma do not overlap. It is the simple form that is right; splitting fc2's
 // columns over a cluster that shares the GELU chunk through distributed
 // shared memory, with taller row tiles, is the follow-up.
@@ -561,23 +899,44 @@ extern "C" int hyt_quantize_rows(const void* x, int x_f32, const void* g, const 
                                          (float*)row_scale, st);
 }
 
-// out = epilogue(a (M, K) int8 @ w (K, N) int8). epi: the Epilogue above.
-// out_kind: 0 bf16, 1 f32, 2 int8 (EPI_GELU_Q only); res has the output's
-// dtype. row_scale (M,) or, where it is null, s: (1,) f32 scales on the
-// device, as out_scale. K % 16 == 0 and N % 16 == 0; a 16-byte and w 4-byte
-// aligned.
-extern "C" int hyt_int8_gemm(const void* a, const void* w, int M, int N, int K, int epi,
+// The TMA map of a K-major (N, K) int8 weight at wt, written to map (128
+// bytes of host memory): the wrapper makes it once per weight, beside the
+// weight's K-major copy, and hands it to every hyt_int8_gemm on that weight.
+// K % 16 == 0, N % 16 == 0, wt 16-byte aligned.
+extern "C" int hyt_weight_map(const void* wt, int N, int K, void* map) {
+  if (N <= 0 || K <= 0 || K % 16 || N % 16 || (reinterpret_cast<uintptr_t>(wt) & 15) || !map)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m;
+  const int rc = encode_kmajor(&m, wt, N, K);
+  if (rc == 0) memcpy(map, &m, sizeof m);
+  return rc;
+}
+
+// out = epilogue(a (M, K) int8 @ w^T), w the K-major (N, K) int8 weight whose
+// map hyt_weight_map wrote to wmap. epi: the Epilogue above. out_kind: 0
+// bf16, 1 f32, 2 int8 (EPI_GELU_Q only); res has the output's dtype.
+// row_scale (M,) or, where it is null, s: (1,) f32 scales on the device, as
+// out_scale; wscale and bias (N,) f32. K % 16 == 0 and N % 16 == 0; a, out,
+// res, wscale and bias 16-byte aligned.
+extern "C" int hyt_int8_gemm(const void* a, const void* wmap, int M, int N, int K, int epi,
                              int out_kind, const void* row_scale, const void* s,
                              const void* wscale, const void* bias, const void* res,
                              const void* out_scale, int gelu_poly, void* out, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || N % 16) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || N % 16 || !wmap || !wscale || !bias)
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(out) |
+       reinterpret_cast<uintptr_t>(res) | reinterpret_cast<uintptr_t>(wscale) |
+       reinterpret_cast<uintptr_t>(bias)) & 15)
+    return (int)cudaErrorInvalidValue;
   if ((epi == EPI_RESID || epi == EPI_PROJ) && !res) return (int)cudaErrorInvalidValue;
   if ((epi == EPI_GELU_Q) != (out_kind == 2) || (epi == EPI_GELU_Q && !out_scale))
     return (int)cudaErrorInvalidValue;
   if (!row_scale && !s) return (int)cudaErrorInvalidValue;
+  CUtensorMap amap, wm;
+  const int rc = encode_kmajor(&amap, a, M, K);
+  if (rc) return rc;
+  memcpy(&wm, wmap, sizeof wm);
   GemmArgs p;
-  p.a = (const int8_t*)a;
-  p.w = (const int8_t*)w;
   p.row_scale = (const float*)row_scale;
   p.wscale = (const float*)wscale;
   p.bias = (const float*)bias;
@@ -589,20 +948,7 @@ extern "C" int hyt_int8_gemm(const void* a, const void* w, int M, int N, int K, 
   p.M = M;
   p.N = N;
   p.K = K;
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool f32 = out_kind == 1;
-  switch (epi) {
-    case EPI_DEQ_ROW:
-      return f32 ? launch_gemm<EPI_DEQ_ROW, float>(p, st) : launch_gemm<EPI_DEQ_ROW, bf16>(p, st);
-    case EPI_DEQ_FOLD:
-      return f32 ? launch_gemm<EPI_DEQ_FOLD, float>(p, st) : launch_gemm<EPI_DEQ_FOLD, bf16>(p, st);
-    case EPI_GELU_Q: return launch_gemm<EPI_GELU_Q, int8_t>(p, st);
-    case EPI_RESID:
-      return f32 ? launch_gemm<EPI_RESID, float>(p, st) : launch_gemm<EPI_RESID, bf16>(p, st);
-    case EPI_PROJ:
-      return f32 ? launch_gemm<EPI_PROJ, float>(p, st) : launch_gemm<EPI_PROJ, bf16>(p, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return dispatch_gemm(epi, out_kind, amap, wm, p, (cudaStream_t)stream);
 }
 
 // K10: out (M, K) = x + fc2(GELU(fc1(LN(x)))) in one launch. x (M, K) f32

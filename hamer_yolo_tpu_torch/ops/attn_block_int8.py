@@ -32,10 +32,7 @@ def qkv_ref(tok, wq, wscale, bias, ln_scale, ln_bias, sx_qkv) -> torch.Tensor:
     B, N, K = tok.shape
     sq = im._as_scale(sx_qkv, tok.device)
     x = im.layer_norm_f32(tok.reshape(B * N, K).float(), ln_scale, ln_bias)
-    qkv = im.int_dot(im.quantize_rows_ref(x, sq), wq) * (sq * wscale.float())
-    if bias is not None:
-        qkv = qkv + bias.float()
-    return qkv.to(torch.bfloat16)
+    return im.int8_gemm_ref(im.quantize_rows_ref(x, sq), wq, im.EPI_DEQ_FOLD, wscale, bias, s=sq)
 
 
 def attention_ref(qkv: torch.Tensor, B: int, num_heads: int, sx_proj) -> torch.Tensor:

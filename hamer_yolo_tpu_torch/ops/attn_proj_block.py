@@ -29,10 +29,9 @@ from hamer_yolo_tpu_torch.ops.attn_block_int8 import qkv_ref as _qkv_ref
 
 def _proj_ref(aq: torch.Tensor, tok, wp, pscale, pbias, sx_proj) -> torch.Tensor:
     """int8 proj GEMM -> (acc * sp) * pw + pb -> token dtype -> + tok."""
-    y = im.int_dot(aq, wp) * im._as_scale(sx_proj, tok.device) * pscale.float()
-    if pbias is not None:
-        y = y + pbias.float()
-    return tok + y.to(tok.dtype).reshape(tok.shape)
+    out = im.int8_gemm_ref(aq, wp, im.EPI_PROJ, pscale, pbias, s=sx_proj,
+                           res=tok.reshape(aq.shape[0], -1), out_dtype=tok.dtype)
+    return out.reshape(tok.shape)
 
 
 def fused_int8_attn_proj_block_ref(tok: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,

@@ -5,7 +5,9 @@ C interface and loaded with ``ctypes``. Nothing is built at import: the first
 call that launches a kernel builds it, into ``_build/`` beside this package
 (listed in ``.gitignore``), under a name keyed by a hash of the source, the
 shared header ``csrc/common.cuh`` and the flags. A file lock keeps
-concurrent processes from building the same library twice.
+concurrent processes from building the same library twice. ``set_flags``
+adds nvcc flags to one source for the rest of the process (the diagnostic
+builds of chip_gemm.py: ``-D`` macros, ``-Xptxas -v``).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
@@ -41,6 +44,7 @@ _SIGNATURES = {
     },
     "int8_gemm.cu": {
         "hyt_quantize_rows": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+        "hyt_weight_map": [_P, _I, _I, _P],
         "hyt_int8_gemm": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
         "hyt_mlp_block1": [_P, _I] + [_P] * 10 + [_I, _I, _I, _I, _P, _P],
     },
@@ -55,6 +59,9 @@ _SIGNATURES = {
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_ADDED_FLAGS: Dict[str, List[str]] = {}  # set_flags
+BUILD_SECONDS: Dict[str, float] = {}  # wall time of each nvcc this process ran
+BUILD_LOG: Dict[str, str] = {}  # and its stderr
 
 
 def _nvcc() -> str:
@@ -65,8 +72,19 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(source: str) -> List[str]:
+    return [*_COMMON_FLAGS, *_EXTRA_FLAGS[source], *_ADDED_FLAGS.get(source, [])]
+
+
+def set_flags(source: str, flags: List[str]) -> None:
+    """Build and load ``csrc/<source>`` with the nvcc ``flags`` added, from
+    the next ``load`` on, for the rest of this process."""
+    _ADDED_FLAGS[source] = list(flags)
+    _LOADED.pop(source, None)
+
+
 def library_path(source: str) -> Path:
-    flags = _COMMON_FLAGS + _EXTRA_FLAGS[source]
+    flags = _flags(source)
     text = (CSRC_DIR / source).read_bytes() + (CSRC_DIR / "common.cuh").read_bytes()
     digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
@@ -80,9 +98,10 @@ def _build(source: str, out: Path) -> None:
             if out.exists():
                 return
             tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-            cmd = [_nvcc(), *_COMMON_FLAGS, *_EXTRA_FLAGS[source], "-o", str(tmp),
-                   str(CSRC_DIR / source)]
+            cmd = [_nvcc(), *_flags(source), "-o", str(tmp), str(CSRC_DIR / source)]
+            t0 = time.perf_counter()
             res = subprocess.run(cmd, capture_output=True, text=True)
+            BUILD_SECONDS[source], BUILD_LOG[source] = time.perf_counter() - t0, res.stderr
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {source}:\n{res.stderr}")
             os.replace(tmp, out)

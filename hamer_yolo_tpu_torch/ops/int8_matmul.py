@@ -11,17 +11,23 @@ hamer_yolo_tpu/ops/int8_matmul.py).
   the fc2 partial sums added in int32, bit-identical to K4.
 
 All run on ``csrc/int8_gemm.cu``: a quantize-rows launch (prologue and
-quantize, one warp per row) and an int8 GEMM launch (mma.sync s8, dequant
-epilogue); K4 is one quantize launch and two GEMMs; K10 is one launch of its
-own kernel there, a CTA per 16 token rows with the fc2 accumulator in
-registers. Each ``*_ref`` function
-is the plain version, in the f32 op order of its TPU kernel, which the CPU
-takes and the card's checks compare against. JAX's ``FUSED_GEMM_MAX_M``
+quantize, one warp per row) and an int8 GEMM launch (wgmma s8 fed by TMA,
+dequant epilogue); K4 is one quantize launch and two GEMMs; K10 is one launch
+of its own kernel there, a CTA per 16 token rows with the fc2 accumulator in
+registers. The GEMM reads each weight K-major: ``kmajor_weight`` makes that
+(N, K) copy once per weight, with its TMA map, and counts the copies it
+makes; ``core/quant.quantize_vit_params`` makes them when it quantizes on
+the card, any other int8 weight gets its copy at its first launch. Each
+``*_ref`` function is the plain version, in the f32 op order of its TPU
+kernel, which the CPU takes and the card's checks compare against;
+``int8_gemm_ref`` is that of one GEMM launch. JAX's ``FUSED_GEMM_MAX_M``
 switch to an XLA chain is not carried over: K5 runs at every M on the card.
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import weakref
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -136,6 +142,36 @@ def _as_scale(s, device) -> torch.Tensor:
     return torch.as_tensor(s, dtype=torch.float32, device=device).reshape(())
 
 
+# Epilogues of csrc/int8_gemm.cu's GEMM whose scale is applied before the
+# weight scale ((acc * s) * sw); the others fold them (acc * (s * sw)).
+_UNFOLDED = (EPI_DEQ_ROW, EPI_PROJ)
+
+
+def int8_gemm_ref(a: torch.Tensor, w: torch.Tensor, epi: int, wscale: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, *, row_scale=None, s=None, res=None,
+                  out_scale=None, gelu: str = "gelu", out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of one ``int8_gemm`` launch: the epilogue ``epi`` of the
+    exact product int_dot(a, w), a (M, K) int8, w (K, N) int8, in the
+    kernel's f32 op order. ``row_scale`` (M,) or the scalar ``s`` scales the
+    product; ``res`` (M, N) is the residual of EPI_RESID (added in f32) and
+    EPI_PROJ (added to the output rounded to ``out_dtype``); ``out_scale`` and
+    ``gelu`` ("gelu" or "gelu_poly") make EPI_GELU_Q's int8 output. Returns
+    (M, N) in ``out_dtype`` (int8 for EPI_GELU_Q)."""
+    acc = int_dot(a, w)
+    sc = (row_scale.float().reshape(-1, 1) if row_scale is not None
+          else _as_scale(s, a.device))
+    y = acc * sc * wscale.float() if epi in _UNFOLDED else acc * (sc * wscale.float())
+    if bias is not None:
+        y = y + bias.float()
+    if epi == EPI_GELU_Q:
+        return quantize_rows_ref(prologue_f32(y, gelu), _as_scale(out_scale, a.device))
+    if epi == EPI_RESID:
+        return (res.float() + y).to(out_dtype)
+    if epi == EPI_PROJ:
+        return res.to(out_dtype) + y.to(out_dtype)
+    return y.to(out_dtype)
+
+
 # --------------------------------------------------------------------- K5
 def fused_int8_matmul_ref(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
@@ -148,13 +184,13 @@ def fused_int8_matmul_ref(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tenso
     if static_scale is None:
         absmax = torch.amax(torch.abs(x2), dim=-1, keepdim=True)
         scale = torch.clamp(absmax * RECIP_127, min=1e-8)
+        scales = {"row_scale": scale}
     else:
         scale = _as_scale(static_scale, x.device)
-    acc = int_dot(quantize_rows_ref(x2, scale), wq)
-    y = acc * scale * wscale.float()
-    if bias is not None:
-        y = y + bias.float()
-    return y.to(out_dtype or x.dtype).reshape(*x.shape[:-1], N)
+        scales = {"s": scale}
+    y = int8_gemm_ref(quantize_rows_ref(x2, scale), wq, EPI_DEQ_ROW, wscale, bias,
+                      out_dtype=out_dtype or x.dtype, **scales)
+    return y.reshape(*x.shape[:-1], N)
 
 
 def fused_int8_matmul(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
@@ -200,16 +236,10 @@ def fused_int8_mlp_block_ref(tok: torch.Tensor, w1q, w1scale, b1, w2q, w2scale, 
     K = tok.shape[-1]
     x0 = tok.reshape(-1, K).float()
     s1, s2 = _as_scale(sx1, tok.device), _as_scale(sx2, tok.device)
-    x = layer_norm_f32(x0, ln_scale, ln_bias)
-    acc = int_dot(quantize_rows_ref(x, s1), w1q)
-    y = acc * (s1 * w1scale.float())
-    if b1 is not None:
-        y = y + b1.float()
-    yq = quantize_rows_ref(prologue_f32(y, gelu), s2)
-    z = int_dot(yq, w2q) * (s2 * w2scale.float())
-    if b2 is not None:
-        z = z + b2.float()
-    return (x0 + z).to(tok.dtype).reshape(tok.shape)
+    xq = quantize_rows_ref(layer_norm_f32(x0, ln_scale, ln_bias), s1)
+    yq = int8_gemm_ref(xq, w1q, EPI_GELU_Q, w1scale, b1, s=s1, out_scale=s2, gelu=gelu)
+    out = int8_gemm_ref(yq, w2q, EPI_RESID, w2scale, b2, s=s2, res=x0, out_dtype=tok.dtype)
+    return out.reshape(tok.shape)
 
 
 def fused_int8_mlp_block(tok: torch.Tensor, w1q, w1scale, b1, w2q, w2scale, b2,
@@ -312,8 +342,9 @@ def fused_int8_mlp_block1(tok: torch.Tensor, w1q, w1scale, b1, w2q, w2scale, b2,
     w1, w2 = cuda_build.aligned16(w1q), cuda_build.aligned16(w2q)
     out = torch.empty_like(x2)
     lib = cuda_build.load("int8_gemm.cu")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+    idx = x2.get_device()
+    with torch.cuda.device(idx):  # an index: less host work than a device
+        stream = torch.cuda.current_stream(idx).cuda_stream
         cuda_build.check(lib.hyt_mlp_block1(
             x2.data_ptr(), int(x2.dtype == torch.float32), g.data_ptr(), b.data_ptr(),
             w1.data_ptr(), ws1.data_ptr(), bs1.data_ptr(), w2.data_ptr(), ws2.data_ptr(),
@@ -332,10 +363,10 @@ def int8_dot_prequant(xq: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
     int8 -> (..., N): the plain exact int8 product and its dequant,
     ((acc * sx) * wscale + bias) in f32. Not a kernel: JAX computes it with
     dot_general outside Pallas."""
-    y = int_dot(xq, wq) * _as_scale(sx, xq.device) * wscale.float()
-    if bias is not None:
-        y = y + bias.float()
-    return y.to(out_dtype)
+    K = xq.shape[-1]
+    y = int8_gemm_ref(xq.reshape(-1, K), wq, EPI_DEQ_ROW, wscale, bias, s=sx,
+                      out_dtype=out_dtype)
+    return y.reshape(*xq.shape[:-1], wq.shape[1])
 
 
 # --------------------------------------- kernels against their plain versions
@@ -434,8 +465,9 @@ def quantize_rows(x2: torch.Tensor, prologue: str, g, b, static_scale, what: str
     else:
         row_scale, s = None, _device_scale(static_scale, dev, what)
     lib = cuda_build.load("int8_gemm.cu")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+    idx = x2.get_device()
+    with torch.cuda.device(idx):  # an index: less host work than a device
+        stream = torch.cuda.current_stream(idx).cuda_stream
         cuda_build.check(lib.hyt_quantize_rows(
             x2.data_ptr(), int(x2.dtype == torch.float32), _ptr(gb[0]), _ptr(gb[1]), pid, M, K,
             int(static_scale is None), _ptr(s), xq.data_ptr(), _ptr(row_scale), stream),
@@ -445,9 +477,11 @@ def quantize_rows(x2: torch.Tensor, prologue: str, g, b, static_scale, what: str
 
 def int8_gemm(a: torch.Tensor, w: torch.Tensor, epi: int, out: torch.Tensor,
               wscale: torch.Tensor, bias: Optional[torch.Tensor], *, row_scale=None, s=None,
-              res=None, out_scale=None, gelu_poly: bool = False, what: str = "int8_gemm") -> None:
+              res=None, out_scale=None, gelu_poly: bool = False,
+              what: str = "int8_gemm") -> None:
     """Launch the int8 GEMM of csrc/int8_gemm.cu: out (M, N) = epilogue(a
-    (M, K) int8 @ w (K, N) int8)."""
+    (M, K) int8 @ w (K, N) int8), reading w through its K-major copy
+    (``kmajor_weight``)."""
     M, K = a.shape
     dev = a.device
     if w.dtype != torch.int8 or w.dim() != 2 or w.shape[0] != K or w.device != dev:
@@ -456,19 +490,71 @@ def int8_gemm(a: torch.Tensor, w: torch.Tensor, epi: int, out: torch.Tensor,
     N = w.shape[1]
     if K % 16 or N % 16:
         raise ValueError(f"{what}: K = {K} and N = {N} must be multiples of 16")
-    if res is not None and (res.shape != (M, N) or res.dtype != out.dtype):
-        raise ValueError(f"{what}: the residual must be ({M}, {N}) {out.dtype}")
+    if out.shape != (M, N) or not out.is_contiguous() or out.data_ptr() % 16:
+        raise ValueError(f"{what}: the output must be a contiguous ({M}, {N}) tensor, 16-byte "
+                         f"aligned, got {tuple(out.shape)} at {out.data_ptr() % 16} mod 16")
+    if res is not None:
+        if res.shape != (M, N) or res.dtype != out.dtype:
+            raise ValueError(f"{what}: the residual must be ({M}, {N}) {out.dtype}")
+        res = cuda_build.aligned16(res)
     a = cuda_build.aligned16(a)
-    w = w.contiguous()
-    wscale = _vec(wscale, N, dev, what, "the weight scales")
-    bias = _vec(bias, N, dev, what, "the bias")
+    wmap = _kmajor(w)[1]
+    wscale = cuda_build.aligned16(_vec(wscale, N, dev, what, "the weight scales"))
+    bias = cuda_build.aligned16(_vec(bias, N, dev, what, "the bias"))
     lib = cuda_build.load("int8_gemm.cu")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+    idx = a.get_device()
+    with torch.cuda.device(idx):  # an index: less host work than a device
+        stream = torch.cuda.current_stream(idx).cuda_stream
         cuda_build.check(lib.hyt_int8_gemm(
-            a.data_ptr(), w.data_ptr(), M, N, K, epi, _OUT_KIND[out.dtype], _ptr(row_scale),
-            _ptr(s), wscale.data_ptr(), bias.data_ptr(), _ptr(res), _ptr(out_scale),
-            int(gelu_poly), out.data_ptr(), stream), f"{what}: int8_gemm_kernel")
+            a.data_ptr(), ctypes.addressof(wmap), M, N, K, epi, _OUT_KIND[out.dtype],
+            _ptr(row_scale), _ptr(s), wscale.data_ptr(), bias.data_ptr(), _ptr(res),
+            _ptr(out_scale), int(gelu_poly), out.data_ptr(), stream),
+            f"{what}: int8_gemm_kernel")
+
+
+# ------------------------------------------------------ K-major weight copies
+# 8-bit wgmma reads both operands K-major from shared memory, so the card's
+# GEMM takes the weight as (N, K) contiguous, while every public function
+# keeps JAX's (K, N). Each weight gets one copy, with its TMA map, kept as
+# long as the weight lives: id(w) -> (weak reference to w, w's version
+# counter, the copy, the map). ViT-H's int8 weights are 630 MB, so their
+# copies hold as much again on the card.
+_KMAJOR: Dict[int, tuple] = {}
+
+
+def kmajor_weight(w: torch.Tensor) -> torch.Tensor:
+    """The K-major (N, K) contiguous, 16-byte aligned copy of the (K, N)
+    int8 weight ``w``, made once per weight (a later in-place change to
+    ``w`` makes it anew); ``kmajor_weight.transposes`` counts the copies
+    made."""
+    return _kmajor(w)[0]
+
+
+kmajor_weight.transposes = 0
+
+
+def _kmajor(w: torch.Tensor):
+    """(kmajor_weight(w), its TMA map: 128 bytes of host memory, or None
+    for a CPU weight)."""
+    key = id(w)
+    version = None if w.is_inference() else w._version
+    hit = _KMAJOR.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == version:
+        return hit[2], hit[3]
+    if w.dtype != torch.int8 or w.dim() != 2:
+        raise ValueError(f"kmajor_weight: an int8 (K, N) weight, got {w.dtype} {tuple(w.shape)}")
+    wt = cuda_build.aligned16(w.t().contiguous())
+    wmap = None
+    if wt.is_cuda:
+        wmap = ctypes.create_string_buffer(128)
+        idx = wt.get_device()
+        with torch.cuda.device(idx):
+            cuda_build.check(cuda_build.load("int8_gemm.cu").hyt_weight_map(
+                wt.data_ptr(), wt.shape[0], wt.shape[1], ctypes.addressof(wmap)),
+                "kmajor_weight: the weight's TMA map")
+    _KMAJOR[key] = (weakref.ref(w, lambda _, key=key: _KMAJOR.pop(key, None)), version, wt, wmap)
+    kmajor_weight.transposes += 1
+    return wt, wmap
 
 
 def _ptr(t: Optional[torch.Tensor]):

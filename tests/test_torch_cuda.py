@@ -17,6 +17,7 @@ from hamer_yolo_tpu_torch.models.vit import ViTConfig, init_vit, vit_forward
 from hamer_yolo_tpu_torch.ops.attn_block import (check_against_twin, fused_bf16_attn_block,
                                                   fused_bf16_attn_block_ref)
 from hamer_yolo_tpu_torch.ops import attn_block_int8, attn_proj_block, mano_lbs
+from hamer_yolo_tpu_torch.ops import int8_matmul as im
 from hamer_yolo_tpu_torch.ops.attn_block_int8 import fused_int8_attn_block
 from hamer_yolo_tpu_torch.ops.attn_proj_block import fused_int8_attn_proj_block
 from hamer_yolo_tpu_torch.ops.int8_matmul import (check_against_plain, fused_int8_matmul,
@@ -182,6 +183,150 @@ def test_k4_matches_plain(dev, M, K, gelu, dtype):
     torch.cuda.synchronize()
     assert fused_int8_mlp_block.launches == before + 1 and got.dtype == dtype
     check_against_plain(got, fused_int8_mlp_block_ref(tok, *args, gelu=gelu), "K4")
+
+
+# ------------------------------------------------- the int8 GEMM launch alone
+# (M, K, N): one row; the edges of a 64-row warpgroup and a 128-row tile; K
+# shorter than one 128-byte ring stage (16, 48) and longer than the ring
+# (1280 and 5120: 10 and 40 stages, so every mbarrier phase comes round);
+# N from one 16-column vector to ViT-H's widths; ViT-H's M = 3072 and 12288.
+GEMM_SHAPES = {"m1": (1, 16, 16), "m63_k48": (63, 48, 192), "m64": (64, 1280, 1280),
+               "m65_k5120": (65, 5120, 1280), "m129_n3840": (129, 1280, 3840),
+               "m129_k48_n5120": (129, 48, 5120), "m65_k16_n3840": (65, 16, 3840),
+               "vith_fc1": (3072, 1280, 5120), "vith_fc2": (3072, 5120, 1280),
+               "m12288_qkv": (12288, 1280, 3840), "m12288_fc2": (12288, 5120, 1280)}
+# epilogue -> (EPI_*, per-row scales, GELU); EPI_GELU_Q writes int8
+GEMM_EPILOGUES = {"deq_row": (im.EPI_DEQ_ROW, False, None),
+                  "deq_row_per_row": (im.EPI_DEQ_ROW, True, None),
+                  "deq_fold": (im.EPI_DEQ_FOLD, False, None), "resid": (im.EPI_RESID, False, None),
+                  "proj": (im.EPI_PROJ, False, None), "gelu_q_poly": (im.EPI_GELU_Q, False, "gelu_poly"),
+                  "gelu_q_exact": (im.EPI_GELU_Q, False, "gelu")}
+GEMM_CASES = [pytest.param(shape, epi, dtype, id=f"{sname}-{ename}-{dname}")
+              for sname, shape in GEMM_SHAPES.items() for ename, epi in GEMM_EPILOGUES.items()
+              for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))
+              if epi[0] != im.EPI_GELU_Q or dname == "bf16"]
+
+
+def _gemm_operands(rng, dev, M, K, N, epi, dtype):
+    """Random int8 operands, scales, bias and the epilogue's extra inputs."""
+    code, per_row, gelu = epi
+    a = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8)).to(dev)
+    w = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8)).to(dev)
+    ws = torch.from_numpy((1e-4 + 1e-3 * rng.random(N)).astype(np.float32)).to(dev)
+    kw = {"row_scale": (torch.from_numpy((1e-3 + 0.02 * rng.random(M)).astype(np.float32))
+                        .to(dev) if per_row else None),
+          "s": None if per_row else torch.tensor([0.02], device=dev),
+          "res": (torch.from_numpy(rng.normal(size=(M, N)).astype(np.float32)).to(dev).to(dtype)
+                  if code in (im.EPI_RESID, im.EPI_PROJ) else None),
+          "out_scale": torch.tensor([0.05], device=dev) if code == im.EPI_GELU_Q else None}
+    return a, w, ws, _vec(rng, dev, N), kw
+
+
+@pytest.mark.parametrize("shape,epi,dtype", GEMM_CASES)
+def test_int8_gemm_matches_plain(dev, shape, epi, dtype):
+    """The GEMM launch alone against int8_gemm_ref on the same int8 input:
+    bit for bit (exact int32 sums, the same f32 op order), except EPI_GELU_Q,
+    whose GELU may sit within an ulp of an int8 rounding midpoint: +-1 on at
+    most MAX_FRAC_INT8_FLIPPED of elements."""
+    M, K, N = shape
+    code, _, gelu = epi
+    rng = np.random.default_rng(M + K + N)
+    a, w, ws, b, kw = _gemm_operands(rng, dev, M, K, N, epi, dtype)
+    out = torch.empty((M, N), dtype=torch.int8 if code == im.EPI_GELU_Q else dtype, device=dev)
+    im.int8_gemm(a, w, code, out, ws, b, gelu_poly=gelu == "gelu_poly", **kw)
+    torch.cuda.synchronize()
+    ref = im.int8_gemm_ref(a, w, code, ws, b, gelu=gelu or "gelu", out_dtype=dtype, **kw)
+    assert out.dtype == ref.dtype
+    if code == im.EPI_GELU_Q:
+        check_against_plain(out, ref, "the int8 GEMM with EPI_GELU_Q")
+    else:
+        assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
+
+
+@pytest.mark.parametrize("shape", [(300, 48, 208), (20000, 48, 208), (20000, 16, 16)],
+                         ids=["m300_k48_n208", "m20000_k48_n208", "m20000_k16_n16"])
+def test_int8_gemm_ragged_tiles_match_plain(dev, shape):
+    """N = 208 leaves part of the last column tile; at M = 20000 the 314 and
+    157 tiles outnumber the CTAs (one an SM), so CTAs walk two or three
+    tiles, ring stages and mbarrier phases carrying over from tile to
+    tile."""
+    M, K, N = shape
+    rng = np.random.default_rng(M + N)
+    epi = GEMM_EPILOGUES["resid"]
+    a, w, ws, b, kw = _gemm_operands(rng, dev, M, K, N, epi, torch.bfloat16)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    im.int8_gemm(a, w, im.EPI_RESID, out, ws, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, im.int8_gemm_ref(a, w, im.EPI_RESID, ws, b, **kw))
+
+
+def test_int8_gemm_kmajor_copy_made_once(dev):
+    """The first launch on a weight makes its K-major copy and TMA map; later
+    launches reuse them, and the card's copy is the transpose."""
+    rng = np.random.default_rng(7)
+    a, w, ws, b, kw = _gemm_operands(rng, dev, 70, 64, 48, GEMM_EPILOGUES["deq_fold"],
+                                     torch.bfloat16)
+    out = torch.empty((70, 48), dtype=torch.bfloat16, device=dev)
+    before = im.kmajor_weight.transposes
+    for _ in range(3):
+        im.int8_gemm(a, w, im.EPI_DEQ_FOLD, out, ws, b, **kw)
+    assert im.kmajor_weight.transposes == before + 1
+    wt = im.kmajor_weight(w)
+    assert wt.is_cuda and wt.is_contiguous() and wt.data_ptr() % 16 == 0
+    assert torch.equal(wt, w.t())
+
+
+@pytest.mark.parametrize("scales", ["static", "dynamic"])
+def test_int8_vit_makes_kmajor_copies_once(dev, scales):
+    """Quantized on the card, the int8 ViT's tree has every K-major copy (4 a
+    block) and two forwards make none; quantized on the CPU and moved to the
+    card, it makes them in its first forward and none in its second."""
+    cfg = ViTConfig(img_size=(64, 48), embed_dim=64, depth=2, num_heads=4)
+    vit = init_vit(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(3, 64, 48, 3)).astype(np.float32))
+    x = x.to(dev)
+    before = im.kmajor_weight.transposes
+    on_card = quant.quantize_vit_params(_to(vit, dev))
+    assert im.kmajor_weight.transposes == before + 4 * cfg.depth
+    moved = _to(quant.quantize_vit_params(vit), dev)
+    if scales == "static":
+        stats = quant.collect_vit_act_stats(on_card, x, cfg)
+        on_card = quant.attach_static_act_scales(on_card, stats)
+        moved = quant.attach_static_act_scales(moved, stats)
+    for tree, first in ((on_card, 0), (moved, 4 * cfg.depth)):
+        for want in (first, 0):
+            before = im.kmajor_weight.transposes
+            got = quant.vit_forward_int8(tree, x, cfg)
+            torch.cuda.synchronize()
+            assert im.kmajor_weight.transposes - before == want
+            assert torch.isfinite(got).all()
+
+
+def test_int8_gemm_rejects_what_it_does_not_take(dev):
+    rng = np.random.default_rng(8)
+    a, w, ws, b, kw = _gemm_operands(rng, dev, 32, 64, 48, GEMM_EPILOGUES["resid"],
+                                     torch.bfloat16)
+    out = torch.empty((32, 48), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="the weight must be int8"):
+        im.int8_gemm(a, w.t().contiguous(), im.EPI_RESID, out, ws, b, **kw)  # (N, K)
+    with pytest.raises(ValueError, match="the weight must be int8"):
+        im.int8_gemm(a, w.float(), im.EPI_RESID, out, ws, b, **kw)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        im.int8_gemm(a[:, :56], w[:56], im.EPI_RESID, out, ws, b, **kw)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        im.int8_gemm(a, w[:, :40], im.EPI_RESID, out[:, :40], ws[:40], b[:40],
+                     **{**kw, "res": kw["res"][:, :40]})
+    wide = torch.empty((32, 56), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # starts 2 bytes in
+        im.int8_gemm(a, w, im.EPI_RESID, wide.view(-1)[1:1 + 32 * 48].view(32, 48), ws, b,
+                     **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        im.int8_gemm(a, w, im.EPI_RESID, wide[:, :48], ws, b, **kw)
+    with pytest.raises(ValueError, match="the residual must be"):
+        im.int8_gemm(a, w, im.EPI_RESID, out, ws, b, **{**kw, "res": kw["res"].float()})
+    with pytest.raises(RuntimeError, match="CUDA error"):  # EPI_GELU_Q writes int8
+        im.int8_gemm(a, w, im.EPI_GELU_Q, out, ws, b, s=kw["s"],
+                     out_scale=torch.tensor([0.05], device=dev))
 
 
 # (B, h, N, hd, mult): ViT-H, the tiny config, ragged N with hd 24 padded to
