@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device time of a checkout's int8 GEMM launch at ViT-H's four GEMM shapes.
+"""Device time of a checkout's int8 GEMM launch at ViT-H's four GEMM shapes,
+or, with --k2, of its kernel K2.
 
-    python3 chip_gemm.py [--root DIR | --variant noepi|noload] [--ptxas]
+    python3 chip_gemm.py [--k2] [--root DIR | --variant noepi|noload] [--ptxas]
 
 Imports hamer_yolo_tpu_torch from DIR (default: this script's checkout) and
 times its ``ops/int8_matmul.int8_gemm`` with chip_smoke.int8_gemm_alone
@@ -28,8 +29,15 @@ csrc/int8_gemm.cu with the macro HYT_GEMM_DIAG set, through
 this checkout's int8_gemm.cu, alone, and prints its seconds and each
 kernel's registers and spills.
 
+``--k2`` does the same for K2 (csrc/attn_block.cu, macro HYT_K2_DIAG):
+chip_smoke.k2_alone times its LN + QKV GEMM launches (where the package has
+``attn_block.ln_qkv``) and all of K2 at the bf16 path's rows, beside the
+library composition, without the check; ``noepi`` leaves out the GEMM's
+epilogue (the staging and TMA stores of qkv), ``noload`` its TMA copies.
+
 The last line of stdout is a JSON object: {"root", "variant", "device",
-"ms": {"<gemm> M <rows>": {...}}, "host_us": {...}}.
+"ms": {"<gemm> M <rows>": {...}}, "host_us": {...}} (with --k2: "ms":
+{"<what> M <rows>": ms}).
 """
 import argparse
 import json
@@ -39,25 +47,26 @@ import sys
 
 import chip_smoke  # this checkout's phase; the package comes from --root
 
-VARIANTS = {"noepi": ["-DHYT_GEMM_DIAG=1"], "noload": ["-DHYT_GEMM_DIAG=2"]}
+VARIANTS = {"noepi": 1, "noload": 2}  # the value of the source's diagnostic macro
+SOURCES = {False: ("int8_gemm.cu", "HYT_GEMM_DIAG"), True: ("attn_block.cu", "HYT_K2_DIAG")}
 
 
-def build_int8_gemm(flags, ptxas: bool) -> None:
-    """Build and load csrc/int8_gemm.cu alone with ``flags`` added; with
+def build_source(source, flags, ptxas: bool) -> None:
+    """Build and load csrc/<source> alone with ``flags`` added; with
     ``ptxas``, print the build's seconds and each kernel's registers and
     spills."""
     from hamer_yolo_tpu_torch.ops import cuda_build
 
-    cuda_build.set_flags("int8_gemm.cu", flags + (["-Xptxas", "-v"] if ptxas else []))
-    cuda_build.load("int8_gemm.cu")
+    cuda_build.set_flags(source, flags + (["-Xptxas", "-v"] if ptxas else []))
+    cuda_build.load(source)
     if not ptxas:
         return
-    if "int8_gemm.cu" not in cuda_build.BUILD_LOG:
-        raise RuntimeError("--ptxas: int8_gemm.cu was built before, so nvcc printed nothing")
-    print(f"nvcc int8_gemm.cu alone {' '.join(flags)}, -Xptxas -v: "
-          f"{cuda_build.BUILD_SECONDS['int8_gemm.cu']:.1f} s")
+    if source not in cuda_build.BUILD_LOG:
+        raise RuntimeError(f"--ptxas: {source} was built before, so nvcc printed nothing")
+    print(f"nvcc {source} alone {' '.join(flags)}, -Xptxas -v: "
+          f"{cuda_build.BUILD_SECONDS[source]:.1f} s")
     kernel = None
-    for line in cuda_build.BUILD_LOG["int8_gemm.cu"].splitlines():
+    for line in cuda_build.BUILD_LOG[source].splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
         elif kernel and ("registers" in line or "spill" in line):
@@ -69,6 +78,7 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--variant", choices=sorted(VARIANTS))
     ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--k2", action="store_true", help="time K2 (csrc/attn_block.cu)")
     args = ap.parse_args()
     import torch
 
@@ -85,10 +95,18 @@ def main() -> int:
         raise RuntimeError(f"imported {hamer_yolo_tpu_torch.__file__}, not the package in {root}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
                           "--id=0"], capture_output=True, text=True, check=True).stdout.strip())
+    source, macro = SOURCES[args.k2]
     if args.variant or args.ptxas:
-        build_int8_gemm(VARIANTS.get(args.variant, []), args.ptxas)
-    print(f"package {root}, variant {args.variant}", flush=True)
+        flags = [f"-D{macro}={VARIANTS[args.variant]}"] if args.variant else []
+        build_source(source, flags, args.ptxas)
+    print(f"package {root}, {source}, variant {args.variant}", flush=True)
     dev = torch.device("cuda:0")
+    if args.k2:
+        times = chip_smoke.k2_alone(dev, check=False)
+        print(json.dumps({"root": root, "variant": args.variant,
+                          "device": torch.cuda.get_device_name(0),
+                          "ms": {f"{name} M {m}": r for (name, m), r in times.items()}}))
+        return 0
     times = chip_smoke.int8_gemm_alone(dev, check=False)
     host = chip_smoke.wrapper_host_us(dev)
     print(json.dumps({"root": root, "variant": args.variant,

@@ -28,7 +28,12 @@ beside its plain version, a PyTorch library call where one computes the same
 function, and its bound. A phase "int8 GEMM alone" holds the GEMM launch of
 K3-K6 to its plain version bit for bit at ViT-H's four GEMM shapes (M = 3072
 and 12288), times it by CUDA graph replay beside torch._int_mm's bare GEMM,
-and times the host work a call of the GEMM's two wrappers.
+and times the host work a call of the GEMM's two wrappers. A phase "K2
+alone" does the same for K2's LN + QKV GEMM launches at the bf16 path's
+rows (M = 768, 3072, 12288), beside the library composition
+F.layer_norm + torch.addmm (+ scaled_dot_product_attention for all of K2),
+timed for reference only. The bf16 path fails if a ViT forward after the
+first casts a weight to bf16.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the kernels' JSON record. Any failed phase raises and the script exits
@@ -51,7 +56,8 @@ KERNELS = {
            "source": "hamer_yolo_tpu_torch/csrc/nms.cu",
            "replaces": "hamer_yolo_tpu/ops/nms_pallas.py:62"},
     "K2": {"name": "fused_bf16_attn_block", "route": "cuda",
-           "source": "hamer_yolo_tpu_torch/csrc/attn_block.cu",
+           "source": "hamer_yolo_tpu_torch/csrc/attn_block.cu, "
+                     "hamer_yolo_tpu_torch/csrc/short_attention.cu",
            "replaces": "hamer_yolo_tpu/ops/attention_pallas.py:255"},
     "K3": {"name": "fused_int8_attn_proj_block", "route": "cuda",
            "source": "hamer_yolo_tpu_torch/csrc/int8_gemm.cu, "
@@ -96,6 +102,8 @@ INT8_KERNELS = ("K3", "K4", "K5", "K6", "K7", "K8", "K10")
 # fc2; and the rows of 16 and 64 crops of 192 tokens
 VITH_GEMMS = {"qkv": (1280, 3840), "proj": (1280, 1280), "fc1": (1280, 5120), "fc2": (5120, 1280)}
 GEMM_ROWS = (3072, 12288)
+# K2's rows on the bf16 path: 1, 4 and 16 frames of 4 crops of 192 tokens
+K2_ROWS = (768, 3072, 12288)
 SEED = 0
 N_FRAMES = 3          # frames through the runner (FrameProgram)
 BATCH = 4             # frames in the infer_frames batch
@@ -219,6 +227,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from hamer_yolo_tpu_torch.cli.main import apply_fast_path, pipeline_config
+    from hamer_yolo_tpu_torch.core import nn
     from hamer_yolo_tpu_torch.core.checkpoint import init_pipeline_params
     from hamer_yolo_tpu_torch.core.mano_assets import synthetic_mano_model
     from hamer_yolo_tpu_torch.core.quant import attach_static_act_scales
@@ -290,6 +299,15 @@ def main() -> int:
     expect_launches("bf16 path", n, {"K2": depth * vit_forwards,
                                      **dict.fromkeys(INT8_KERNELS + ("K9",), 0)})
     check_batch(batch_out, cfg, "bf16 infer_frames")
+    casts_before = nn.cast_weight.casts
+    with torch.inference_mode():
+        infer_frames(params, mano, imgs, hws, Ks, cfg)
+    torch.cuda.synchronize()
+    casts = nn.cast_weight.casts - casts_before
+    print(f"bf16 path: weight casts to bf16 in a forward after the first: {casts} "
+          f"({casts_before} in all before it)")
+    if casts:
+        raise RuntimeError(f"the bf16 path cast {casts} weights in a forward after the first")
 
     # -- path 2, int8: calibrate, then static and dynamic infer_frames -------
     qparams, qcfg = apply_fast_path(params, cfg, "int8")
@@ -364,6 +382,7 @@ def main() -> int:
                                       record["K3"]["ms"], record["K4"]["ms"], record["K7"]["ms"]))
     int8_gemm_alone(dev)
     wrapper_host_us(dev)
+    k2_alone(dev)
 
     # -- end to end timing ---------------------------------------------------
     with torch.inference_mode():
@@ -468,20 +487,42 @@ def check_k1(cand, cfg):
 
 def check_k2(blk0, tok0, heads):
     """K2 against its plain version (ulp limits of ops/attn_block.py) on
-    random tokens and the main path's block-0 tokens; timings there."""
+    the main path's block-0 tokens, random tokens of both dtypes, a ragged M
+    and N past 256 keys (f32 tokens there launch by launch); timings at the
+    main path's shape."""
     import torch
 
     from hamer_yolo_tpu_torch.ops import attn_block
-    from hamer_yolo_tpu_torch.ops.attn_block import (check_against_twin, fused_bf16_attn_block,
-                                                      fused_bf16_attn_block_ref)
+    from hamer_yolo_tpu_torch.ops.attn_block import (attention_ref, check_against_twin,
+                                                      fused_bf16_attn_block,
+                                                      fused_bf16_attn_block_ref, ln_qkv, ln_qkv_ref,
+                                                      twin_readings)
 
     dev = tok0.device
     args = (blk0["attn"]["qkv"]["w"], blk0["attn"]["qkv"]["b"], blk0["norm1"]["scale"],
             blk0["norm1"]["bias"], heads)
     rng = np.random.default_rng(SEED + 2)
-    tok_rand = torch.from_numpy(rng.normal(size=(8, 192, 1280)).astype(np.float32)).to(dev)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    tok_rand = randn(8, 192, 1280)
+    # ViT-H's tokens, random tokens of either dtype, a ragged M (300 rows) and
+    # N past the attention's single-pass 256 keys (the key-block form)
     cases = {"random_b8_bf16": tok_rand.to(torch.bfloat16), "random_b8_f32": tok_rand,
-             "block0_tokens": tok0}
+             "block0_tokens": tok0, "ragged_b3_n100_bf16": randn(3, 100, 1280).bfloat16(),
+             "ragged_b3_n100_f32": randn(3, 100, 1280),
+             "n266_b4_bf16": randn(4, 266, 1280).bfloat16(),
+             "n577_b2_bf16": randn(2, 577, 1280).bfloat16()}
+    # f32 tokens past 256 keys are held launch by launch: the LN + QKV GEMM
+    # against ln_qkv_ref, the attention against attention_ref on the kernel's
+    # own qkv, each at K2's limits. End to end (printed, not held), the twin's
+    # own f32 GEMM rounds some bf16 qkv the other way from exact sums, as
+    # often as the kernel does but at other elements, and at 577 keys an f32
+    # output of the twin can lie further from the same math on exactly summed
+    # qkv than the per-element limit; the lines printed here give both sides'
+    # distance from it (PERF.md).
+    steps = {"n577_b2_f32": randn(2, 577, 1280)}
     print(f"K2 limits against its twin (ops/attn_block.py): every element within "
           f"{attn_block.MAX_ULPS} bf16 ulps of max(|twin|, mean |twin|); at most "
           f"{attn_block.MAX_FRAC_OVER_1ULP} of elements beyond 1 ulp of their own |twin|; "
@@ -495,17 +536,133 @@ def check_k2(blk0, tok0, heads):
         err = max(err, r["max_abs_err"])
         print(f"K2 {name}: tokens {tuple(tok.shape)} {tok.dtype}, max |twin| "
               f"{float(ref.abs().max()):.4g}: " + ", ".join(f"{k} {v:.6g}" for k, v in r.items()))
+    for name, tok in steps.items():
+        B, N, Kd = tok.shape
+        x = tok.reshape(B * N, Kd)
+        qkv = ln_qkv(x, *args[:4])
+        got = fused_bf16_attn_block(tok, *args)
+        torch.cuda.synchronize()
+        twin_qkv = ln_qkv_ref(x, *args[:4])
+        for step, r in (("LN + QKV GEMM", check_against_twin(qkv, twin_qkv)),
+                        ("attention", check_against_twin(got, attention_ref(
+                            qkv.reshape(B, N, -1), heads, tok.dtype)))):
+            err = max(err, r["max_abs_err"])
+            print(f"K2 {name}, {step}, on the kernel's own input of it: tokens "
+                  f"{tuple(tok.shape)} {tok.dtype}: " + _fmt(r))
+        exact = exact_qkv(x, *args[:4])
+        ref_exact = attention_ref(exact.reshape(B, N, -1), heads, tok.dtype)
+        print(f"K2 {name} end to end (not held): against the twin "
+              + _fmt(twin_readings(got, fused_bf16_attn_block_ref(tok, *args)))
+              + "; against the same math on exactly summed qkv: the kernel "
+              + _fmt(twin_readings(got, ref_exact)) + "; the twin "
+              + _fmt(twin_readings(fused_bf16_attn_block_ref(tok, *args), ref_exact))
+              + f"; bf16 qkv rounded otherwise than the exact sums: kernel "
+              f"{float((qkv != exact).float().mean()):.4g}, twin "
+              f"{float((twin_qkv != exact).float().mean()):.4g}")
     ms = cuda_time_ms(lambda: fused_bf16_attn_block(tok0, *args))
+    dev_ms = graph_time_ms(lambda: fused_bf16_attn_block(tok0, *args))
     plain_ms = cuda_time_ms(lambda: fused_bf16_attn_block_ref(tok0, *args))
+    comp = k2_composition(tok0, *args)
+    comp_ms = cuda_time_ms(comp)
     B, N, Kd = tok0.shape
     td = args[0].shape[1]
     D = td // 3
     bound_ms, by = bound(2 * (B * N * Kd + Kd * td + B * N * D),
                          {"bf16": 2 * B * N * Kd * td + 4 * B * N * N * D})
-    print(f"K2 timing at the main path's shape {tuple(tok0.shape)}: kernel {ms:.4f} ms, twin "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}); no PyTorch call computes it")
+    print(f"K2 timing at the main path's shape {tuple(tok0.shape)}: kernel {ms:.4f} ms, device "
+          f"time alone (CUDA graph of 20 launches) {dev_ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({by}); no PyTorch call computes it; for reference only, the "
+          f"library composition F.layer_norm + torch.addmm + scaled_dot_product_attention "
+          f"{comp_ms:.4f} ms (device time alone {graph_time_ms(comp):.4f} ms)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "library_ms": None}
+
+
+def exact_qkv(x, w, bias, ln_scale, ln_bias):
+    """K2's qkv with the LN and the GEMM summed in f64, each rounded to bf16
+    where the twin rounds it: the twin's math without its f32 sums."""
+    import torch
+
+    xd = x.double()
+    mu = xd.mean(-1, keepdim=True)
+    xn = (xd - mu) * torch.rsqrt(torch.square(xd - mu).mean(-1, keepdim=True) + 1e-6)
+    xn = (xn * ln_scale.double() + ln_bias.double()).float().bfloat16()
+    qkv = xn.double() @ w.bfloat16().double() + bias.double()
+    return qkv.float().bfloat16()
+
+
+def k2_composition(tok, w, bias, ln_scale, ln_bias, heads):
+    """A function computing K2's outputs with three library calls in the
+    tokens' dtype (F.layer_norm, torch.addmm, scaled_dot_product_attention),
+    rounding elsewhere than K2: a yardstick for timings, never on the path."""
+    import torch
+    import torch.nn.functional as F
+
+    B, N, Kd = tok.shape
+    dt = tok.dtype
+    w_, b_, g_, bt_ = (t.to(dt) for t in (w, bias, ln_scale, ln_bias))
+    hd = w.shape[1] // 3 // heads
+
+    def run():
+        x = F.layer_norm(tok, (Kd,), g_, bt_, 1e-6).reshape(B * N, Kd)
+        qkv = torch.addmm(b_, x, w_).reshape(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2])
+
+    return run
+
+
+def k2_alone(dev, check=True):
+    """K2 of ViT-H at the bf16 path's rows (K2_ROWS): its LN + QKV GEMM
+    launches alone (ops/attn_block.ln_qkv; where the package has it), held to
+    their plain version within K2's limits where ``check``, and all of K2 at
+    192 tokens a crop, each by CUDA graph replay; beside them, for reference
+    only, the library composition F.layer_norm + torch.addmm (and
+    scaled_dot_product_attention for all of K2) in bf16, which the port never
+    calls. TFLOP/s count the GEMM's 2 M K N operations. Returns
+    {(name, M): ms}."""
+    import torch
+    import torch.nn.functional as F
+
+    from hamer_yolo_tpu_torch.ops import attn_block as ab
+
+    rng = np.random.default_rng(SEED + 8)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
+    Kd, td, heads = 1280, 3840, 16
+    w, b = randn(Kd, td, scale=Kd ** -0.5), randn(td, scale=0.1)
+    g, bt = 1.0 + randn(Kd, scale=0.1), randn(Kd, scale=0.1)
+    w16, b16, g16, bt16 = (t.bfloat16() for t in (w, b, g, bt))
+    peak = PEAK_OPS_PER_S["bf16"]
+    out = {}
+    for M in K2_ROWS:
+        tok = randn(M // 192, 192, Kd).bfloat16()
+        x = tok.reshape(M, Kd)
+        r = {}
+        if hasattr(ab, "ln_qkv"):
+            if check:
+                got = ab.ln_qkv(x, w, b, g, bt)
+                torch.cuda.synchronize()
+                ab.check_against_twin(got, ab.ln_qkv_ref(x, w, b, g, bt))
+            r["ln_qkv"] = graph_time_ms(lambda: ab.ln_qkv(x, w, b, g, bt))
+        r["layer_norm_addmm"] = graph_time_ms(
+            lambda: torch.addmm(b16, F.layer_norm(x, (Kd,), g16, bt16, 1e-6), w16))
+        r["k2"] = graph_time_ms(lambda: ab.fused_bf16_attn_block(tok, w, b, g, bt, heads))
+        r["composition"] = graph_time_ms(k2_composition(tok, w, b, g, bt, heads))
+        ops = 2 * M * Kd * td
+        gemm = {k: f"{r[k]:.4f} ms = {ops / (r[k] * 1e-3) / 1e12:.0f} TFLOP/s "
+                   f"({ops / (r[k] * 1e-3) / peak:.3f} of peak)"
+                for k in ("ln_qkv", "layer_norm_addmm") if k in r}
+        print(f"K2 alone M {M} (tokens {tuple(tok.shape)} bf16), device time by CUDA graph "
+              f"replay of 20 launches" + (" (ln_qkv within K2's limits of its plain version)"
+                                          if check and "ln_qkv" in r else "")
+              + ": LN + QKV GEMM " + ", ".join(f"{k} {v}" for k, v in gemm.items())
+              + f"; all of K2 {r['k2']:.4f} ms, the composition F.layer_norm + torch.addmm + "
+              f"scaled_dot_product_attention {r['composition']:.4f} ms (reference only)",
+              flush=True)
+        out.update({(k, M): v for k, v in r.items()})
+    return out
 
 
 def check_int8_kernels(blk, tok0, heads):

@@ -3,6 +3,8 @@
 Parameters are nested dicts of tensors, as the JAX pytrees are, and each
 layer keeps the JAX layer's arithmetic: weights are cast to the activation
 dtype per op and bias is added after the product, in the activation dtype.
+``linear`` takes that cast from ``cast_weight``, which makes it once per
+weight tensor (the same rounding, kept while the weight lives).
 
 Layouts: activations are NHWC images and (B, N, D) tokens at every public
 function; linear weights stay (in, out) so y = x @ w + b; conv weights are
@@ -13,7 +15,8 @@ memory, which cuDNN takes as it is).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+import weakref
+from typing import Any, Callable, Dict
 
 import torch
 import torch.nn.functional as F
@@ -75,13 +78,53 @@ def mlp_init(gen: torch.Generator, dim: int, hidden: int) -> Params:
 
 
 # ---------------------------------------------------------------------------
+# Values derived from a weight once: (id(w), tag) -> (weak reference to w,
+# w's version counter, the value). An in-place change to w bumps its version
+# and the value is made anew; the entry goes with w.
+# ---------------------------------------------------------------------------
+_DERIVED: Dict[tuple, tuple] = {}
+
+
+def derived(w: torch.Tensor, tag, make: Callable[[], Any]) -> Any:
+    """``make()``, a value computed from the weight ``w`` alone, made once
+    per (weight tensor, ``tag``) and kept while ``w`` lives unchanged."""
+    key = (id(w), tag)
+    version = None if w.is_inference() else w._version
+    hit = _DERIVED.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == version:
+        return hit[2]
+    value = make()
+    _DERIVED[key] = (weakref.ref(w, lambda _, key=key: _DERIVED.pop(key, None)), version, value)
+    return value
+
+
+def cast_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w.to(dtype)``, made once per weight tensor and dtype;
+    ``cast_weight.casts`` counts the casts made. Where autograd would track
+    the cast, it is made per call, as ``w.to`` does."""
+    if w.dtype == dtype:
+        return w
+    if w.requires_grad and torch.is_grad_enabled():
+        return w.to(dtype)
+
+    def make():
+        cast_weight.casts += 1
+        return w.to(dtype)
+
+    return derived(w, dtype, make)
+
+
+cast_weight.casts = 0
+
+
+# ---------------------------------------------------------------------------
 # Layers
 # ---------------------------------------------------------------------------
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
+    y = x @ cast_weight(p["w"], x.dtype)
     if "b" in p:
-        y = y + p["b"].to(x.dtype)
+        y = y + cast_weight(p["b"], x.dtype)
     return y
 
 

@@ -56,13 +56,13 @@
 // a constant (absmax / 127, x / sqrt 2, a mean's sum / K), its compiled
 // program multiplies by the f32 reciprocal, and so do the kernel and the
 // plain version.
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -279,74 +279,12 @@ struct GemmLayout {
   static constexpr int BYTES = BARS + 8 * (2 * STAGES + 4) + 1024;  // + room to align
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// The producer's arrival on a full barrier: the stage's copies bring bytes.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-// A 64-row x 128-byte box of a K-major int8 matrix (coordinates: K byte,
-// row) into shared memory under the map's 128-byte swizzle; rows and K
-// bytes past the matrix's edges arrive as zeros. Completes on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k, int row,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // Keeps the compiler from moving reads or writes of the accumulators across
 // the wgmma fence, commit and wait around them.
 template <int R>
 __device__ __forceinline__ void fence_acc(int (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// The shared-memory descriptor of a K-major operand under the 128-byte
-// swizzle, as TMA writes it: rows of 128 bytes, 8-row atoms 1024 bytes apart
-// (the stride byte offset, in 16-byte units), layout type 1 in bits 62-63;
-// the leading byte offset is unused for this layout. The tile bases are
-// 1024-byte aligned, so stepping K by 32 bytes inside the swizzle row adds 2
-// to the start address.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
 // d (64 x N s32) += A (64 x 32 s8) . B (N x 32 s8)^T: wgmma from shared
@@ -578,22 +516,6 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
   }
 }
 
-constexpr int MAX_DEVICES = 64;
-
-// The current device and its SM count, read from the runtime once per device.
-int current_sms(int* dev, int* sms) {
-  static int cached[MAX_DEVICES] = {};
-  cudaError_t err = cudaGetDevice(dev);
-  if (err != cudaSuccess) return (int)err;
-  if (*dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!cached[*dev]) {
-    err = cudaDeviceGetAttribute(&cached[*dev], cudaDevAttrMultiProcessorCount, *dev);
-    if (err != cudaSuccess) return (int)err;
-  }
-  *sms = cached[*dev];
-  return 0;
-}
-
 template <int EPI, typename OutT>
 int launch_gemm(const CUtensorMap& amap, const CUtensorMap& wmap, const GemmArgs& p,
                 cudaStream_t st) {
@@ -633,43 +555,11 @@ int dispatch_gemm(int epi, int out_kind, const CUtensorMap& amap, const CUtensor
   return (int)cudaErrorInvalidValue;
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime, so
-// the library links against nothing but the CUDA runtime.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)f;
-  }
-  return fn;
-}
-
 // The TMA map of a K-major (rows, K) int8 matrix at base: boxes of 64 rows
 // x 128 bytes, the 128-byte swizzle, zeros past the edges.
 int encode_kmajor(CUtensorMap* map, const void* base, int rows, int K) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (!fn) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K};
-  const cuuint32_t box[2] = {BK, BOX_ROWS};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, rows, K, BOX_ROWS, BK,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ------------------------------------------------ mma.sync pieces of K10

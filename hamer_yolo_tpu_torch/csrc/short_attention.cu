@@ -73,21 +73,27 @@
 //   thread holds 8 adjacent columns of a row, and writes them with one
 //   16-byte store (bf16), two (f32) or one 8-byte store (int8, quantize()
 //   from common.cuh), through the output strides.
-// N is at most 256 (four n64 accumulators) and hd a multiple of 8 up to 128.
-// Elementwise steps use the _rn intrinsics and expf, so no FMA contraction
-// or fast exp changes a rounding that the plain version does in two steps.
+// This single-pass kernel takes N up to MAX_N1 = 256 keys (four n64
+// accumulators); beyond, the key-block kernel (attention_bf16_long_kernel
+// below) streams K and V through shared memory in blocks of 64 keys, in two
+// passes that keep the rounding contract. hd is a multiple of 8 up to 128 in
+// both. Elementwise steps use the _rn intrinsics and expf, so no FMA
+// contraction or fast exp changes a rounding that the plain version does in
+// two steps.
 //
 // f32 inputs (the JAX kernels take any float dtype): both products in f32
-// on the CUDA cores with explicit FMAs, p left in f32, K and V of the head
-// and a 64-row q tile in shared memory (193 KB at N = 192, hd = 80; K rows
-// padded by one float so the logits' reads are free of bank conflicts), one
-// CTA of 256 threads per (query tile, head, crop). It is the slow and right
+// on the CUDA cores with explicit FMAs, p left in f32, a 64-row q tile and
+// its outputs in shared memory, K and V in blocks of 64 keys (K rows padded
+// by one float so the logits' reads are free of bank conflicts), two passes
+// as the key-block kernel; one CTA of 256 threads per (query tile, head,
+// crop), any N, 145 KB of shared memory at hd = 128. It is the slow and right
 // form of a path the CLI does not take (its tokens are bf16).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -95,18 +101,23 @@ constexpr int QT = 64;         // query rows of a warpgroup: one wgmma M extent
 constexpr int TPC = 3;         // query tiles of a bf16 CTA, one warpgroup each
 constexpr int CT = 128 * TPC;  // threads of the bf16 kernel
 constexpr int AT = 256;        // threads of the f32 kernel
-constexpr int MAX_N = 256;     // keys of the bf16 kernel: four n64 accumulators
-constexpr int MAX_HD = 128;    // head width of the bf16 kernel: eight n16 accumulators
+constexpr int MAX_N1 = 256;    // keys of the single-pass bf16 kernel: four n64 accumulators
+constexpr int KB = 64;         // keys of a block in the key-block forms
+constexpr int MAX_HD = 128;    // head width of the bf16 kernels: eight n16 accumulators
 
 __host__ __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
 __host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
 
-// bf16: K and V (Nk x Hp), the Q tiles (TPC * QT x Hp), two mbarriers. f32: K
-// (N x (hd + 1)), V (N x hd), the Q tile (QT x hd) and the logits, later the
-// probabilities (QT x N).
+// bf16 up to MAX_N1 keys: K and V (Nk x Hp), the Q tiles (TPC * QT x Hp),
+// two mbarriers; beyond: the Q tiles, two stages of a K and a V block (KB x
+// Hp each), three mbarriers. f32: a K block (KB x (hd + 1)), a V block (KB x
+// hd), the Q tile and the output tile (QT x hd each), a block of logits,
+// later probabilities (QT x KB), and each row's max and sum (QT each).
 __host__ __device__ __forceinline__ int smem_bytes(int N, int hd, int elem) {
-  if (elem == 4) return (round4(N * (hd + 1)) + N * hd + QT * hd + QT * N) * 4;
-  const int Nk = (N + 63) & ~63, Hp = round16(hd);
+  if (elem == 4) return (round4(KB * (hd + 1)) + KB * hd + 2 * QT * hd + QT * KB + 2 * QT) * 4;
+  const int Hp = round16(hd);
+  if (N > MAX_N1) return (TPC * QT + 4 * KB) * Hp * 2 + 24;
+  const int Nk = (N + 63) & ~63;
   return (2 * Nk + TPC * QT) * Hp * 2 + 16;
 }
 
@@ -118,13 +129,11 @@ struct AttnArgs {
   int N, hd;
   float scale;             // hd^-0.5 rounded to the inputs' dtype
   const float* out_scale;  // (1,) scale of the int8 output, on the device
+  int out_kind;            // 0 bf16, 1 f32, 2 int8 (read by the key-block bf16 kernel)
 };
 
 // ------------------------------------------------------ sm_90 primitives
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
+// (the mbarriers, fences and wgmma fences shared with the GEMMs: hopper.cuh)
 // 16 bytes global -> shared, asynchronously; bytes past src_bytes are zeros.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
@@ -132,41 +141,10 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int sr
                : "memory");
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
 // The barrier's arrival of this thread fires once all its earlier cp.async
 // copies have landed (the count set at init includes it).
 __device__ __forceinline__ void mbar_arrive_on_copies(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-// Orders this thread's generic-proxy view of shared memory (its stores, the
-// copies it has waited for) before wgmma's reads through the async proxy.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 // Keeps the compiler from moving reads or writes of an accumulator across
@@ -314,39 +292,14 @@ __device__ __forceinline__ void softmax_to_p(float (&s)[NCH][32], uint32_t (&pa)
     }
 }
 
-// O = P . Vs for a head of HC * 16 padded columns, once V has landed, then
-// the epilogue: in each quad, thread t takes the 8 columns 16 j + 8 (t / 2)
-// .. + 7 of row g (t even) or g + 8 (t odd) from the quad's four threads and
-// stores them at once. ``row`` is that row's index, ``out`` its column 0.
-template <int NCH, int HC, typename OutT>
-__device__ __forceinline__ void pv_store(const uint32_t (&pa)[4 * NCH][4], uint32_t v_s,
-                                         uint32_t bar_v, int N, int hd, int row, OutT* out,
-                                         float inv_out, int t4) {
-  constexpr int Hp = HC * 16;
-  float o[HC][8];
-#pragma unroll
-  for (int j = 0; j < HC; ++j) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) o[j][i] = 0.0f;
-    fence_regs(o[j]);
-  }
-  // the k16 steps over the keys up to N rounded to 16 (the rest have p = 0)
-  const int nks = (N + 15) / 16;
-  mbar_wait(bar_v, 0);
-  fence_proxy_async();
-  wgmma_fence();
-#pragma unroll
-  for (int ks = 0; ks < 4 * NCH; ++ks)
-    if (ks < nks) {
-#pragma unroll
-      for (int j = 0; j < HC; ++j)
-        wgmma_rs_n16_tb(o[j], pa[ks], desc(v_s + ks * 2 * (Hp * 16) + j * 256, Hp * 16, 128));
-    }
-  wgmma_commit();
-  wgmma_wait_all();
-#pragma unroll
-  for (int j = 0; j < HC; ++j) fence_regs(o[j]);
-
+// The epilogue of a warpgroup's outputs o (64 rows x HC * 16 columns, the
+// m64n16 accumulator layout): in each quad, thread t takes the 8 columns
+// 16 j + 8 (t / 2) .. + 7 of row g (t even) or g + 8 (t odd) from the quad's
+// four threads and stores them at once. ``row`` is that row's index, ``out``
+// its column 0.
+template <int HC, typename OutT>
+__device__ __forceinline__ void store_rows(const float (&o)[HC][8], int N, int hd, int row,
+                                           OutT* out, float inv_out, int t4) {
 #pragma unroll
   for (int j = 0; j < HC; ++j) {
     float2 x[4], got[4];
@@ -372,6 +325,39 @@ __device__ __forceinline__ void pv_store(const uint32_t (&pa)[4 * NCH][4], uint3
   }
 }
 
+// O = P . Vs for a head of HC * 16 padded columns, once V has landed, then
+// the epilogue (store_rows).
+template <int NCH, int HC, typename OutT>
+__device__ __forceinline__ void pv_store(const uint32_t (&pa)[4 * NCH][4], uint32_t v_s,
+                                         uint32_t bar_v, int N, int hd, int row, OutT* out,
+                                         float inv_out, int t4) {
+  constexpr int Hp = HC * 16;
+  float o[HC][8];
+#pragma unroll
+  for (int j = 0; j < HC; ++j) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[j][i] = 0.0f;
+    fence_regs(o[j]);
+  }
+  // the k16 steps over the keys up to N rounded to 16 (the rest have p = 0)
+  const int nks = (N + 15) / 16;
+  mbar_wait(bar_v, 0);
+  fence_proxy_async();
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4 * NCH; ++ks)
+    if (ks < nks) {
+#pragma unroll
+      for (int j = 0; j < HC; ++j)
+        wgmma_rs_n16_tb(o[j], pa[ks], desc(v_s + ks * 2 * (Hp * 16) + j * 256, Hp * 16, 128));
+    }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < HC; ++j) fence_regs(o[j]);
+  store_rows<HC>(o, N, hd, row, out, inv_out, t4);
+}
+
 // bf16 inputs: NCH n64 accumulators of logits (N <= 64 * NCH).
 template <int NCH, typename OutT>
 __global__ void __launch_bounds__(CT) attention_bf16_kernel(const AttnArgs p) {
@@ -389,8 +375,8 @@ __global__ void __launch_bounds__(CT) attention_bf16_kernel(const AttnArgs p) {
   unsigned char* Vs = Ks + Nk * Hp * 2;   // Nk x Hp
   unsigned char* Qs = Vs + Nk * Hp * 2;   // TPC * QT x Hp
   uint64_t* bars = reinterpret_cast<uint64_t*>(Qs + TPC * QT * Hp * 2);
-  const uint32_t k_s = smem_addr(Ks), v_s = smem_addr(Vs), q_s = smem_addr(Qs);
-  const uint32_t bar_qk = smem_addr(bars), bar_v = smem_addr(bars + 1);
+  const uint32_t k_s = smem_u32(Ks), v_s = smem_u32(Vs), q_s = smem_u32(Qs);
+  const uint32_t bar_qk = smem_u32(bars), bar_v = smem_u32(bars + 1);
   if (tid == 0) {
     mbar_init(bar_qk, CT);
     mbar_init(bar_v, CT);
@@ -451,7 +437,7 @@ __global__ void __launch_bounds__(CT) attention_bf16_kernel(const AttnArgs p) {
       wgmma_ss_n64(s[c], da, desc(k_s + c * 8 * (Hp * 16) + kk * 256, 128, Hp * 16), kk > 0);
   }
   wgmma_commit();
-  wgmma_wait_all();
+  wgmma_wait<0>();
 #pragma unroll
   for (int c = 0; c < NCH; ++c) fence_regs(s[c]);
 
@@ -478,12 +464,199 @@ __global__ void __launch_bounds__(CT) attention_bf16_kernel(const AttnArgs p) {
   }
 }
 
+// bf16 inputs, N > MAX_N1 keys: the key-block form. The same CTA of three
+// warpgroups per (192 query rows, head, crop) and the same Q tiles, but K and
+// V stream through two stages of shared memory a block of KB keys at a time
+// (cp.async on one mbarrier a stage; the next block's copies are in flight
+// while this one's products run), in two passes over the blocks:
+//  1. S = Q K^T per block; each row's max m and sum l, the sum rescaled by
+//     exp(m_old - m_new) whenever the max grows;
+//  2. S again (the same wgmma, so the same logits), p = exp(s - m) * (1 / l)
+//     rounded to bf16, and O += P V on wgmma (V streamed beside K).
+// p is normalised and rounded before P V, as the single-pass kernel and the
+// TPU kernel do; a one-pass flash loop (unnormalised e.v rescaled, divided at
+// the end) would round elsewhere. The logit accumulator is one n64 (32
+// registers), the outputs HC n16 ones, whatever N is; the output type is read
+// at run time in the epilogue (it is outside the loop).
+template <int HC>
+__global__ void __launch_bounds__(CT) attention_bf16_long_kernel(const AttnArgs p) {
+  constexpr int Hp = HC * 16, cpr = Hp / 8, BLK = KB * Hp * 2;  // bytes of a K or V block
+  extern __shared__ __align__(128) unsigned char smem[];
+  const bf16* pq = reinterpret_cast<const bf16*>(p.q);
+  const bf16* pk = reinterpret_cast<const bf16*>(p.k);
+  const bf16* pv = reinterpret_cast<const bf16*>(p.v);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int t4 = lane & 3;
+  const int q0 = blockIdx.x * TPC * QT, qt = blockIdx.x * TPC + wg;
+  const int N = p.N, hd = p.hd, nb = (N + KB - 1) / KB;
+
+  unsigned char* Qs = smem;                                           // TPC * QT x Hp
+  unsigned char* St = Qs + TPC * QT * Hp * 2;                         // 2 x (K, V blocks)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(St + 4 * BLK);         // Q, stage 0, stage 1
+  const uint32_t q_s = smem_u32(Qs), st_s = smem_u32(St), bar_q = smem_u32(bars);
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(smem_u32(bars + i), CT);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const long long base = (long long)b * p.ib + (long long)h * p.ih;
+  for (int c = tid; c < TPC * QT * cpr; c += CT) {
+    const int r = c / cpr, cc = (c % cpr) * 8, row = q0 + r;
+    const bool in = row < N && cc < hd;
+    cp_async16(q_s + cm_off(r, cc, Hp), pq + (in ? base + (long long)row * p.in + cc : 0),
+               in ? 16 : 0);
+  }
+  mbar_arrive_on_copies(bar_q);
+  // Step it of the 2 nb: key block it % nb into stage it & 1, K in both
+  // passes, V in the second.
+  auto load = [&](int it) {
+    const int k0 = (it % nb) * KB;
+    const uint32_t ks = st_s + (it & 1) * 2 * BLK;
+    for (int c = tid; c < KB * cpr; c += CT) {
+      const int r = c / cpr, cc = (c % cpr) * 8, key = k0 + r;
+      const bool in = key < N && cc < hd;
+      const long long off = in ? base + (long long)key * p.in + cc : 0;
+      cp_async16(ks + cm_off(r, cc, Hp), pk + off, in ? 16 : 0);
+      if (it >= nb) cp_async16(ks + BLK + cm_off(r, cc, Hp), pv + off, in ? 16 : 0);
+    }
+    mbar_arrive_on_copies(smem_u32(bars + 1 + (it & 1)));
+  };
+  load(0);
+
+  mbar_wait(bar_q, 0);  // q * scale, rounded to bf16, in place
+  for (int c = tid; c < TPC * QT * cpr; c += CT) {
+    uint4* qp = reinterpret_cast<uint4*>(Qs + cm_off(c / cpr, (c % cpr) * 8, Hp));
+    Pack8 v;
+    v.u = *qp;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v.h[i] = __float2bfloat16_rn(__fmul_rn(__bfloat162float(v.h[i]), p.scale));
+    *qp = v.u;
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  // rows g and g + 8 of this warp's 16: max, sum, then 1 / sum
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  float o[HC][8];
+#pragma unroll
+  for (int j = 0; j < HC; ++j) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[j][i] = 0.0f;
+    fence_regs(o[j]);
+  }
+  for (int it = 0; it < 2 * nb; ++it) {
+    if (it + 1 < 2 * nb) load(it + 1);
+    const uint32_t ks = st_s + (it & 1) * 2 * BLK;
+    mbar_wait(smem_u32(bars + 1 + (it & 1)), (it >> 1) & 1);
+    fence_proxy_async();
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HC; ++kk)
+      wgmma_ss_n64(s, desc(q_s + wg * 8 * (Hp * 16) + kk * 256, 128, Hp * 16),
+                   desc(ks + kk * 256, 128, Hp * 16), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    const int k0 = (it % nb) * KB;
+    if (k0 + KB > N) {  // keys past N in the last block: out of max, sum and p
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * j + 2 * t4 + (e & 1) >= N) s[4 * j + e] = -INFINITY;
+    }
+    if (it < nb) {
+      float b0 = -INFINITY, b1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          b0 = fmaxf(b0, s[4 * j + e]);
+          b1 = fmaxf(b1, s[4 * j + 2 + e]);
+        }
+#pragma unroll
+      for (int w = 1; w <= 2; w <<= 1) {
+        b0 = fmaxf(b0, __shfl_xor_sync(0xffffffffu, b0, w));
+        b1 = fmaxf(b1, __shfl_xor_sync(0xffffffffu, b1, w));
+      }
+      const float n0 = fmaxf(m0, b0), n1 = fmaxf(m1, b1);
+      float e0 = 0.0f, e1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          e0 = __fadd_rn(e0, expf(__fsub_rn(s[4 * j + e], n0)));
+          e1 = __fadd_rn(e1, expf(__fsub_rn(s[4 * j + 2 + e], n1)));
+        }
+#pragma unroll
+      for (int w = 1; w <= 2; w <<= 1) {
+        e0 = __fadd_rn(e0, __shfl_xor_sync(0xffffffffu, e0, w));
+        e1 = __fadd_rn(e1, __shfl_xor_sync(0xffffffffu, e1, w));
+      }
+      l0 = __fadd_rn(__fmul_rn(l0, expf(__fsub_rn(m0, n0))), e0);
+      l1 = __fadd_rn(__fmul_rn(l1, expf(__fsub_rn(m1, n1))), e1);
+      m0 = n0;
+      m1 = n1;
+      if (it == nb - 1) {
+        l0 = __fdiv_rn(1.0f, l0);
+        l1 = __fdiv_rn(1.0f, l1);
+      }
+    } else {
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kl = 0; kl < 4; ++kl) {
+        float x[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          x[i] = __fmul_rn(expf(__fsub_rn(s[8 * kl + i], (i & 2) ? m1 : m0)), (i & 2) ? l1 : l0);
+        pa[kl][0] = pack_bf16(x[0], x[1]);
+        pa[kl][1] = pack_bf16(x[2], x[3]);
+        pa[kl][2] = pack_bf16(x[4], x[5]);
+        pa[kl][3] = pack_bf16(x[6], x[7]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kl = 0; kl < 4; ++kl)
+#pragma unroll
+        for (int j = 0; j < HC; ++j)
+          wgmma_rs_n16_tb(o[j], pa[kl], desc(ks + BLK + kl * 2 * (Hp * 16) + j * 256, Hp * 16, 128));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < HC; ++j) fence_regs(o[j]);
+    }
+    __syncthreads();  // every warpgroup is done with the stage before it is refilled
+  }
+
+  const int row = qt * QT + warp * 16 + (lane >> 2) + (t4 & 1) * 8;
+  const long long off = (long long)b * p.ob + (long long)h * p.oh + (long long)row * p.on;
+  if (p.out_kind == 0)
+    store_rows<HC>(o, N, hd, row, reinterpret_cast<bf16*>(p.out) + off, 0.0f, t4);
+  else if (p.out_kind == 1)
+    store_rows<HC>(o, N, hd, row, reinterpret_cast<float*>(p.out) + off, 0.0f, t4);
+  else
+    store_rows<HC>(o, N, hd, row, reinterpret_cast<int8_t*>(p.out) + off,
+                   __fdiv_rn(1.0f, *p.out_scale), t4);
+}
+
 __device__ __forceinline__ void store_out(float* out, float o, float) { *out = o; }
 __device__ __forceinline__ void store_out(int8_t* out, float o, float inv) {
   *out = quantize(o, inv);
 }
 
-// f32 inputs: one thread per logit and per output element, f32 FMAs.
+// f32 inputs: one thread per logit and per output element, f32 FMAs, keys
+// in blocks of KB through shared memory and two passes over them, as the
+// bf16 key-block kernel: (1) the logits, each row's max and its sum,
+// rescaled when the max grows; (2) the logits again, p = exp(s - m) * (1 / l)
+// (f32, v's dtype), and each output's sum over the block's keys added to its
+// running value in shared memory, key after key.
 template <typename OutT>
 __global__ void __launch_bounds__(AT) attention_f32_kernel(const AttnArgs p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -494,22 +667,16 @@ __global__ void __launch_bounds__(AT) attention_f32_kernel(const AttnArgs p) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int N = p.N, hd = p.hd, ldk = hd + 1;
 
-  float* Ks = reinterpret_cast<float*>(smem);  // N x (hd + 1)
-  float* Vs = Ks + round4(N * ldk);            // N x hd, 16-byte aligned
-  float* Qs = Vs + N * hd;                     // QT x hd, scaled
-  float* S = Qs + QT * hd;                     // QT x N logits, then probabilities
+  float* Ks = reinterpret_cast<float*>(smem);  // KB x (hd + 1)
+  float* Vs = Ks + round4(KB * ldk);           // KB x hd, 16-byte aligned
+  float* Qs = Vs + KB * hd;                    // QT x hd, scaled
+  float* Os = Qs + QT * hd;                    // QT x hd, the outputs' running sums
+  float* S = Os + QT * hd;                     // QT x KB logits, then probabilities
+  float* rm = S + QT * KB;                     // QT row maxima
+  float* rl = rm + QT;                         // QT row sums, then their reciprocals
 
   const long long base = (long long)b * p.ib + (long long)h * p.ih;
   const int cpr = hd / 4;  // 16-byte chunks per row (hd % 8 == 0)
-  for (int c = tid; c < N * cpr; c += AT) {
-    const int r = c / cpr, cc = (c % cpr) * 4;
-    const long long off = base + (long long)r * p.in + cc;
-    const float4 kv = *reinterpret_cast<const float4*>(pk + off);
-    const float4 vv = *reinterpret_cast<const float4*>(pv + off);
-    float* kd = Ks + r * ldk + cc;
-    kd[0] = kv.x, kd[1] = kv.y, kd[2] = kv.z, kd[3] = kv.w;
-    *reinterpret_cast<float4*>(Vs + r * hd + cc) = vv;
-  }
   for (int c = tid; c < QT * cpr; c += AT) {
     const int r = c / cpr, cc = (c % cpr) * 4;
     const int row = qt * QT + r;
@@ -521,48 +688,76 @@ __global__ void __launch_bounds__(AT) attention_f32_kernel(const AttnArgs p) {
     }
     *reinterpret_cast<float4*>(Qs + r * hd + cc) = o;
   }
-  __syncthreads();
-
-  // Logits S = Qs . Ks^T: neighbouring threads take neighbouring keys.
-  for (int e = tid; e < QT * N; e += AT) {
-    const int r = e / N, c = e % N;
-    const float* qr = Qs + r * hd;
-    const float* kr = Ks + c * ldk;
-    float acc = 0.0f;
-    for (int d = 0; d < hd; ++d) acc = fmaf(qr[d], kr[d], acc);
-    S[e] = acc;
+  for (int e = tid; e < QT * hd; e += AT) Os[e] = 0.0f;
+  if (tid < QT) {
+    rm[tid] = -INFINITY;
+    rl[tid] = 0.0f;
   }
-  __syncthreads();
 
-  // Row softmax; p stays f32 (v's dtype).
-  for (int r = warp; r < QT; r += AT / 32) {
-    float* srow = S + r * N;
-    float m = -INFINITY;
-    for (int c = lane; c < N; c += 32) m = fmaxf(m, srow[c]);
-    m = warp_max(m);
-    float s = 0.0f;
-    for (int c = lane; c < N; c += 32) {
-      const float e = expf(__fsub_rn(srow[c], m));
-      srow[c] = e;
-      s = __fadd_rn(s, e);
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int k0 = 0; k0 < N; k0 += KB) {
+      const int nk = min(KB, N - k0);
+      __syncthreads();  // the previous block is no longer read
+      for (int c = tid; c < nk * cpr; c += AT) {
+        const int r = c / cpr, cc = (c % cpr) * 4;
+        const long long off = base + (long long)(k0 + r) * p.in + cc;
+        const float4 kv = *reinterpret_cast<const float4*>(pk + off);
+        float* kd = Ks + r * ldk + cc;
+        kd[0] = kv.x, kd[1] = kv.y, kd[2] = kv.z, kd[3] = kv.w;
+        if (pass) *reinterpret_cast<float4*>(Vs + r * hd + cc) =
+            *reinterpret_cast<const float4*>(pv + off);
+      }
+      __syncthreads();
+      // Logits S = Qs . Ks^T: neighbouring threads take neighbouring keys.
+      for (int e = tid; e < QT * nk; e += AT) {
+        const int r = e / nk, c = e % nk;
+        const float* qr = Qs + r * hd;
+        const float* kr = Ks + c * ldk;
+        float acc = 0.0f;
+        for (int d = 0; d < hd; ++d) acc = fmaf(qr[d], kr[d], acc);
+        S[r * KB + c] = acc;
+      }
+      __syncthreads();
+      for (int r = warp; r < QT; r += AT / 32) {  // a warp a row
+        float* srow = S + r * KB;
+        if (pass == 0) {
+          float m = -INFINITY;
+          for (int c = lane; c < nk; c += 32) m = fmaxf(m, srow[c]);
+          const float mo = rm[r], mn = fmaxf(mo, warp_max(m));
+          float s = 0.0f;
+          for (int c = lane; c < nk; c += 32) s = __fadd_rn(s, expf(__fsub_rn(srow[c], mn)));
+          s = warp_sum(s);
+          if (lane == 0) {
+            rl[r] = __fadd_rn(__fmul_rn(rl[r], expf(__fsub_rn(mo, mn))), s);
+            rm[r] = mn;
+          }
+        } else {  // p stays f32 (v's dtype)
+          const float m = rm[r], inv = rl[r];
+          for (int c = lane; c < nk; c += 32) srow[c] = __fmul_rn(expf(__fsub_rn(srow[c], m)), inv);
+        }
+      }
+      if (pass == 0) continue;
+      __syncthreads();
+      for (int e = tid; e < QT * hd; e += AT) {  // O += P . Vs
+        const int r = e / hd, c = e % hd;
+        const float* pr = S + r * KB;
+        float acc = Os[e];
+        for (int k = 0; k < nk; ++k) acc = fmaf(pr[k], Vs[k * hd + c], acc);
+        Os[e] = acc;
+      }
     }
-    const float inv = __fdiv_rn(1.0f, warp_sum(s));
-    for (int c = lane; c < N; c += 32) srow[c] = __fmul_rn(srow[c], inv);
+    __syncthreads();
+    if (pass == 0 && tid < QT) rl[tid] = __fdiv_rn(1.0f, rl[tid]);
   }
   __syncthreads();
 
-  // O = P . Vs, each element straight to the output.
   const long long obase = (long long)b * p.ob + (long long)h * p.oh;
   OutT* out = reinterpret_cast<OutT*>(p.out);
   const float inv_out = p.out_scale ? __fdiv_rn(1.0f, *p.out_scale) : 0.0f;
   for (int e = tid; e < QT * hd; e += AT) {
     const int r = e / hd, c = e % hd;
     const int row = qt * QT + r;
-    if (row >= N) continue;
-    const float* pr = S + r * N;
-    float acc = 0.0f;
-    for (int k = 0; k < N; ++k) acc = fmaf(pr[k], Vs[k * hd + c], acc);
-    store_out(out + obase + (long long)row * p.on + c, acc, inv_out);
+    if (row < N) store_out(out + obase + (long long)row * p.on + c, Os[e], inv_out);
   }
 }
 
@@ -590,8 +785,24 @@ Kernel bf16_kernel(int N) {
                     : attention_bf16_kernel<4, OutT>;
 }
 
-// The bf16 kernel for N keys and out_kind (0 bf16, 1 f32, 2 int8).
-Kernel bf16_kernel_for(int N, int out_kind) {
+// The key-block kernel for a head width of hd (hd <= MAX_HD).
+Kernel bf16_long_kernel(int hd) {
+  switch (round16(hd) / 16) {
+    case 1: return attention_bf16_long_kernel<1>;
+    case 2: return attention_bf16_long_kernel<2>;
+    case 3: return attention_bf16_long_kernel<3>;
+    case 4: return attention_bf16_long_kernel<4>;
+    case 5: return attention_bf16_long_kernel<5>;
+    case 6: return attention_bf16_long_kernel<6>;
+    case 7: return attention_bf16_long_kernel<7>;
+    default: return attention_bf16_long_kernel<8>;
+  }
+}
+
+// The bf16 kernel for N keys, hd and out_kind (0 bf16, 1 f32, 2 int8): the
+// single-pass kernel up to MAX_N1 keys, the key-block kernel beyond.
+Kernel bf16_kernel_for(int N, int hd, int out_kind) {
+  if (N > MAX_N1) return bf16_long_kernel(hd);
   return out_kind == 0 ? bf16_kernel<bf16>(N)
          : out_kind == 1 ? bf16_kernel<float>(N)
                          : bf16_kernel<int8_t>(N);
@@ -600,16 +811,17 @@ Kernel bf16_kernel_for(int N, int out_kind) {
 // in_f32: q, k, v are f32 (else bf16). out_kind 0 bf16 (bf16 inputs only),
 // 1 f32, 2 int8. The output strides are multiples of 8 elements and the
 // output 16-byte aligned (the bf16 kernel stores 8 elements at a time).
-int dispatch(const AttnArgs& p, int in_f32, int out_kind, int B, int H, cudaStream_t st) {
+int dispatch(AttnArgs p, int in_f32, int out_kind, int B, int H, cudaStream_t st) {
   if (p.N <= 0 || p.hd <= 0 || B <= 0 || H <= 0 || p.hd % 8 || p.ib % 8 || p.ih % 8 ||
       p.in % 8 || p.ob % 8 || p.oh % 8 || p.on % 8 || (uintptr_t)p.out % 16 || out_kind < 0 ||
       out_kind > 2 || (out_kind == 2) != (p.out_scale != nullptr) || (in_f32 && out_kind == 0) ||
-      (!in_f32 && (p.N > MAX_N || p.hd > MAX_HD)))
+      (!in_f32 && p.hd > MAX_HD))
     return (int)cudaErrorInvalidValue;
+  p.out_kind = out_kind;
   if (in_f32)
     return launch(out_kind == 2 ? attention_f32_kernel<int8_t> : attention_f32_kernel<float>, AT,
                   QT, p, 4, B, H, st);
-  return launch(bf16_kernel_for(p.N, out_kind), CT, TPC * QT, p, 2, B, H, st);
+  return launch(bf16_kernel_for(p.N, p.hd, out_kind), CT, TPC * QT, p, 2, B, H, st);
 }
 
 }  // namespace
@@ -621,9 +833,9 @@ extern "C" int hyt_short_attn_smem_bytes(int N, int hd, int elem) {
 // The bf16 kernel for (N, hd, out_kind): its registers a thread and the
 // CTAs that fit on one SM. Returns a cudaError_t.
 extern "C" int hyt_short_attn_occupancy(int N, int hd, int out_kind, int* regs, int* ctas) {
-  if (N <= 0 || N > MAX_N || hd <= 0 || hd > MAX_HD || out_kind < 0 || out_kind > 2)
+  if (N <= 0 || hd <= 0 || hd > MAX_HD || out_kind < 0 || out_kind > 2)
     return (int)cudaErrorInvalidValue;
-  const Kernel k = bf16_kernel_for(N, out_kind);
+  const Kernel k = bf16_kernel_for(N, hd, out_kind);
   const int smem = smem_bytes(N, hd, 2);
   cudaError_t err =
       cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -638,7 +850,7 @@ extern "C" int hyt_short_attn_occupancy(int N, int hd, int out_kind, int* regs, 
 // over (crop, head, row) and hd contiguous; out, written through (ob, oh,
 // on): out_kind 0 bf16, 1 f32, 2 int8 quantized by 1 / *out_scale (a (1,)
 // f32 on the device). hd % 8 == 0, the strides multiples of 8 and the
-// pointers 16-byte aligned; with bf16 inputs N <= 256 and hd <= 128.
+// pointers 16-byte aligned; with bf16 inputs hd <= 128.
 extern "C" int hyt_short_attention(const void* q, const void* k, const void* v, int in_f32,
                                    long long ib, long long ih, long long in, void* out,
                                    int out_kind, const void* out_scale, long long ob,

@@ -1,18 +1,22 @@
 """Kernel K2: exact-bf16 fused LN + QKV GEMM + softmax attention (pre-proj).
 
 Port of the TPU kernel
-hamer_yolo_tpu/ops/attention_pallas.py:fused_bf16_attn_block, in two
-launches: LN + QKV GEMM (``csrc/attn_block.cu``), then attention per (query
-tile, head, crop) on views of the qkv buffer (``csrc/short_attention.cu``,
-the kernel K3 and K7 launch too). The proj linear stays outside, as in JAX.
+hamer_yolo_tpu/ops/attention_pallas.py:fused_bf16_attn_block, in three
+launches: the LN rows, the QKV GEMM on Hopper's wgmma fed by a TMA ring
+(both ``csrc/attn_block.cu``), then attention per (query tile, head, crop)
+on views of the qkv buffer (``csrc/short_attention.cu``, the kernel K3 and
+K7 launch too). The proj linear stays outside, as in JAX. The GEMM reads
+the weight as bf16 in JAX's (K, 3D) layout; ``bf16_weight`` makes that copy
+and its TMA map once per weight tensor.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
-from hamer_yolo_tpu_torch.core.nn import weak_scalar
+from hamer_yolo_tpu_torch.core import nn
 from hamer_yolo_tpu_torch.ops import cuda_build
 from hamer_yolo_tpu_torch.ops.short_attention import launch_attention
 
@@ -27,11 +31,35 @@ def fused_bf16_attn_block_ref(tok: torch.Tensor, w: torch.Tensor, bias: Optional
     tok (B, N, K) any float dtype; w (K, 3D); bias (3D,); ln_scale, ln_bias
     (K,). Returns (B, N, D) in tok.dtype.
     """
-    B, N, K = tok.shape
-    td = w.shape[1]
+    B, N, _ = tok.shape
+    qkv = ln_qkv_ref(tok, w, bias, ln_scale, ln_bias).reshape(B, N, -1)
+    return attention_ref(qkv, num_heads, tok.dtype)
+
+
+def attention_ref(qkv: torch.Tensor, num_heads: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of K2's attention: bf16 qkv (B, N, 3D) as the QKV GEMM
+    writes it -> (B, N, D) in ``out_dtype``, rounding where the TPU kernel
+    rounds."""
+    B, N, td = qkv.shape
     hd = td // 3 // num_heads
-    D = num_heads * hd
-    x = tok.float()
+    qkv = qkv.float().reshape(B, N, 3, num_heads, hd)
+    # bf16 q times hd^-0.5, which JAX's weak typing rounds to bf16 first
+    q = (qkv[:, :, 0] * nn.weak_scalar(hd ** -0.5, torch.bfloat16)).to(torch.bfloat16).float()
+    k, v = qkv[:, :, 1], qkv[:, :, 2]
+    logits = torch.einsum("bnhd,bmhd->bhnm", q, k)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    p = e * (1.0 / torch.sum(e, dim=-1, keepdim=True))
+    p = p.to(torch.bfloat16).float()
+    out = torch.einsum("bhnm,bmhd->bnhd", p, v).reshape(B, N, num_heads * hd)
+    return out.to(out_dtype)
+
+
+def ln_qkv_ref(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+               ln_scale: torch.Tensor, ln_bias: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``ln_qkv`` (K2's LN and QKV GEMM): x (..., K) ->
+    bf16 (..., 3D), rounding where the TPU kernel rounds."""
+    x = x.float()
     mu = x.mean(dim=-1, keepdim=True)
     var = torch.square(x - mu).mean(dim=-1, keepdim=True)
     x = (x - mu) * torch.rsqrt(var + 1e-6)
@@ -41,17 +69,7 @@ def fused_bf16_attn_block_ref(tok: torch.Tensor, w: torch.Tensor, bias: Optional
     qkv = x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
     if bias is not None:
         qkv = qkv + bias.float()
-    qkv = qkv.to(torch.bfloat16).float().reshape(B, N, 3, num_heads, hd)
-    # bf16 q times hd^-0.5, which JAX's weak typing rounds to bf16 first
-    q = (qkv[:, :, 0] * weak_scalar(hd ** -0.5, torch.bfloat16)).to(torch.bfloat16).float()
-    k, v = qkv[:, :, 1], qkv[:, :, 2]
-    logits = torch.einsum("bnhd,bmhd->bhnm", q, k)
-    m = torch.amax(logits, dim=-1, keepdim=True)
-    e = torch.exp(logits - m)
-    p = e * (1.0 / torch.sum(e, dim=-1, keepdim=True))
-    p = p.to(torch.bfloat16).float()
-    out = torch.einsum("bhnm,bmhd->bnhd", p, v).reshape(B, N, D)
-    return out.to(tok.dtype)
+    return qkv.to(torch.bfloat16)
 
 
 def fused_bf16_attn_block(tok: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
@@ -62,8 +80,8 @@ def fused_bf16_attn_block(tok: torch.Tensor, w: torch.Tensor, bias: Optional[tor
 
     CPU tensors take the plain version. CUDA tensors launch
     ``csrc/attn_block.cu`` and ``csrc/short_attention.cu``: bf16 or f32
-    tokens (the output has their dtype, as in JAX), any N, K and the head
-    width multiples of 8; anything else raises.
+    tokens (the output has their dtype, as in JAX), any B and N, K and the
+    head width multiples of 8, heads up to 128 wide; anything else raises.
     """
     if tok.device.type == "cpu":
         return fused_bf16_attn_block_ref(tok, w, bias, ln_scale, ln_bias, num_heads)
@@ -85,27 +103,80 @@ def fused_bf16_attn_block(tok: torch.Tensor, w: torch.Tensor, bias: Optional[tor
                          f"{None if bias is None else tuple(bias.shape)}")
     if any(t is not None and t.device != tok.device for t in (w, bias, ln_scale, ln_bias)):
         raise ValueError(f"fused_bf16_attn_block: every tensor must be on {tok.device}")
-    lib = cuda_build.load("attn_block.cu")
-    dev = tok.device
-    tok = cuda_build.aligned16(tok)
-    w16 = cuda_build.aligned16(w.to(torch.bfloat16))
-    b32 = (bias if bias is not None else torch.zeros(td, device=dev)).to(torch.float32).contiguous()
-    g32 = ln_scale.to(torch.float32).contiguous()
-    bt32 = ln_bias.to(torch.float32).contiguous()
-    qkv = torch.empty((B * N, td), dtype=torch.bfloat16, device=dev)
-    out = torch.empty((B, N, D), dtype=tok.dtype, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        cuda_build.check(lib.hyt_ln_qkv(tok.data_ptr(), int(tok.dtype == torch.float32),
-                                        w16.data_ptr(), b32.data_ptr(), g32.data_ptr(),
-                                        bt32.data_ptr(), qkv.data_ptr(), B * N, K, td, stream),
-                         "fused_bf16_attn_block: ln_qkv_kernel")
+    qkv = ln_qkv(tok.reshape(B * N, K), w, bias, ln_scale, ln_bias)
+    out = torch.empty((B, N, D), dtype=tok.dtype, device=tok.device)
     heads = qkv.reshape(B, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)  # (3, B, h, N, hd)
     launch_attention(heads[0], heads[1], heads[2],
                      out.reshape(B, N, num_heads, hd).transpose(1, 2), None,
                      "fused_bf16_attn_block")
     fused_bf16_attn_block.launches += 1
     return out
+
+
+def ln_qkv(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+           ln_scale: torch.Tensor, ln_bias: torch.Tensor) -> torch.Tensor:
+    """K2's first two launches on CUDA tensors: x (M, K) bf16 or f32 ->
+    qkv (M, 3D) bf16 = bf16(bf16(LN(x)) @ bf16(w) + bias), the LN rows and
+    the QKV GEMM of ``csrc/attn_block.cu``. Shapes and devices as
+    ``fused_bf16_attn_block`` checks them."""
+    lib = cuda_build.load("attn_block.cu")
+    dev = x.device
+    M, K = x.shape
+    td = w.shape[1]
+    x = cuda_build.aligned16(x)
+    wmap = _bf16_weight(w)[1]
+    b32 = _f32(bias) if bias is not None else _zeros(w)
+    g32, bt32 = _f32(ln_scale), _f32(ln_bias)
+    xhat = torch.empty((M, K), dtype=torch.bfloat16, device=dev)  # the LN output
+    qkv = torch.empty((M, td), dtype=torch.bfloat16, device=dev)
+    idx = x.get_device()
+    with torch.cuda.device(idx):  # an index: less host work than a device
+        stream = torch.cuda.current_stream(idx).cuda_stream
+        cuda_build.check(lib.hyt_ln_qkv(x.data_ptr(), int(x.dtype == torch.float32),
+                                        ctypes.addressof(wmap), b32.data_ptr(), g32.data_ptr(),
+                                        bt32.data_ptr(), xhat.data_ptr(), qkv.data_ptr(), M, K, td,
+                                        stream),
+                         "fused_bf16_attn_block: qkv_gemm_kernel")
+    return qkv
+
+
+def bf16_weight(w: torch.Tensor) -> torch.Tensor:
+    """The bf16, contiguous, 16-byte aligned copy of K2's (K, 3D) weight
+    ``w``, made once per weight tensor (``core.nn.cast_weight``, which counts
+    the casts in ``cast_weight.casts``) and kept, with its TMA map on the
+    card, while ``w`` lives unchanged."""
+    return _bf16_weight(w)[0]
+
+
+def _bf16_weight(w: torch.Tensor):
+    """(bf16_weight(w), its TMA map: 128 bytes of host memory, or None for a
+    CPU weight)."""
+    if w.dim() != 2 or not w.is_floating_point():
+        raise ValueError(f"bf16_weight: a float (K, N) weight, got {w.dtype} {tuple(w.shape)}")
+
+    def make():
+        w16 = cuda_build.aligned16(nn.cast_weight(w, torch.bfloat16))
+        wmap = None
+        if w16.is_cuda:
+            wmap = ctypes.create_string_buffer(128)
+            with torch.cuda.device(w16.get_device()):
+                cuda_build.check(cuda_build.load("attn_block.cu").hyt_k2_weight_map(
+                    w16.data_ptr(), w16.shape[0], w16.shape[1], ctypes.addressof(wmap)),
+                    "bf16_weight: the weight's TMA map")
+        return w16, wmap
+
+    return nn.derived(w, "k2_bf16", make)
+
+
+def _f32(v: torch.Tensor) -> torch.Tensor:
+    """A (K,) or (3D,) vector as contiguous, 16-byte aligned f32."""
+    return cuda_build.aligned16(v.to(torch.float32))
+
+
+def _zeros(w: torch.Tensor) -> torch.Tensor:
+    """The zero bias of a weight without one, made once per weight."""
+    return nn.derived(w, "k2_zero_bias",
+                      lambda: torch.zeros(w.shape[1], dtype=torch.float32, device=w.device))
 
 
 fused_bf16_attn_block.launches = 0
@@ -135,15 +206,21 @@ def _bf16_ulp(mag: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(mag), e - 8)  # 2^(floor(log2 mag) - 7)
 
 
+def twin_readings(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """How far K2's output ``got`` sits from its twin's ``ref``, in the
+    measures the limits above bound."""
+    err = (got.float() - ref.float()).abs()
+    mag = ref.float().abs()
+    return {"max_ulps": float((err / _bf16_ulp(torch.maximum(mag, mag.mean()))).max()),
+            "frac_over_1ulp": float((err > _bf16_ulp(mag)).float().mean()),
+            "frac_differing": float((err > 0).float().mean()),
+            "max_abs_err": float(err.max())}
+
+
 def check_against_twin(got: torch.Tensor, ref: torch.Tensor) -> dict:
     """Raise unless K2's output ``got`` agrees with its twin's ``ref`` to the
     limits above; returns the readings."""
-    err = (got.float() - ref.float()).abs()
-    mag = ref.float().abs()
-    r = {"max_ulps": float((err / _bf16_ulp(torch.maximum(mag, mag.mean()))).max()),
-         "frac_over_1ulp": float((err > _bf16_ulp(mag)).float().mean()),
-         "frac_differing": float((err > 0).float().mean()),
-         "max_abs_err": float(err.max())}
+    r = twin_readings(got, ref)
     bad = [f"max_ulps {r['max_ulps']:.4g} > {MAX_ULPS}"] if r["max_ulps"] > MAX_ULPS else []
     if r["frac_over_1ulp"] > MAX_FRAC_OVER_1ULP:
         bad.append(f"frac_over_1ulp {r['frac_over_1ulp']:.4g} > {MAX_FRAC_OVER_1ULP}")

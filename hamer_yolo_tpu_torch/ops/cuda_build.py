@@ -4,7 +4,7 @@ Each source is compiled by ``nvcc`` into its own shared library with a plain
 C interface and loaded with ``ctypes``. Nothing is built at import: the first
 call that launches a kernel builds it, into ``_build/`` beside this package
 (listed in ``.gitignore``), under a name keyed by a hash of the source, the
-shared header ``csrc/common.cuh`` and the flags. A file lock keeps
+shared headers ``csrc/*.cuh`` and the flags. A file lock keeps
 concurrent processes from building the same library twice. ``set_flags``
 adds nvcc flags to one source for the rest of the process (the diagnostic
 builds of chip_gemm.py: ``-D`` macros, ``-Xptxas -v``).
@@ -40,7 +40,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _SIGNATURES = {
     "nms.cu": {"hyt_nms_keep": [_P, _P, _F, _P, _I, _I, _P]},
     "attn_block.cu": {
-        "hyt_ln_qkv": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "hyt_k2_weight_map": [_P, _I, _I, _P],
+        "hyt_ln_qkv": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "int8_gemm.cu": {
         "hyt_quantize_rows": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
@@ -85,7 +86,8 @@ def set_flags(source: str, flags: List[str]) -> None:
 
 def library_path(source: str) -> Path:
     flags = _flags(source)
-    text = (CSRC_DIR / source).read_bytes() + (CSRC_DIR / "common.cuh").read_bytes()
+    text = (CSRC_DIR / source).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 

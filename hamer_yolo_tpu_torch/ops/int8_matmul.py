@@ -26,12 +26,12 @@ switch to an XLA chain is not carried over: K5 runs at every M on the card.
 from __future__ import annotations
 
 import ctypes
-import weakref
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
+from hamer_yolo_tpu_torch.core import nn
 from hamer_yolo_tpu_torch.ops import cuda_build
 
 PROLOGUES = ("id", "ln", "gelu", "gelu_poly")
@@ -516,12 +516,9 @@ def int8_gemm(a: torch.Tensor, w: torch.Tensor, epi: int, out: torch.Tensor,
 # 8-bit wgmma reads both operands K-major from shared memory, so the card's
 # GEMM takes the weight as (N, K) contiguous, while every public function
 # keeps JAX's (K, N). Each weight gets one copy, with its TMA map, kept as
-# long as the weight lives: id(w) -> (weak reference to w, w's version
-# counter, the copy, the map). ViT-H's int8 weights are 630 MB, so their
-# copies hold as much again on the card.
-_KMAJOR: Dict[int, tuple] = {}
-
-
+# long as the weight lives (core/nn.derived: keyed by the weight's identity
+# and version). ViT-H's int8 weights are 630 MB, so their copies hold as much
+# again on the card.
 def kmajor_weight(w: torch.Tensor) -> torch.Tensor:
     """The K-major (N, K) contiguous, 16-byte aligned copy of the (K, N)
     int8 weight ``w``, made once per weight (a later in-place change to
@@ -536,25 +533,23 @@ kmajor_weight.transposes = 0
 def _kmajor(w: torch.Tensor):
     """(kmajor_weight(w), its TMA map: 128 bytes of host memory, or None
     for a CPU weight)."""
-    key = id(w)
-    version = None if w.is_inference() else w._version
-    hit = _KMAJOR.get(key)
-    if hit is not None and hit[0]() is w and hit[1] == version:
-        return hit[2], hit[3]
     if w.dtype != torch.int8 or w.dim() != 2:
         raise ValueError(f"kmajor_weight: an int8 (K, N) weight, got {w.dtype} {tuple(w.shape)}")
-    wt = cuda_build.aligned16(w.t().contiguous())
-    wmap = None
-    if wt.is_cuda:
-        wmap = ctypes.create_string_buffer(128)
-        idx = wt.get_device()
-        with torch.cuda.device(idx):
-            cuda_build.check(cuda_build.load("int8_gemm.cu").hyt_weight_map(
-                wt.data_ptr(), wt.shape[0], wt.shape[1], ctypes.addressof(wmap)),
-                "kmajor_weight: the weight's TMA map")
-    _KMAJOR[key] = (weakref.ref(w, lambda _, key=key: _KMAJOR.pop(key, None)), version, wt, wmap)
-    kmajor_weight.transposes += 1
-    return wt, wmap
+
+    def make():
+        wt = cuda_build.aligned16(w.t().contiguous())
+        wmap = None
+        if wt.is_cuda:
+            wmap = ctypes.create_string_buffer(128)
+            idx = wt.get_device()
+            with torch.cuda.device(idx):
+                cuda_build.check(cuda_build.load("int8_gemm.cu").hyt_weight_map(
+                    wt.data_ptr(), wt.shape[0], wt.shape[1], ctypes.addressof(wmap)),
+                    "kmajor_weight: the weight's TMA map")
+        kmajor_weight.transposes += 1
+        return wt, wmap
+
+    return nn.derived(w, "kmajor", make)
 
 
 def _ptr(t: Optional[torch.Tensor]):

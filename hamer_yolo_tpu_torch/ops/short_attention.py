@@ -18,10 +18,13 @@ once, by asynchronous 16-byte copies on two mbarriers (Q + K, then V);
 S = Q K^T and O = P V run on ``wgmma``; the logits and probabilities stay
 in registers (the softmax reduces each row over a quad by shuffles, and p is
 packed straight into the A fragments of P V); the epilogue writes 8
-adjacent outputs a thread. It takes N up to ``MAX_N`` keys and a head width
-up to ``MAX_HD``; the wrapper raises beyond. f32 inputs run both products in
+adjacent outputs a thread. That kernel takes up to 256 keys; beyond, a
+key-block form streams K and V through shared memory 64 keys at a time in
+two passes (the row max and sum, then p normalised and rounded to bf16
+before P V, as the TPU kernel rounds), so any N runs. Heads are at most
+``MAX_HD`` wide; the wrapper raises beyond. f32 inputs run both products in
 f32 on the CUDA cores (as the JAX kernels compute them for f32), one CTA per
-(64-row query tile, head, crop), as far as a head fits in shared memory.
+(64-row query tile, head, crop), keys in the same blocks and two passes.
 
 K7 against K8 on the card. On the TPU, K8 exists to spare K7's four
 transposes of (B, h, N, hd) tensors through device memory. The port's K7
@@ -49,8 +52,7 @@ from hamer_yolo_tpu_torch.ops import cuda_build
 
 _OUT_KIND = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}  # of hyt_short_attention
 _IN_DTYPES = (torch.bfloat16, torch.float32)
-MAX_N = 256   # keys the bf16 kernel takes: four 64-wide wgmma accumulators of logits
-MAX_HD = 128  # head width the bf16 kernel takes
+MAX_HD = 128  # head width the bf16 kernels take: eight 16-wide wgmma accumulators
 
 
 def fused_short_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,8 +81,8 @@ def fused_short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take the plain version. CUDA tensors launch
     ``csrc/short_attention.cu``: q, k, v of one float dtype (bf16 or f32),
     one shape and one stride set with hd contiguous (views into a fused qkv
-    tensor are fine), hd a multiple of 8, bf16 up to MAX_N keys and MAX_HD
-    wide heads; anything else raises. The output
+    tensor are fine), hd a multiple of 8, bf16 heads up to MAX_HD wide; anything
+    else raises. The output
     is a (B, h, N, hd) view of a (B, N, h, hd) tensor, the layout the proj
     GEMM reads.
     """
@@ -144,14 +146,14 @@ def _check_in_out(in_dtype, other_dtypes, out_dtype, out_scale, what: str) -> No
 
 def _library(N: int, hd: int, dtype, what: str):
     """The loaded csrc/short_attention.cu, after the check that it takes
-    (N, hd) in ``dtype``: bf16 up to MAX_N keys and MAX_HD wide heads (in
-    shared memory at any such shape), f32 as far as a head fits in a block's
-    shared memory."""
+    (N, hd) in ``dtype``: bf16 heads up to MAX_HD wide (any N), f32 as far as
+    a 64-row tile and a 64-key block of the head fit in a block's shared
+    memory (hd up to about 200)."""
     lib = cuda_build.load("short_attention.cu")
     if dtype == torch.bfloat16:
-        if N > MAX_N or hd > MAX_HD:
-            raise ValueError(f"{what}: N = {N}, hd = {hd} is beyond the bf16 kernel's limits "
-                             f"of N <= {MAX_N} keys and hd <= {MAX_HD}")
+        if hd > MAX_HD:
+            raise ValueError(f"{what}: hd = {hd} is beyond the bf16 kernel's limit of "
+                             f"hd <= {MAX_HD}")
         return lib
     smem = lib.hyt_short_attn_smem_bytes(N, hd, dtype.itemsize)
     if smem > cuda_build.MAX_SMEM:
@@ -219,7 +221,7 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int, out_scale=None) -> to
 
     CPU tensors take the plain version. CUDA tensors launch the K8 entry of
     ``csrc/short_attention.cu``: bf16 or f32, the head width a multiple of
-    8 (bf16: N <= MAX_N, hd <= MAX_HD); anything else raises.
+    8 (bf16: hd <= MAX_HD); anything else raises.
     """
     if qkv.device.type == "cpu":
         return fused_qkv_attention_ref(qkv, num_heads, out_scale)

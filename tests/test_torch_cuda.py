@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from hamer_yolo_tpu_torch.core import quant
+from hamer_yolo_tpu_torch.core import nn, quant
 from hamer_yolo_tpu_torch.geometry.boxes import box_iou
 from hamer_yolo_tpu_torch.models.vit import ViTConfig, init_vit, vit_forward
 from hamer_yolo_tpu_torch.ops.attn_block import (check_against_twin, fused_bf16_attn_block,
@@ -87,6 +87,58 @@ def test_attn_block_kernel_matches_twin(dev, B, N, K, h, dtype):
     check_against_twin(got, fused_bf16_attn_block_ref(tok, *args))
 
 
+# (B, N, K, heads) at the main path's M = B N: 1 frame of 4 crops (768), 4
+# frames (3072) and 16 (12288), one crop (192) and a ragged M (B 3, N 100,
+# 300 rows: a partial 128-row tile); ViT-H's K = 1280 (16 heads of 80) and
+# K = 192 (3 heads of 64, three 64-wide K steps).
+K2_M_CASES = [pytest.param(B, N, K, h, id=f"M{B * N}_K{K}")
+              for K, h in ((1280, 16), (192, 3))
+              for B, N in ((1, 192), (4, 192), (16, 192), (64, 192), (3, 100))]
+
+
+@pytest.mark.parametrize("B,N,K,h", K2_M_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_attn_block_kernel_at_the_paths_rows(dev, B, N, K, h, dtype):
+    rng = np.random.default_rng(B * N + K)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)  # noqa: E731
+    tok = f(B, N, K).to(dtype)
+    args = (f(K, 3 * K) * K ** -0.5, 0.1 * f(3 * K), 1.0 + 0.1 * f(K), 0.1 * f(K), h)
+    got = fused_bf16_attn_block(tok, *args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, N, K)
+    check_against_twin(got, fused_bf16_attn_block_ref(tok, *args))
+
+
+# N past the single-pass attention kernel's 256 keys: the key-block form
+@pytest.mark.parametrize("B,N,K,h", [(2, 257, 256, 4), (2, 320, 240, 3), (1, 577, 1280, 16),
+                                     (2, 1024, 256, 4)], ids=["n257", "n320", "n577", "n1024"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_attn_block_kernel_beyond_256_keys(dev, B, N, K, h, dtype):
+    rng = np.random.default_rng(N)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)  # noqa: E731
+    tok = f(B, N, K).to(dtype)
+    args = (f(K, 3 * K) * K ** -0.5, 0.1 * f(3 * K), 1.0 + 0.1 * f(K), 0.1 * f(K), h)
+    got = fused_bf16_attn_block(tok, *args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, N, K)
+    check_against_twin(got, fused_bf16_attn_block_ref(tok, *args))
+
+
+def test_vit_casts_weights_once(dev):
+    """A bf16 ViT on the card casts its weights to bf16 in the first forward
+    (K2's qkv weight and its TMA map, proj, fc1, fc2) and never again."""
+    cfg = ViTConfig(img_size=(64, 48), embed_dim=64, depth=2, num_heads=4)
+    params = _to(init_vit(torch.Generator().manual_seed(0), cfg), dev)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 64, 48, 3)).astype(np.float32))
+    casts = []
+    for _ in range(2):
+        before = nn.cast_weight.casts
+        vit_forward(params, x.to(dev), cfg)
+        torch.cuda.synchronize()
+        casts.append(nn.cast_weight.casts - before)
+    assert casts[0] >= 4 * cfg.depth and casts[1] == 0, casts
+
+
 def test_attn_block_kernel_rejects_what_it_does_not_take(dev):
     tok = torch.zeros((2, 12, 64), dtype=torch.bfloat16, device=dev)
     w = torch.zeros((64, 192), device=dev)
@@ -102,7 +154,8 @@ def test_attn_block_kernel_rejects_what_it_does_not_take(dev):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("img_size", [(64, 48), (256, 192)], ids=["N12", "N192"])
+@pytest.mark.parametrize("img_size", [(64, 48), (256, 192), (304, 224)],
+                         ids=["N12", "N192", "N266"])
 def test_vit_on_cuda_runs_k2(dev, dtype, img_size):
     """A ViT on the card runs K2 in every block whatever its dtype, and
     agrees with the same ViT on the CPU through K2's twin."""
@@ -331,14 +384,18 @@ def test_int8_gemm_rejects_what_it_does_not_take(dev):
 
 # (B, h, N, hd, mult): ViT-H, the tiny config, ragged N with hd 24 padded to
 # 32 in shared memory; the bf16 kernel's edges: one and two 64-key
-# accumulators and one key past, its 256-key limit and one short of it, head
-# widths 16 to 128; q and k scaled by mult = 8 so that the max subtraction
-# decides the result.
+# accumulators and one key past, the single-pass kernel's 256 keys and one
+# short of it, head widths 16 to 128; past 256 keys, the key-block form with
+# one key past a block, a ragged last block and whole blocks; q and k scaled
+# by mult = 8 so that the max subtraction decides the result.
 ATTN_SHAPES = {"vith": (16, 16, 192, 80, 1), "tiny": (3, 4, 12, 16, 1), "ragged": (2, 3, 70, 24, 1),
                "n64": (2, 2, 64, 64, 1), "n65": (2, 2, 65, 64, 1),
                "n128_hd128": (2, 2, 128, 128, 1), "n255_hd16": (2, 2, 255, 16, 1),
                "n256_hd128": (2, 2, 256, 128, 1), "vith_x8": (16, 16, 192, 80, 8),
-               "n65_hd16_x8": (2, 2, 65, 16, 8), "n256_x8": (2, 2, 256, 64, 8)}
+               "n65_hd16_x8": (2, 2, 65, 16, 8), "n256_x8": (2, 2, 256, 64, 8),
+               "n257": (2, 2, 257, 64, 1), "n320_hd80": (2, 2, 320, 80, 1),
+               "n577_hd128": (2, 2, 577, 128, 1), "n1024_hd16": (2, 2, 1024, 16, 1),
+               "n577_hd80_x8": (3, 2, 577, 80, 8)}
 
 
 def _qkv_heads(rng, B, N, h, hd, mult, dev):
@@ -384,11 +441,6 @@ def test_k7_f32_output_in_k2_strides(dev, B, h, N, hd, mult):
 
 
 def test_attention_rejects_what_it_does_not_take(dev):
-    q = torch.zeros((1, 2, 257, 64), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError, match="N <= 256 keys"):
-        fused_short_attention(q, q, q)
-    with pytest.raises(ValueError, match="N <= 256 keys"):
-        fused_qkv_attention(torch.zeros((1, 257, 3 * 64), dtype=torch.bfloat16, device=dev), 1)
     q = torch.zeros((1, 2, 64, 136), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="hd <= 128"):
         fused_short_attention(q, q, q)
@@ -480,8 +532,9 @@ def test_int8_vit_on_cuda_runs_the_kernels(dev, img_size):
 F32_ATTN_ATOL = 2e-5
 
 
-@pytest.mark.parametrize("B,h,N,hd", [(16, 16, 192, 80), (3, 4, 12, 16), (2, 3, 70, 24)],
-                         ids=["vith", "tiny", "ragged"])
+@pytest.mark.parametrize("B,h,N,hd", [(16, 16, 192, 80), (3, 4, 12, 16), (2, 3, 70, 24),
+                                      (2, 2, 577, 80), (1, 2, 1024, 128)],
+                         ids=["vith", "tiny", "ragged", "n577", "n1024_hd128"])
 @pytest.mark.parametrize("int8_out", [False, True], ids=["f32", "out_scale"])
 def test_k7_f32_inputs_match_plain(dev, B, h, N, hd, int8_out):
     rng = np.random.default_rng(N + 1)
@@ -500,13 +553,12 @@ def test_k7_f32_inputs_match_plain(dev, B, h, N, hd, int8_out):
         torch.testing.assert_close(got, ref, rtol=0, atol=F32_ATTN_ATOL)
 
 
-# f32 inputs take the shapes at unit scale whose head fits in shared memory
-# as f32 (not N = 256 at hd = 128): F32_ATTN_ATOL holds for logits of unit
-# scale, and the f32 kernel is not the one with the 256-key limit.
+# f32 inputs take the shapes at unit scale: F32_ATTN_ATOL holds for logits of
+# unit scale.
 K8_CASES = [pytest.param(kind, *shape, id=f"{kind}-{name}")
             for kind in ("bf16", "bf16_int8", "f32", "f32_int8")
             for name, shape in ATTN_SHAPES.items()
-            if kind.startswith("bf16") or (shape[4] == 1 and name != "n256_hd128")]
+            if kind.startswith("bf16") or shape[4] == 1]
 
 
 @pytest.mark.parametrize("kind,B,h,N,hd,mult", K8_CASES)

@@ -24,7 +24,7 @@ from jax.experimental import pallas as pl
 
 from hamer_yolo_tpu.core import quant as jquant
 from hamer_yolo_tpu.ops import int8_matmul as jm
-from hamer_yolo_tpu_torch.core import quant
+from hamer_yolo_tpu_torch.core import nn, quant
 from hamer_yolo_tpu_torch.models.vit import init_vit
 from hamer_yolo_tpu_torch.ops import int8_matmul as im
 from test_torch_bridge import jax_exact, to_port
@@ -166,10 +166,10 @@ class TestKmajorWeights:
     def test_freed_with_its_weight(self):
         w = torch.zeros((32, 16), dtype=torch.int8)
         im.kmajor_weight(w)
-        key = id(w)
-        assert key in im._KMAJOR
+        key = (id(w), "kmajor")
+        assert key in nn._DERIVED
         del w
-        assert key not in im._KMAJOR
+        assert key not in nn._DERIVED
 
     @pytest.mark.parametrize("scales", ["static", "dynamic"])
     def test_prepared_tree_makes_no_copy_in_a_forward(self, scales):
