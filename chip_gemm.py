@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Device time of a checkout's int8 GEMM launch at ViT-H's four GEMM shapes,
-or, with --k2, of its kernel K2.
+or, with --k2, of its kernel K2, or, with --k10, of its kernel K10.
 
-    python3 chip_gemm.py [--k2] [--root DIR | --variant noepi|noload] [--ptxas]
+    python3 chip_gemm.py [--k2 | --k10] [--root DIR | --variant VARIANT] [--ptxas]
 
 Imports hamer_yolo_tpu_torch from DIR (default: this script's checkout) and
 times its ``ops/int8_matmul.int8_gemm`` with chip_smoke.int8_gemm_alone
@@ -35,9 +35,21 @@ chip_smoke.k2_alone times its LN + QKV GEMM launches (where the package has
 library composition, without the check; ``noepi`` leaves out the GEMM's
 epilogue (the staging and TMA stores of qkv), ``noload`` its TMA copies.
 
+``--k10`` times K10 beside K4 (chip_smoke.k10_alone: ViT-H's MLP, K 1280
+and H 5120, at the rows of 1, 4 and 16 frames, M = 768, 3072, 12288), by
+CUDA graph replay, and K10's single launch with its host work, without the
+check against K4; its variants (csrc/int8_gemm.cu, macro HYT_K10_DIAG):
+``noepi`` leaves out the GELU epilogue and the final one, ``noload`` the TMA
+copies of both weight rings, ``noexchange`` the stores of each GELU slice
+to the other CTAs of the cluster, ``noln`` the LN and quantize of the rows,
+``nofc1`` and ``nofc2`` the products of fc1 and fc2, ``nofinal`` the final
+dequant + residual; ``trace`` prints, instead of times, the SM clock at each
+step of the first CTA of one launch at each M, and every CTA's span
+(k10_trace).
+
 The last line of stdout is a JSON object: {"root", "variant", "device",
-"ms": {"<gemm> M <rows>": {...}}, "host_us": {...}} (with --k2: "ms":
-{"<what> M <rows>": ms}).
+"ms": {"<gemm> M <rows>": {...}}, "host_us": {...}} (with --k2 or --k10:
+"ms": {"<what> M <rows>": ms}).
 """
 import argparse
 import json
@@ -47,8 +59,10 @@ import sys
 
 import chip_smoke  # this checkout's phase; the package comes from --root
 
-VARIANTS = {"noepi": 1, "noload": 2}  # the value of the source's diagnostic macro
-SOURCES = {False: ("int8_gemm.cu", "HYT_GEMM_DIAG"), True: ("attn_block.cu", "HYT_K2_DIAG")}
+# the value of the source's diagnostic macro
+VARIANTS = {"noepi": 1, "noload": 2, "noexchange": 3, "noln": 4, "trace": 5, "nofc1": 6, "nofc2": 7, "nofinal": 8}
+SOURCES = {"gemm": ("int8_gemm.cu", "HYT_GEMM_DIAG"), "k2": ("attn_block.cu", "HYT_K2_DIAG"),
+           "k10": ("int8_gemm.cu", "HYT_K10_DIAG")}
 
 
 def build_source(source, flags, ptxas: bool) -> None:
@@ -73,13 +87,77 @@ def build_source(source, flags, ptxas: bool) -> None:
             print(f"  {kernel[:90]}: {line.split('info    :')[-1].strip()}")
 
 
+def k10_trace(dev, M=3072, K=1280, H=5120) -> None:
+    """One K10 launch of the HYT_K10_DIAG=5 build: its first CTA writes the
+    SM clock at each step into the first 128 int64 slots of its tokens (slot
+    0 the start; 1, 2 the LN done and the cluster barrier passed; 3 + 4c ..
+    6 + 4c chunk c's fc1 done, buffer free, GELU slice stored, slice sent;
+    64 + 3c, 65 + 3c chunk c's slices arrived and fc2 done; 126 the last
+    fc2, 124 and 125 the final epilogue's residual tile in and its sums
+    done, 127 the end), and every CTA its start and end on the global timer
+    and its SM from slot 128 on; printed as cycles from the start, and the
+    CTAs' spans (ns) as waves: the CTAs that started within 2 us of each
+    other."""
+    import numpy as np
+    import torch
+
+    from hamer_yolo_tpu_torch.ops import int8_matmul as im
+
+    rng = np.random.default_rng(0)
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    tok = put(rng.normal(size=(M, K)).astype(np.float32)).bfloat16()
+    args = (put(rng.integers(-127, 128, (K, H)).astype(np.int8)),
+            put((1e-3 * rng.random(H)).astype(np.float32)),
+            put((0.1 * rng.random(H)).astype(np.float32)),
+            put(rng.integers(-127, 128, (H, K)).astype(np.int8)),
+            put((1e-3 * rng.random(K)).astype(np.float32)),
+            put((0.1 * rng.random(K)).astype(np.float32)), torch.ones(K, device=dev),
+            torch.zeros(K, device=dev), torch.tensor(0.034, device=dev),
+            torch.tensor(0.021, device=dev))
+    for _ in range(3):  # the last of three launches, warm
+        im.fused_int8_mlp_block1(tok, *args, gelu="gelu_poly")
+    torch.cuda.synchronize()
+    t = tok.reshape(-1).view(torch.int64)[:128].cpu().numpy()
+    t = [int(v - t[0]) for v in t]
+    chunks = -(-H // (im.MLP1_FC1_COLS * im.mlp1_cluster(K)))
+    print(f"K10 trace M {M} K {K} H {H}, first CTA, SM cycles from its start: LN done {t[1]}, "
+          f"cluster barrier {t[2]}, last fc2 {t[126]}, residual tile in {t[124]}, sums done "
+          f"{t[125]}, end {t[127]}")
+    for c in range(chunks):
+        print(f"  chunk {c}: fc1 done {t[3 + 4 * c]}, buffer free {t[4 + 4 * c]}, GELU stored "
+              f"{t[5 + 4 * c]}, sent {t[6 + 4 * c]} | arrived {t[64 + 3 * c]}, fc2 done "
+              f"{t[65 + 3 * c]}")
+    ctas = -(-M // 64) * im.mlp1_cluster(K)
+    span = tok.reshape(-1).view(torch.int64)[128:128 + 3 * ctas].cpu().numpy().reshape(-1, 3)
+    span[:, :2] -= span[:, 0].min()
+    order = np.argsort(span[:, 0])
+    waves, first = [], None
+    for i in order:
+        if first is None or span[i, 0] - first > 2000:
+            waves.append([])
+            first = span[i, 0]
+        waves[-1].append(i)
+    print(f"  {ctas} CTAs on {len(set(span[:, 2]))} SMs, launch {int(span[:, 1].max())} ns: "
+          + "; ".join(f"wave {k}: {len(w)} CTAs start {int(span[w, 0].min())}-"
+                      f"{int(span[w, 0].max())}, end {int(span[w, 1].min())}-"
+                      f"{int(span[w, 1].max())}" for k, w in enumerate(waves)))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--variant", choices=sorted(VARIANTS))
     ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--k2", action="store_true", help="time K2 (csrc/attn_block.cu)")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--k2", action="store_true", help="time K2 (csrc/attn_block.cu)")
+    which.add_argument("--k10", action="store_true", help="time K10 beside K4")
     args = ap.parse_args()
+    kind = "k2" if args.k2 else "k10" if args.k10 else "gemm"
+    if args.variant not in (None, "noepi", "noload") and kind != "k10":
+        raise ValueError(f"--variant {args.variant} applies to --k10 only")
     import torch
 
     if not torch.cuda.is_available():
@@ -95,14 +173,18 @@ def main() -> int:
         raise RuntimeError(f"imported {hamer_yolo_tpu_torch.__file__}, not the package in {root}")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
                           "--id=0"], capture_output=True, text=True, check=True).stdout.strip())
-    source, macro = SOURCES[args.k2]
+    source, macro = SOURCES[kind]
     if args.variant or args.ptxas:
         flags = [f"-D{macro}={VARIANTS[args.variant]}"] if args.variant else []
         build_source(source, flags, args.ptxas)
     print(f"package {root}, {source}, variant {args.variant}", flush=True)
     dev = torch.device("cuda:0")
-    if args.k2:
-        times = chip_smoke.k2_alone(dev, check=False)
+    if args.variant == "trace":
+        for M in chip_smoke.K10_ROWS:
+            k10_trace(dev, M)
+        return 0
+    if kind != "gemm":
+        times = (chip_smoke.k2_alone if args.k2 else chip_smoke.k10_alone)(dev, check=False)
         print(json.dumps({"root": root, "variant": args.variant,
                           "device": torch.cuda.get_device_name(0),
                           "ms": {f"{name} M {m}": r for (name, m), r in times.items()}}))

@@ -3,7 +3,7 @@
 
     python3 chip_profile.py [--batches 1 4 16]
                             [--paths bf16 int8-static int8-dynamic path-a path-b]
-                            [--out chiprun_out]
+                            [--out chiprun_out] [--root DIR]
 
 Run from the root of a checkout on a machine with an NVIDIA card. For each
 batch size B it builds the full-width path of ``chip_smoke.py`` (YOLOv7 at
@@ -30,7 +30,14 @@ int8 ViT without scales), and the opt-in kernel paths of ``chip_smoke.py``:
 ``path-a`` (int8-static under HYT_ATTN=megakernel, HYT_INT8_MLP=megakernel1
 and ``fused_mano``: K6, K10, K9) and ``path-b`` (int8-dynamic under
 HYT_ATTN=pallas_fusedqkv: K5, K8). The first line is the card's name and power limit
-as nvidia-smi gives them.
+as nvidia-smi gives them. ``--root DIR`` imports hamer_yolo_tpu_torch from DIR
+(default: this script's checkout), so two commits compare in one chip call,
+in turns on one card (parent, new, new, parent):
+
+    for r in OLD . . OLD; do python3 chip_profile.py --paths path-a --root $r; done
+
+with OLD a directory that .gitignore lists, holding the other commit
+(``git archive <commit> | tar -x -C OLD``). Each JSON line names its root.
 """
 import argparse
 import dataclasses
@@ -135,7 +142,14 @@ def main() -> int:
     ap.add_argument("--paths", nargs="+", default=["bf16"],
                     choices=["bf16", "int8-static", "int8-dynamic", "path-a", "path-b"])
     ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import hamer_yolo_tpu_torch
+
+    if os.path.dirname(os.path.dirname(os.path.abspath(hamer_yolo_tpu_torch.__file__))) != root:
+        raise RuntimeError(f"imported {hamer_yolo_tpu_torch.__file__}, not the package in {root}")
 
     import torch
 
@@ -157,8 +171,8 @@ def main() -> int:
         for B in args.batches:
             env = {"path-a": PATH_A_ENV, "path-b": PATH_B_ENV}.get(path, {})
             with switches(env):
-                print(json.dumps(profile_batch(B, params, mano, cfg, dev, args.out, path)),
-                      flush=True)
+                print(json.dumps({"root": root, **profile_batch(B, params, mano, cfg, dev,
+                                                                 args.out, path)}), flush=True)
     return 0
 
 

@@ -32,8 +32,11 @@ and times the host work a call of the GEMM's two wrappers. A phase "K2
 alone" does the same for K2's LN + QKV GEMM launches at the bf16 path's
 rows (M = 768, 3072, 12288), beside the library composition
 F.layer_norm + torch.addmm (+ scaled_dot_product_attention for all of K2),
-timed for reference only. The bf16 path fails if a ViT forward after the
-first casts a weight to bf16.
+timed for reference only. A phase "K10 alone" holds K10 to K4 bit for bit
+at ViT-H's MLP for those rows (both GELUs, bf16 and f32 tokens) and times
+both by CUDA graph replay, with TOP/s and the share of K10's bound. K9 must
+make exactly one device launch a call. The bf16 path fails if a ViT forward
+after the first casts a weight to bf16.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the kernels' JSON record. Any failed phase raises and the script exits
@@ -104,6 +107,8 @@ VITH_GEMMS = {"qkv": (1280, 3840), "proj": (1280, 1280), "fc1": (1280, 5120), "f
 GEMM_ROWS = (3072, 12288)
 # K2's rows on the bf16 path: 1, 4 and 16 frames of 4 crops of 192 tokens
 K2_ROWS = (768, 3072, 12288)
+# K10's rows: the same 1, 4 and 16 frames, on path A
+K10_ROWS = K2_ROWS
 SEED = 0
 N_FRAMES = 3          # frames through the runner (FrameProgram)
 BATCH = 4             # frames in the infer_frames batch
@@ -383,6 +388,7 @@ def main() -> int:
     int8_gemm_alone(dev)
     wrapper_host_us(dev)
     k2_alone(dev)
+    k10_alone(dev)
 
     # -- end to end timing ---------------------------------------------------
     with torch.inference_mode():
@@ -661,6 +667,63 @@ def k2_alone(dev, check=True):
               + f"; all of K2 {r['k2']:.4f} ms, the composition F.layer_norm + torch.addmm + "
               f"scaled_dot_product_attention {r['composition']:.4f} ms (reference only)",
               flush=True)
+        out.update({(k, M): v for k, v in r.items()})
+    return out
+
+
+def k10_alone(dev, check=True):
+    """K10 of ViT-H (K 1280, H 5120, gelu_poly, bf16 tokens) at K10_ROWS,
+    beside K4 on the same inputs: held to K4 bit for bit where ``check``
+    (both GELU flavours, bf16 and f32 tokens), then each timed by CUDA graph
+    replay, and K10's single launch with its host work by CUDA events.
+    TOP/s count fc1's and fc2's 4 M K H operations; the share is the bound
+    (those operations at the int8 peak, or the bytes) over the device time.
+    Returns {(name, M): ms}."""
+    import torch
+
+    from hamer_yolo_tpu_torch.ops import int8_matmul as im
+
+    rng = np.random.default_rng(SEED + 9)
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    Kd, H = 1280, 5120
+    q1 = put(rng.integers(-127, 128, (Kd, H)).astype(np.int8))
+    q2 = put(rng.integers(-127, 128, (H, Kd)).astype(np.int8))
+    ws1 = put((2e-5 + 2e-5 * rng.random(H)).astype(np.float32))
+    ws2 = put((1e-4 + 1e-4 * rng.random(Kd)).astype(np.float32))
+    b1, b2 = (put((0.1 * rng.normal(size=n)).astype(np.float32)) for n in (H, Kd))
+    g = put((1.0 + 0.1 * rng.normal(size=Kd)).astype(np.float32))
+    bt = put((0.1 * rng.normal(size=Kd)).astype(np.float32))
+    args = (q1, ws1, b1, q2, ws2, b2, g, bt, torch.tensor(0.034, device=dev),
+            torch.tensor(0.021, device=dev))
+    peak = PEAK_OPS_PER_S["int8"]
+    out = {}
+    for M in K10_ROWS:
+        tok = put(rng.normal(size=(M // 192, 192, Kd)).astype(np.float32)).bfloat16()
+        if check:
+            for gelu in ("gelu", "gelu_poly"):
+                for t in (tok, tok.float()):
+                    got = im.fused_int8_mlp_block1(t, *args, gelu=gelu)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, im.fused_int8_mlp_block(t, *args, gelu=gelu)):
+                        raise AssertionError(f"K10 alone M {M} {gelu} {t.dtype} is not K4 bit "
+                                             "for bit")
+        r = {"k10": graph_time_ms(lambda: im.fused_int8_mlp_block1(tok, *args, gelu="gelu_poly")),
+             "k4": graph_time_ms(lambda: im.fused_int8_mlp_block(tok, *args, gelu="gelu_poly")),
+             "k10_launch": cuda_time_ms(
+                 lambda: im.fused_int8_mlp_block1(tok, *args, gelu="gelu_poly"), iters=20)}
+        ops = 4 * M * Kd * H
+        bound_ms, by = bound(2 * M * Kd * 2 + 2 * Kd * H + 8 * (H + Kd), {"int8": ops})
+        rate = {k: f"{r[k]:.4f} ms = {ops / (r[k] * 1e-3) / 1e12:.0f} TOP/s "
+                   f"({ops / (r[k] * 1e-3) / peak:.3f} of peak, {bound_ms / r[k]:.3f} of the "
+                   f"bound)" for k in ("k10", "k4")}
+        print(f"K10 alone M {M} (tokens {tuple(tok.shape)} bf16, H {H}, gelu_poly)"
+              + (" (equal to K4 bit for bit, both GELUs, bf16 and f32 tokens)" if check else "")
+              + f", device time by CUDA graph replay of 20 launches: K10 {rate['k10']}; K4 "
+              f"{rate['k4']}; K10 one launch with its host work {r['k10_launch']:.4f} ms; bound "
+              f"{bound_ms:.6f} ms ({by})", flush=True)
         out.update({(k, M): v for k, v in r.items()})
     return out
 
@@ -1058,42 +1121,60 @@ def check_optin_kernels(blk, tok0, heads, mano, pred_mano, k3_ms, k4_ms, k7_ms):
     betas = pred_mano["betas"]
     rotmats = torch.cat([pred_mano["global_orient"], pred_mano["hand_pose"]], dim=1)
     S, nb = betas.shape
-    verts, joints = mano_lbs.mano_lbs_fused(mano, betas, rotmats)
-    torch.cuda.synchronize()
+    mano_lbs.mano_lbs_fused(mano, betas, rotmats)  # makes the model's constants
+    for _ in range(3):  # now and then the profiler records no device activity at all
+        before = mano_lbs.mano_lbs_fused.launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            verts, joints = mano_lbs.mano_lbs_fused(mano, betas, rotmats)
+            torch.cuda.synchronize()
+        device_kernels = [e.name for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA]
+        if mano_lbs.mano_lbs_fused.launches != before + 1:
+            raise AssertionError(f"K9's wrapper counted "
+                                 f"{mano_lbs.mano_lbs_fused.launches - before} launches a call")
+        if device_kernels:
+            break
+    if len(device_kernels) != 1:
+        raise AssertionError(f"K9 made {len(device_kernels)} device launches in one call "
+                             f"({device_kernels})")
     ref_v, ref_j = mano_lbs.mano_lbs_fused_ref(mano, betas, rotmats)
     r = mano_lbs.check_against_plain(verts, ref_v)
+    r["joints_max_abs_err"] = mano_lbs.check_against_plain(joints, ref_j,
+                                                           "K9's joints")["max_abs_err"]
     lbs_v, lbs_j = lbs(mano, betas, rotmats)
     r["vs_einsum_lbs_verts"] = float((verts - lbs_v).abs().max())
     r["vs_einsum_lbs_joints"] = float((joints - lbs_j).abs().max())
     if max(r["vs_einsum_lbs_verts"], r["vs_einsum_lbs_joints"]) > mano_lbs.MAX_ABS_ERR_M:
         raise AssertionError(f"K9 departs from the einsum LBS: {r}")
-    print(f"K9 {S} hands, nb {nb} (limit {mano_lbs.MAX_ABS_ERR_M} m, absolute): " + _fmt(r))
+    print(f"K9 {S} hands, nb {nb}, one device launch a call ({device_kernels[0][:40]}; limit "
+          f"{mano_lbs.MAX_ABS_ERR_M} m, absolute, on vertices and joints): " + _fmt(r))
     ms = cuda_time_ms(lambda: mano_lbs.mano_lbs_fused(mano, betas, rotmats))
+    dev_ms = graph_time_ms(lambda: mano_lbs.mano_lbs_fused(mano, betas, rotmats))
     plain_ms = cuda_time_ms(lambda: mano_lbs.mano_lbs_fused_ref(mano, betas, rotmats))
     lbs_ms = cuda_time_ms(lambda: lbs(mano, betas, rotmats))
-    sd, pd, pose_feat, A_flat, _ = mano_lbs._kernel_inputs(mano, betas, rotmats)
-    fk_ms = cuda_time_ms(lambda: mano_lbs._kernel_inputs(mano, betas, rotmats))
-    kernel_ms = cuda_time_ms(lambda: mano_lbs.launch_blend_skin(
-        betas, pose_feat, A_flat, mano.v_template, sd, pd, mano.weights))
     V = 778
-    # the model's arrays, the hand's betas, pose features and transforms in,
-    # the vertices out; two products per blendshape term, the blend, the affine
-    bound_ms, by = bound(4 * (3 * V * (nb + 135 + 1) + V * 16 + S * (nb + 135 + 16 * 12)
-                              + S * V * 3),
-                         {"f32": S * (2 * 3 * V * (nb + 135) + 2 * V * 16 * 12 + 18 * V)})
-    print(f"K9 timing at {S} hands: wrapper (forward kinematics + kernel) {ms:.4f} ms, of which "
-          f"the kinematics and input views outside the kernel {fk_ms:.4f} ms and the kernel's "
-          f"launch alone {kernel_ms:.4f} ms; plain {plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({by}); no PyTorch call computes it; the einsum LBS, "
-          f"which it is an option to, {lbs_ms:.4f} ms")
-    out["K9"] = {"max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+    # the model's arrays and constants, the hands' betas and rotations in,
+    # vertices and joints out; two products per blendshape term, the blend,
+    # the affine, the kinematics
+    bound_ms, by = bound(4 * (3 * V * (nb + 135 + 1) + V * 16 + 16 * 3 * (nb + 1)
+                              + S * (nb + 16 * 9) + S * V * 3 + S * 16 * 3),
+                         {"f32": S * (2 * 3 * V * (nb + 135) + 2 * V * 16 * 12 + 18 * V
+                                      + 16 * (2 * 3 * nb + 90))})
+    print(f"K9 timing at {S} hands: one launch with its host work {ms:.4f} ms, device time "
+          f"alone (CUDA graph of 20 launches) {dev_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.6f} ms ({by}); no PyTorch call computes it; the einsum LBS, which it is "
+          f"an option to, {lbs_ms:.4f} ms")
+    out["K9"] = {"max_abs_err": max(r["max_abs_err"], r["joints_max_abs_err"]), "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
 
-    # K10: equal to K4 bit for bit, both GELU flavours, and within K4's limits
+    # K10: equal to K4 bit for bit, both GELU flavours and token dtypes, and
+    # within K4's limits of its plain version
     (q1, s1, b1, sx1), (q2, s2, b2, sx2) = lin["fc1"], lin["fc2"]
     args = (q1, s1, b1, q2, s2, b2, *ln2, sx1, sx2)
     err = 0.0
     for gelu in ("gelu", "gelu_poly"):
-        for tname, tok in (("block0_tokens", tok0), ("random", randn(B, N, Kd).bfloat16())):
+        for tname, tok in (("block0_tokens", tok0), ("random", randn(B, N, Kd).bfloat16()),
+                           ("block0_tokens_f32", tok0.float())):
             got = im.fused_int8_mlp_block1(tok, *args, gelu=gelu)
             torch.cuda.synchronize()
             if not torch.equal(got, im.fused_int8_mlp_block(tok, *args, gelu=gelu)):
@@ -1101,17 +1182,21 @@ def check_optin_kernels(blk, tok0, heads, mano, pred_mano, k3_ms, k4_ms, k7_ms):
             r = im.check_against_plain(got, im.fused_int8_mlp_block1_ref(tok, *args, gelu=gelu),
                                        "K10")
             err = max(err, r["max_abs_err"])
-            print(f"K10 {gelu} {tname} {tuple(tok.shape)} (equal to K4 bit for bit): " + _fmt(r))
+            print(f"K10 {gelu} {tname} {tuple(tok.shape)} {tok.dtype} (equal to K4 bit for "
+                  f"bit): " + _fmt(r))
     ms = cuda_time_ms(lambda: im.fused_int8_mlp_block1(tok0, *args, gelu="gelu_poly"))
+    dev_ms = graph_time_ms(lambda: im.fused_int8_mlp_block1(tok0, *args, gelu="gelu_poly"))
     plain_ms = cuda_time_ms(lambda: im.fused_int8_mlp_block1_ref(tok0, *args, gelu="gelu_poly"),
                             iters=3)
     H = q1.shape[1]
     bound_ms, by = bound(2 * M * Kd * 2 + 2 * Kd * H + 8 * (H + Kd), {"int8": 4 * M * Kd * H})
-    l2_bytes = -(-M // 16) * 2 * Kd * H
-    print(f"K10 timing at {tuple(tok0.shape)}, H {H}, gelu_poly: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}); no PyTorch call computes it; K4, "
-          f"which it is an option to, {k4_ms:.4f} ms. Its {-(-M // 16)} CTAs each read both "
-          f"weights: {l2_bytes / 1e9:.3f} GB from L2 a launch")
+    cluster = im.mlp1_cluster(Kd)
+    print(f"K10 timing at {tuple(tok0.shape)}, H {H}, gelu_poly: kernel {ms:.4f} ms, device time "
+          f"alone (CUDA graph of 20 launches) {dev_ms:.4f} ms = "
+          f"{4 * M * Kd * H / (dev_ms * 1e-3) / 1e12:.0f} TOP/s, {bound_ms / dev_ms:.3f} of its "
+          f"bound; plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}); no PyTorch call "
+          f"computes it; K4, which it is an option to, {k4_ms:.4f} ms. Its {-(-M // 64)} "
+          f"clusters of {cluster} CTAs each read both weights once")
     out["K10"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                   "bound_by": by, "library_ms": None}
     return out

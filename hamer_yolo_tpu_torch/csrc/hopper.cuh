@@ -1,9 +1,12 @@
 // Hopper (sm_90a) building blocks shared by attn_block.cu, int8_gemm.cu and
 // short_attention.cu: mbarriers, TMA tile loads and stores and tensor maps,
 // named barriers, the wgmma fences, the 128-byte-swizzle shared-memory
-// descriptor, and the device's SM count. cuTensorMapEncodeTiled is looked up
-// through the runtime (cudaGetDriverEntryPoint), so the libraries link
-// against nothing but the CUDA runtime.
+// descriptor, thread-block clusters (rank, cluster barrier, distributed
+// shared memory stores, asynchronous ones included, and mbarrier
+// arrivals), and the device's SM count.
+// cuTensorMapEncodeTiled is looked up through the runtime
+// (cudaGetDriverEntryPoint), so the libraries link against nothing but the
+// CUDA runtime.
 #pragma once
 #include <cuda.h>  // CUtensorMap and its enums
 #include <cuda_runtime.h>
@@ -106,6 +109,78 @@ __device__ __forceinline__ void wgmma_wait() {
 // to the start address.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// ------------------------------------------------ thread-block clusters
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster-wide barrier of every thread of every CTA, split in two: the
+// arrival releases this thread's writes (shared memory of any CTA of the
+// cluster included), the wait acquires the others'. Each warp executes both
+// converged.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of the variable at this CTA's shared address
+// ``addr`` in the CTA of rank ``rank`` (distributed shared memory).
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes to a shared::cluster address (any CTA of the cluster).
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x),
+               "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// 16 bytes to a shared::cluster address, asynchronously: they count as 16
+// bytes of transaction on the mbarrier at the shared::cluster address bar, in
+// the same CTA, whose phase completes once they (and the bytes its
+// expect_tx announced) have landed.
+__device__ __forceinline__ void st_async_v4(uint32_t addr, uint4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+// One arrival on the mbarrier at a shared::cluster address (any CTA of the
+// cluster), releasing this thread's earlier writes at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// mbar_wait acquiring at cluster scope: what other CTAs wrote before their
+// (release.cluster) arrivals is visible after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// fence_proxy_async for writes to the shared memory of any CTA of the
+// cluster (st.shared::cluster) that another CTA's wgmma will read.
+__device__ __forceinline__ void fence_proxy_async_cluster() {
+  asm volatile("fence.proxy.async.shared::cluster;\n" ::: "memory");
 }
 
 constexpr int MAX_DEVICES = 64;

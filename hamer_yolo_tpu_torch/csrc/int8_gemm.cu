@@ -562,210 +562,578 @@ int encode_kmajor(CUtensorMap* map, const void* base, int rows, int K) {
                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// ------------------------------------------------ mma.sync pieces of K10
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A KT x NT byte tile of the (K, N) weight w at (k0, n0), in 4 x 4 blocks
-// transposed to Bs[n][k] (rows of lds bytes); zeros past the edges.
-template <int KT, int NT, int THREADS>
-__device__ __forceinline__ void load_b_tile(const int8_t* __restrict__ w, int K, int N, int k0,
-                                            int n0, int8_t* Bs, int lds, int tid) {
-  for (int c = tid; c < (KT / 4) * (NT / 4); c += THREADS) {
-    const int nb = c % (NT / 4), kb = c / (NT / 4);
-    const int n = n0 + nb * 4, k = k0 + kb * 4;
-    uint32_t r[4];
+// ------------------------------------------- K10: the int8 MLP in one launch
+// quantize_row<TokT, PRO_LN, false> on a row's values (at most 32 NV)
+// loaded into registers first, all at once (load_row), with the LN's scale
+// and bias g, b read from shared memory: one load latency a row where quantize_row pays
+// three passes of dependent loads (its launch hides them behind many rows an
+// SM; a K10 CTA has 8 rows at ViT-H for its 14 warps). The same values in
+// the same lanes, summed and rounded in the same order, so the same int8
+// row.
+// The row xr's values of this lane, k = lane + 32 i, as f32 (0 past K).
+template <typename TokT, int NV>
+__device__ __forceinline__ void load_row(float (&v)[NV], const TokT* __restrict__ xr, int K,
+                                         int lane) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      r[i] = (n < N && k + i < K) ? *reinterpret_cast<const uint32_t*>(w + (size_t)(k + i) * N + n)
-                                  : 0u;
-    const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
-    const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
-    int8_t* dst = Bs + (nb * 4) * lds + kb * 4;
-    *reinterpret_cast<uint32_t*>(dst) = __byte_perm(t0, t1, 0x5410);
-    *reinterpret_cast<uint32_t*>(dst + lds) = __byte_perm(t0, t1, 0x7632);
-    *reinterpret_cast<uint32_t*>(dst + 2 * lds) = __byte_perm(t2, t3, 0x5410);
-    *reinterpret_cast<uint32_t*>(dst + 3 * lds) = __byte_perm(t2, t3, 0x7632);
+  for (int i = 0; i < NV; ++i) {
+    const int k = lane + 32 * i;
+    v[i] = k < K ? to_f32(xr[k]) : 0.0f;
   }
 }
 
-// ------------------------------------------- K10: the int8 MLP in one launch
+template <int NV>
+__device__ __forceinline__ void quantize_row_ln_regs(const float (&v)[NV],
+                                                     const float* __restrict__ g,
+                                                     const float* __restrict__ b, int K,
+                                                     float scale, int8_t* __restrict__ qr,
+                                                     int lane) {
+  const float inv_k = __fdiv_rn(1.0f, (float)K);
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (lane + 32 * i < K) s = __fadd_rn(s, v[i]);
+  const float mu = __fmul_rn(warp_sum(s), inv_k);
+  float var = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (lane + 32 * i < K) {
+      const float d = __fsub_rn(v[i], mu);
+      var = __fadd_rn(var, __fmul_rn(d, d));
+    }
+  const float rstd = __frsqrt_rn(__fadd_rn(__fmul_rn(warp_sum(var), inv_k), 1e-6f));
+  const float inv = __fdiv_rn(1.0f, scale);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int k = lane + 32 * i;
+    if (k < K) qr[k] = quantize(prologue<PRO_LN>(v[i], mu, rstd, g, b, k), inv);
+  }
+}
+
 // fused_int8_mlp_block1 (_mlp1p_kernel): LN + quantize (s1) + fc1 + GELU +
-// quantize (s2) + fc2 + dequant + f32 residual, H taken in chunks with the fc2
-// partial sums added in int32, so the result is bit-identical to K4's two
-// GEMM launches: the same quantize_row, the same exact int32 sums, the same
-// dequant_gelu_q and residual arithmetic.
-//
-// Design. A CTA owns M1_TM = 16 token rows: one m16 mma tile. Its int8 LN
-// output (16 x K) stays in shared memory for the whole kernel. H goes in
-// chunks of M1_HC = 128 columns: fc1's 16 x 128 int32 tile (each of the 8
-// warps 16 columns) is dequantized, GELU'd and requantized into shared
-// memory (the (M, H) int8 tensor that K4 writes to device memory and reads
-// back never exists), then multiplied by the chunk's 128 x K row band of w2
-// into the CTA's 16 x K int32 accumulator, which lives in registers: each
-// warp owns K / 8 output columns, 80 registers a thread at K = 1280. That
-// accumulator is why the tile is 16 rows: at 64 rows it is 327 KB, more than
-// an SM's registers or shared memory (the TPU keeps it in VMEM at 128 rows).
-// w1's column band and w2's row band are read from JAX's (K, N) layout by
-// load_b_tile, transposed on their way to shared memory. K up to 1280 (NT2 = 20 n8-tiles per warp; smaller K takes NT2 = 1, 2
-// or 4).
+// quantize (s2) + fc2 + dequant + f32 residual, H taken in chunks with the
+// fc2 partial sums added in int32, so the result is bit-identical to K4's
+// launches: the same quantize_row, the same exact int32 sums, the same
+// dequant_gelu_q and residual arithmetic (K4's EPI_GELU_Q and EPI_RESID).
 //
 // What bounds it on the H100: the same 80.5 G int8 operations as K4 at
-// ViT-H's M = 3072, so the tensor cores. What it costs here: every CTA
-// re-reads both weights (13.1 MB at ViT-H), M / 16 = 192 times over, 2.5 GB
-// from L2 a launch, where K4's 128-row GEMM tiles read them 24 times; loads and
-// mma do not overlap. It is the simple form that is right; splitting fc2's
-// columns over a cluster that shares the GELU chunk through distributed
-// shared memory, with taller row tiles, is the follow-up.
-constexpr int M1_TM = 16, M1_T = 256, M1_HC = 128, M1_BK1 = 64, M1_BK2 = 32;
-constexpr int M1_LDB1 = M1_BK1 + 16, M1_LDY = M1_HC + 16, M1_LDB2 = M1_BK2 + 16;
+// ViT-H's M = 3072, so the tensor cores (0.0407 ms at the 1,979 TOP/s peak).
+// The difficulty is fc2's accumulator: a tile of BM token rows needs BM x K
+// int32 of it for the whole kernel (327 KB at BM = 64, K = 1280), more than
+// one SM holds. The design, for this card:
+// - A thread-block cluster of C CTAs owns 64 token rows; CTA rank r owns
+//   fc2's output columns [160 r, 160 r + 160), so its share of the
+//   accumulator (64 x 160 int32) lives in the registers of one warpgroup.
+//   C = ceil(K / 160), up to 8 at K = 1280 (the host chooses it:
+//   ops/int8_matmul.mlp1_cluster).
+// - The CTAs share the LN + quantize of the 64 rows (rows r, r + C, ...
+//   each), with quantize_row's arithmetic, and write each int8 row into
+//   X (64 x K, laid out as the 128-byte swizzle that wgmma reads) of every
+//   CTA of the cluster through distributed shared memory.
+// - H goes in chunks of 64 C columns. Per chunk, CTA r computes fc1's 64
+//   columns [64 r, 64 r + 64) of the chunk (wgmma m64n64k32 s8 on X and a
+//   TMA-fed ring of w1 tiles), dequantizes, GELUs and requantizes them by s2
+//   (dequant_gelu_q), and writes that int8 slice into the chunk buffer of
+//   every CTA of the cluster with asynchronous stores (st.async) that count
+//   as transaction bytes on the buffer's mbarrier in the receiving CTA, so
+//   the writer neither fences nor waits for them. Then each CTA
+//   runs fc2 for its 160 columns over the whole chunk (wgmma m64n160k32 s8
+//   on the chunk and a TMA-fed ring of w2 tiles) and tells every CTA that it
+//   is done with the buffer.
+// - Roles: two fc1 warpgroups take the chunks in turns (even, odd), each
+//   with its own chunk buffer, so that one's GELU and exchange overlap the
+//   other's products; one warpgroup runs fc2 and the final epilogue; one
+//   producer warp each keeps the w1 ring and the w2 ring full.
+// - The weights come K-major through the TMA maps of their K-major copies
+//   (ops/int8_matmul.kmajor_weight; the same maps as K4's GEMMs): w1 as
+//   (H, K), w2 as (K, H). TMA's zero fill takes the ragged H, K and chunk
+//   edges; GELU values past H are written as 0.
+// - The final dequant + residual goes through shared memory (the rings,
+//   free by then), so the residual comes in and the output goes out as
+//   coalesced 16-byte vectors.
+// Each cluster reads each weight once (13.1 MB at ViT-H), M / 64 times a
+// launch: 630 MB from L2 at M = 3072, where K4's 128-row tiles read 315
+// MB; shared memory (X alone is 80 KB at K = 1280) leaves no room for a
+// taller tile. The (M, H) int8 tensor that K4 writes and reads back never
+// exists. Measured on an H100 (PERF.md; chip_gemm.py --k10): about twice
+// K4's time; neither the loads nor either product alone holds it back
+// (--variant noload, nofc1, nofc2 gain under 10%): a CTA's time goes to the
+// LN and set-up, the per-chunk chain of GELU, exchange and the cluster's
+// lockstep, and the final epilogue, and only 15 clusters of 8 fit at once.
+constexpr int M1_BM = 64;         // token rows of a cluster (one wgmma M)
+constexpr int M1_FW = 64;         // fc1 columns of a CTA in each chunk
+constexpr int M1_NC = 160;        // fc2 output columns of a CTA
+constexpr int M1_MAX_K = 1280;    // 8 CTAs x 160 columns
+constexpr int M1_MAX_CLUSTER = 8;  // the portable cluster size
+constexpr int M1_S1 = 4, M1_S2 = 2;         // stages of the w1 and w2 rings
+constexpr int M1_TILE = M1_BM * 128;        // a 64-row block of 128 swizzled bytes
+constexpr int M1_W2_STAGE = 3 * M1_TILE;    // three 64-row boxes of w2 (160 rows used)
+constexpr int M1_SLICE = M1_BM * M1_FW;     // bytes of a CTA's GELU slice of a chunk
+constexpr int M1_THREADS = 3 * 128 + 64;    // three warpgroups and two producer warps
+// Diagnostic builds only (chip_gemm.py --k10 --variant, outputs wrong): 1
+// leaves out the GELU epilogue and the final epilogue, 2 the producers' TMA
+// copies, 3 the stores to the other CTAs' chunk buffers, 4 the LN and
+// quantize of the rows; 5 writes the SM clock at the steps of the first CTA
+// over its tokens (the input), as int64 slots (K10_STAMP); 6 and 7 leave out
+// fc1's and fc2's products, 8 the final epilogue.
+#ifndef HYT_K10_DIAG
+#define HYT_K10_DIAG 0
+#endif
+#if HYT_K10_DIAG == 5
+#define K10_STAMP(slot)                                                          \
+  do {                                                                           \
+    if (blockIdx.x == 0 && blockIdx.y == 0)                                      \
+      reinterpret_cast<long long*>(const_cast<void*>(p.x))[slot] = clock64();   \
+  } while (0)
+// and every CTA its start and end on the global timer (ns) and its SM,
+// from slot 128 on, three slots a CTA
+#define K10_SPAN(i)                                                              \
+  do {                                                                           \
+    long long* o_ = reinterpret_cast<long long*>(const_cast<void*>(p.x)) + 128 + \
+                    3 * (blockIdx.y * gridDim.x + blockIdx.x);                   \
+    unsigned long long t_;                                                       \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                       \
+    o_[i] = (long long)t_;                                                       \
+    if (i == 0) {                                                                \
+      unsigned sm_;                                                              \
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(sm_));                           \
+      o_[2] = sm_;                                                               \
+    }                                                                            \
+  } while (0)
+#else
+#define K10_STAMP(slot) \
+  do {                  \
+  } while (0)
+#define K10_SPAN(i) \
+  do {              \
+  } while (0)
+#endif
 
 struct Mlp1Args {
   const void* x;  // (M, K) tokens: the LN's input and the residual
   const float *g, *b;                        // (K,) LN scale and bias
-  const int8_t *w1, *w2;                     // (K, H) and (H, K) int8
   const float *w1scale, *b1, *w2scale, *b2;  // (H,), (H,), (K,), (K,)
   const float *s1, *s2;                      // (1,) static scales, on the device
   void* out;                                 // (M, K) in the tokens' dtype
-  int gelu_poly;
   int M, K, H;
 };
 
-// Bytes of an Xq row: K rounded up to fc1's k step, plus 16 (16 mod 128 at
-// K = 1280, so the fragment loads are free of bank conflicts).
-__host__ __device__ __forceinline__ int mlp1_ldx(int K) { return ((K + 63) & ~63) + 16; }
+// Byte offsets of a CTA's dynamic shared memory, from a 1024-byte aligned
+// base: X (kb blocks), the two chunk buffers (ykb blocks each; before the
+// chunks, a scratch row per warp and the LN's scale and bias), the w1 ring,
+// the w2 ring, then 17 mbarriers.
+struct Mlp1Layout {
+  int kb, hc, ykb;
+  int y, r1, r2, bars, bytes;
+};
 
-__host__ __device__ __forceinline__ int mlp1_smem_bytes(int K, int nt2) {
-  return M1_TM * mlp1_ldx(K) + M1_HC * M1_LDB1 + M1_TM * M1_LDY + 64 * nt2 * M1_LDB2;
+__host__ __device__ __forceinline__ Mlp1Layout mlp1_layout(int K, int cluster) {
+  Mlp1Layout L;
+  L.kb = (K + 127) / 128;
+  L.hc = M1_FW * cluster;
+  L.ykb = (L.hc + 127) / 128;
+  L.y = L.kb * M1_TILE;
+  L.r1 = L.y + 2 * L.ykb * M1_TILE;
+  L.r2 = L.r1 + M1_S1 * M1_TILE;
+  L.bars = L.r2 + M1_S2 * M1_W2_STAGE;
+  L.bytes = L.bars + 8 * (2 * M1_S1 + 2 * M1_S2 + 5) + 1024;  // + room to align
+  return L;
 }
 
-__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], const int8_t* base, int ld) {
-  a[0] = *reinterpret_cast<const uint32_t*>(base);
-  a[1] = *reinterpret_cast<const uint32_t*>(base + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(base + 16);
-  a[3] = *reinterpret_cast<const uint32_t*>(base + 8 * ld + 16);
+// d (64 x 64 s32) += A (64 x 32 s8) . B (64 x 32 s8)^T, both from shared
+// memory, K-major.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
 }
 
-template <typename TokT, int NT2>
-__global__ void __launch_bounds__(M1_T) mlp_block1_kernel(const Mlp1Args p) {
-  extern __shared__ __align__(16) int8_t m1_smem[];
-  const int M = p.M, K = p.K, H = p.H;
-  const int ldx = mlp1_ldx(K);
-  int8_t* Xq = m1_smem;                 // 16 x ldx: the quantized LN output
-  int8_t* Bs1 = Xq + M1_TM * ldx;       // [128 n][64 k]: a tile of w1, transposed
-  int8_t* Yq = Bs1 + M1_HC * M1_LDB1;   // 16 x 128: the quantized GELU chunk
-  int8_t* Bs2 = Yq + M1_TM * M1_LDY;    // [64 NT2 n][32 k]: a row band of w2, transposed
-  const int m0 = blockIdx.x * M1_TM;
+// d (64 x 160 s32) += A (64 x 32 s8) . B (160 x 32 s8)^T, both from shared
+// memory, K-major.
+__device__ __forceinline__ void wgmma_s8_n160(int (&d)[80], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The byte (row r, column c) of a 64-row operand of 128-byte swizzled blocks.
+__device__ __forceinline__ int sw128_offset(int r, int c) {
+  return (c >> 7) * M1_TILE + r * 128 + ((((c & 127) >> 4) ^ (r & 7)) << 4) + (c & 15);
+}
+
+// The kernel: grid (C, ceil(M / 64)), one cluster of C CTAs per 64 rows.
+// Threads: warpgroups 0 and 2 run fc1 (0 the even chunks into buffer 0, 2
+// the odd ones into buffer 1, so one's GELU and exchange overlap the other's
+// products), warpgroup 1 fc2, warps 12 and 13 the producers.
+template <typename TokT, bool POLY>
+__global__ void __launch_bounds__(M1_THREADS, 1)
+    mlp_block1_kernel(const __grid_constant__ CUtensorMap w1map,
+                      const __grid_constant__ CUtensorMap w2map, const Mlp1Args p) {
+  extern __shared__ __align__(16) uint8_t m1_smem_raw[];
+  uint8_t* smem = m1_smem_raw + ((1024 - (smem_u32(m1_smem_raw) & 1023)) & 1023);
+  const int C = gridDim.x;  // the grid's x is one cluster
+  const int rank = (int)cluster_ctarank();
+  const Mlp1Layout L = mlp1_layout(p.K, C);
+  uint64_t* full1 = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty1 = full1 + M1_S1;
+  uint64_t* full2 = empty1 + M1_S1;
+  uint64_t* empty2 = full2 + M1_S2;
+  uint64_t* yfull = empty2 + M1_S2;  // [2]: every CTA's slice of the chunk has arrived
+  uint64_t* yempty = yfull + 2;      // [2]: every CTA's fc2 is done with the buffer
+  // the fc1 warpgroup of chunk c has passed its last wait on the w1 ring
+  // (phase c): the other one starts chunk c + 1 only then, so that neither
+  // waits on a ring stage more than one use ahead of its phase
+  uint64_t* turn = yempty + 2;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
+  const int m0 = blockIdx.y * M1_BM;
+  const int nchunks = (p.H + L.hc - 1) / L.hc;
   const TokT* x = reinterpret_cast<const TokT*>(p.x);
+  if (tid == 0) K10_STAMP(0);
+  if (tid == 0) K10_SPAN(0);
 
-  for (int r = warp; r < M1_TM; r += M1_T / 32) {
-    int8_t* qr = Xq + r * ldx;
-    const int row = m0 + r;
-    if (row < M)
-      quantize_row<TokT, PRO_LN, false>(x + (size_t)row * K, p.g, p.b, K, p.s1, qr, lane);
-    for (int k = (row < M ? K : 0) + lane; k < ldx; k += 32) qr[k] = 0;
+  // LN + quantize by s1 of the 64 rows into X: the cluster's CTAs share the
+  // rows (rank, rank + C, ...), a row per warp at a time through a scratch
+  // row in the chunk buffers' space, zeros past K and M, and each row goes
+  // to X of every CTA of the cluster.
+  {
+    int8_t* row = reinterpret_cast<int8_t*>(smem + L.y + warp * L.kb * 128);
+    float* gs = reinterpret_cast<float*>(smem + L.y + (M1_THREADS / 32) * L.kb * 128);
+    float* bs = gs + p.K;
+    const int r0 = rank + C * warp;  // this warp's first row, loaded while g and b stage
+    float v[M1_MAX_K / 32];
+    if (r0 < M1_BM && m0 + r0 < p.M) load_row(v, x + (size_t)(m0 + r0) * p.K, p.K, lane);
+    for (int k = tid; k < p.K; k += M1_THREADS) {
+      gs[k] = p.g[k];
+      bs[k] = p.b[k];
+    }
+    __syncthreads();
+    for (int r = r0; r < M1_BM; r += C * (M1_THREADS / 32)) {
+      const int m = m0 + r;
+      if (r != r0 && m < p.M) load_row(v, x + (size_t)m * p.K, p.K, lane);
+      if (m < p.M && HYT_K10_DIAG != 4)
+        quantize_row_ln_regs(v, gs, bs, p.K, *p.s1, row, lane);
+      for (int k = (m < p.M ? p.K : 0) + lane; k < L.kb * 128; k += 32) row[k] = 0;
+      __syncwarp();
+      for (int v = lane; v < L.kb * 8; v += 32) {
+        const uint4 val = *reinterpret_cast<const uint4*>(row + v * 16);
+        const uint32_t dst = smem_u32(smem + sw128_offset(r, v * 16));
+        for (int pr = 0; pr < C; ++pr) st_cluster_v4(mapa(dst, pr), val);
+      }
+      __syncwarp();
+    }
   }
+  fence_proxy_async_cluster();  // X, written generically, before the CTAs' wgmma read it
   __syncthreads();
+  if (tid == 0) K10_STAMP(1);
+  // The chunk buffers start as zeros: the bytes of a 128-byte block past the
+  // chunk (C odd) stay 0 and meet the next chunk's w2 columns.
+  for (int i = tid * 16; i < 2 * L.ykb * M1_TILE; i += M1_THREADS * 16)
+    *reinterpret_cast<uint4*>(smem + L.y + i) = make_uint4(0, 0, 0, 0);
+  if (tid == 0) {
+    for (int s = 0; s < M1_S1; ++s) {
+      mbar_init(smem_u32(full1 + s), 1);
+      mbar_init(smem_u32(empty1 + s), 1);
+    }
+    for (int s = 0; s < M1_S2; ++s) {
+      mbar_init(smem_u32(full2 + s), 1);
+      mbar_init(smem_u32(empty2 + s), 1);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(smem_u32(yfull + b), 1);   // this CTA's fc1, and the others' bytes
+      mbar_init(smem_u32(yempty + b), C);  // one fc2 thread of every CTA
+    }
+    mbar_init(smem_u32(turn), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_proxy_async();  // the zeros, too
+  cluster_arrive();     // X is whole and every CTA's barriers exist
+  cluster_wait();
+  fence_proxy_async();
+  if (tid == 0) K10_STAMP(2);
 
-  const float s1 = *p.s1, s2 = *p.s2;
-  const float inv2 = __fdiv_rn(1.0f, s2);
-  const int ncol0 = warp * 8 * NT2;  // this warp's first output column
-  int acc2[NT2][4];
+  if (warp == 12) {  // the w1 producer: fc1's 64 columns of each chunk, K in 128-byte steps
+    if (lane == 0) {
+      int it = 0;
+      for (int c = 0; c < nchunks; ++c)
+        for (int kb = 0; kb < L.kb; ++kb, ++it) {
+          const int s = it % M1_S1;
+          mbar_wait(smem_u32(empty1 + s), ((it / M1_S1) & 1) ^ 1);
+          const uint32_t bar = smem_u32(full1 + s);
+          mbar_arrive_expect_tx(bar, HYT_K10_DIAG == 2 ? 0 : M1_TILE);
+          if (HYT_K10_DIAG != 2)
+            tma_load(smem_u32(smem + L.r1 + s * M1_TILE), &w1map, kb * 128,
+                     c * L.hc + rank * M1_FW, bar);
+        }
+    }
+  } else if (warp == 13) {  // the w2 producer: fc2's 160 (192) columns, the chunk in 128-byte steps
+    if (lane == 0) {
+      int it = 0;
+      for (int c = 0; c < nchunks; ++c)
+        for (int kk = 0; kk < L.ykb; ++kk, ++it) {
+          const int s = it % M1_S2;
+          mbar_wait(smem_u32(empty2 + s), ((it / M1_S2) & 1) ^ 1);
+          const uint32_t bar = smem_u32(full2 + s);
+          mbar_arrive_expect_tx(bar, HYT_K10_DIAG == 2 ? 0 : M1_W2_STAGE);
+          if (HYT_K10_DIAG == 2) continue;
+          const uint32_t dst = smem_u32(smem + L.r2 + s * M1_W2_STAGE);
 #pragma unroll
-  for (int ni = 0; ni < NT2; ++ni)
+          for (int j = 0; j < 3; ++j)
+            tma_load(dst + j * M1_TILE, &w2map, c * L.hc + kk * 128, rank * M1_NC + 64 * j, bar);
+        }
+    }
+  } else if (tid < 128 || tid >= 256) {  // fc1, the GELU and the exchange of the slices
+    const int b = tid >= 256, t = tid & 127, w = t >> 5, g = lane >> 2, q = lane & 3;
+    const int bar_id = b ? 3 : 1;
+    const float s1 = *p.s1, inv2 = __fdiv_rn(1.0f, *p.s2);
+    const int cb = rank * M1_FW;  // the slice's first byte in the chunk
+    uint8_t* ybuf = smem + L.y + b * L.ykb * M1_TILE;
+    for (int c = b; c < nchunks; c += 2) {
+      // this thread's columns' scales and biases, loaded while the products run
+      const int h0 = c * L.hc + cb;
+      float ws[8][2], bs[8][2];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) acc2[ni][r] = 0;
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int h = h0 + j * 8 + q * 2 + e;
+          ws[j][e] = h < p.H ? p.w1scale[h] : 0.0f;
+          bs[j][e] = h < p.H ? p.b1[h] : 0.0f;
+        }
+      int acc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0;
+      int it = c * L.kb;  // the chunk's first use of the w1 ring
+      if (c > 0) mbar_wait(smem_u32(turn), (c - 1) & 1);
+      for (int kb = 0; kb < L.kb; ++kb, ++it) {
+        const int s = it % M1_S1;
+        mbar_wait(smem_u32(full1 + s), (it / M1_S1) & 1);
+        if (kb == L.kb - 1 && t == 0) mbar_arrive(smem_u32(turn));
+        const uint64_t da = sw128_desc(smem_u32(smem + kb * M1_TILE));
+        const uint64_t db = sw128_desc(smem_u32(smem + L.r1 + s * M1_TILE));
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (HYT_K10_DIAG != 6) wgmma_s8_n64(acc, da + 2 * k, db + 2 * k);
+        wgmma_commit();
+        fence_acc(acc);
+        wgmma_wait<1>();
+        fence_acc(acc);
+        if (kb > 0 && t == 0) mbar_arrive(smem_u32(empty1 + (it - 1) % M1_S1));
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (t == 0) mbar_arrive(smem_u32(empty1 + (it - 1) % M1_S1));
+      if (t == 0) K10_STAMP(3 + 4 * c);
 
-  for (int c0 = 0; c0 < H; c0 += M1_HC) {
-    // fc1: Xq (16 x K) @ w1[:, c0 : c0 + 128], each warp 16 columns
-    int acc1[2][4];
+      mbar_wait_cluster(smem_u32(yempty + b), ((c >> 1) & 1) ^ 1);
+      if (t == 0) K10_STAMP(4 + 4 * c);
+      // branch-free: columns past H (zero scales and biases) are computed,
+      // then written as 0
 #pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
+      for (int j = 0; j < 8; ++j) {
+        const int col = j * 8 + q * 2;
+        const bool in_h = h0 + col < p.H;  // H is a multiple of 16: both columns or neither
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc1[ni][r] = 0;
-    for (int k0 = 0; k0 < K; k0 += M1_BK1) {
-      load_b_tile<M1_BK1, M1_HC, M1_T>(p.w1, K, H, k0, c0, Bs1, M1_LDB1, tid);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < M1_BK1; kk += 32) {
-        uint32_t a[4];
-        load_a_frag(a, Xq + g * ldx + k0 + kk + tig * 4, ldx);
-#pragma unroll
-        for (int ni = 0; ni < 2; ++ni) {
-          const int8_t* base = Bs1 + (warp * 16 + ni * 8 + g) * M1_LDB1 + kk + tig * 4;
-          mma_s8(acc1[ni], a, *reinterpret_cast<const uint32_t*>(base),
-                 *reinterpret_cast<const uint32_t*>(base + 16));
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = w * 16 + hh * 8 + g;
+          uint32_t v = 0;
+          if (HYT_K10_DIAG != 1) {
+            const int8_t y0 =
+                dequant_gelu_q(acc[j * 4 + hh * 2], s1, ws[j][0], bs[j][0], POLY, inv2);
+            const int8_t y1 =
+                dequant_gelu_q(acc[j * 4 + hh * 2 + 1], s1, ws[j][1], bs[j][1], POLY, inv2);
+            v = in_h ? (uint32_t)(uint8_t)y0 | ((uint32_t)(uint8_t)y1 << 8) : 0u;
+          }
+          *reinterpret_cast<uint16_t*>(ybuf + sw128_offset(r, cb + col)) = (uint16_t)v;
         }
       }
-      __syncthreads();
+      fence_proxy_async();         // the slice, before this CTA's fc2 reads it
+      named_barrier(bar_id, 128);  // the slice is whole in this CTA's buffer
+      if (t == 0) K10_STAMP(5 + 4 * c);
+      // this CTA's arrival: the other CTAs' slices are the phase's bytes
+      if (t == 0)
+        mbar_arrive_expect_tx(smem_u32(yfull + b), HYT_K10_DIAG == 3 ? 0 : (C - 1) * M1_SLICE);
+      if (HYT_K10_DIAG != 3) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {  // 64 rows x 4 vectors of 16 bytes, 2 a thread
+          const int v = t + 128 * i;
+          const int off = sw128_offset(v >> 2, cb + (v & 3) * 16);
+          const uint4 val = *reinterpret_cast<const uint4*>(ybuf + off);
+          const uint32_t dst = smem_u32(ybuf + off), bar = smem_u32(yfull + b);
+          for (int pr = 0; pr < C; ++pr)
+            if (pr != rank) st_async_v4(mapa(dst, pr), val, mapa(bar, pr));
+        }
+      }
+      if (t == 0) K10_STAMP(6 + 4 * c);
     }
-    // dequant -> GELU -> quantize by s2, into Yq; zeros past H
+  } else {  // fc2 over each chunk, then the dequant and the residual
+    const int t = tid - 128, w = t >> 5, g = lane >> 2, q = lane & 3;
+    int acc[80];
 #pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
+    for (int i = 0; i < 80; ++i) acc[i] = 0;
+    int it = 0;
+    for (int c = 0; c < nchunks; ++c) {
+      const int b = c & 1;
+      const uint8_t* ybuf = smem + L.y + b * L.ykb * M1_TILE;
+      mbar_wait_cluster(smem_u32(yfull + b), (c >> 1) & 1);
+      fence_proxy_async();
+      if (t == 0) K10_STAMP(64 + 3 * c);
+      for (int kk = 0; kk < L.ykb; ++kk, ++it) {
+        const int s = it % M1_S2;
+        mbar_wait(smem_u32(full2 + s), (it / M1_S2) & 1);
+        const uint64_t da = sw128_desc(smem_u32(ybuf + kk * M1_TILE));
+        const uint64_t db = sw128_desc(smem_u32(smem + L.r2 + s * M1_W2_STAGE));
+        fence_acc(acc);
+        wgmma_fence();
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int cc = warp * 16 + ni * 8 + tig * 2 + (r & 1), col = c0 + cc;
-        Yq[(g + (r >> 1) * 8) * M1_LDY + cc] =
-            col < H ? dequant_gelu_q(acc1[ni][r], s1, p.w1scale[col], p.b1[col], p.gelu_poly, inv2)
-                    : (int8_t)0;
+        for (int k = 0; k < 4; ++k)
+          if (HYT_K10_DIAG != 7) wgmma_s8_n160(acc, da + 2 * k, db + 2 * k);
+        wgmma_commit();
+        fence_acc(acc);
+        wgmma_wait<1>();
+        fence_acc(acc);
+        if (kk > 0 && t == 0) mbar_arrive(smem_u32(empty2 + (it - 1) % M1_S2));
       }
-    __syncthreads();
-    // fc2: Yq (16 x 128) @ w2[c0 : c0 + 128, :], summed in int32 over the chunks
-    for (int kk = 0; kk < M1_HC; kk += M1_BK2) {
-      load_b_tile<M1_BK2, 64 * NT2, M1_T>(p.w2, H, K, c0 + kk, 0, Bs2, M1_LDB2, tid);
-      __syncthreads();
-      uint32_t a[4];
-      load_a_frag(a, Yq + g * M1_LDY + kk + tig * 4, M1_LDY);
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (t == 0) mbar_arrive(smem_u32(empty2 + (it - 1) % M1_S2));
+      if (t == 0) K10_STAMP(65 + 3 * c);
+      named_barrier(2, 128);  // every warp's products on the buffer are done
+      if (t < C) mbar_arrive_cluster(mapa(smem_u32(yempty + b), t));
+    }
+    if (t == 0) K10_STAMP(126);
+    // dequant + bias, then the residual added in f32 (K4's EPI_RESID),
+    // through shared memory (the rings, which every load has left now): the
+    // residual tile comes in and the output tile goes out as coalesced
+    // 16-byte vectors, where each thread's own elements are 4 or 8 bytes
+    // scattered over 16 rows
+    if (HYT_K10_DIAG != 1 && HYT_K10_DIAG != 8) {
+      constexpr int OP = M1_NC + 8;          // the tile's pitch in elements
+      constexpr int VE = 16 / sizeof(TokT);  // elements a vector
+      constexpr int NV = M1_BM * M1_NC / VE / 128;  // vectors a thread, at most: 10 or 20
+      TokT* tile = reinterpret_cast<TokT*>(smem + L.r1);
+      float* wsb = reinterpret_cast<float*>(smem + L.r1 + M1_BM * OP * sizeof(TokT));
+      const int c0 = rank * M1_NC, ncols = min(M1_NC, p.K - c0);  // a multiple of 16
+      const int vpr = ncols / VE;
+      TokT* out = reinterpret_cast<TokT*>(p.out);
+      // loads in flight a thread at once: 10 (bf16, all) or 5 (f32), 40 or 20
+      // registers beside fc2's 80 accumulators
+      constexpr int NB = 20 / (int)sizeof(TokT);
 #pragma unroll
-      for (int ni = 0; ni < NT2; ++ni) {
-        const int8_t* base = Bs2 + (ncol0 + ni * 8 + g) * M1_LDB2 + tig * 4;
-        mma_s8(acc2[ni], a, *reinterpret_cast<const uint32_t*>(base),
-               *reinterpret_cast<const uint32_t*>(base + 16));
+      for (int i0 = 0; i0 < NV; i0 += NB) {
+        uint4 in[NB];
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+          const int v = t + 128 * (i0 + i), r = v / vpr, e = (v % vpr) * VE;
+          if (v < M1_BM * vpr && m0 + r < p.M)
+            in[i] = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * p.K + c0 + e);
+        }
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+          const int v = t + 128 * (i0 + i), r = v / vpr, e = (v % vpr) * VE;
+          if (v < M1_BM * vpr && m0 + r < p.M)
+            *reinterpret_cast<uint4*>(tile + r * OP + e) = in[i];
+        }
       }
-      __syncthreads();
+      for (int c = t; c < ncols; c += 128) {
+        wsb[c] = p.w2scale[c0 + c];
+        wsb[M1_NC + c] = p.b2[c0 + c];
+      }
+      named_barrier(2, 128);
+      if (t == 0) K10_STAMP(124);
+      const float s2 = *p.s2;
+#pragma unroll
+      for (int j = 0; j < M1_NC / 8; ++j) {
+        const int col = j * 8 + q * 2;  // ncols is a multiple of 16: both or neither
+        if (col >= ncols) continue;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          TokT* e = tile + (w * 16 + hh * 8 + g) * OP + col;
+          const float z0 = dequant_fold(acc[j * 4 + hh * 2], s2, wsb[col], wsb[M1_NC + col]);
+          const float z1 =
+              dequant_fold(acc[j * 4 + hh * 2 + 1], s2, wsb[col + 1], wsb[M1_NC + col + 1]);
+          e[0] = from_f32<TokT>(__fadd_rn(to_f32(e[0]), z0));
+          e[1] = from_f32<TokT>(__fadd_rn(to_f32(e[1]), z1));
+        }
+      }
+      named_barrier(2, 128);
+      if (t == 0) K10_STAMP(125);
+      for (int v = t; v < M1_BM * vpr; v += 128) {
+        const int r = v / vpr, e = (v % vpr) * VE;
+        if (m0 + r < p.M)
+          *reinterpret_cast<uint4*>(out + (size_t)(m0 + r) * p.K + c0 + e) =
+              *reinterpret_cast<const uint4*>(tile + r * OP + e);
+      }
     }
   }
-
-  // dequant + bias, then the residual added in f32 (K4's EPI_RESID)
-  TokT* out = reinterpret_cast<TokT*>(p.out);
-#pragma unroll
-  for (int ni = 0; ni < NT2; ++ni)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = m0 + g + (r >> 1) * 8, col = ncol0 + ni * 8 + tig * 2 + (r & 1);
-      if (row < M && col < K) {
-        const size_t i = (size_t)row * K + col;
-        const float z = dequant_fold(acc2[ni][r], s2, p.w2scale[col], p.b2[col]);
-        out[i] = from_f32<TokT>(__fadd_rn(to_f32(x[i]), z));
-      }
-    }
+  __syncwarp();
+  if (tid == 128) K10_STAMP(127);
+  cluster_arrive();  // no CTA leaves while another may still write to it
+  cluster_wait();
+  if (tid == 0) K10_SPAN(1);
 }
 
-template <typename TokT, int NT2>
-int launch_mlp1(const Mlp1Args& p, cudaStream_t st) {
-  const int smem = mlp1_smem_bytes(p.K, NT2);
-  cudaError_t err = cudaFuncSetAttribute(mlp_block1_kernel<TokT, NT2>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  mlp_block1_kernel<TokT, NT2><<<(p.M + M1_TM - 1) / M1_TM, M1_T, smem, st>>>(p);
-  return (int)cudaGetLastError();
+template <typename TokT, bool POLY>
+int launch_mlp1(const CUtensorMap& w1map, const CUtensorMap& w2map, const Mlp1Args& p,
+                int cluster, cudaStream_t st) {
+  auto kernel = mlp_block1_kernel<TokT, POLY>;
+  static bool smem_set[MAX_DEVICES] = {};  // the shared-memory limit raised on the device
+  int dev = 0, sms = 0;
+  if (const int rc = current_sms(&dev, &sms)) return rc;
+  const Mlp1Layout L = mlp1_layout(p.K, cluster);
+  if (!smem_set[dev]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             mlp1_layout(M1_MAX_K, M1_MAX_CLUSTER).bytes);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, (p.M + M1_BM - 1) / M1_BM, 1);
+  cfg.blockDim = dim3(M1_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = L.bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, w1map, w2map, p);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 template <typename TokT>
-int dispatch_mlp1(const Mlp1Args& p, cudaStream_t st) {
-  if (p.K <= 64) return launch_mlp1<TokT, 1>(p, st);
-  if (p.K <= 128) return launch_mlp1<TokT, 2>(p, st);
-  if (p.K <= 256) return launch_mlp1<TokT, 4>(p, st);
-  if (p.K <= 1280) return launch_mlp1<TokT, 20>(p, st);
-  return (int)cudaErrorInvalidValue;
+int dispatch_mlp1(const CUtensorMap& w1map, const CUtensorMap& w2map, const Mlp1Args& p,
+                  int gelu_poly, int cluster, cudaStream_t st) {
+  return gelu_poly ? launch_mlp1<TokT, true>(w1map, w2map, p, cluster, st)
+                   : launch_mlp1<TokT, false>(w1map, w2map, p, cluster, st);
 }
 
 }  // namespace
@@ -842,22 +1210,29 @@ extern "C" int hyt_int8_gemm(const void* a, const void* wmap, int M, int N, int 
 }
 
 // K10: out (M, K) = x + fc2(GELU(fc1(LN(x)))) in one launch. x (M, K) f32
-// with x_f32, else bf16; out has its dtype. g, b (K,), w1 (K, H) int8 with
-// w1scale, b1 (H,), w2 (H, K) int8 with w2scale, b2 (K,), all f32; s1, s2:
-// (1,) f32 static scales on the device. K % 16 == 0, H % 16 == 0, K <= 1280.
+// with x_f32, else bf16; out has its dtype. g, b (K,); w1map and w2map the
+// TMA maps (hyt_weight_map) of the K-major copies of w1 (K, H), as (H, K),
+// and of w2 (H, K), as (K, H); w1scale, b1 (H,), w2scale, b2 (K,), all f32;
+// s1, s2: (1,) f32 static scales on the device. K % 16 == 0, H % 16 == 0,
+// K <= 1280; cluster: the CTAs of a cluster, ceil(K / 160).
 extern "C" int hyt_mlp_block1(const void* x, int x_f32, const void* g, const void* b,
-                              const void* w1, const void* w1scale, const void* b1,
-                              const void* w2, const void* w2scale, const void* b2,
+                              const void* w1map, const void* w1scale, const void* b1,
+                              const void* w2map, const void* w2scale, const void* b2,
                               const void* s1, const void* s2, int gelu_poly, int M, int K, int H,
-                              void* out, void* stream) {
-  if (M <= 0 || K <= 0 || H <= 0 || K % 16 || H % 16 || !s1 || !s2)
+                              int cluster, void* out, void* stream) {
+  if (M <= 0 || K <= 0 || H <= 0 || K % 16 || H % 16 || K > M1_MAX_K || !s1 || !s2 || !g ||
+      !b || !w1map || !w2map || !w1scale || !b1 || !w2scale || !b2)
     return (int)cudaErrorInvalidValue;
+  if (cluster < 1 || cluster > M1_MAX_CLUSTER || cluster * M1_NC < K ||
+      (cluster - 1) * M1_NC >= K || M > 65535 * M1_BM)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m1, m2;
+  memcpy(&m1, w1map, sizeof m1);
+  memcpy(&m2, w2map, sizeof m2);
   Mlp1Args p;
   p.x = x;
   p.g = (const float*)g;
   p.b = (const float*)b;
-  p.w1 = (const int8_t*)w1;
-  p.w2 = (const int8_t*)w2;
   p.w1scale = (const float*)w1scale;
   p.b1 = (const float*)b1;
   p.w2scale = (const float*)w2scale;
@@ -865,10 +1240,10 @@ extern "C" int hyt_mlp_block1(const void* x, int x_f32, const void* g, const voi
   p.s1 = (const float*)s1;
   p.s2 = (const float*)s2;
   p.out = out;
-  p.gelu_poly = gelu_poly;
   p.M = M;
   p.K = K;
   p.H = H;
   cudaStream_t st = (cudaStream_t)stream;
-  return x_f32 ? dispatch_mlp1<float>(p, st) : dispatch_mlp1<bf16>(p, st);
+  return x_f32 ? dispatch_mlp1<float>(m1, m2, p, gelu_poly, cluster, st)
+               : dispatch_mlp1<bf16>(m1, m2, p, gelu_poly, cluster, st);
 }

@@ -47,9 +47,9 @@ _SIGNATURES = {
         "hyt_quantize_rows": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
         "hyt_weight_map": [_P, _I, _I, _P],
         "hyt_int8_gemm": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
-        "hyt_mlp_block1": [_P, _I] + [_P] * 10 + [_I, _I, _I, _I, _P, _P],
+        "hyt_mlp_block1": [_P, _I] + [_P] * 10 + [_I] * 5 + [_P, _P],
     },
-    "mano_lbs.cu": {"hyt_mano_lbs": [_P] * 8 + [_I, _I, _P]},
+    "mano_lbs.cu": {"hyt_mano_lbs": [_P] * 11 + [_I, _I, _I, _P]},
     "short_attention.cu": {
         "hyt_short_attention": [_P, _P, _P, _I, _L, _L, _L, _P, _I, _P, _L, _L, _L, _I, _I,
                                 _I, _I, _F, _P],

@@ -13,10 +13,12 @@ hamer_yolo_tpu/ops/int8_matmul.py).
 All run on ``csrc/int8_gemm.cu``: a quantize-rows launch (prologue and
 quantize, one warp per row) and an int8 GEMM launch (wgmma s8 fed by TMA,
 dequant epilogue); K4 is one quantize launch and two GEMMs; K10 is one launch
-of its own kernel there, a CTA per 16 token rows with the fc2 accumulator in
-registers. The GEMM reads each weight K-major: ``kmajor_weight`` makes that
-(N, K) copy once per weight, with its TMA map, and counts the copies it
-makes; ``core/quant.quantize_vit_params`` makes them when it quantizes on
+of its own kernel there, on a thread-block cluster per 64 token rows that
+splits fc2's columns over its CTAs and shares each GELU chunk through
+distributed shared memory (``mlp1_cluster`` chooses its size). The GEMM and
+K10 read each weight K-major: ``kmajor_weight`` makes that (N, K) copy once
+per weight, with its TMA map, and counts the copies it makes;
+``core/quant.quantize_vit_params`` makes them when it quantizes on
 the card, any other int8 weight gets its copy at its first launch. Each
 ``*_ref`` function is the plain version, in the f32 op order of its TPU
 kernel, which the CPU takes and the card's checks compare against;
@@ -39,7 +41,21 @@ _TOKEN_DTYPES = (torch.bfloat16, torch.float32)
 _OUT_KIND = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 # Epilogues of csrc/int8_gemm.cu
 EPI_DEQ_ROW, EPI_DEQ_FOLD, EPI_GELU_Q, EPI_RESID, EPI_PROJ = range(5)
-MLP1_MAX_K = 1280  # widest token row of mlp_block1_kernel (its accumulator is in registers)
+# K10's kernel: a cluster of at most 8 CTAs (the portable limit), each with
+# 160 of fc2's output columns in registers, so tokens at most 1280 wide.
+MLP1_COLS_PER_CTA = 160
+MLP1_MAX_CLUSTER = 8
+MLP1_MAX_K = MLP1_COLS_PER_CTA * MLP1_MAX_CLUSTER
+MLP1_FC1_COLS = 64  # fc1 columns of a CTA in each chunk of H
+
+
+def mlp1_cluster(K: int) -> int:
+    """The CTAs of K10's cluster for tokens K wide: ceil(K / 160), so that
+    no CTA is idle; its chunk of H is 64 columns a CTA."""
+    if not 0 < K <= MLP1_MAX_K:
+        raise ValueError(f"fused_int8_mlp_block1: K = {K} (at most {MLP1_MAX_K})")
+    return -(-K // MLP1_COLS_PER_CTA)
+
 
 # Even-polynomial GELU: GELU(x) = x/2 + E(x), E(u = x^2) of degree 8, a
 # Chebyshev least-squares fit on |x| <= 4 (hamer_yolo_tpu/ops/int8_matmul.py
@@ -313,9 +329,10 @@ def fused_int8_mlp_block1(tok: torch.Tensor, w1q, w1scale, b1, w2q, w2scale, b2,
 
     CPU tensors take the plain version, in chunks of ``hc`` columns (H where
     hc does not divide it). CUDA tensors launch ``mlp_block1_kernel`` of
-    ``csrc/int8_gemm.cu``, which chunks H by 128 columns of its own whatever
-    ``hc`` says: K and H multiples of 16, K at most 1280; anything else
-    raises.
+    ``csrc/int8_gemm.cu`` on a cluster of ``mlp1_cluster(K)`` CTAs, which
+    chunks H by 64 columns a CTA whatever ``hc`` says, reading the weights
+    through their K-major copies (``kmajor_weight``): K and H multiples of
+    16, K at most 1280; anything else raises.
     """
     if tok.device.type == "cpu":
         return fused_int8_mlp_block1_ref(tok, w1q, w1scale, b1, w2q, w2scale, b2, ln_scale,
@@ -339,7 +356,7 @@ def fused_int8_mlp_block1(tok: torch.Tensor, w1q, w1scale, b1, w2q, w2scale, b2,
     ws1, bs1 = _vec(w1scale, H, dev, what, "fc1's scales"), _vec(b1, H, dev, what, "fc1's bias")
     ws2, bs2 = _vec(w2scale, K, dev, what, "fc2's scales"), _vec(b2, K, dev, what, "fc2's bias")
     s1, s2 = _device_scale(sx1, dev, what), _device_scale(sx2, dev, what)
-    w1, w2 = cuda_build.aligned16(w1q), cuda_build.aligned16(w2q)
+    w1map, w2map = _kmajor(w1q)[1], _kmajor(w2q)[1]
     out = torch.empty_like(x2)
     lib = cuda_build.load("int8_gemm.cu")
     idx = x2.get_device()
@@ -347,9 +364,10 @@ def fused_int8_mlp_block1(tok: torch.Tensor, w1q, w1scale, b1, w2q, w2scale, b2,
         stream = torch.cuda.current_stream(idx).cuda_stream
         cuda_build.check(lib.hyt_mlp_block1(
             x2.data_ptr(), int(x2.dtype == torch.float32), g.data_ptr(), b.data_ptr(),
-            w1.data_ptr(), ws1.data_ptr(), bs1.data_ptr(), w2.data_ptr(), ws2.data_ptr(),
-            bs2.data_ptr(), s1.data_ptr(), s2.data_ptr(), int(gelu == "gelu_poly"),
-            x2.shape[0], K, H, out.data_ptr(), stream), f"{what}: mlp_block1_kernel")
+            ctypes.addressof(w1map), ws1.data_ptr(), bs1.data_ptr(), ctypes.addressof(w2map),
+            ws2.data_ptr(), bs2.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+            int(gelu == "gelu_poly"), x2.shape[0], K, H, mlp1_cluster(K), out.data_ptr(),
+            stream), f"{what}: mlp_block1_kernel")
     fused_int8_mlp_block1.launches += 1
     return out.reshape(tok.shape)
 

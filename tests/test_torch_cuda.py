@@ -607,13 +607,20 @@ def test_k6_matches_plain(dev, B, N, K, h, dtype):
     attn_block_int8.check_against_plain(steps, tok, *args)
 
 
-@pytest.mark.parametrize("M,K", [(3072, 1280), (384, 256), (40, 128), (24, 64)],
-                         ids=["vith", "k256", "k128_ragged_rows", "tiny"])
+# ViT-H's rows at B = 4; K = 256 (a cluster of 2), 128 and 64 (one CTA);
+# ragged rows (1, 17, 3 x 577) at ViT-H's width; K = 80 and 144, multiples
+# of 16 but not of the 160 columns a CTA takes.
+K10_CASES = {"vith": (3072, 1280), "k256": (384, 256), "k128_ragged_rows": (40, 128),
+             "tiny": (24, 64), "m1": (1, 1280), "m17": (17, 1280), "m1731": (1731, 1280),
+             "k80": (40, 80), "k144": (40, 144)}
+
+
+@pytest.mark.parametrize("M,K", list(K10_CASES.values()), ids=list(K10_CASES))
 @pytest.mark.parametrize("gelu", ["gelu", "gelu_poly"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_k10_equals_k4_bit_for_bit(dev, M, K, gelu, dtype):
     rng = np.random.default_rng(M + 1)
-    tok = torch.from_numpy(rng.normal(size=(M // 8, 8, K)).astype(np.float32)).to(dev).to(dtype)
+    tok = torch.from_numpy(rng.normal(size=(M, 1, K)).astype(np.float32)).to(dev).to(dtype)
     q1, s1, b1 = _qlinear(rng, dev, K, 4 * K)
     q2, s2, b2 = _qlinear(rng, dev, 4 * K, K, scale=0.02)
     args = (q1, s1, b1, q2, s2, b2, _vec(rng, dev, K, 1.0), _vec(rng, dev, K),
@@ -627,16 +634,42 @@ def test_k10_equals_k4_bit_for_bit(dev, M, K, gelu, dtype):
     check_against_plain(got, fused_int8_mlp_block1_ref(tok, *args, gelu=gelu), "K10")
 
 
-def test_k10_ragged_h_chunk(dev):
-    """H = 208 is not a multiple of the kernel's chunk of 128 columns."""
+# H not a multiple of the kernel's chunk (64 columns a CTA): one CTA, two,
+# three (an odd cluster: its chunk ends inside a 128-byte block) and eight.
+@pytest.mark.parametrize("K,H", [(64, 208), (256, 400), (480, 720), (1280, 1296)],
+                         ids=["c1", "c2", "c3", "c8"])
+@pytest.mark.parametrize("gelu", ["gelu", "gelu_poly"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_k10_ragged_h_chunk(dev, K, H, gelu, dtype):
+    assert H % (im.MLP1_FC1_COLS * im.mlp1_cluster(K))
     rng = np.random.default_rng(5)
-    K, H = 64, 208
-    tok = torch.from_numpy(rng.normal(size=(3, 10, K)).astype(np.float32)).to(dev)
+    tok = torch.from_numpy(rng.normal(size=(3, 70, K)).astype(np.float32)).to(dev).to(dtype)
     q1, s1, b1 = _qlinear(rng, dev, K, H)
     q2, s2, b2 = _qlinear(rng, dev, H, K, scale=0.02)
     args = (q1, s1, b1, q2, s2, b2, _vec(rng, dev, K, 1.0), _vec(rng, dev, K),
             torch.tensor(0.034, device=dev), torch.tensor(0.021, device=dev))
-    assert torch.equal(fused_int8_mlp_block1(tok, *args), fused_int8_mlp_block(tok, *args))
+    assert torch.equal(fused_int8_mlp_block1(tok, *args, gelu=gelu),
+                       fused_int8_mlp_block(tok, *args, gelu=gelu))
+
+
+def test_k10_makes_kmajor_copies_once(dev):
+    """K10 reads both weights through their K-major copies (those of K4's
+    GEMMs): the first call makes them, later calls none."""
+    rng = np.random.default_rng(9)
+    K, H = 256, 1024
+    tok = torch.from_numpy(rng.normal(size=(4, 50, K)).astype(np.float32)).to(dev).bfloat16()
+    q1, s1, b1 = _qlinear(rng, dev, K, H)
+    q2, s2, b2 = _qlinear(rng, dev, H, K, scale=0.02)
+    args = (q1, s1, b1, q2, s2, b2, _vec(rng, dev, K, 1.0), _vec(rng, dev, K),
+            torch.tensor(0.034, device=dev), torch.tensor(0.021, device=dev))
+    before = im.kmajor_weight.transposes
+    first = fused_int8_mlp_block1(tok, *args)
+    assert im.kmajor_weight.transposes == before + 2
+    again = fused_int8_mlp_block1(tok, *args)
+    fused_int8_mlp_block(tok, *args)  # K4's GEMMs take the same copies
+    torch.cuda.synchronize()
+    assert im.kmajor_weight.transposes == before + 2
+    assert torch.equal(first, again)
 
 
 def _mano_inputs(rng, dev, S, nb=10):
@@ -644,24 +677,39 @@ def _mano_inputs(rng, dev, S, nb=10):
     from hamer_yolo_tpu_torch.geometry.rotations import aa_to_rotmat
     from hamer_yolo_tpu_torch.models.mano import ManoModel
 
-    model = ManoModel.from_arrays(synthetic_mano_model(0), dev)
+    data = synthetic_mano_model(0)
+    if nb > data["shapedirs"].shape[-1]:  # a wider shape space than MANO's 10
+        data["shapedirs"] = rng.normal(scale=1e-3, size=(778, 3, nb)).astype(np.float32)
+    model = ManoModel.from_arrays(data, dev)
     betas = torch.from_numpy(rng.normal(size=(S, nb)).astype(np.float32)).to(dev)
     aa = torch.from_numpy((0.5 * rng.normal(size=(S * 16, 3))).astype(np.float32)).to(dev)
     return model, betas, aa_to_rotmat(aa).reshape(S, 16, 3, 3)
 
 
-@pytest.mark.parametrize("S,nb", [(16, 10), (1, 10), (5, 4)], ids=["s16", "s1", "nb4"])
+@pytest.mark.parametrize("S,nb", [(16, 10), (1, 10), (5, 4), (64, 10), (16, 64), (1, 64)],
+                         ids=["s16", "s1", "nb4", "s64", "s16_nb64", "s1_nb64"])
 def test_k9_matches_plain(dev, S, nb):
     from hamer_yolo_tpu_torch.models.mano import lbs
 
     model, betas, rotmats = _mano_inputs(np.random.default_rng(S), dev, S, nb)
-    before = mano_lbs_fused.launches
-    verts, joints = mano_lbs_fused(model, betas, rotmats)
-    torch.cuda.synchronize()
-    assert mano_lbs_fused.launches == before + 1
+    mano_lbs_fused(model, betas, rotmats)  # makes the model's constants
+    made = mano_lbs.fk_constants.made
+    for _ in range(3):  # now and then the profiler records no device activity at all
+        before = mano_lbs_fused.launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            verts, joints = mano_lbs_fused(model, betas, rotmats)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert mano_lbs_fused.launches == before + 1
+        if kernels:
+            break
+    assert mano_lbs.fk_constants.made == made
+    assert len(kernels) == 1 and "mano_lbs_kernel" in kernels[0], kernels
     ref_v, ref_j = mano_lbs_fused_ref(model, betas, rotmats)
-    assert verts.shape == (S, 778, 3) and torch.equal(joints, ref_j)
+    assert verts.shape == (S, 778, 3) and joints.shape == (S, 16, 3)
     mano_lbs.check_against_plain(verts, ref_v)
+    mano_lbs.check_against_plain(joints, ref_j, "K9's joints")
     lbs_v, lbs_j = lbs(model, betas, rotmats)
     torch.testing.assert_close(verts, lbs_v, rtol=0, atol=1e-5)
     torch.testing.assert_close(joints, lbs_j, rtol=0, atol=1e-5)

@@ -69,6 +69,25 @@ class TestK9:
         np.testing.assert_allclose(verts.numpy(), np.asarray(ref_v), rtol=0, atol=1e-5)
         np.testing.assert_allclose(joints.numpy(), np.asarray(ref_j), rtol=0, atol=1e-5)
 
+    @pytest.mark.parametrize("nb", [10, 4])
+    def test_fk_ref_matches_jax_fk(self, nb):
+        """The plain kinematics in the kernel's order (the cached per-model
+        constants, the chain one depth level at a time) against the JAX
+        package's _fk: f32 sums in another order on joints of about 0.1 m."""
+        from hamer_yolo_tpu.ops.mano_pallas import _fk as jax_fk
+
+        jm, tm = mano_pair()
+        betas, rotmats = _mano_inputs(7, nb, seed=3)
+        ref_a, ref_j = jax_fk(jm, jnp.asarray(betas), jnp.asarray(rotmats))
+        made = mano_lbs.fk_constants.made
+        A_flat, joints = mano_lbs.fk_ref(tm, _t(betas), _t(rotmats))
+        mano_lbs.fk_ref(tm, _t(betas), _t(rotmats))
+        assert mano_lbs.fk_constants.made <= made + 1  # once per model and nb
+        assert mano_lbs.fk_levels(tm.parents) == ((1, 4, 7, 10, 13), (2, 5, 8, 11, 14),
+                                                  (3, 6, 9, 12, 15))
+        np.testing.assert_allclose(joints.numpy(), np.asarray(ref_j), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(A_flat.numpy(), np.asarray(ref_a), rtol=0, atol=1e-6)
+
     def test_plain_version_matches_lbs(self):
         _, tm = mano_pair()
         betas, rotmats = _mano_inputs(6, 10, seed=1)
@@ -174,7 +193,10 @@ class TestK10:
         # the JAX package's limit for K4 (test_int8_fused.py), as K4's test here
         np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
-    @pytest.mark.parametrize("hc", [128, 256, 512, 200], ids=["hc128", "hc256", "hcH", "hc200_to_H"])
+    # hc64 is the card kernel's chunk at this K (one CTA of 64 columns), hcH
+    # its chunk at ViT-H's K (8 CTAs)
+    @pytest.mark.parametrize("hc", [128, 256, 512, 200, 64],
+                             ids=["hc128", "hc256", "hcH", "hc200_to_H", "hc64"])
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_plain_version_equals_k4s(self, hc, dtype):
         """int32 partial sums: whatever the chunk, K10 is K4 bit for bit
@@ -187,6 +209,19 @@ class TestK10:
         assert torch.equal(got, fused_int8_mlp_block_ref(tok, *args, gelu="gelu_poly"))
 
 
+    def test_cluster_plan_covers_every_width(self):
+        """Every K the kernel takes (multiples of 16 up to 1280) gets a cluster
+        of at most 8 CTAs, none idle, whose 160 columns each cover K; wider K
+        raises."""
+        for K in range(16, im.MLP1_MAX_K + 1, 16):
+            c = im.mlp1_cluster(K)
+            assert 1 <= c <= im.MLP1_MAX_CLUSTER
+            assert (c - 1) * im.MLP1_COLS_PER_CTA < K <= c * im.MLP1_COLS_PER_CTA
+        assert im.mlp1_cluster(1280) == 8
+        with pytest.raises(ValueError, match="at most 1280"):
+            im.mlp1_cluster(1296)
+
+
 class TestLimits:
     """The limits the card holds K9 and K6 to against their plain versions
     pass a version that takes its sums in another order and fail one that
@@ -197,7 +232,7 @@ class TestLimits:
         _, tm = mano_pair()
         betas, rotmats = (_t(a) for a in _mano_inputs(16, 10, seed=2))
         ref, _ = mano_lbs_fused_ref(tm, betas, rotmats)
-        sd, pd, pf, A, _ = mano_lbs._kernel_inputs(tm, betas, rotmats)
+        sd, pd, pf, A, _ = mano_lbs._plain_inputs(tm, betas, rotmats)
         if fault == "no_translation":
             A = torch.cat([A[..., :9], torch.zeros_like(A[..., 9:])], dim=-1)
         got = mano_lbs.blend_skin_ref(*(t.double() for t in (
