@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Device time of a checkout's int8 GEMM launch at ViT-H's four GEMM shapes,
-or, with --k2, of its kernel K2, or, with --k10, of its kernel K10.
+or, with --k2, of its kernel K2, with --k10, of its kernel K10, or, with
+--k1, of its kernel K1.
 
-    python3 chip_gemm.py [--k2 | --k10] [--root DIR | --variant VARIANT] [--ptxas]
+    python3 chip_gemm.py [--k1 | --k2 | --k10] [--root DIR | --variant VARIANT] [--ptxas]
 
 Imports hamer_yolo_tpu_torch from DIR (default: this script's checkout) and
 times its ``ops/int8_matmul.int8_gemm`` with chip_smoke.int8_gemm_alone
@@ -47,9 +48,21 @@ dequant + residual; ``trace`` prints, instead of times, the SM clock at each
 step of the first CTA of one launch at each M, and every CTA's span
 (k10_trace).
 
+``--k1`` times K1 (chip_smoke.k1_alone) at (4, 512) and (16, 512) on the
+detector's candidates (YOLOv7 at full width, chip_smoke's seed and frames)
+and on its worst case, by CUDA graph replay, with the launch floor where the
+package has it and one call with host work, without the check; its
+variants (csrc/nms.cu, macro HYT_NMS_DIAG): ``tail``, the design that
+lost (no cluster, the rows through a workspace in device memory, the scan
+in the CTA that completes a per-image count); ``noscan`` leaves out the
+scan, ``nobuild`` the rows and the scan, ``norows`` the stores of the rows
+(not the diagonal words), ``noiou`` the IoU arithmetic; ``trace`` prints,
+instead of times, the SM clock at each step of the first CTA of one launch
+(k1_trace).
+
 The last line of stdout is a JSON object: {"root", "variant", "device",
 "ms": {"<gemm> M <rows>": {...}}, "host_us": {...}} (with --k2 or --k10:
-"ms": {"<what> M <rows>": ms}).
+"ms": {"<what> M <rows>": ms}; with --k1: "ms": {"<what> B <frames>": ms}).
 """
 import argparse
 import json
@@ -60,9 +73,15 @@ import sys
 import chip_smoke  # this checkout's phase; the package comes from --root
 
 # the value of the source's diagnostic macro
-VARIANTS = {"noepi": 1, "noload": 2, "noexchange": 3, "noln": 4, "trace": 5, "nofc1": 6, "nofc2": 7, "nofinal": 8}
+VARIANTS = {"noepi": 1, "noload": 2, "noexchange": 3, "noln": 4, "trace": 5, "nofc1": 6, "nofc2": 7,
+            "nofinal": 8, "tail": 1, "noscan": 2, "nobuild": 3, "norows": 6,
+            "noiou": 7}
+VARIANTS_OF = {"gemm": ("noepi", "noload"), "k2": ("noepi", "noload"),
+               "k1": ("tail", "noscan", "nobuild", "trace", "norows", "noiou"),
+               "k10": ("noepi", "noload", "noexchange", "noln", "trace", "nofc1", "nofc2",
+                       "nofinal")}
 SOURCES = {"gemm": ("int8_gemm.cu", "HYT_GEMM_DIAG"), "k2": ("attn_block.cu", "HYT_K2_DIAG"),
-           "k10": ("int8_gemm.cu", "HYT_K10_DIAG")}
+           "k10": ("int8_gemm.cu", "HYT_K10_DIAG"), "k1": ("nms.cu", "HYT_NMS_DIAG")}
 
 
 def build_source(source, flags, ptxas: bool) -> None:
@@ -146,6 +165,52 @@ def k10_trace(dev, M=3072, K=1280, H=5120) -> None:
                       f"{int(span[w, 1].max())}" for k, w in enumerate(waves)))
 
 
+def k1_candidates(dev):
+    """The detector's K1 input at B = 4 and 16 (chip_smoke.detector_candidates):
+    YOLOv7 at full width with chip_smoke's seed (the detector's weights are
+    drawn first, as init_pipeline_params draws them); and the threshold."""
+    import torch
+
+    from hamer_yolo_tpu_torch.cli.main import pipeline_config
+    from hamer_yolo_tpu_torch.models.yolov7.model import init_yolov7
+
+    cfg = pipeline_config(tiny=False)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(chip_smoke.SEED)
+    yolo = init_yolov7(gen, cfg.yolo)
+    return {B: chip_smoke.detector_candidates(yolo, cfg, dev, B)
+            for B in chip_smoke.K1_BATCHES}, cfg.iou_thres
+
+
+def k1_trace(dev) -> None:
+    """One launch of the HYT_NMS_DIAG=5 build at (4, 512) on the detector's
+    candidates and on the worst case: the first CTA of the first image
+    writes the SM clock at each step into its keep mask's first words
+    (cycles from its start: 1 boxes and active bits staged, 2 the first
+    cluster barrier passed, every CTA running, 3 and 4 the last and the
+    first warp done with its rows, 5 the CTA's rows done, 6 the second
+    cluster barrier passed, 7 the scan done, 8 the keep mask written), then
+    the words the scan took, the rounds of its fixed points and the SM of
+    each CTA of the cluster."""
+    import torch
+
+    from hamer_yolo_tpu_torch.ops.nms import greedy_nms_keep
+
+    cands, thr = k1_candidates(dev)
+    c = cands[4]
+    cases = {"detector": (c.shifted.contiguous(), c.active.to(torch.float32)),
+             "worst_case": chip_smoke.disjoint_boxes(4, c.shifted.shape[1], dev)}
+    names = ["staged", "first barrier", "rows, last warp", "rows, first warp", "rows",
+             "barrier", "scan", "written"]
+    for what, (bx, act) in cases.items():
+        for _ in range(3):  # the last of three launches, warm
+            keep = greedy_nms_keep(bx, act, thr)
+        t = keep[0, :27].contiguous().view(torch.int32).cpu().tolist()
+        print(f"K1 trace {what} (4, {bx.shape[1]}), first CTA, SM cycles from its start: "
+              + ", ".join(f"{n} {v}" for n, v in zip(names, t[1:9]))
+              + f"; scan: {t[9]} words, {t[10]} rounds; the cluster's SMs {t[11:27]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
@@ -154,10 +219,11 @@ def main() -> int:
     which = ap.add_mutually_exclusive_group()
     which.add_argument("--k2", action="store_true", help="time K2 (csrc/attn_block.cu)")
     which.add_argument("--k10", action="store_true", help="time K10 beside K4")
+    which.add_argument("--k1", action="store_true", help="time K1 (csrc/nms.cu)")
     args = ap.parse_args()
-    kind = "k2" if args.k2 else "k10" if args.k10 else "gemm"
-    if args.variant not in (None, "noepi", "noload") and kind != "k10":
-        raise ValueError(f"--variant {args.variant} applies to --k10 only")
+    kind = "k1" if args.k1 else "k2" if args.k2 else "k10" if args.k10 else "gemm"
+    if args.variant and args.variant not in VARIANTS_OF[kind]:
+        raise ValueError(f"--variant {args.variant} does not apply to {kind}")
     import torch
 
     if not torch.cuda.is_available():
@@ -179,9 +245,18 @@ def main() -> int:
         build_source(source, flags, args.ptxas)
     print(f"package {root}, {source}, variant {args.variant}", flush=True)
     dev = torch.device("cuda:0")
-    if args.variant == "trace":
+    if args.variant == "trace" and kind == "k10":
         for M in chip_smoke.K10_ROWS:
             k10_trace(dev, M)
+        return 0
+    if kind == "k1" and args.variant == "trace":
+        k1_trace(dev)
+        return 0
+    if kind == "k1":
+        times = chip_smoke.k1_alone(*k1_candidates(dev))
+        print(json.dumps({"root": root, "variant": args.variant,
+                          "device": torch.cuda.get_device_name(0),
+                          "ms": {f"{what} B {b}": t for (what, b), t in times.items()}}))
         return 0
     if kind != "gemm":
         times = (chip_smoke.k2_alone if args.k2 else chip_smoke.k10_alone)(dev, check=False)

@@ -34,7 +34,11 @@ rows (M = 768, 3072, 12288), beside the library composition
 F.layer_norm + torch.addmm (+ scaled_dot_product_attention for all of K2),
 timed for reference only. A phase "K10 alone" holds K10 to K4 bit for bit
 at ViT-H's MLP for those rows (both GELUs, bf16 and f32 tokens) and times
-both by CUDA graph replay, with TOP/s and the share of K10's bound. K9 must
+both by CUDA graph replay, with TOP/s and the share of K10's bound. K1 is
+held to its plain version on random, on-threshold and ragged boxes, K = 1024
+and 2048, its worst case, all inactive, a negative threshold and the
+detector's candidates at B = 4 and 16, and timed by CUDA graph replay at
+(4, 512) and (16, 512) beside the launch floor of an empty kernel. K9 must
 make exactly one device launch a call. The bf16 path fails if a ViT forward
 after the first casts a weight to bf16.
 
@@ -109,6 +113,8 @@ GEMM_ROWS = (3072, 12288)
 K2_ROWS = (768, 3072, 12288)
 # K10's rows: the same 1, 4 and 16 frames, on path A
 K10_ROWS = K2_ROWS
+# K1's frame batches: the main path's and 16
+K1_BATCHES = (4, 16)
 SEED = 0
 N_FRAMES = 3          # frames through the runner (FrameProgram)
 BATCH = 4             # frames in the infer_frames batch
@@ -240,12 +246,10 @@ def main() -> int:
     from hamer_yolo_tpu_torch.models.hamer import hamer_forward
     from hamer_yolo_tpu_torch.models.mano import ManoModel
     from hamer_yolo_tpu_torch.models.vit import embed_tokens
-    from hamer_yolo_tpu_torch.models.yolov7.model import yolov7_forward
     from hamer_yolo_tpu_torch.ops import cuda_build
     from hamer_yolo_tpu_torch.ops.int8_matmul import kmajor_weight
-    from hamer_yolo_tpu_torch.ops.nms import nms_candidates
     from hamer_yolo_tpu_torch.pipeline.frame import detect_hands_batched, infer_frames
-    from hamer_yolo_tpu_torch.pipeline.preprocess import device_letterbox, hamer_crop
+    from hamer_yolo_tpu_torch.pipeline.preprocess import hamer_crop
     from hamer_yolo_tpu_torch.pipeline.runner import FrameProgram, default_intrinsics, process_frames
     from hamer_yolo_tpu_torch.tools.calibrate_int8 import calibrate_frames
 
@@ -365,11 +369,8 @@ def main() -> int:
             raise RuntimeError(f"int8 {name} departs from the default int8 {base} path")
 
     # -- the main path's own kernel inputs -----------------------------------
+    cands = {B: detector_candidates(params["yolo"], cfg, dev, B) for B in K1_BATCHES}
     with torch.inference_mode():
-        lb, _, _ = device_letterbox(imgs, hws, cfg.det_size)
-        pred = yolov7_forward(params["yolo"], lb.flip(-1) / 255.0, cfg.yolo)
-        cand = nms_candidates(pred, cfg.conf_thres, cfg.classes, cfg.agnostic_nms,
-                              cfg.max_nms_static)
         dets = detect_hands_batched(params["yolo"], imgs, hws, cfg)
         center, size = hamer_box_params(dets["boxes"])
         crops = hamer_crop(imgs, center, size, 1.0 - dets["is_right"], cfg.crop_size)
@@ -377,7 +378,7 @@ def main() -> int:
         m = cfg.hamer.crop_margin
         tok0 = embed_tokens(params["hamer"]["backbone"], crops[:, :, m:-m, :], cfg.hamer.vit)
     record = {}
-    record["K1"] = check_k1(cand, cfg)
+    record["K1"] = check_k1(cands, cfg)
     record["K2"] = check_k2(params["hamer"]["backbone"]["blocks"][0], tok0, cfg.hamer.vit.num_heads)
     sblk = sparams["hamer"]["backbone"]["blocks"][0]
     record.update(check_int8_kernels(sblk, tok0, cfg.hamer.vit.num_heads))
@@ -438,57 +439,177 @@ def check_batch(out, cfg, what):
         raise RuntimeError(f"{what}: no valid hand slot")
 
 
-def check_k1(cand, cfg):
-    """K1 against its plain version on random, on-threshold, ragged and the
-    detector's own candidates; timings at the detector's shape."""
+def detector_candidates(yolo, cfg, dev, B):
+    """The detector's K1 input on B numpy-made 720p frames (the frames of
+    the main path's batch first): ``nms_candidates`` of YOLOv7's output."""
+    import torch
+
+    from hamer_yolo_tpu_torch.models.yolov7.model import yolov7_forward
+    from hamer_yolo_tpu_torch.ops.nms import nms_candidates
+    from hamer_yolo_tpu_torch.pipeline.preprocess import device_letterbox
+
+    imgs = torch.from_numpy(np.stack(frames_720p(B, SEED))).to(dev).to(torch.float32)
+    hws = torch.tensor([[720.0, 1280.0]] * B, device=dev)
+    with torch.inference_mode():
+        lb, _, _ = device_letterbox(imgs, hws, cfg.det_size)
+        pred = yolov7_forward(yolo, lb.flip(-1) / 255.0, cfg.yolo)
+        return nms_candidates(pred, cfg.conf_thres, cfg.classes, cfg.agnostic_nms,
+                              cfg.max_nms_static)
+
+
+def disjoint_boxes(B, K, dev):
+    """K1's worst case: B images of K active boxes that do not touch (all
+    kept, none suppressed, every IoU computed)."""
+    import torch
+
+    x = torch.arange(K, dtype=torch.float32, device=dev) * 50
+    boxes = torch.stack([x, x * 0, x + 40, x * 0 + 40], -1).expand(B, K, 4).contiguous()
+    return boxes, torch.ones((B, K), device=dev)
+
+
+def k1_bound(active):
+    """K1's bound on these inputs: (ms, by). Boxes, active and keep (f32)
+    each read or written once; an IoU (about 12 f32 operations) for each pair
+    of active candidates of an image, the pairs the keep set depends on."""
+    B, K = active.shape
+    n = (active > 0.5).sum(-1).double()
+    return bound(B * K * (16 + 4 + 4), {"f32": 12 * float((n * (n - 1) / 2).sum())})
+
+
+def check_k1(cands, cfg):
+    """K1 against its plain version, both entries (f32 masks and the bool
+    masks of non_max_suppression), on random, on-threshold and ragged boxes,
+    K = 1024 and 2048, the worst case (all active, none suppressed), all
+    inactive, a negative threshold, and the detector's own candidates at
+    B = 4 and 16; then k1_alone's timings."""
     import torch
 
     from hamer_yolo_tpu_torch.geometry.boxes import box_iou
-    from hamer_yolo_tpu_torch.ops.nms import greedy_nms_keep, greedy_nms_keep_ref
+    from hamer_yolo_tpu_torch.ops.nms import (greedy_nms_keep, greedy_nms_keep_mask,
+                                              greedy_nms_keep_ref)
 
-    dev = cand.shifted.device
+    dev = cands[4].shifted.device
     rng = np.random.default_rng(SEED)
+
+    def random_case(B, K):
+        boxes = np.zeros((B, K, 4), np.float32)
+        boxes[..., :2] = rng.uniform(0, 600, (B, K, 2))
+        boxes[..., 2:] = boxes[..., :2] + rng.uniform(10, 120, (B, K, 2))
+        act = (rng.uniform(0, 1, (B, K)) > 0.2).astype(np.float32)
+        return torch.from_numpy(boxes).to(dev), torch.from_numpy(act).to(dev), 0.45
+
     B1, K1n = 4, 512
-    boxes = np.zeros((B1, K1n, 4), np.float32)
-    boxes[..., :2] = rng.uniform(0, 600, (B1, K1n, 2))
-    boxes[..., 2:] = boxes[..., :2] + rng.uniform(10, 120, (B1, K1n, 2))
     base = rng.uniform(0, 500, (B1, K1n // 4, 1, 2)).astype(np.float32)
     shift = rng.choice(np.float32([0.0, 0.25, 0.5, 0.75]), (B1, K1n // 4, 4, 2))
     xy1 = (base + shift).reshape(B1, K1n, 2)
     near = np.concatenate([xy1, xy1 + np.float32(40.0)], axis=-1).astype(np.float32)
     near_t = torch.from_numpy(near).to(dev)
     thr_near = float(box_iou(near_t[0, :1], near_t[0, 1:2])[0, 0])  # pairs sit on the threshold
+    rand = random_case(B1, K1n)
     cases = {
-        "random": (torch.from_numpy(boxes).to(dev),
-                   torch.from_numpy((rng.uniform(0, 1, (B1, K1n)) > 0.2).astype(np.float32)).to(dev),
-                   0.45),
+        "random": rand,
         "at_threshold": (near_t, torch.ones((B1, K1n), device=dev), thr_near),
-        "ragged_252": (torch.from_numpy(boxes[:, :252].copy()).to(dev),
-                       torch.ones((B1, 252), device=dev), 0.45),
-        "detector": (cand.shifted.contiguous(), cand.active.to(torch.float32), cfg.iou_thres),
+        "ragged_252": (rand[0][:, :252].contiguous(), torch.ones((B1, 252), device=dev), 0.45),
+        "random_K1024": random_case(B1, 1024),
+        "random_K2048": random_case(B1, 2048),
+        "worst_case": (*disjoint_boxes(B1, K1n, dev), 0.45),
+        "all_inactive": (rand[0], torch.zeros((B1, K1n), device=dev), 0.45),
+        "negative_thr": (rand[0], rand[1], -0.1),
+        **{f"detector_B{B}": (c.shifted.contiguous(), c.active.to(torch.float32), cfg.iou_thres)
+           for B, c in cands.items()},
     }
     err = 0.0
     for name, (bx, act, thr) in cases.items():
         got = greedy_nms_keep(bx, act, thr)
+        got_mask = greedy_nms_keep_mask(bx, act > 0.5, thr)
         torch.cuda.synchronize()
         ref = greedy_nms_keep_ref(bx, act, thr)
         err = max(err, float((got - ref).abs().max()))
-        if not torch.equal(got, ref):
+        if not torch.equal(got, ref) or not torch.equal(got_mask, ref > 0.5):
             raise RuntimeError(f"K1 keep set differs from its twin on {name}: "
-                               f"{int((got != ref).sum())} candidates")
-        print(f"K1 {name}: B {bx.shape[0]} K {bx.shape[1]} keep sets identical "
-              f"({int(got.sum())} kept of {int(act.sum())} active)")
-    bx, act, thr = cases["detector"]
+                               f"{int((got != ref).sum())} candidates (f32 entry), "
+                               f"{int((got_mask != (ref > 0.5)).sum())} (bool entry)")
+        on = act > 0.5
+        later = torch.ones(on.shape[1:] * 2, dtype=torch.bool, device=dev).triu(1)
+        rows = ((box_iou(bx, bx) > thr) & later & on[:, None, :]).any(-1) & on
+        print(f"K1 {name}: B {bx.shape[0]} K {bx.shape[1]} keep sets identical, both entries "
+              f"({int(got.sum())} kept of {int(act.sum())} active; {int((rows & (got > 0.5)).sum())}"
+              f" kept with a row to apply, in {int(_words_with(rows & (got > 0.5)))} words of 32)")
+    times = k1_alone(cands, cfg.iou_thres)
+    bx, act, thr = cases["detector_B4"]
     ms = cuda_time_ms(lambda: greedy_nms_keep(bx, act, thr))
     plain_ms = cuda_time_ms(lambda: greedy_nms_keep_ref(bx, act, thr), iters=3)
-    B, Kn = act.shape
-    # boxes and mask in, keep mask out; an IoU (about 12 f32 operations) for
-    # every candidate pair
-    bound_ms, by = bound(B * Kn * (16 + 4 + 4), {"f32": 12 * B * Kn * Kn})
-    print(f"K1 timing at the main path's shape {tuple(bx.shape)}: kernel {ms:.4f} ms, twin "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}); no PyTorch call computes it")
+    bound_ms, by = k1_bound(act)
+    print(f"K1 one call with host work at the main path's shape {tuple(bx.shape)}: {ms:.4f} ms "
+          f"(device {times[('detector', 4)]:.4f} ms), twin {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.7f} ms ({by}: {int(act.sum())} active); no PyTorch call computes it")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "library_ms": None}
+
+
+def _words_with(mask):
+    """How many words of 32 candidates (B, K) have a set bit."""
+    B, K = mask.shape
+    pad = -K % 32
+    import torch
+
+    return torch.nn.functional.pad(mask, (0, pad)).reshape(B, -1, 32).any(-1).sum()
+
+
+def host_times_us(fn, calls=200, rounds=7):
+    """Host time of one call of fn in each of ``rounds`` rounds of ``calls``
+    calls back to back on the host clock, the launches queueing on the card
+    (a sync only between rounds)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return times
+
+
+def k1_alone(cands, thr):
+    """K1's device time by CUDA graph replay at (B, 512), B = 4 and 16, on
+    the detector's candidates and on the worst case (disjoint_boxes); the
+    launch floor (an empty kernel launched as K1 is, and as K1 was before
+    its redesign: one CTA of 256 threads per image), where the package has
+    it; one call with host work (CUDA events); and the wrapper's host time
+    a call (host_times_us, the median). No check: another commit's package may be the
+    one imported (chip_gemm.py --k1 --root). Returns {(what, B): ms}."""
+    import torch
+
+    from hamer_yolo_tpu_torch.ops import cuda_build
+    from hamer_yolo_tpu_torch.ops.nms import greedy_nms_keep
+
+    lib = cuda_build.load("nms.cu")
+    times = {}
+    for B, c in cands.items():
+        dev = c.shifted.device
+        K = c.shifted.shape[1]
+        inputs = {"detector": (c.shifted.contiguous(), c.active.to(torch.float32)),
+                  "worst_case": disjoint_boxes(B, K, dev)}
+        for what, (bx, act) in inputs.items():
+            times[(what, B)] = graph_time_ms(lambda: greedy_nms_keep(bx, act, thr))
+            times[(f"{what} with host work", B)] = cuda_time_ms(
+                lambda: greedy_nms_keep(bx, act, thr))
+        times[("host time a call", B)] = float(np.median(host_times_us(
+            lambda: greedy_nms_keep(*inputs["detector"], thr)))) / 1e3
+        if hasattr(lib, "hyt_nms_floor"):
+            stream = torch.cuda.current_stream().cuda_stream
+            for what, parent in (("floor", 0), ("floor, parent's grid", 1)):
+                cuda_build.check(lib.hyt_nms_floor(B, K, parent, stream), "nms_floor_kernel")
+                times[(what, B)] = graph_time_ms(lambda: lib.hyt_nms_floor(
+                    B, K, parent, torch.cuda.current_stream().cuda_stream))
+        print(f"K1 at ({B}, {K}), device time by CUDA graph replay: "
+              + ", ".join(f"{w} {t:.4f} ms" for (w, b), t in times.items() if b == B),
+              flush=True)
+    return times
 
 
 def check_k2(blk0, tok0, heads):
@@ -1000,15 +1121,7 @@ def wrapper_host_us(dev, calls=200, rounds=7):
            "int8_gemm": lambda: im.int8_gemm(a, w, im.EPI_PROJ, out, ws, bias, s=s, res=res)}
     us = {}
     for name, fn in fns.items():
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(rounds):
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                fn()
-            times.append((time.perf_counter() - t0) / calls * 1e6)
-            torch.cuda.synchronize()
+        times = host_times_us(fn, calls, rounds)
         us[name] = float(np.median(times))
         print(f"host time a call of {name} at M {M} K {K} N {N}: {us[name]:.2f} us (median of "
               f"{rounds} x {calls} calls; spread {min(times):.2f}-{max(times):.2f}); device "

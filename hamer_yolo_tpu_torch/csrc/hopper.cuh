@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks shared by attn_block.cu, int8_gemm.cu and
-// short_attention.cu: mbarriers, TMA tile loads and stores and tensor maps,
-// named barriers, the wgmma fences, the 128-byte-swizzle shared-memory
-// descriptor, thread-block clusters (rank, cluster barrier, distributed
-// shared memory stores, asynchronous ones included, and mbarrier
-// arrivals), and the device's SM count.
+// Hopper (sm_90a) building blocks shared by attn_block.cu, int8_gemm.cu,
+// nms.cu and short_attention.cu: mbarriers, TMA tile loads and stores and
+// tensor maps, named barriers, the wgmma fences, the 128-byte-swizzle
+// shared-memory descriptor, thread-block clusters (rank, cluster barrier,
+// another CTA's shared memory as a generic pointer, distributed shared
+// memory stores, asynchronous ones included, and mbarrier arrivals), and the
+// device's SM count.
 // cuTensorMapEncodeTiled is looked up through the runtime
 // (cudaGetDriverEntryPoint), so the libraries link against nothing but the
 // CUDA runtime.
@@ -136,6 +137,14 @@ __device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
   uint32_t r;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
   return r;
+}
+
+// p, a variable in this CTA's shared memory, in the CTA of rank ``rank``:
+// a generic pointer whose plain loads, stores and atomics reach that CTA's
+// shared memory (distributed shared memory).
+template <typename T>
+__device__ __forceinline__ T* cluster_map(T* p, uint32_t rank) {
+  return static_cast<T*>(__cluster_map_shared_rank((void*)p, rank));
 }
 
 // 16 bytes to a shared::cluster address (any CTA of the cluster).

@@ -38,7 +38,8 @@ _EXTRA_FLAGS: Dict[str, List[str]] = {"nms.cu": ["--fmad=false"], "attn_block.cu
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signatures of every exported function, per source.
 _SIGNATURES = {
-    "nms.cu": {"hyt_nms_keep": [_P, _P, _F, _P, _I, _I, _P]},
+    "nms.cu": {"hyt_nms_keep": [_P, _P, _F, _P, _I, _I, _I, _P],
+               "hyt_nms_floor": [_I, _I, _I, _P]},
     "attn_block.cu": {
         "hyt_k2_weight_map": [_P, _I, _I, _P],
         "hyt_ln_qkv": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

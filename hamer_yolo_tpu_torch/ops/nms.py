@@ -20,7 +20,7 @@ from hamer_yolo_tpu_torch.geometry.boxes import box_iou, xywh2xyxy
 from hamer_yolo_tpu_torch.ops import cuda_build
 
 MAX_WH = 4096.0  # class-offset multiplier
-MAX_K = 512      # the kernel's shared-memory bitmask holds 512 x 512 bits
+MAX_K = 2048     # csrc/nms.cu: at most 16 CTAs of an image's cluster, 2 mask words a lane
 
 
 class NmsOutput(NamedTuple):
@@ -51,31 +51,51 @@ def greedy_nms_keep_ref(boxes: torch.Tensor, active: torch.Tensor,
 
 def greedy_nms_keep(boxes: torch.Tensor, active: torch.Tensor,
                     iou_thres: float) -> torch.Tensor:
-    """K1: keep mask (B, K) f32 of score-sorted candidates.
+    """K1: keep mask (B, K) f32 of score-sorted candidates, active (B, K) f32.
 
-    CPU tensors take the plain version; CUDA tensors launch ``csrc/nms.cu``
-    (one CTA per image) and raise on anything it does not take.
+    CPU tensors take the plain version; CUDA tensors make one launch of
+    ``csrc/nms.cu`` (a cluster of CTAs per image), f32 active, K up to
+    ``MAX_K``, and raise on anything the kernel does not take.
     """
     if boxes.device.type == "cpu":
         return greedy_nms_keep_ref(boxes, active, iou_thres)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"greedy_nms_keep: unsupported device {boxes.device}")
-    B, K, four = boxes.shape
-    if four != 4 or active.shape != (B, K) or boxes.dtype != torch.float32:
-        raise ValueError(f"greedy_nms_keep: boxes {tuple(boxes.shape)} {boxes.dtype}, "
-                         f"active {tuple(active.shape)}")
-    if active.device != boxes.device:
-        raise ValueError(f"greedy_nms_keep: active on {active.device}, boxes on {boxes.device}")
+    return _launch_keep(boxes, active, iou_thres, torch.float32)
+
+
+def greedy_nms_keep_mask(boxes: torch.Tensor, active: torch.Tensor,
+                         iou_thres: float) -> torch.Tensor:
+    """K1 on bool masks, non_max_suppression's entry: active (B, K) bool ->
+    keep (B, K) bool, with no cast around the launch. Counted in
+    ``greedy_nms_keep.launches``."""
+    if boxes.device.type == "cpu":
+        return greedy_nms_keep_ref(boxes, active, iou_thres) > 0.5
+    return _launch_keep(boxes, active, iou_thres, torch.bool)
+
+
+def _launch_keep(boxes: torch.Tensor, active: torch.Tensor, iou_thres: float,
+                 dtype: torch.dtype) -> torch.Tensor:
+    what = "greedy_nms_keep"
+    dev = boxes.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if active.device != dev:
+        raise ValueError(f"{what}: active on {active.device}, boxes on {dev}")
+    if (boxes.dim() != 3 or boxes.shape[-1] != 4 or boxes.dtype != torch.float32
+            or active.shape != boxes.shape[:2] or active.dtype != dtype):
+        raise ValueError(f"{what}: boxes {tuple(boxes.shape)} {boxes.dtype}, active "
+                         f"{tuple(active.shape)} {active.dtype}; the kernel takes f32 boxes "
+                         f"(B, K, 4) and {dtype} active (B, K)")
+    B, K, _ = boxes.shape
     if not 0 < K <= MAX_K:
-        raise ValueError(f"greedy_nms_keep: K={K} outside 1..{MAX_K}")
+        raise ValueError(f"{what}: K={K} outside 1..{MAX_K}, the kernel's limit")
+    boxes, active = boxes.contiguous(), active.contiguous()
+    keep = torch.empty((B, K), dtype=dtype, device=dev)
     lib = cuda_build.load("nms.cu")
-    boxes = cuda_build.aligned16(boxes)  # the kernel reads one float4 per box
-    active = active.to(torch.float32).contiguous()
-    keep = torch.empty((B, K), dtype=torch.float32, device=boxes.device)
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    idx = boxes.get_device()
+    with torch.cuda.device(idx):  # an index: less host work than a device
+        stream = torch.cuda.current_stream(idx).cuda_stream
         rc = lib.hyt_nms_keep(boxes.data_ptr(), active.data_ptr(), ctypes.c_float(iou_thres),
-                              keep.data_ptr(), B, K, stream)
+                              keep.data_ptr(), B, K, dtype == torch.bool, stream)
     cuda_build.check(rc, "nms_keep_kernel")
     greedy_nms_keep.launches += 1
     return keep
@@ -138,7 +158,7 @@ def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25,
     """prediction: (B, N, 5 + nc) decoded xywh + obj + class scores."""
     cand = nms_candidates(prediction, conf_thres, classes, agnostic, max_nms_static)
     B, K = cand.scores.shape
-    keep = greedy_nms_keep(cand.shifted, cand.active.to(torch.float32), iou_thres) > 0.5
+    keep = greedy_nms_keep_mask(cand.shifted, cand.active, iou_thres)
 
     keep_score = torch.where(keep, cand.scores, torch.full_like(cand.scores, -1.0))
     m = min(max_det, K)

@@ -26,7 +26,8 @@ from hamer_yolo_tpu_torch.ops.int8_matmul import (check_against_plain, fused_int
                                                   fused_int8_mlp_block1_ref,
                                                   fused_int8_mlp_block_ref)
 from hamer_yolo_tpu_torch.ops.mano_lbs import mano_lbs_fused, mano_lbs_fused_ref
-from hamer_yolo_tpu_torch.ops.nms import greedy_nms_keep, greedy_nms_keep_ref
+from hamer_yolo_tpu_torch.ops.nms import (MAX_K, greedy_nms_keep, greedy_nms_keep_mask,
+                                          greedy_nms_keep_ref, non_max_suppression)
 from hamer_yolo_tpu_torch.ops.short_attention import (fused_qkv_attention,
                                                       fused_qkv_attention_ref,
                                                       fused_short_attention,
@@ -54,18 +55,95 @@ def _boxes(rng, B, K, near=False):
     return boxes
 
 
-@pytest.mark.parametrize("K", [64, 252, 512])
+@pytest.mark.parametrize("B", [1, 4, 16])
+@pytest.mark.parametrize("K", [64, 252, 512, 1000, 1024, 2048])
 @pytest.mark.parametrize("near", [False, True], ids=["random", "at_threshold"])
-def test_nms_kernel_matches_twin(dev, K, near):
+def test_nms_kernel_matches_twin(dev, K, near, B):
     rng = np.random.default_rng(K)
-    boxes = torch.from_numpy(_boxes(rng, 4, K, near)).to(dev)
-    active = torch.from_numpy((rng.uniform(0, 1, (4, K)) > 0.2).astype(np.float32)).to(dev)
+    boxes = torch.from_numpy(_boxes(rng, B, K, near)).to(dev)
+    active = torch.from_numpy((rng.uniform(0, 1, (B, K)) > 0.2).astype(np.float32)).to(dev)
     thr = float(box_iou(boxes[0, :1], boxes[0, 1:2])[0, 0]) if near else 0.45
     before = greedy_nms_keep.launches
     got = greedy_nms_keep(boxes, active, thr)
     torch.cuda.synchronize()
     assert greedy_nms_keep.launches == before + 1
-    assert torch.equal(got, greedy_nms_keep_ref(boxes, active, thr))
+    ref = greedy_nms_keep_ref(boxes, active, thr)
+    assert torch.equal(got, ref)
+    assert torch.equal(greedy_nms_keep_mask(boxes, active > 0.5, thr), ref > 0.5)
+
+
+def _edge_case(rng, name, B, K):
+    """(boxes, active, thr) of one edge case of K1 (tests/test_torch_nms.py
+    holds the same cases against JAX on the CPU)."""
+    boxes = _boxes(rng, B, K)
+    active = (rng.uniform(0, 1, (B, K)) > 0.2).astype(np.float32)
+    thr = 0.45
+    if name == "all_inactive":
+        active[:] = 0
+    elif name == "all_active_disjoint":
+        x = np.arange(K, dtype=np.float32) * 50
+        boxes = np.broadcast_to(np.stack([x, x * 0, x + 40, x * 0 + 40], -1), (B, K, 4)).copy()
+        active[:] = 1
+    elif name == "identical":
+        boxes[:] = boxes[:, :1]
+        active[:, :3] = 0
+    elif name == "degenerate":  # x2 < x1 or y2 < y1: negative areas
+        flip = rng.uniform(0, 1, (B, K)) < 0.3
+        boxes[flip] = boxes[flip][:, [2, 1, 0, 3]]
+        flip = rng.uniform(0, 1, (B, K)) < 0.3
+        boxes[flip] = boxes[flip][:, [0, 3, 2, 1]]
+    elif name == "negative_thr":
+        thr = -0.1
+    elif name == "nan_thr":
+        thr = float("nan")
+    return boxes.astype(np.float32), active, thr
+
+
+@pytest.mark.parametrize("K", [96, 1000, 2048])
+@pytest.mark.parametrize("case", ["all_inactive", "all_active_disjoint", "identical",
+                                  "degenerate", "negative_thr", "nan_thr"])
+def test_nms_kernel_edge_cases(dev, case, K):
+    boxes, active, thr = _edge_case(np.random.default_rng(K), case, 3, K)
+    boxes, active = torch.from_numpy(boxes).to(dev), torch.from_numpy(active).to(dev)
+    got = greedy_nms_keep(boxes, active, thr)
+    torch.cuda.synchronize()
+    ref = greedy_nms_keep_ref(boxes, active, thr)
+    assert torch.equal(got, ref)
+    assert torch.equal(greedy_nms_keep_mask(boxes, active > 0.5, thr), ref > 0.5)
+    want = {"all_inactive": 0, "all_active_disjoint": 3 * K, "identical": 3, "negative_thr": 3,
+            "nan_thr": int(active.sum())}
+    if case in want:
+        assert int(got.sum()) == want[case]
+
+
+def test_nms_kernel_rejects_k_past_its_limit(dev):
+    boxes = torch.zeros((1, MAX_K + 1, 4), device=dev)
+    with pytest.raises(ValueError, match=f"outside 1..{MAX_K}"):
+        greedy_nms_keep(boxes, torch.ones((1, MAX_K + 1), device=dev), 0.5)
+    with pytest.raises(ValueError, match="bool active"):
+        greedy_nms_keep_mask(boxes[:, :8], torch.ones((1, 8), device=dev), 0.5)
+
+
+@pytest.mark.parametrize("max_nms_static", [512, 1024, MAX_K])
+def test_non_max_suppression_on_card_matches_cpu(dev, max_nms_static):
+    """Up to MAX_K candidates on the card (K1 took 512 before): the same
+    detections as the CPU twin."""
+    rng = np.random.default_rng(max_nms_static)
+    N, nc = max_nms_static + 300, 3
+    pred = np.zeros((2, N, 5 + nc), np.float32)
+    pred[..., :2] = rng.uniform(20, 600, (2, N, 2))
+    pred[..., 2:4] = rng.uniform(8, 120, (2, N, 2))
+    pred[..., 4:] = rng.uniform(0, 1, (2, N, 1 + nc))
+    kw = dict(conf_thres=0.25, iou_thres=0.45, agnostic=False, max_det=300,
+              max_nms_static=max_nms_static)
+    before = greedy_nms_keep.launches
+    got = non_max_suppression(torch.from_numpy(pred).to(dev), **kw)
+    torch.cuda.synchronize()
+    assert greedy_nms_keep.launches == before + 1
+    ref = non_max_suppression(torch.from_numpy(pred), **kw)
+    for k in ("boxes", "scores", "classes", "valid"):
+        assert torch.equal(getattr(got, k).cpu(), getattr(ref, k)), k
+    assert ref.valid.any()
 
 
 # (B, N, K, heads): ViT-H; head widths 64 and 32; ragged N with hd 24 padded
@@ -814,3 +892,28 @@ def test_hamer_forward_fused_mano_on_cuda(dev):
     assert mano_lbs_fused.launches == before + 1
     for k in ("pred_vertices", "pred_keypoints_3d"):
         torch.testing.assert_close(got[k], ref[k], rtol=0, atol=1e-5)
+
+
+# Last in the file: on the card (PyTorch 2.11), a profiler session early in
+# the process left test_k9_matches_plain's sessions, after the tests between,
+# recording no device activity at all; back to back they both record.
+@pytest.mark.parametrize("entry", ["f32", "bool"])
+def test_nms_kernel_is_one_launch(dev, entry):
+    rng = np.random.default_rng(3)
+    boxes = torch.from_numpy(_boxes(rng, 4, 512)).to(dev)
+    active = torch.from_numpy(rng.uniform(0, 1, (4, 512)) > 0.2).to(dev)
+    fn, act = ((greedy_nms_keep, active.float()) if entry == "f32" else
+               (greedy_nms_keep_mask, active))
+    fn(boxes, act, 0.45)
+    torch.cuda.synchronize()
+    for _ in range(3):  # now and then the profiler records no device activity at all
+        before = greedy_nms_keep.launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn(boxes, act, 0.45)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert greedy_nms_keep.launches == before + 1
+        if kernels:
+            break
+    assert len(kernels) == 1 and "nms_keep_kernel" in kernels[0], kernels
