@@ -13,9 +13,11 @@ weights, synthetic MANO) on B numpy-made 720p frames and prints one JSON line:
 - ``e2e_ms``: median of ``infer_frames`` over the batch, CUDA events around
   each call (2 warm-up, 5 timed), and ``frames_per_s`` from it;
 - ``stage_ms``: the same median for each stage called alone on the batch's
-  own inputs: letterbox, yolo, nms, crops, the ViT on its kernel path and on
-  its plain path (bf16: K2 against nn's attention; int8: K3 + K4, or K5 +
-  K7, against the unfused composition), and the whole HaMeR forward;
+  own inputs: letterbox, yolo, nms, depth (the RootNet stage:
+  ``estimate_depths``, SAR patches and the ResNet-34 over all B*S slots),
+  crops, the ViT on its kernel path and on its plain path (bf16: K2 against
+  nn's attention; int8: K3 + K4, or K5 + K7, against the unfused
+  composition), and the whole HaMeR forward;
 - from ``torch.profiler`` over 3 calls of ``infer_frames``:
   ``device_ms_per_batch`` (device time of every kernel and copy per call),
   ``launches_per_batch`` (device events per call) and the device ms per call
@@ -64,6 +66,7 @@ def profile_batch(B, params, mano, cfg, dev, out_dir, path="bf16"):
     from hamer_yolo_tpu_torch.models.vit import vit_forward
     from hamer_yolo_tpu_torch.models.yolov7.model import yolov7_forward
     from hamer_yolo_tpu_torch.ops.nms import non_max_suppression
+    from hamer_yolo_tpu_torch.pipeline import frame
     from hamer_yolo_tpu_torch.pipeline.frame import detect_hands_batched, infer_frames
     from hamer_yolo_tpu_torch.pipeline.preprocess import device_letterbox, hamer_crop
     from hamer_yolo_tpu_torch.pipeline.runner import default_intrinsics
@@ -102,6 +105,7 @@ def profile_batch(B, params, mano, cfg, dev, out_dir, path="bf16"):
                 pred, conf_thres=cfg.conf_thres, iou_thres=cfg.iou_thres, classes=cfg.classes,
                 agnostic=cfg.agnostic_nms, max_det=cfg.max_hands,
                 max_nms_static=cfg.max_nms_static),
+            "depth": lambda: frame.estimate_depths(params["sar"], imgs, dets, hws, Ks, cfg),
             "crops": lambda: hamer_crop(imgs, center, size, flip, cfg.crop_size),
             "vit_kernels": lambda: vit(hp["backbone"], body, vcfg),
             "vit_plain": lambda: vit(hp["backbone"], body, plain),
@@ -165,8 +169,8 @@ def main() -> int:
                           "--id=0"], capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda:0")
     cfg = pipeline_config(tiny=False)
-    params = init_pipeline_params(SEED, cfg.yolo, cfg.hamer, dev)
     mano = ManoModel.from_arrays(synthetic_mano_model(SEED), dev)
+    params = init_pipeline_params(SEED, mano, cfg.yolo, cfg.hamer, cfg.sar, device=dev)
     for path in args.paths:
         for B in args.batches:
             env = {"path-a": PATH_A_ENV, "path-b": PATH_B_ENV}.get(path, {})

@@ -6,18 +6,31 @@
 Run from the root of a checkout. It builds the port's CUDA kernels from
 csrc/ (one nvcc per source, all at once), checks each of the ten against its
 plain PyTorch version on the card, and drives these paths at full width
-(YOLOv7 at 640, ViT-H with 32 blocks, the MANO head, 4 hand slots; seeded
-random weights, synthetic MANO, numpy-made 720p frames):
+(YOLOv7 at 640, ViT-H with 32 blocks, the MANO head, 4 hand slots, SAR's
+ResNet-34 RootNet at 256; seeded random weights, synthetic MANO, numpy-made
+720p frames):
 
-- the exact-bf16 ``infer`` path, through the runner and one ``infer_frames``
-  batch (kernels K1, K2);
+- the exact-bf16 ``infer`` path with RootNet ("sar" in the params, as JAX's
+  ``infer`` has it), through the runner and one ``infer_frames`` batch
+  (kernels K1, K2); root_depth must be there and finite; the same batch
+  with ``use_depth_refine`` (``infer --depth-refine``: cam_t z must equal
+  root_depth on every valid slot); the batched runner (``infer --batch 4``:
+  serving.BatchedPipeline, no chunk skipped, the per-frame runner's hands
+  in its npy files);
 - the int8 fast path: the ViT quantized to W8A8, calibrated on the crops of
   the frames (K7), then ``infer_frames`` with the static scales (K3, K4) and
-  without them (K5, K7);
+  without them (K5, K7), and both again with ToMe merging 4 tokens a block
+  (``--fast-path int8-tome``: the same launches at 192 ... 64 tokens);
 - the opt-in kernel paths on the same batch: A, static scales with
   HYT_ATTN=megakernel, HYT_INT8_MLP=megakernel1 and ``fused_mano`` (K6, K10,
   K9); B, no scales with HYT_ATTN=pallas_fusedqkv (K5, K8). Each is held to
-  the default int8 path of the same batch.
+  the default int8 path of the same batch;
+- the mask-driven path (``infer --mask-dir``: boxes from masks, the detector
+  bypassed: K2 only).
+
+A phase "ToMe shapes" holds K3, K4, K5 and K7 against their plain versions
+at the token counts ToMe gives them (N = 124 and 68 a crop, 16 crops), and
+the RootNet stage's time is printed beside the card's name and power limit.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails unless every kernel of the path launched as often as the
@@ -40,7 +53,12 @@ and 2048, its worst case, all inactive, a negative threshold and the
 detector's candidates at B = 4 and 16, and timed by CUDA graph replay at
 (4, 512) and (16, 512) beside the launch floor of an empty kernel. K9 must
 make exactly one device launch a call. The bf16 path fails if a ViT forward
-after the first casts a weight to bf16.
+after the first casts a weight to bf16. The reference checks hold RootNet
+in f32 at the JAX package's composed-oracle limit and, in bf16, to the bf16
+trunk's own noise floor (cuDNN sums its convolutions in its own order). They
+hold the int8 ViT with ToMe on the card to the CPU's on the card's merge
+choices (a merge is an argmax, which an int8 flip can move), and print how
+many choices the CPU would have made otherwise.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 is the kernels' JSON record. Any failed phase raises and the script exits
@@ -116,6 +134,10 @@ K10_ROWS = K2_ROWS
 # K1's frame batches: the main path's and 16
 K1_BATCHES = (4, 16)
 SEED = 0
+TOME_R = 4            # --tome-r: tokens merged per ViT block (192 -> 64 over 32 blocks)
+BF16_ACCURACY_FACTOR = 2.0  # bf16 RootNet: |card - CPU f32| <= this x |CPU bf16 - CPU f32|
+
+TOME_N = (124, 68)    # ToMe token counts held against the plain versions: blocks 17 and 31
 N_FRAMES = 3          # frames through the runner (FrameProgram)
 BATCH = 4             # frames in the infer_frames batch
 TIMED_ITERS = 10
@@ -246,13 +268,18 @@ def main() -> int:
     from hamer_yolo_tpu_torch.models.hamer import hamer_forward
     from hamer_yolo_tpu_torch.models.mano import ManoModel
     from hamer_yolo_tpu_torch.models.vit import embed_tokens
+    from hamer_yolo_tpu_torch.io.writers import frame_outputs_to_hand_dicts
     from hamer_yolo_tpu_torch.ops import cuda_build
     from hamer_yolo_tpu_torch.ops.int8_matmul import kmajor_weight
-    from hamer_yolo_tpu_torch.pipeline.frame import detect_hands_batched, infer_frames
+    from hamer_yolo_tpu_torch.pipeline.frame import (detect_hands_batched, estimate_depths,
+                                                     infer_frames)
     from hamer_yolo_tpu_torch.pipeline.preprocess import hamer_crop
-    from hamer_yolo_tpu_torch.pipeline.runner import FrameProgram, default_intrinsics, process_frames
+    from hamer_yolo_tpu_torch.pipeline.runner import (FrameProgram, default_intrinsics,
+                                                      process_frames, process_frames_batched)
+    from hamer_yolo_tpu_torch.pipeline.serving import BatchedPipeline
     from hamer_yolo_tpu_torch.tools.calibrate_int8 import calibrate_frames
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
                           "--id=0"], capture_output=True, text=True, check=True).stdout.strip()
@@ -270,13 +297,13 @@ def main() -> int:
     # -- full-width setup ----------------------------------------------------
     cfg = pipeline_config(tiny=False)
     t0 = time.perf_counter()
-    params = init_pipeline_params(SEED, cfg.yolo, cfg.hamer, dev)
     mano = ManoModel.from_arrays(synthetic_mano_model(SEED), dev)
+    params = init_pipeline_params(SEED, mano, cfg.yolo, cfg.hamer, cfg.sar, device=dev)
     torch.cuda.synchronize()
     depth = cfg.hamer.vit.depth
     print(f"init: full-width params in {time.perf_counter() - t0:.1f} s "
           f"(vit depth {depth}, embed {cfg.hamer.vit.embed_dim}, det {cfg.det_size}, "
-          f"slots {cfg.max_hands})")
+          f"slots {cfg.max_hands}; SAR {cfg.sar.backbone} at {cfg.sar.input_size})")
     frames = frames_720p(max(N_FRAMES, BATCH), SEED)
     K = default_intrinsics(frames[0].shape)
     imgs = torch.from_numpy(np.stack(frames[:BATCH])).to(dev).to(torch.float32)
@@ -291,7 +318,7 @@ def main() -> int:
             stats = process_frames(((f"frame{i}", f) for i, f in enumerate(frames[:N_FRAMES])),
                                    out_dir, program, K=K, progress=False)
             batch_out = infer_frames(params, mano, imgs, hws, Ks, cfg)
-            npys = sorted(f for f in os.listdir(out_dir) if f.endswith(".npy"))
+            npys = read_npys(out_dir)
             objs = sorted(os.listdir(os.path.join(out_dir, "obj")))
         return program, stats, batch_out, npys, objs
 
@@ -308,6 +335,47 @@ def main() -> int:
     expect_launches("bf16 path", n, {"K2": depth * vit_forwards,
                                      **dict.fromkeys(INT8_KERNELS + ("K9",), 0)})
     check_batch(batch_out, cfg, "bf16 infer_frames")
+    v = batch_out["valid"]
+    print(f"bf16 path: RootNet root_depth on the {int(v.sum())} valid slots: "
+          f"{float(batch_out['root_depth'][v].min()):.4g}..{float(batch_out['root_depth'][v].max()):.4g}"
+          " (random weights), all finite")
+
+    # -- the same batch with --depth-refine: tz is RootNet's depth ----------
+    rcfg = dataclasses.replace(cfg, use_depth_refine=True)
+    with torch.inference_mode():
+        ref_out, n = run_counted(lambda: infer_frames(params, mano, imgs, hws, Ks, rcfg))
+    check_batch(ref_out, cfg, "bf16 depth-refine infer_frames")
+    expect_launches("bf16 depth-refine", n, {"K1": 1, "K2": depth,
+                                             **dict.fromkeys(INT8_KERNELS + ("K9",), 0)})
+    v = ref_out["valid"]
+    if not torch.equal(ref_out["cam_t"][..., 2][v], ref_out["root_depth"][v]):
+        raise RuntimeError("depth-refine: cam_t z is not RootNet's depth on every valid slot")
+    print(f"bf16 depth-refine batch {BATCH}: cam_t z equals root_depth on all {int(v.sum())} "
+          f"valid slots; launches {n}")
+
+    # -- the batched runner (serving.BatchedPipeline) at batch BATCH ---------
+    def batched_runner():
+        with tempfile.TemporaryDirectory() as out_dir, torch.inference_mode():
+            pipe = BatchedPipeline(params, mano, cfg, batch_size=BATCH, device=dev)
+            st = process_frames_batched(((f"frame{i}", f) for i, f in enumerate(frames[:BATCH])),
+                                        out_dir, pipe, K=K, progress=False)
+            return st, read_npys(out_dir)
+
+    (bstats, bnpys), n = run_counted(batched_runner)
+    print(f"batched runner (BatchedPipeline, batch {BATCH}): {bstats.frames} frames, "
+          f"{bstats.hands} hands, {bstats.skipped} skipped; launches {n}")
+    if bstats.skipped or bstats.frames != BATCH:
+        raise RuntimeError(f"batched runner: {bstats}")
+    expect_launches("batched runner", n, {"K1": 1, "K2": depth,
+                                          **dict.fromkeys(INT8_KERNELS + ("K9",), 0)})
+    # the same program on the same 4 frames as the bf16 path's infer_frames
+    # batch: its files hold that batch's outputs bit for bit
+    compare_npys(bnpys, {f"frame{i}.npy": frame_outputs_to_hand_dicts(
+        {k: v[i].cpu().numpy() for k, v in batch_out.items()}) for i in range(BATCH)},
+        "batched runner vs the infer_frames batch", tol=0.0)
+    # the per-frame runner runs batch 1, where cuBLAS and cuDNN take other
+    # kernels: the same hands, the differences printed (ROADMAP F4, F12)
+    compare_npys(bnpys, npys, "batched runner vs the per-frame runner", tol=None)
     casts_before = nn.cast_weight.casts
     with torch.inference_mode():
         infer_frames(params, mano, imgs, hws, Ks, cfg)
@@ -330,10 +398,14 @@ def main() -> int:
     # the opt-in paths: the same batch under their switches, A with the fused LBS
     acfg = dataclasses.replace(qcfg, hamer=dataclasses.replace(qcfg.hamer, fused_mano=True))
     # name: (params, config, switches, launches per ViT forward and HaMeR forward)
+    # --fast-path int8-tome: ToMe (4 tokens merged a block) over the int8 ViT
+    tcfg = dataclasses.replace(qcfg, hamer=dataclasses.replace(qcfg.hamer, tome_r=TOME_R))
     int8_runs = {"static": (sparams, qcfg, {}, {"K3": depth, "K4": depth}),
                  "dynamic": (qparams, qcfg, {}, {"K5": 4 * depth, "K7": depth}),
                  "path A": (sparams, acfg, PATH_A_ENV, {"K6": depth, "K10": depth, "K9": 1}),
-                 "path B": (qparams, qcfg, PATH_B_ENV, {"K5": 4 * depth, "K8": depth})}
+                 "path B": (qparams, qcfg, PATH_B_ENV, {"K5": 4 * depth, "K8": depth}),
+                 "tome static": (sparams, tcfg, {}, {"K3": depth, "K4": depth}),
+                 "tome dynamic": (qparams, tcfg, {}, {"K5": 4 * depth, "K7": depth})}
     int8_out = {}
     for name, (p, c, env, want) in int8_runs.items():
         kmajor_weight.transposes = 0
@@ -368,6 +440,13 @@ def main() -> int:
                 d <= MAX_OPTIN_JOINT_DIST_MM):
             raise RuntimeError(f"int8 {name} departs from the default int8 {base} path")
 
+    # -- the mask-driven path: boxes from masks, the detector bypassed -------
+    mstats, mout, n = masked_path(params, mano, cfg, dev, frames[:N_FRAMES], K)
+    print(f"masked path: {mstats.frames} frames, {mstats.hands} hands, {mstats.skipped} skipped; "
+          f"launches {n}; root_depth of the mask's hand {float(mout['root_depth'][0]):.4g}")
+    expect_launches("masked path", n, {"K1": 0, "K2": depth * N_FRAMES,
+                                       **dict.fromkeys(INT8_KERNELS + ("K9",), 0)})
+
     # -- the main path's own kernel inputs -----------------------------------
     cands = {B: detector_candidates(params["yolo"], cfg, dev, B) for B in K1_BATCHES}
     with torch.inference_mode():
@@ -386,6 +465,7 @@ def main() -> int:
         pred_mano = hamer_forward(sparams["hamer"], mano, crops, qcfg.hamer)["pred_mano_params"]
     record.update(check_optin_kernels(sblk, tok0, cfg.hamer.vit.num_heads, mano, pred_mano,
                                       record["K3"]["ms"], record["K4"]["ms"], record["K7"]["ms"]))
+    check_tome_shapes(sblk, cfg.hamer.vit.num_heads, dev)
     int8_gemm_alone(dev)
     wrapper_host_us(dev)
     k2_alone(dev)
@@ -393,6 +473,10 @@ def main() -> int:
 
     # -- end to end timing ---------------------------------------------------
     with torch.inference_mode():
+        depth_ms = cuda_time_ms(lambda: estimate_depths(params["sar"], imgs, dets, hws, Ks, cfg),
+                                iters=5)
+        no_sar = {k: v for k, v in params.items() if k != "sar"}
+        no_sar_ms = cuda_time_ms(lambda: infer_frames(no_sar, mano, imgs, hws, Ks, cfg), iters=5)
         batch_ms = cuda_time_ms(lambda: infer_frames(params, mano, imgs, hws, Ks, cfg), iters=5)
         int8_ms = {}
         for name, (p, c, env, _) in int8_runs.items():
@@ -407,8 +491,12 @@ def main() -> int:
             t0 = time.perf_counter()
             program(frames[0], K)  # ends in a device-to-host copy
             single.append((time.perf_counter() - t0) * 1e3)
+    print(f"RootNet stage (estimate_depths: {BATCH * cfg.max_hands} SAR patches of "
+          f"{cfg.sar.input_size}x{cfg.sar.input_size}, ResNet-34 in {cfg.sar.compute_dtype}) at "
+          f"b{BATCH}: p50 {depth_ms:.3f} ms on {smi} (CUDA events, 2 warm-up, 5 timed)")
     print(f"e2e infer_frames b{BATCH} 720p, exact bf16: p50 {batch_ms:.2f} ms = "
-          f"{BATCH / batch_ms * 1e3:.2f} frames/s (CUDA events, 2 warm-up, 5 timed)")
+          f"{BATCH / batch_ms * 1e3:.2f} frames/s (CUDA events, 2 warm-up, 5 timed); "
+          f"without \"sar\" in the params (no RootNet) {no_sar_ms:.2f} ms")
     for name, ms in int8_ms.items():
         print(f"e2e infer_frames b{BATCH} 720p, int8 {name}: p50 {ms:.2f} ms = "
               f"{BATCH / ms * 1e3:.2f} frames/s (CUDA events, 2 warm-up, 5 timed)")
@@ -419,6 +507,7 @@ def main() -> int:
     check_reference(dev)
     check_reference_int8(dev)
 
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(json.dumps({"kernels": [dict(KERNELS[k], launches=launches[k], **record[k])
                                   for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -428,8 +517,12 @@ def main() -> int:
 
 
 def check_batch(out, cfg, what):
+    """Finite outputs of the batch's shapes (every slot, masked ones too),
+    RootNet's root_depth among them, and a valid slot."""
     import torch
 
+    if "root_depth" not in out:
+        raise RuntimeError(f"{what}: no root_depth with \"sar\" in the params")
     for k, v in out.items():
         if v.is_floating_point() and not torch.isfinite(v).all():
             raise RuntimeError(f"{what}: output {k} is not finite")
@@ -437,6 +530,152 @@ def check_batch(out, cfg, what):
         raise RuntimeError(f"{what}: vertices shape {tuple(out['vertices'].shape)}")
     if not out["valid"].any():
         raise RuntimeError(f"{what}: no valid hand slot")
+
+
+def read_npys(out_dir):
+    """{file name: hand dicts} of the npy files a runner wrote."""
+    from hamer_yolo_tpu_torch.io.writers import load_hand_npy
+
+    return {f: load_hand_npy(os.path.join(out_dir, f)) for f in sorted(os.listdir(out_dir))
+            if f.endswith(".npy")}
+
+
+NPY_KEYS = ("betas", "theta", "pose_hand", "pose_global", "cam_t")
+
+
+def compare_npys(got, ref, what, tol):
+    """The files of ``ref`` in ``got`` with the same hands (side present,
+    is_right) and finite values, each field within ``tol`` (None: no limit);
+    prints each field's largest difference."""
+    worst = dict.fromkeys(NPY_KEYS, 0.0)
+    for name, r in ref.items():
+        g = got.get(name)
+        if g is None:
+            raise RuntimeError(f"{what}: {name} missing")
+        for side, hand in r.items():
+            if (hand is None) != (g[side] is None):
+                raise RuntimeError(f"{what}: {name} {side} hand found by one run only")
+            if hand is None:
+                continue
+            if hand["is_right"] != g[side]["is_right"]:
+                raise RuntimeError(f"{what}: {name} {side} is_right differs")
+            for k in NPY_KEYS:
+                a, b = np.asarray(g[side][k], np.float64), np.asarray(hand[k], np.float64)
+                if not np.isfinite(a).all():
+                    raise RuntimeError(f"{what}: {name} {side} {k} not finite")
+                worst[k] = max(worst[k], float(np.abs(a - b).max()))
+                if tol is not None and worst[k] > tol:
+                    raise RuntimeError(f"{what}: {name} {side} {k} differs by {worst[k]:.4g} "
+                                       f"(limit {tol})")
+    print(f"{what}: {len(ref)} files, the same hands; largest difference (limit {tol}) "
+          + ", ".join(f"{k} {v:.4g}" for k, v in worst.items()))
+    return worst
+
+
+def masked_path(params, mano, cfg, dev, frames, K):
+    """The mask-driven runner (process_masked_frames) over ``frames`` with a
+    numpy-made mask each (the value-3 pixels a 200 x 160 box), counted; then
+    one MaskedProgram call outside the count: (stats, outputs, launches)."""
+    import torch
+
+    from hamer_yolo_tpu_torch.pipeline.runner import MaskedProgram, process_masked_frames
+
+    masks = []
+    for i, f in enumerate(frames):
+        m = np.zeros(f.shape[:2], np.uint8)
+        m[200 + 40 * i:400 + 40 * i, 500:660] = 3
+        masks.append(m)
+    program = MaskedProgram(params, mano, cfg, dev)
+    with tempfile.TemporaryDirectory() as out_dir:
+        stats, n = run_counted(lambda: process_masked_frames(
+            ((f"frame{i}", f, m) for i, (f, m) in enumerate(zip(frames, masks))), out_dir,
+            program, K=K, progress=False))
+        if stats.frames != len(frames) or stats.skipped or len(read_npys(out_dir)) != len(frames):
+            raise RuntimeError(f"masked path: {stats}")
+    S = cfg.max_hands
+    boxes = np.zeros((S, 4), np.float32)
+    boxes[0] = [500, 200, 659, 399]
+    valid = np.zeros(S, np.float32)
+    valid[0] = 1.0
+    out = program(frames[0], boxes, np.ones(S, np.float32), valid, K)
+    for k, v in out.items():
+        if v.dtype != bool and not np.isfinite(v).all():
+            raise RuntimeError(f"masked path: {k} not finite")
+    if "root_depth" not in out or "classes" in out:
+        raise RuntimeError(f"masked path: outputs {sorted(out)}")
+    torch.cuda.synchronize()
+    return stats, out, n
+
+
+def check_tome_shapes(blk, heads, dev):
+    """K3, K4, K5 and K7 against their plain versions at ToMe's token counts
+    (TOME_N: N tokens a crop, 16 crops, M = 16 N rows, not multiples of 128;
+    K7's query tiles partly empty), on random bf16 tokens and the int8
+    weights and calibrated scales of block 0, at the limits of
+    check_int8_kernels. These launches are not counted."""
+    import torch
+
+    from hamer_yolo_tpu_torch.ops import attn_proj_block as apb
+    from hamer_yolo_tpu_torch.ops import int8_matmul as im
+    from hamer_yolo_tpu_torch.ops.attn_block import check_against_twin
+    from hamer_yolo_tpu_torch.ops.short_attention import (fused_short_attention,
+                                                          fused_short_attention_ref)
+
+    rng = np.random.default_rng(SEED + 9)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev).bfloat16()
+
+    a, mlp = blk["attn"], blk["mlp"]
+    lin = {k: (p["wq"]["q"], p["wq"]["scale"], p["b"], p["sx"])
+           for k, p in (("qkv", a["qkv"]), ("proj", a["proj"]), ("fc1", mlp["fc1"]),
+                        ("fc2", mlp["fc2"]))}
+    ln1 = (blk["norm1"]["scale"], blk["norm1"]["bias"])
+    ln2 = (blk["norm2"]["scale"], blk["norm2"]["bias"])
+    Kd = ln1[0].shape[0]
+    hd = Kd // heads
+    for N in TOME_N:
+        B, M = 16, 16 * N
+        tok = randn(B, N, Kd)
+        readings = {}
+        (q, s, b, sq), (pq, ps, pb, sp) = lin["qkv"], lin["proj"]
+        args = (q, s, b, *ln1, sq, sp, pq, ps, pb, heads)
+        steps = apb.fused_int8_attn_proj_block_steps(tok, *args)
+        torch.cuda.synchronize()
+        readings["K3"] = apb.check_against_plain(steps, tok, *args)["max_abs_err"]
+        (q1, s1, b1, sx1), (q2, s2, b2, sx2) = lin["fc1"], lin["fc2"]
+        margs = (q1, s1, b1, q2, s2, b2, *ln2, sx1, sx2)
+        got = im.fused_int8_mlp_block(tok, *margs, gelu="gelu_poly")
+        torch.cuda.synchronize()
+        readings["K4"] = im.check_against_plain(got, im.fused_int8_mlp_block_ref(
+            tok, *margs, gelu="gelu_poly"), "K4")["max_abs_err"]
+        err = 0.0
+        for name, x, pro, (g, bt) in (("qkv", tok.reshape(M, Kd), "ln", ln1),
+                                      ("proj", randn(M, Kd), "id", (None, None)),
+                                      ("fc2", randn(M, 4 * Kd), "gelu_poly", (None, None))):
+            q, s, b, sx = lin[name]
+            for static in (None, sx):
+                got = im.fused_int8_matmul(x, q, s, b, g, bt, prologue=pro, static_scale=static)
+                torch.cuda.synchronize()
+                err = max(err, im.check_against_plain(got, im.fused_int8_matmul_ref(
+                    x, q, s, b, g, bt, prologue=pro, static_scale=static),
+                    f"K5 {name}")["max_abs_err"])
+        readings["K5"] = err
+        qkv = randn(B, N, 3, heads, hd)
+        qh, kh, vh = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        err = 0.0
+        for sx in (None, sp):
+            got = fused_short_attention(qh, kh, vh, out_scale=sx)
+            torch.cuda.synchronize()
+            ref = fused_short_attention_ref(qh, kh, vh, out_scale=sx)
+            r = check_against_twin(got, ref) if sx is None else im.check_against_plain(got, ref,
+                                                                                       "K7")
+            err = max(err, r["max_abs_err"])
+        readings["K7"] = err
+        print(f"ToMe shapes N {N} (tokens ({B}, {N}, {Kd}), M {M}): K3, K4, K5 (ln, id, "
+              f"gelu_poly; dynamic and static) and K7 (bf16 and int8 out) within their limits "
+              "of the plain versions; max abs err " + ", ".join(
+                  f"{k} {v:.4g}" for k, v in readings.items()))
 
 
 def detector_candidates(yolo, cfg, dev, B):
@@ -1320,7 +1559,8 @@ def _fmt(r):
 
 
 def _small_config(dtype, vit=None):
-    """The tiny detector and MANO head with a 2-block ViT at 192 tokens."""
+    """The tiny detector, SAR (ResNet-34 at 64 x 64) and MANO head with a
+    2-block ViT at 192 tokens, at one compute dtype."""
     from hamer_yolo_tpu_torch.cli.main import pipeline_config
     from hamer_yolo_tpu_torch.models.vit import ViTConfig
 
@@ -1330,7 +1570,8 @@ def _small_config(dtype, vit=None):
     return dataclasses.replace(
         tiny, crop_size=256,
         yolo=dataclasses.replace(tiny.yolo, compute_dtype=dtype),
-        hamer=dataclasses.replace(tiny.hamer, image_size=256, crop_margin=32, vit=vit))
+        hamer=dataclasses.replace(tiny.hamer, image_size=256, crop_margin=32, vit=vit),
+        sar=dataclasses.replace(tiny.sar, compute_dtype=dtype))
 
 
 def _small_inputs(rng):
@@ -1370,9 +1611,10 @@ def check_reference(dev) -> None:
     cfg = _small_config("float32")
     vit32 = cfg.hamer.vit
     cpu = torch.device("cpu")
-    params = init_pipeline_params(SEED, cfg.yolo, cfg.hamer, cpu)
-    params_gpu = _to(params, dev)
     mano_np = synthetic_mano_model(SEED)
+    params = init_pipeline_params(SEED, ManoModel.from_arrays(mano_np, cpu), cfg.yolo, cfg.hamer,
+                                  cfg.sar, device=cpu)
+    params_gpu = _to(params, dev)
     rng = np.random.default_rng(SEED + 1)
     imgs, hws, Ks = _small_inputs(rng)
     with torch.inference_mode():
@@ -1428,6 +1670,40 @@ def check_reference(dev) -> None:
         print(f"reference check {dtype} ViT (K2 on the card vs its twin on the CPU, tokens "
               f"{tuple(got.shape)}): max abs diff {float((got - ref).abs().max()):.4g}, "
               f"max |ref| {float(ref.abs().max()):.4g}")
+    check_reference_rootnet(params, params_gpu, cfg.sar, rng, dev)
+
+
+def check_reference_rootnet(params, params_gpu, sar_cfg, rng, dev) -> None:
+    """RootNet in bf16, cuDNN's convolutions on the card against the CPU's,
+    on 16 random patches (the f32 trunk is held at 2e-3 in check_reference's
+    pipeline). A conv sum rounded the other way in bf16 is amplified by the
+    36 random layers as far as bf16 itself moves it from f32, so the card is
+    held to the CPU's bf16 accuracy, as the CPU tests hold the port against
+    JAX (tests/test_torch_sar.py): its largest distance from the CPU's f32
+    trunk at most BF16_ACCURACY_FACTOR times the CPU bf16 trunk's."""
+    import torch
+
+    from hamer_yolo_tpu_torch.models.sar import estimate_root_depth
+
+    x = torch.from_numpy(rng.normal(size=(16, sar_cfg.input_size, sar_cfg.input_size, 3))
+                         .astype(np.float32))
+    k = torch.from_numpy(rng.uniform(0.5, 2.0, 16).astype(np.float32))
+    bf16 = dataclasses.replace(sar_cfg, compute_dtype="bfloat16")
+    f32 = dataclasses.replace(sar_cfg, compute_dtype="float32")
+    with torch.inference_mode():
+        cpu16 = estimate_root_depth(params["sar"], x, k, bf16).double()
+        cpu32 = estimate_root_depth(params["sar"], x, k, f32).double()
+        card16 = estimate_root_depth(params_gpu["sar"], x.to(dev), k.to(dev), bf16).double().cpu()
+    if not torch.isfinite(card16).all():
+        raise RuntimeError("RootNet on the card: root depth not finite")
+    acc, floor = float((card16 - cpu32).abs().max()), float((cpu16 - cpu32).abs().max())
+    print(f"reference check bf16 RootNet (16 patches of {sar_cfg.input_size}^2): max |card bf16 "
+          f"- CPU f32| {acc:.4g}, max |CPU bf16 - CPU f32| {floor:.4g} (limit x"
+          f"{BF16_ACCURACY_FACTOR}), max |card bf16 - CPU bf16| "
+          f"{float((card16 - cpu16).abs().max()):.4g}, max |depth| {float(cpu32.abs().max()):.4g}")
+    if not acc <= BF16_ACCURACY_FACTOR * floor:
+        raise AssertionError(f"bf16 RootNet on the card is {acc:.4g} from the f32 trunk, beyond "
+                             f"{BF16_ACCURACY_FACTOR} x the CPU bf16 trunk's {floor:.4g}")
 
 
 def check_reference_int8(dev) -> None:
@@ -1476,7 +1752,8 @@ def check_reference_int8(dev) -> None:
         if vit.img_size != (256, 192):
             cfg = dataclasses.replace(cfg, crop_size=64, hamer=dataclasses.replace(
                 cfg.hamer, image_size=64, crop_margin=8))
-        params = init_pipeline_params(SEED, cfg.yolo, cfg.hamer, cpu)
+        params = init_pipeline_params(SEED, ManoModel.from_arrays(mano_np, cpu), cfg.yolo,
+                                      cfg.hamer, cfg.sar, device=cpu)
         qparams, qcfg = apply_fast_path(params, cfg, "int8")
         frames = [f.numpy().astype(np.uint8) for f in imgs]
         stats, _ = calibrate_frames(params, frames, cfg, cpu, batch=4)
@@ -1523,6 +1800,74 @@ def check_reference_int8(dev) -> None:
                                 f"abs diff {float((got[k][v] - ref[k][v]).abs().max()):.4g}")
             print(f"int8 reference check {name} {scales} (card vs CPU, {int(v.sum())} valid "
                   f"slots, launches {n}): " + "; ".join(readings))
+            if not env:
+                check_reference_tome(p["hamer"]["backbone"], pg["hamer"]["backbone"], tok, vit,
+                                     f"{name} {scales}", share_close)
+
+
+def _merge_fates(match, n_tokens):
+    """A merge choice of tome.bipartite_matching as (B, Na): the B token
+    each A token merges into, -1 where it is kept."""
+    import torch
+
+    merged_a, _, tgt = match
+    fates = torch.full((merged_a.shape[0], (n_tokens + 1) // 2), -1, dtype=torch.long)
+    return fates.scatter_(1, merged_a.cpu(), tgt.cpu())
+
+
+def check_reference_tome(p, pg, tok, vit, what, share_close) -> None:
+    """int8 + ToMe (TOME_R a block) on the card against the same on the CPU,
+    from the same embedded tokens: the card's kernels (K3 + K4, or K5 + K7)
+    against their plain versions with the card's polynomial GELU, the CPU
+    taking each layer's merge choice from the card's run. A merge is an
+    argmax over similarities: where an int8 flip moves a token, the other
+    device can merge it elsewhere, and from there on the two forwards are
+    different computations, so the comparison fixes the choices and counts
+    the A tokens whose merge the CPU would have chosen otherwise. Held at the
+    JAX package's limit for int8 rounding flips, as the unmerged ViT above.
+    The CPU's forward on its own choices is printed beside it, unchecked."""
+    import torch
+
+    from hamer_yolo_tpu_torch.models import tome
+
+    match, card, differ = tome.bipartite_matching, [], []
+
+    def record(t, r):
+        card.append(match(t, r))
+        return card[-1]
+
+    def replay(t, r):
+        want = card[len(differ)]
+        own = match(t, r)
+        differ.append(int((_merge_fates(own, t.shape[1]) != _merge_fates(want, t.shape[1]))
+                          .sum()))
+        return tuple(m.to(t.device) for m in want)
+
+    def forward(matcher, tree, on_card, **kw):
+        tome.bipartite_matching = matcher
+        try:
+            with torch.inference_mode():
+                x = tok if on_card else tok.cpu()
+                return tome.vit_blocks_tome(tree, x, vit, TOME_R, **kw).float().cpu()
+        finally:
+            tome.bipartite_matching = match
+
+    got, n = run_counted(lambda: forward(record, pg, True))
+    ref = forward(replay, p, False, fused=True, gelu="gelu_poly")
+    own = forward(match, p, False, fused=True, gelu="gelu_poly")
+    if not card or n["K2"] or not (n["K3"] and n["K4"] or n["K5"] and n["K7"]):
+        raise RuntimeError(f"int8-tome reference check {what}: {len(card)} merges, launches {n}")
+    frac = share_close(got, ref)
+    merged = sum(int(m[0].numel()) for m in card)
+    print(f"int8-tome reference check {what} (card vs CPU, {got.shape[1]} tokens left): on the "
+          f"card's merges {frac:.4f} within 0.02, max abs diff "
+          f"{float((got - ref).abs().max()):.4g}; A tokens whose merge the CPU would have "
+          f"chosen otherwise, by layer, {differ} ({merged} merged in all); on the CPU's own "
+          f"merges {share_close(got, own):.4f} within 0.02")
+    if frac < 0.99:
+        raise AssertionError(f"int8-tome {what}: {frac:.4f} of elements within 0.02 (limit "
+                             "0.99) on the card's merges")
+    torch.testing.assert_close(got, ref, rtol=0.2, atol=0.1)
 
 
 def _to(tree, dev):

@@ -1,49 +1,76 @@
-"""Command line (port of hamer_yolo_tpu/cli/main.py, ``infer`` only):
+"""Command line (port of hamer_yolo_tpu/cli/main.py):
 
-  python -m hamer_yolo_tpu_torch.cli.main infer --input imgs/ --output out/
-      [--intrinsics cam_K.txt] [--tiny] [--device cuda]
-      [--fast-path int8 [--calib-scales scales.npz]]
+  infer        image dir -> per-image .npy MANO dicts + obj/<name>.obj meshes
+               [--intrinsics cam_K.txt] [--depth-refine] [--batch N]
+               [--mask-dir DIR [--mask-value V] [--mask-hand right|left]]
+               [--profile DIR] [--no-obj]
+  detect       hand boxes only, one JSON line per image
+               [--save-txt DIR [--save-conf]]
+  depth        RootNet's absolute root depth, one JSON line per image
+  reconstruct  saved .npy dir -> .obj meshes
 
-image dir -> per-image .npy MANO dicts + obj/<name>.obj meshes. Weights
-come from a random init seeded with 0; MANO from assets/mano_right.npz when
-present, else the seeded synthetic model. It runs on the card unless
-``--device`` names another device; without a card, pass ``--device cpu``.
+Every subcommand takes [--tiny] [--device cuda] [--mano-dir DIR]
+[--max-hands N] [--conf-thres T] [--iou-thres T] and the ViT's fast paths
+[--fast-path none|int8|tome|int8-tome [--tome-r R] [--calib-scales NPZ]].
+
+Weights come from a random init seeded with 0; MANO from
+assets/mano_right.npz when present, else the seeded synthetic model. It runs
+on the card unless ``--device`` names another device; without a card, pass
+``--device cpu``.
 
 ``--fast-path int8`` quantizes the ViT's block linears to W8A8 int8
 (core/quant.py); ``--calib-scales`` attaches the static activation scales
 of a stats file written by ``hamer_yolo_tpu_torch.tools.calibrate_int8``
 (or by the JAX package's tools/calibrate_int8.py: the format is shared).
+``tome`` merges ``--tome-r`` tokens after each ViT block (models/tome.py);
+``int8-tome`` does both. Not ported yet (ROADMAP.md, Queue 1): ``detect
+--augment`` and ``--save-img``, ``reconstruct --overlay-images``,
+``--checkpoint``, ``--int8-yolo``, and the ``serve``, ``serve-http``, ``rgbd``
+and ``bench`` subcommands.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
+import os
 import sys
 from typing import Optional
 
+import numpy as np
 import torch
 
 from hamer_yolo_tpu_torch.core.checkpoint import init_pipeline_params
 from hamer_yolo_tpu_torch.core.mano_assets import load_mano_model, synthetic_mano_model
 from hamer_yolo_tpu_torch.core.quant import (attach_static_act_scales, load_act_stats,
                                              quantize_vit_params)
+from hamer_yolo_tpu_torch.io.writers import load_hand_npy, load_intrinsics
 from hamer_yolo_tpu_torch.models.hamer import HamerConfig
 from hamer_yolo_tpu_torch.models.mano import ManoModel
 from hamer_yolo_tpu_torch.models.mano_head import ManoHeadConfig
+from hamer_yolo_tpu_torch.models.sar import SarConfig
 from hamer_yolo_tpu_torch.models.vit import ViTConfig
 from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig
 from hamer_yolo_tpu_torch.pipeline.frame import PipelineConfig
-from hamer_yolo_tpu_torch.pipeline.runner import process_image_dir
+from hamer_yolo_tpu_torch.pipeline.reconstruct import reconstruct_and_save_obj
+from hamer_yolo_tpu_torch.pipeline.runner import (FrameProgram, default_intrinsics,
+                                                  process_image_dir, process_masked_dir,
+                                                  read_images)
+from hamer_yolo_tpu_torch.utils.profiling import trace
+
+FAST_PATHS = ("none", "int8", "tome", "int8-tome")
 
 
 def pipeline_config(tiny: bool = False, max_hands: int = 4, conf_thres: float = 0.25,
-                    iou_thres: float = 0.35) -> PipelineConfig:
+                    iou_thres: float = 0.35, depth_refine: bool = False) -> PipelineConfig:
     """The default full-width pipeline, or the scaled-down ``--tiny`` one."""
     if not tiny:
-        return PipelineConfig(max_hands=max_hands, conf_thres=conf_thres, iou_thres=iou_thres)
+        return PipelineConfig(max_hands=max_hands, conf_thres=conf_thres, iou_thres=iou_thres,
+                              use_depth_refine=depth_refine)
     return PipelineConfig(
         max_hands=max_hands, conf_thres=conf_thres, iou_thres=iou_thres,
-        det_size=64, crop_size=64,
+        det_size=64, crop_size=64, use_depth_refine=depth_refine,
         yolo=YoloConfig(nc=3, img_size=64),
         hamer=HamerConfig(
             image_size=64, crop_margin=8,
@@ -51,6 +78,7 @@ def pipeline_config(tiny: bool = False, max_hands: int = 4, conf_thres: float = 
             head=ManoHeadConfig(dim=32, context_dim=64, depth=2, heads=2, dim_head=8,
                                 mlp_dim=32),
         ),
+        sar=SarConfig(backbone="resnet34", input_size=64, feature_hw=2, heatmap_size=8),
     )
 
 
@@ -64,57 +92,185 @@ def load_mano(mano_dir: Optional[str], device) -> ManoModel:
 
 
 def apply_fast_path(params, cfg: PipelineConfig, fast_path: str = "none",
-                    calib_scales: Optional[str] = None):
+                    calib_scales: Optional[str] = None, tome_r: int = 4):
     """``--fast-path``: "int8" quantizes the backbone (and attaches the
-    static scales of ``calib_scales``) and turns on the int8 backbone."""
-    if fast_path == "none":
-        if calib_scales:
-            raise ValueError("--calib-scales needs --fast-path int8")
-        return params, cfg
-    if fast_path != "int8":
+    static scales of ``calib_scales``) and turns on the int8 backbone;
+    "tome" sets ``tome_r`` tokens merged per ViT layer; "int8-tome" both."""
+    if fast_path not in FAST_PATHS:
         raise ValueError(f"unknown fast path {fast_path!r}")
-    backbone = quantize_vit_params(params["hamer"]["backbone"])
-    if calib_scales:
-        backbone = attach_static_act_scales(backbone, load_act_stats(calib_scales))
-    params = {**params, "hamer": {**params["hamer"], "backbone": backbone}}
-    return params, dataclasses.replace(
-        cfg, hamer=dataclasses.replace(cfg.hamer, int8_backbone=True))
+    if calib_scales and "int8" not in fast_path:
+        raise ValueError("--calib-scales needs --fast-path int8 or int8-tome")
+    hcfg = cfg.hamer
+    if "int8" in fast_path:
+        backbone = quantize_vit_params(params["hamer"]["backbone"])
+        if calib_scales:
+            backbone = attach_static_act_scales(backbone, load_act_stats(calib_scales))
+        params = {**params, "hamer": {**params["hamer"], "backbone": backbone}}
+        hcfg = dataclasses.replace(hcfg, int8_backbone=True)
+    if "tome" in fast_path:
+        hcfg = dataclasses.replace(hcfg, tome_r=tome_r)
+    return params, dataclasses.replace(cfg, hamer=hcfg)
+
+
+def load_runtime(args):
+    """(params, MANO model, config, device) for a subcommand's arguments."""
+    device = torch.device(args.device)
+    cfg = pipeline_config(args.tiny, args.max_hands, args.conf_thres, args.iou_thres,
+                          getattr(args, "depth_refine", False))
+    mano = load_mano(args.mano_dir, device)
+    params = init_pipeline_params(0, mano, cfg.yolo, cfg.hamer, cfg.sar, device=device)
+    params, cfg = apply_fast_path(params, cfg, args.fast_path, args.calib_scales, args.tome_r)
+    return params, mano, cfg, device
 
 
 def cmd_infer(args) -> int:
-    device = torch.device(args.device)
-    cfg = pipeline_config(args.tiny, args.max_hands, args.conf_thres, args.iou_thres)
-    mano = load_mano(args.mano_dir, device)
-    params = init_pipeline_params(0, cfg.yolo, cfg.hamer, device)
-    params, cfg = apply_fast_path(params, cfg, args.fast_path, args.calib_scales)
-    stats = process_image_dir(args.input, args.output, params, mano, cfg,
-                              intrinsics_path=args.intrinsics, save_obj=not args.no_obj,
-                              device=device)
+    params, mano, cfg, device = load_runtime(args)
+    prof = trace(args.profile, device) if args.profile else contextlib.nullcontext()
+    with prof:
+        if args.mask_dir:
+            stats = process_masked_dir(args.input, args.mask_dir, args.output, params, mano, cfg,
+                                       intrinsics_path=args.intrinsics,
+                                       mask_value=args.mask_value, mask_hand=args.mask_hand,
+                                       save_obj=not args.no_obj, device=device)
+        else:
+            stats = process_image_dir(args.input, args.output, params, mano, cfg,
+                                      intrinsics_path=args.intrinsics, save_obj=not args.no_obj,
+                                      device=device, batch_size=args.batch)
     print(f"processed {stats.frames} frames / {stats.hands} hands "
           f"({stats.skipped} skipped) in {stats.total_s:.1f}s")
     return 0
 
 
+def detections(out) -> list:
+    """One frame's valid slots as JSON-able records, slot order."""
+    return [{"label": "right" if out["is_right"][i] > 0.5 else "left",
+             "box": out["boxes"][i].tolist(), "score": float(out["scores"][i]),
+             "class": int(out["classes"][i])}
+            for i in range(len(out["valid"])) if out["valid"][i]]
+
+
+def yolo_label_lines(dets: list, h: int, w: int, save_conf: bool = False) -> list:
+    """The reference detect.py --save-txt rows: cls x_c y_c w h [conf],
+    normalised by the image size, '%g' rendering."""
+    lines = []
+    for d in dets:
+        x1, y1, x2, y2 = d["box"]
+        row = [d["class"], (x1 + x2) / 2 / w, (y1 + y2) / 2 / h, (x2 - x1) / w, (y2 - y1) / h]
+        if save_conf:
+            row.append(d["score"])
+        lines.append(" ".join(f"{v:g}" for v in row))
+    return lines
+
+
+def cmd_detect(args) -> int:
+    params, mano, cfg, device = load_runtime(args)
+    program = FrameProgram(params, mano, cfg, device)
+    if args.save_txt:
+        os.makedirs(args.save_txt, exist_ok=True)
+    for name, img in read_images(args.input):
+        if img is None:
+            continue
+        dets = detections(program(img.astype(np.float32), default_intrinsics(img.shape)))
+        if args.save_txt:
+            lines = yolo_label_lines(dets, *img.shape[:2], args.save_conf)
+            with open(os.path.join(args.save_txt, os.path.splitext(name)[0] + ".txt"),
+                      "w") as f:
+                f.write("\n".join(lines) + ("\n" if lines else ""))
+        print(json.dumps({"image": name, "detections": dets}))
+    return 0
+
+
+def cmd_depth(args) -> int:
+    params, mano, cfg, device = load_runtime(args)
+    program = FrameProgram(params, mano, cfg, device)
+    K = load_intrinsics(args.intrinsics) if args.intrinsics else None
+    for name, img in read_images(args.input):
+        if img is None:
+            continue
+        out = program(img.astype(np.float32), K if K is not None else default_intrinsics(img.shape))
+        depths = [float(out["root_depth"][i]) for i in range(len(out["valid"]))
+                  if out["valid"][i]]
+        print(json.dumps({"image": name, "root_depths": depths}))
+    return 0
+
+
+def cmd_reconstruct(args) -> int:
+    mano = load_mano(args.mano_dir, torch.device(args.device))
+    os.makedirs(args.output, exist_ok=True)
+    count = 0
+    for f in sorted(os.listdir(args.input)):
+        if not f.endswith(".npy"):
+            continue
+        results = load_hand_npy(os.path.join(args.input, f))
+        obj_path = os.path.join(args.output, f.replace(".npy", ".obj"))
+        if reconstruct_and_save_obj(mano, results, obj_path) is not None:
+            count += 1
+    print(f"wrote {count} OBJ files to {args.output}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(prog="hamer_yolo_tpu_torch")
+    parser = argparse.ArgumentParser(prog="hamer_yolo_tpu_torch", description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    def common(p):
+        p.add_argument("--mano-dir", default=None, help="dir with MANO_*.pkl")
+        p.add_argument("--max-hands", type=int, default=4)
+        p.add_argument("--conf-thres", type=float, default=0.25)
+        p.add_argument("--iou-thres", type=float, default=0.35)
+        p.add_argument("--tiny", action="store_true", help="scaled-down models (CPU smoke)")
+        p.add_argument("--device", default="cuda",
+                       help="torch device (default: the card; cpu for a machine without one)")
+        p.add_argument("--fast-path", default="none", choices=FAST_PATHS,
+                       help="int8: W8A8 int8 ViT blocks (K3/K4 with --calib-scales, else "
+                            "K5/K7); tome: --tome-r tokens merged per ViT block; int8-tome: both")
+        p.add_argument("--tome-r", type=int, default=4,
+                       help="tokens merged per ViT block for --fast-path tome / int8-tome")
+        p.add_argument("--calib-scales", default=None, metavar="NPZ",
+                       help="static activation scales (calibrate_int8 stats) for --fast-path "
+                            "int8 / int8-tome")
+
     p = sub.add_parser("infer", help="full pipeline over an image dir")
+    common(p)
     p.add_argument("--input", required=True)
     p.add_argument("--output", required=True)
     p.add_argument("--intrinsics", default=None, help="cam_K.txt path")
+    p.add_argument("--depth-refine", action="store_true",
+                   help="force tz to RootNet's depth (the reference's d_infer.py)")
     p.add_argument("--no-obj", action="store_true")
-    p.add_argument("--mano-dir", default=None, help="dir with MANO_*.pkl")
-    p.add_argument("--max-hands", type=int, default=4)
-    p.add_argument("--conf-thres", type=float, default=0.25)
-    p.add_argument("--iou-thres", type=float, default=0.35)
-    p.add_argument("--tiny", action="store_true", help="scaled-down models (CPU smoke)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default: the card; cpu for a machine without one)")
-    p.add_argument("--fast-path", default="none", choices=("none", "int8"),
-                   help="int8: W8A8 int8 ViT blocks (K3/K4 with --calib-scales, else K5/K7)")
-    p.add_argument("--calib-scales", default=None, metavar="NPZ",
-                   help="static activation scales (calibrate_int8 stats) for --fast-path int8")
+    p.add_argument("--batch", type=int, default=1,
+                   help="frames per device call (> 1: serving.BatchedPipeline; same per-image "
+                        "outputs)")
+    p.add_argument("--mask-dir", default=None,
+                   help="dir of per-image .npy masks (bypasses the detector)")
+    p.add_argument("--mask-value", type=int, default=3)
+    p.add_argument("--mask-hand", default="right", choices=["left", "right"])
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run to DIR/trace.json")
     p.set_defaults(fn=cmd_infer)
+
+    p = sub.add_parser("detect", help="hand detection only")
+    common(p)
+    p.add_argument("--input", required=True)
+    p.add_argument("--save-txt", default=None, metavar="DIR",
+                   help="write per-image YOLO label txt (detect.py --save-txt format: "
+                        "cls x_c y_c w h, normalized)")
+    p.add_argument("--save-conf", action="store_true",
+                   help="append confidence to --save-txt rows")
+    p.set_defaults(fn=cmd_detect)
+
+    p = sub.add_parser("depth", help="RootNet absolute depth only")
+    common(p)
+    p.add_argument("--input", required=True)
+    p.add_argument("--intrinsics", default=None)
+    p.set_defaults(fn=cmd_depth)
+
+    p = sub.add_parser("reconstruct", help=".npy dir -> .obj meshes")
+    common(p)
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+    p.set_defaults(fn=cmd_reconstruct)
     return parser
 
 

@@ -2,8 +2,8 @@
 
 The structure (nested dicts and lists, None for parameter-free layers) is
 kept; every leaf is mapped by its key and rank, and a leaf that no rule
-covers raises, so an unported parameter form (int8 weights, batch-norm
-stats, a new head) can never be loaded silently wrong. The int8 trees of
+covers raises, so an unported parameter form (int8 conv weights, a new
+head) can never be loaded silently wrong. The int8 trees of
 core/quant (``quantize_vit_params``, ``attach_static_act_scales``) load as
 they are: "q" int8 weights, "scale" f32 vectors, "sx" f32 scalars.
 
@@ -32,6 +32,11 @@ _RULES = {
     ("init_betas", 2): lambda a: a,
     ("init_cam", 2): lambda a: a,
     ("sx", 0): lambda a: a,                       # static activation scale
+    ("mean", 1): lambda a: a,                     # batch-norm running stats
+    ("var", 1): lambda a: a,
+    ("adj", 2): lambda a: a,                      # SAR graph conv's (V, V) adjacency
+    ("template", 2): lambda a: a,                 # SAR's MANO template (V, 3)
+    ("beta", 1): lambda a: a,                     # SAR soft-heatmap weights
 }
 # int8 leaves: (parent key, key, rank) -> the rule. Only the int8 linears of
 # quantize_vit_params ({"wq": {"q", "scale"}}) are ported; the int8 convs of

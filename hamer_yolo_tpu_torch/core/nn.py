@@ -152,17 +152,39 @@ def conv2d(p: Params, x: torch.Tensor, stride: int = 1, padding: int = 0) -> tor
 
     Symmetric integer padding only (every conv of the ported path uses it).
     """
-    y = F.conv2d(x.permute(0, 3, 1, 2), p["w"].to(x.dtype), None, stride, padding)
+    y = F.conv2d(x.permute(0, 3, 1, 2), cast_weight(p["w"], x.dtype), None, stride, padding)
     y = y.permute(0, 2, 3, 1)
     if "b" in p:
-        y = y + p["b"].to(x.dtype)
+        y = y + cast_weight(p["b"], x.dtype)
     return y
+
+
+def batch_norm_init(dim: int, device) -> Params:
+    return {"scale": torch.ones(dim, device=device), "bias": torch.zeros(dim, device=device),
+            "mean": torch.zeros(dim, device=device), "var": torch.ones(dim, device=device)}
+
+
+def batch_norm(p: Params, x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """Inference-mode BN with running stats, every op in x's dtype and
+    rounded there, as JAX computes it (rsqrt(var + eps) included; eps 1e-3
+    is YOLO's, pass it where it differs). Not folded into the conv: that
+    rounds elsewhere. rsqrt(var + eps) depends on the weights alone, so it
+    is made once per var tensor and dtype (``derived``)."""
+    inv = derived(p["var"], ("batch_norm_inv", x.dtype, eps), lambda: rsqrt(
+        p["var"].to(x.dtype) + weak_scalar(eps, x.dtype)))
+    return ((x - cast_weight(p["mean"], x.dtype)) * inv * cast_weight(p["scale"], x.dtype)
+            + cast_weight(p["bias"], x.dtype))
 
 
 def max_pool(x: torch.Tensor, k: int, stride: int, padding: int = 0) -> torch.Tensor:
     """NHWC max pool with -inf padding (reduce_window semantics)."""
     y = F.max_pool2d(x.permute(0, 3, 1, 2), k, stride, padding)
     return y.permute(0, 2, 3, 1)
+
+
+def avg_pool_global(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, C) global average pool."""
+    return torch.mean(x, dim=(1, 2))
 
 
 def _scaled(q: torch.Tensor, head_dim: int) -> torch.Tensor:

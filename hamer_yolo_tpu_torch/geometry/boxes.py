@@ -79,3 +79,32 @@ def hamer_box_params(bbox_xyxy: torch.Tensor, rescale_factor: float = 2.5,
                       bbox_xyxy[..., 3] - bbox_xyxy[..., 1]], dim=-1)
     expanded = expand_to_aspect_ratio(rescale_factor * wh, bbox_shape)
     return center, torch.amax(expanded, dim=-1)
+
+
+def sanitize_bbox_xywh(bbox: torch.Tensor, img_w: torch.Tensor, img_h: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Clamp an xywh box into the image -> (box, valid). The reference
+    returns None for a degenerate box; here that is valid = False."""
+    x, y, w, h = bbox[..., 0], bbox[..., 1], bbox[..., 2], bbox[..., 3]
+    x1 = torch.clamp(x, min=0.0)
+    y1 = torch.clamp(y, min=0.0)
+    x2 = torch.minimum(img_w - 1.0, x1 + torch.clamp(w - 1.0, min=0.0))
+    y2 = torch.minimum(img_h - 1.0, y1 + torch.clamp(h - 1.0, min=0.0))
+    valid = (w * h > 0) & (x2 > x1) & (y2 > y1)
+    return torch.stack([x1, y1, x2 - x1, y2 - y1], dim=-1), valid
+
+
+def process_bbox(bbox_xywh: torch.Tensor, img_w: torch.Tensor, img_h: torch.Tensor,
+                 input_hw: Tuple[float, float] = (256.0, 256.0), ratio: float = 1.5
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RootNet's box: sanitise, grow to the input's aspect, pad by ``ratio``
+    -> ((..., 4) xywh, valid). img_w, img_h broadcast against bbox[..., 0]."""
+    bbox, valid = sanitize_bbox_xywh(bbox_xywh, img_w, img_h)
+    w, h = bbox[..., 2], bbox[..., 3]
+    c_x = bbox[..., 0] + w / 2.0
+    c_y = bbox[..., 1] + h / 2.0
+    aspect = float(input_hw[1]) / float(input_hw[0])
+    h_new = torch.where(w > aspect * h, w / aspect, h)
+    w_new = torch.where(w < aspect * h, h * aspect, w)
+    w_out, h_out = w_new * ratio, h_new * ratio
+    return torch.stack([c_x - w_out / 2.0, c_y - h_out / 2.0, w_out, h_out], dim=-1), valid

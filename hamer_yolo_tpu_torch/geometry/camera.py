@@ -1,6 +1,9 @@
 """Camera models on tensors (port of hamer_yolo_tpu/geometry/camera.py):
-projection and the crop-camera -> full-image lift under real intrinsics."""
+projection, the crop-camera -> full-image lift under real intrinsics (with
+RootNet's depth refine) and RootNet's k value."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -33,16 +36,31 @@ def cam_to_translation(pred_cam: torch.Tensor, focal_length: float,
 
 def custom_cam_crop_to_full(cam_bbox: torch.Tensor, box_center: torch.Tensor,
                             box_size: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
-                            cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
+                            cx: torch.Tensor, cy: torch.Tensor,
+                            depth_refine: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Real-intrinsics crop camera -> full-image translation (B, 3).
 
-    All of box_size, fx, fy, cx, cy are (B,). The fx != fy correction
-    ty *= fx / fy is applied unconditionally, as in JAX. The depth-refine
-    form waits for the RootNet port.
+    All of box_size, fx, fy, cx, cy and ``depth_refine`` are (B,). With
+    ``depth_refine`` (RootNet's depth) tz is forced to it and the scale is
+    derived back from it, bs = 2 fx / (tz + 1e-9). The fx != fy correction
+    ty *= fx / fy is applied unconditionally, as in JAX.
     """
-    bs = box_size * cam_bbox[:, 0] + 1e-9
-    tz = 2.0 * fx / bs
+    if depth_refine is not None:
+        tz = depth_refine
+        bs = 2.0 * fx / (tz + 1e-9)
+    else:
+        bs = box_size * cam_bbox[:, 0] + 1e-9
+        tz = 2.0 * fx / bs
     tx = (2.0 * (box_center[:, 0] - cx) / bs) + cam_bbox[:, 1]
     ty = (2.0 * (box_center[:, 1] - cy) / bs) + cam_bbox[:, 2]
     ty = ty * (fx / fy)
     return torch.stack([tx, ty, tz], dim=-1)
+
+
+def calculate_k_value(bbox_wh: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
+                      real_area: float = 0.09) -> torch.Tensor:
+    """RootNet's k: sqrt(real_area fx fy / box area), bbox_wh (..., 2) the
+    processed box in pixels. The area is clamped to >= 1, so that a masked
+    slot's zero box gives a finite k and not inf."""
+    area = torch.clamp(bbox_wh[..., 0] * bbox_wh[..., 1], min=1.0)
+    return torch.sqrt(real_area * fx * fy / area)

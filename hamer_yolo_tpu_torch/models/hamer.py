@@ -1,6 +1,7 @@
 """HaMeR: ViT-H backbone + MANO head + MANO LBS (port of
 hamer_yolo_tpu/models/hamer.py): center-crop 256x256 -> 256x192, ViT
-tokens (the W8A8 int8 backbone with ``int8_backbone``), MANO head,
+tokens (the W8A8 int8 backbone with ``int8_backbone``, ToMe token merging
+with ``tome_r``, or both), MANO head,
 crop-space camera tz = 2 f / (IMAGE_SIZE s + 1e-9), MANO forward,
 crop-space 2D projection with focal f / IMAGE_SIZE."""
 from __future__ import annotations
@@ -15,6 +16,7 @@ from hamer_yolo_tpu_torch.core.quant import vit_forward_int8
 from hamer_yolo_tpu_torch.geometry.camera import cam_to_translation, perspective_projection
 from hamer_yolo_tpu_torch.models.mano import ManoModel, mano_forward_rotmat
 from hamer_yolo_tpu_torch.models.mano_head import ManoHeadConfig, init_mano_head, mano_head_forward
+from hamer_yolo_tpu_torch.models.tome import vit_forward_tome
 from hamer_yolo_tpu_torch.models.vit import ViTConfig, init_vit, vit_forward
 
 
@@ -30,6 +32,9 @@ class HamerConfig:
     int8_backbone: bool = False
     # The fused MANO LBS (kernel K9, ops/mano_lbs.py) in place of the einsums.
     fused_mano: bool = False
+    # ToMe token merging (models/tome.py): tokens merged per ViT layer, 0 =
+    # off. Composes with int8_backbone.
+    tome_r: int = 0
 
 
 def init_hamer(gen: torch.Generator, cfg: HamerConfig = HamerConfig()) -> nn.Params:
@@ -41,7 +46,10 @@ def hamer_forward(params: nn.Params, mano_model: ManoModel, img: torch.Tensor,
     """img (B, S, S, 3) normalised RGB crops (NHWC) -> the reference's output dict."""
     B = img.shape[0]
     m = cfg.crop_margin
-    if cfg.int8_backbone:
+    if cfg.tome_r > 0:
+        context = vit_forward_tome(params["backbone"], img[:, :, m:-m, :], cfg.vit,
+                                   r_per_layer=cfg.tome_r)
+    elif cfg.int8_backbone:
         context = vit_forward_int8(params["backbone"], img[:, :, m:-m, :], cfg.vit)
     else:
         context = vit_forward(params["backbone"], img[:, :, m:-m, :], cfg.vit)

@@ -1,32 +1,38 @@
 """The exact-bf16 frame pipeline on tensors (port of
-hamer_yolo_tpu/pipeline/frame.py, without the RootNet depth branch):
+hamer_yolo_tpu/pipeline/frame.py):
 
   raw frames (bucket-padded) -> device letterbox -> YOLOv7 -> NMS (K1)
-    -> S fixed, masked hand slots -> HaMeR crops -> ViT-H (K2 on CUDA)
-    -> MANO head -> MANO LBS -> flip corrections -> camera lift with the
-    real intrinsics -> full-image projection -> npy-schema fields.
+    -> S fixed, masked hand slots -> RootNet depth (SAR patches, ResNet-34)
+    -> HaMeR crops -> ViT-H (K2 on CUDA) -> MANO head -> MANO LBS -> flip
+    corrections -> camera lift with the real intrinsics (tz forced to the
+    RootNet depth under ``use_depth_refine``) -> full-image projection ->
+    npy-schema fields.
 
 Every stage runs over a batch dimension: the detector over frames, the
-HaMeR stage over all B*S crops at once (the flat formulation the JAX tests
-pin equal to the per-frame vmap), the epilogue over crops.
+RootNet and HaMeR stages over all B*S slots at once (the flat formulation
+the JAX tests pin equal to the per-frame vmap), the epilogue over crops.
+RootNet runs whenever ``"sar"`` is in the params (or ``use_depth_refine``
+asks for it), as in JAX.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from hamer_yolo_tpu_torch.core import nn
-from hamer_yolo_tpu_torch.geometry.boxes import hamer_box_params, scale_coords
-from hamer_yolo_tpu_torch.geometry.camera import custom_cam_crop_to_full, project_with_intrinsics
+from hamer_yolo_tpu_torch.geometry.boxes import hamer_box_params, process_bbox, scale_coords
+from hamer_yolo_tpu_torch.geometry.camera import (calculate_k_value, custom_cam_crop_to_full,
+                                                  project_with_intrinsics)
 from hamer_yolo_tpu_torch.geometry.flip import correct_pred_cam, flip_keypoints3d
 from hamer_yolo_tpu_torch.geometry.rotations import rotmat_to_aa
 from hamer_yolo_tpu_torch.models.hamer import HamerConfig, hamer_forward
 from hamer_yolo_tpu_torch.models.mano import ManoModel
+from hamer_yolo_tpu_torch.models.sar import SarConfig, estimate_root_depth
 from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig, yolov7_forward
 from hamer_yolo_tpu_torch.ops.nms import non_max_suppression
-from hamer_yolo_tpu_torch.pipeline.preprocess import device_letterbox, hamer_crop
+from hamer_yolo_tpu_torch.pipeline.preprocess import device_letterbox, hamer_crop, sar_patch
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -42,8 +48,10 @@ class PipelineConfig:
     max_nms_static: int = 512
     right_class: int = 1  # cls == 1 -> right hand
     crop_size: int = 256
+    use_depth_refine: bool = False  # tz forced to RootNet's depth (infer --depth-refine)
     yolo: YoloConfig = field(default_factory=lambda: YoloConfig(nc=3))
     hamer: HamerConfig = field(default_factory=HamerConfig)
+    sar: SarConfig = field(default_factory=SarConfig)
 
 
 def detect_hands_batched(yolo_params: nn.Params, images_bgr: torch.Tensor,
@@ -70,10 +78,11 @@ def detect_hands(yolo_params: nn.Params, image_bgr: torch.Tensor, orig_hw: torch
 
 
 def recover_hands(hamer_params: nn.Params, mano_model: ManoModel, images_bgr: torch.Tensor,
-                  dets: Tensors, Ks: torch.Tensor, cfg: PipelineConfig) -> Tensors:
+                  dets: Tensors, Ks: torch.Tensor, cfg: PipelineConfig,
+                  depth_refine: Optional[torch.Tensor] = None) -> Tensors:
     """HaMeR stage over all B*S hand slots in one batch: images_bgr
-    (B, Hb, Wb, 3), dets (B, S, ...), Ks (B, 3, 3) -> per-crop outputs
-    flattened to (B*S, ...)."""
+    (B, Hb, Wb, 3), dets (B, S, ...), Ks (B, 3, 3), depth_refine (B, S) or
+    None -> per-crop outputs flattened to (B*S, ...)."""
     B, S = dets["valid"].shape
     do_flip = 1.0 - dets["is_right"]  # left hands are flipped
     center, size = hamer_box_params(dets["boxes"])
@@ -85,7 +94,9 @@ def recover_hands(hamer_params: nn.Params, mano_model: ManoModel, images_bgr: to
     fx, fy, cx, cy = K[:, 0, 0], K[:, 1, 1], K[:, 0, 2], K[:, 1, 2]
     kp3d = flip_keypoints3d(out["pred_keypoints_3d"], do_flip)
     pred_cam = correct_pred_cam(out["pred_cam"], do_flip)
-    cam_t_full = custom_cam_crop_to_full(pred_cam, center, size, fx, fy, cx, cy)
+    cam_t_full = custom_cam_crop_to_full(
+        pred_cam, center, size, fx, fy, cx, cy,
+        depth_refine=None if depth_refine is None else depth_refine.reshape(-1))
     kp2d_full = project_with_intrinsics(kp3d + cam_t_full[:, None], fx, fy, cx, cy)
     return {
         "pred_cam": pred_cam,
@@ -99,8 +110,30 @@ def recover_hands(hamer_params: nn.Params, mano_model: ManoModel, images_bgr: to
     }
 
 
-def _npy_fields(dets: Tensors, rec: Tensors) -> Tensors:
-    """Save-side axis-angle conversion and the npy-schema dict, (B, S, ...)."""
+def estimate_depths(sar_params: nn.Params, images_bgr: torch.Tensor, dets: Tensors,
+                    orig_hws: torch.Tensor, Ks: torch.Tensor, cfg: PipelineConfig
+                    ) -> torch.Tensor:
+    """RootNet stage over all B*S slots in one batch: images_bgr
+    (B, Hb, Wb, 3), dets (B, S, ...), orig_hws (B, 2), Ks (B, 3, 3) -> the
+    absolute root depth of each slot (B, S). A masked slot's zero box gives a
+    finite value (the k value's area is clamped)."""
+    B, S = dets["valid"].shape
+    b = dets["boxes"]
+    xywh = torch.stack([b[..., 0], b[..., 1], b[..., 2] - b[..., 0], b[..., 3] - b[..., 1]],
+                       dim=-1)
+    size = float(cfg.sar.input_size)
+    pb, _ = process_bbox(xywh, orig_hws[:, 1:2], orig_hws[:, 0:1], (size, size), 1.5)
+    patches = sar_patch(images_bgr, pb, cfg.sar.input_size)
+    k_val = calculate_k_value(pb[..., 2:4], Ks[:, 0:1, 0], Ks[:, 1:2, 1],
+                              real_area=cfg.sar.bbox_real[0] * cfg.sar.bbox_real[1])
+    depth = estimate_root_depth(sar_params, patches.reshape(B * S, *patches.shape[2:]),
+                                k_val.reshape(-1), cfg.sar)
+    return depth.reshape(B, S)
+
+
+def _npy_fields(dets: Tensors, rec: Tensors, depth: Optional[torch.Tensor]) -> Tensors:
+    """Save-side axis-angle conversion and the npy-schema dict, (B, S, ...);
+    ``root_depth`` where RootNet ran."""
     B, S = dets["valid"].shape
     global_aa = rotmat_to_aa(rec["global_orient"][:, 0])            # (B*S, 3)
     hand_aa = rotmat_to_aa(rec["hand_pose"]).reshape(B * S, -1)     # (B*S, 45)
@@ -115,17 +148,26 @@ def _npy_fields(dets: Tensors, rec: Tensors) -> Tensors:
         "keypoints_2d": rec["pred_keypoints_2d_full"],
         "vertices": rec["pred_vertices"],
     }
-    return {**dets, **{k: v.reshape(B, S, *v.shape[1:]) for k, v in flat.items()}}
+    out = {**dets, **{k: v.reshape(B, S, *v.shape[1:]) for k, v in flat.items()}}
+    if depth is not None:
+        out["root_depth"] = depth
+    return out
 
 
 def infer_frames(params: nn.Params, mano_model: ManoModel, images_bgr: torch.Tensor,
                  orig_hws: torch.Tensor, Ks: torch.Tensor, cfg: PipelineConfig) -> Tensors:
     """The full program over a frame batch: images_bgr (B, Hb, Wb, 3) f32
     raw BGR 0..255 (bucket-padded), orig_hws (B, 2), Ks (B, 3, 3) ->
-    per-slot outputs (B, S, ...) with the npy-schema fields as masked arrays."""
+    per-slot outputs (B, S, ...) with the npy-schema fields as masked arrays.
+    JAX's conditions: depth runs under ``use_depth_refine`` or with "sar" in
+    the params, and refines the lift only under ``use_depth_refine``."""
     dets = detect_hands_batched(params["yolo"], images_bgr, orig_hws, cfg)
-    rec = recover_hands(params["hamer"], mano_model, images_bgr, dets, Ks, cfg)
-    return _npy_fields(dets, rec)
+    depth = None
+    if cfg.use_depth_refine or "sar" in params:
+        depth = estimate_depths(params["sar"], images_bgr, dets, orig_hws, Ks, cfg)
+    refine = depth if cfg.use_depth_refine else None
+    rec = recover_hands(params["hamer"], mano_model, images_bgr, dets, Ks, cfg, refine)
+    return _npy_fields(dets, rec, depth)
 
 
 def infer_frame(params: nn.Params, mano_model: ManoModel, image_bgr: torch.Tensor,
@@ -133,3 +175,24 @@ def infer_frame(params: nn.Params, mano_model: ManoModel, image_bgr: torch.Tenso
     """One frame: image_bgr (Hb, Wb, 3), orig_hw (2,), K (3, 3) -> (S, ...)."""
     out = infer_frames(params, mano_model, image_bgr[None], orig_hw[None], K[None], cfg)
     return {k: v[0] for k, v in out.items()}
+
+
+def infer_frame_with_boxes(params: nn.Params, mano_model: ManoModel, image_bgr: torch.Tensor,
+                           boxes: torch.Tensor, is_right: torch.Tensor, box_valid: torch.Tensor,
+                           orig_hw: torch.Tensor, K: torch.Tensor, cfg: PipelineConfig
+                           ) -> Tensors:
+    """The pipeline with the boxes given, the detector bypassed (the
+    reference's mask-driven process_batch_manopara_with_mask): boxes (S, 4)
+    xyxy, is_right and box_valid (S,) -> (S, ...). JAX's form: depth runs
+    only with "sar" in the params, and the outputs have no classes and no
+    pred_cam."""
+    dets = {"boxes": boxes[None], "scores": box_valid.to(torch.float32)[None],
+            "is_right": is_right.to(torch.float32)[None], "valid": box_valid.to(torch.bool)[None]}
+    depth = None
+    if "sar" in params:
+        depth = estimate_depths(params["sar"], image_bgr[None], dets, orig_hw[None], K[None],
+                                cfg)
+    refine = depth if cfg.use_depth_refine else None
+    rec = recover_hands(params["hamer"], mano_model, image_bgr[None], dets, K[None], cfg, refine)
+    out = _npy_fields(dets, rec, depth)
+    return {k: v[0] for k, v in out.items() if k != "pred_cam"}

@@ -1,4 +1,4 @@
-"""On-device preprocessing: letterbox and HaMeR crops (port of
+"""On-device preprocessing: letterbox, HaMeR crops and SAR patches (port of
 hamer_yolo_tpu/pipeline/preprocess.py). The raw frame is uploaded once,
 padded to a bucket shape; every view the models need is produced from it
 on the device by the banded-matmul warps of ops/warp_matmul.py."""
@@ -37,3 +37,14 @@ def hamer_crop(img_bgr: torch.Tensor, center: torch.Tensor, size: torch.Tensor,
     patch = patch.flip(-1)  # BGR -> RGB
     patch = torch.where(do_flip[..., None, None, None] > 0.5, patch.flip(-2), patch)
     return normalize_imagenet(patch / 255.0)
+
+
+def sar_patch(img_bgr: torch.Tensor, bbox_xywh: torch.Tensor, out_size: int = 256
+              ) -> torch.Tensor:
+    """SAR / RootNet inputs for every slot of every frame: img_bgr (B, H, W,
+    3), processed boxes bbox_xywh (B, S, 4) -> (B, S, o, o, 3): crop of the
+    (w, h) box -> BGR->RGB -> ImageNet normalise (no flip in the depth path)."""
+    center = bbox_xywh[..., 0:2] + 0.5 * bbox_xywh[..., 2:4]
+    patch = warp_matmul.crop_square_matmul(img_bgr, center, bbox_xywh[..., 2:4],
+                                           (out_size, out_size))
+    return normalize_imagenet(patch.flip(-1) / 255.0)

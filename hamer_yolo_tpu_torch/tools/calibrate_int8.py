@@ -73,7 +73,7 @@ def calibrate_frames(params, frames: Iterable[np.ndarray], cfg: PipelineConfig, 
 
 
 def main(argv: Optional[list] = None) -> int:
-    from hamer_yolo_tpu_torch.cli.main import pipeline_config
+    from hamer_yolo_tpu_torch.cli.main import load_mano, pipeline_config
     from hamer_yolo_tpu_torch.core.checkpoint import init_pipeline_params
     from hamer_yolo_tpu_torch.pipeline.runner import read_images
 
@@ -89,7 +89,8 @@ def main(argv: Optional[list] = None) -> int:
 
     device = torch.device(args.device)
     cfg = pipeline_config(args.tiny)
-    params = init_pipeline_params(0, cfg.yolo, cfg.hamer, device)
+    params = init_pipeline_params(0, load_mano(None, device), cfg.yolo, cfg.hamer,
+                                  with_sar=False, device=device)
     images = [img for _, img in read_images(args.input) if img is not None][:args.max_images]
     stats, n_crops = calibrate_frames(params, images, cfg, device, args.batch)
     if stats is None:

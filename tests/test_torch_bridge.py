@@ -51,6 +51,14 @@ def numpy_params(init_fn, seed: int = 0):
             v = np.tile([1.0, 0, 0, 0, 1, 0], shape[1] // 6)[None] + 0.05 * rng.normal(size=shape)
         elif key == "init_cam":
             v = np.array([[0.9, 0.0, 0.0]]) + 0.01 * rng.normal(size=shape)
+        elif key in ("mean", "template"):  # BN running means; SAR's MANO template
+            v = 0.05 * rng.normal(size=shape)
+        elif key == "var":
+            v = rng.uniform(0.5, 1.5, shape)
+        elif key == "adj":  # SAR's learned adjacency: JAX's identity init, perturbed
+            v = np.eye(shape[0]) + 0.02 * rng.uniform(size=shape)
+        elif key == "beta":
+            v = 1.0 + 0.1 * rng.normal(size=shape)
         else:
             raise KeyError(path)
         return v.astype(np.float32)
@@ -58,13 +66,55 @@ def numpy_params(init_fn, seed: int = 0):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
-def pipeline_params(jcfg, seed: int = 0):
-    """numpy weights for the tiny detector + HaMeR (no SAR), JAX layout."""
+def pipeline_params(jcfg, seed: int = 0, with_sar: bool = False):
+    """numpy weights for the tiny detector + HaMeR (+ SAR with ``with_sar``),
+    JAX layout."""
     from hamer_yolo_tpu.core.checkpoint import init_pipeline_params
 
     jmano, _ = mano_pair()
     return numpy_params(lambda k: init_pipeline_params(
-        k, jmano, yolo_cfg=jcfg.yolo, hamer_cfg=jcfg.hamer, with_sar=False), seed)
+        k, jmano, yolo_cfg=jcfg.yolo, hamer_cfg=jcfg.hamer, sar_cfg=jcfg.sar,
+        with_sar=with_sar), seed)
+
+
+def calibrate_sar_bn(sar, x):
+    """Set the BN running stats of a SAR tree (numpy leaves, JAX layout) to
+    the f32 batch statistics of each BN's input on the patches ``x``
+    (B, H, W, 3), as training leaves them. With numpy_params' stats the
+    random trunk's activations grow ~1000x over its 36 convolutions (no BN
+    normalises anything); with these they stay O(1), as in a trained trunk.
+    The stats are computed with the port's f32 layers. Returns ``sar``."""
+    from hamer_yolo_tpu_torch.core import nn as tnn
+
+    def conv_bn(conv, bn, y, stride, pad):
+        z = tnn.conv2d(from_jax_params(conv), y, stride, pad)
+        bn["mean"] = z.mean((0, 1, 2)).numpy().astype(np.float32)
+        bn["var"] = z.var((0, 1, 2)).numpy().astype(np.float32)
+        return tnn.batch_norm(from_jax_params(bn), z, 1e-5)
+
+    b = sar["backbone"]
+    with torch.no_grad():
+        y = torch.relu(conv_bn(b["conv1"], b["bn1"], torch.from_numpy(x), 2, 3))
+        y = tnn.max_pool(y, 3, 2, 1)
+        for si, blocks in enumerate(b["stages"]):
+            for bi, blk in enumerate(blocks):
+                stride = 2 if (bi == 0 and si > 0) else 1
+                z = torch.relu(conv_bn(blk["conv1"], blk["bn1"], y, stride, 1))
+                z = conv_bn(blk["conv2"], blk["bn2"], z, 1, 1)
+                if "down" in blk:
+                    y = conv_bn(blk["down"], blk["down_bn"], y, stride, 0)
+                y = torch.relu(y + z)
+    return sar
+
+
+def sar_pipeline_params(jcfg, seed: int = 0):
+    """pipeline_params with SAR, its BN stats calibrated (calibrate_sar_bn)
+    on numpy-made normalised patches at the SAR input size."""
+    params = jax.tree_util.tree_map(np.asarray, pipeline_params(jcfg, seed, with_sar=True))
+    x = np.random.default_rng(seed + 100).normal(
+        size=(8, jcfg.sar.input_size, jcfg.sar.input_size, 3)).astype(np.float32)
+    calibrate_sar_bn(params["sar"], x)
+    return params
 
 
 def jax_exact(fn, *args):
@@ -86,30 +136,34 @@ def np_tree(tree):
     return out
 
 
-def tiny_configs(dtype: str = "bfloat16", max_hands: int = 2):
-    """The --tiny pipeline config (hamer_yolo_tpu/cli/main.py:47-61 without
-    SAR) in both packages, at one compute dtype for detector and ViT."""
+def tiny_configs(dtype: str = "bfloat16", max_hands: int = 2, depth_refine: bool = False):
+    """The --tiny pipeline config (hamer_yolo_tpu/cli/main.py:47-61) in both
+    packages, at one compute dtype for detector, ViT and SAR."""
     from hamer_yolo_tpu.models.hamer import HamerConfig as JH
     from hamer_yolo_tpu.models.mano_head import ManoHeadConfig as JM
+    from hamer_yolo_tpu.models.sar import SarConfig as JS
     from hamer_yolo_tpu.models.vit import ViTConfig as JV
     from hamer_yolo_tpu.models.yolov7 import YoloConfig as JY
     from hamer_yolo_tpu.pipeline.frame import PipelineConfig as JP
     from hamer_yolo_tpu_torch.models.hamer import HamerConfig as TH
     from hamer_yolo_tpu_torch.models.mano_head import ManoHeadConfig as TM
+    from hamer_yolo_tpu_torch.models.sar import SarConfig as TS
     from hamer_yolo_tpu_torch.models.vit import ViTConfig as TV
     from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig as TY
     from hamer_yolo_tpu_torch.pipeline.frame import PipelineConfig as TP
 
-    def build(P, Y, H, V, M):
-        return P(max_hands=max_hands, det_size=64, crop_size=64,
+    def build(P, Y, H, V, M, S):
+        return P(max_hands=max_hands, det_size=64, crop_size=64, use_depth_refine=depth_refine,
                  yolo=Y(nc=3, img_size=64, compute_dtype=dtype),
                  hamer=H(image_size=64, crop_margin=8,
                          vit=V(img_size=(64, 48), embed_dim=64, depth=2, num_heads=4,
                                compute_dtype=dtype),
                          head=M(dim=32, context_dim=64, depth=2, heads=2, dim_head=8,
-                                mlp_dim=32)))
+                                mlp_dim=32)),
+                 sar=S(backbone="resnet34", input_size=64, feature_hw=2, heatmap_size=8,
+                       compute_dtype=dtype))
 
-    return build(JP, JY, JH, JV, JM), build(TP, TY, TH, TV, TM)
+    return build(JP, JY, JH, JV, JM, JS), build(TP, TY, TH, TV, TM, TS)
 
 
 def mano_pair():
@@ -141,7 +195,7 @@ class TestBridge:
 
     @pytest.mark.parametrize("leaf", [
         {"w": {"q": np.zeros((4, 4), np.int8), "scale": np.ones(4, np.float32)}},
-        {"bn": {"mean": np.zeros(4, np.float32)}},
+        {"bn": {"mean": np.zeros((4, 4), np.float32)}},
         {"w": np.zeros((2, 2, 2), np.float32)},
     ], ids=["int8_weight", "batchnorm_stats", "rank3_weight"])
     def test_unmapped_leaf_raises(self, leaf):
@@ -186,10 +240,14 @@ def test_port_imports_without_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'hamer_yolo_tpu' or m.startswith('hamer_yolo_tpu.')]\n"
         "assert not bad, bad\n"
-        "print(len(mods))\n"
+        "print(' '.join(mods))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 25
+    mods = set(res.stdout.split())
+    assert len(mods) >= 48
+    assert {f"hamer_yolo_tpu_torch.{m}" for m in (
+        "models.resnet", "models.sar", "models.tome", "pipeline.serving", "pipeline.sar_mesh",
+        "utils.profiling")} <= mods

@@ -894,6 +894,222 @@ def test_hamer_forward_fused_mano_on_cuda(dev):
         torch.testing.assert_close(got[k], ref[k], rtol=0, atol=1e-5)
 
 
+# ------------------------------------- ToMe's token counts, RootNet, serving
+@pytest.mark.parametrize("N", [124, 68])
+def test_int8_kernels_at_tome_token_counts(dev, N):
+    """K3, K4, K5 and K7 at ToMe's token counts on ViT-H's widths: 16 crops
+    of N tokens, M = 16 N rows (not multiples of 128; K7's query tiles
+    partly empty), each against its plain version at its limits."""
+    rng = np.random.default_rng(N)
+    B, K, h = 16, 1280, 16
+    tok = torch.from_numpy(rng.normal(size=(B, N, K)).astype(np.float32)).to(dev).bfloat16()
+    q, s, b = _qlinear(rng, dev, K, 3 * K)
+    pq, ps, pb = _qlinear(rng, dev, K, K)
+    sq, sp = torch.tensor(0.03, device=dev), torch.tensor(0.012, device=dev)
+    args = (q, s, b, _vec(rng, dev, K, 1.0), _vec(rng, dev, K), sq, sp, pq, ps, pb, h)
+    steps = attn_proj_block.fused_int8_attn_proj_block_steps(tok, *args)
+    torch.cuda.synchronize()
+    attn_proj_block.check_against_plain(steps, tok, *args)
+    w1, s1, b1 = _qlinear(rng, dev, K, 4 * K)
+    w2, s2, b2 = _qlinear(rng, dev, 4 * K, K, scale=0.02)
+    margs = (w1, s1, b1, w2, s2, b2, _vec(rng, dev, K, 1.0), _vec(rng, dev, K),
+             torch.tensor(0.03, device=dev), torch.tensor(0.02, device=dev))
+    got = fused_int8_mlp_block(tok, *margs, gelu="gelu_poly")
+    torch.cuda.synchronize()
+    check_against_plain(got, fused_int8_mlp_block_ref(tok, *margs, gelu="gelu_poly"), "K4")
+    x = tok.reshape(B * N, K)
+    for static in (None, sq):
+        got = fused_int8_matmul(x, q, s, b, args[3], args[4], prologue="ln", static_scale=static)
+        torch.cuda.synchronize()
+        check_against_plain(got, fused_int8_matmul_ref(x, q, s, b, args[3], args[4],
+                                                       prologue="ln", static_scale=static), "K5")
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3, h, K // h)).astype(np.float32)).to(
+        dev).bfloat16()
+    qh, kh, vh = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    for sx in (None, sp):
+        got = fused_short_attention(qh, kh, vh, out_scale=sx)
+        torch.cuda.synchronize()
+        ref = fused_short_attention_ref(qh, kh, vh, out_scale=sx)
+        if sx is None:
+            check_against_twin(got, ref)
+        else:
+            check_against_plain(got, ref, "K7")
+
+
+@pytest.mark.parametrize("scales", ["static", "dynamic"])
+def test_int8_tome_vit_on_cuda_runs_the_kernels(dev, scales):
+    """int8 + ToMe on the card: the kernels of the int8 path once per block
+    (K3 + K4 with scales, K5 x 4 + K7 without) at the merged token counts
+    192, 188, 184, no K2; without merges (r = 0) the same launches give
+    vit_forward_int8's tokens bit for bit. The merged forward against the
+    CPU's: the next test."""
+    from hamer_yolo_tpu_torch.models.tome import vit_forward_tome
+
+    cfg = ViTConfig(embed_dim=64, depth=3, num_heads=4)
+    params = quant.quantize_vit_params(init_vit(torch.Generator().manual_seed(0), cfg))
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(3, 256, 192, 3))
+                         .astype(np.float32))
+    if scales == "static":
+        stats = quant.collect_vit_act_stats(params, x, cfg)
+        params = quant.attach_static_act_scales(params, stats)
+    params, x = _to(params, dev), x.to(dev)
+    fns = {"K2": fused_bf16_attn_block, "K3": fused_int8_attn_proj_block,
+           "K4": fused_int8_mlp_block, "K5": fused_int8_matmul, "K7": fused_short_attention}
+    counts = {"K3": 1, "K4": 1} if scales == "static" else {"K5": 4, "K7": 1}
+    for r in (4, 0):
+        before = {k: f.launches for k, f in fns.items()}
+        got = vit_forward_tome(params, x, cfg, r_per_layer=r)
+        torch.cuda.synchronize()
+        ran = {k: f.launches - before[k] for k, f in fns.items()}
+        assert ran == {**dict.fromkeys(fns, 0), **{k: n * cfg.depth for k, n in counts.items()}}
+        assert got.shape == (3, 192 - r * cfg.depth, 64) and torch.isfinite(got).all()
+    assert torch.equal(got, quant.vit_forward_int8(params, x, cfg))
+
+
+def _merge_fates(match, n_tokens):
+    """A merge choice as (B, Na): the B token each A token merges into, -1
+    where it is kept."""
+    merged_a, _, tgt = match
+    fates = torch.full((merged_a.shape[0], (n_tokens + 1) // 2), -1, dtype=torch.long)
+    return fates.scatter_(1, merged_a.cpu(), tgt.cpu())
+
+
+@pytest.mark.parametrize("scales", ["static", "dynamic"])
+def test_int8_tome_vit_on_cuda_matches_cpu_on_the_same_merges(dev, scales, monkeypatch):
+    """The merged int8 forward on the card (K3 + K4, or K5 + K7) against
+    the kernels' plain versions on the CPU, from the card's embedded tokens,
+    the card's polynomial GELU on both, and each layer's merge choice taken
+    from the card's run. A merge is an argmax over similarities: where an
+    int8 flip moves a token, the other device could merge it elsewhere and
+    the two forwards would compute different things; the choices the CPU
+    would have made are counted and printed. The JAX package's limit for
+    int8 rounding flips (tests/test_int8_fused.py:330-334), as the unmerged
+    ViT's card test. Printed too, unchecked: the CPU's default forwards from
+    the image, with and without merges, against the card's (they part from
+    it without merges as well: another patch embedding, the unfused
+    composition and the exact GELU)."""
+    from hamer_yolo_tpu_torch.models import tome
+    from hamer_yolo_tpu_torch.models.vit import embed_tokens
+
+    cfg = ViTConfig(embed_dim=64, depth=3, num_heads=4)
+    params = quant.quantize_vit_params(init_vit(torch.Generator().manual_seed(0), cfg))
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(3, 256, 192, 3))
+                         .astype(np.float32))
+    if scales == "static":
+        stats = quant.collect_vit_act_stats(params, x, cfg)
+        params = quant.attach_static_act_scales(params, stats)
+    tok = embed_tokens(_to(params, dev), x.to(dev), cfg)
+    match, card, differ = tome.bipartite_matching, [], []
+
+    def record(t, r):
+        card.append(match(t, r))
+        return card[-1]
+
+    def replay(t, r):
+        want = card[len(differ)]
+        differ.append(int((_merge_fates(match(t, r), t.shape[1])
+                           != _merge_fates(want, t.shape[1])).sum()))
+        return tuple(m.cpu() for m in want)
+
+    monkeypatch.setattr(tome, "bipartite_matching", record)
+    got = tome.vit_blocks_tome(_to(params, dev), tok, cfg, 4).float().cpu()
+    monkeypatch.setattr(tome, "bipartite_matching", replay)
+    ref = tome.vit_blocks_tome(params, tok.cpu(), cfg, 4, fused=True, gelu="gelu_poly").float()
+    assert len(card) == len(differ) == cfg.depth and got.shape == ref.shape == (3, 180, 64)
+    frac = torch.isclose(got, ref, rtol=0.02, atol=0.02).float().mean()
+    monkeypatch.setattr(tome, "bipartite_matching", match)
+    own = tome.vit_blocks_tome(params, tok.cpu(), cfg, 4, fused=True, gelu="gelu_poly").float()
+
+    def share(a, b):
+        close = torch.isclose(a.float().cpu(), b.float(), rtol=0.02, atol=0.02)
+        return f"{float(close.float().mean()):.4f}"
+
+    # unchecked: the CPU's default forwards from the image (its own patch
+    # embedding, the unfused composition, the exact GELU), with and without
+    # merges, against the card's
+    plain = {r: tome.vit_forward_tome(params, x, cfg, r) for r in (4, 0)}
+    card0 = tome.vit_forward_tome(_to(params, dev), x.to(dev), cfg, 0)
+    print(f"int8-tome {scales}: {float(frac):.4f} within 0.02 on the card's merges, "
+          f"{share(got, own)} on the CPU's own; A tokens the CPU would merge otherwise, by "
+          f"layer: {differ}; the CPU's default forward from the image {share(got, plain[4])}, "
+          f"without merges {share(card0, plain[0])}")
+    assert frac > 0.99, f"{frac} within 0.02; merges the CPU would change, by layer: {differ}"
+    torch.testing.assert_close(got, ref, rtol=0.2, atol=0.1)
+
+
+def test_tome_merge_on_cuda_matches_cpu(dev):
+    """The merge at ViT-H's shape (16 crops of 192 tokens of 1280, bf16)
+    on the card: the CPU's merges and sizes, and its tokens bit for bit."""
+    from hamer_yolo_tpu_torch.models.tome import bipartite_soft_matching_merge
+
+    rng = np.random.default_rng(2)
+    tok = torch.from_numpy(rng.normal(size=(16, 192, 1280)).astype(np.float32)).bfloat16()
+    sizes = torch.from_numpy(rng.integers(1, 4, (16, 192)).astype(np.float32)).bfloat16()
+    ref_t, ref_s = bipartite_soft_matching_merge(tok, sizes, 4)
+    got_t, got_s = bipartite_soft_matching_merge(tok.to(dev), sizes.to(dev), 4)
+    assert torch.equal(got_s.cpu(), ref_s) and torch.equal(got_t.cpu(), ref_t)
+
+
+def test_rootnet_on_cuda_matches_cpu(dev):
+    """RootNet's trunk and depth on the card: f32 at the JAX package's
+    composed-oracle limit (2e-3, relative for depths of random-weight size);
+    bf16 (cuDNN's sum order) as accurate as the CPU's bf16 against the f32
+    trunk within a factor 2, as tests/test_torch_sar.py holds the port
+    against JAX."""
+    from hamer_yolo_tpu_torch.models.sar import SarConfig, estimate_root_depth, init_sar
+    from hamer_yolo_tpu_torch.models.mano import ManoModel
+    from hamer_yolo_tpu_torch.core.mano_assets import synthetic_mano_model
+
+    mano = ManoModel.from_arrays(synthetic_mano_model(0))
+    params = init_sar(torch.Generator().manual_seed(0), mano.v_template,
+                      SarConfig(input_size=64, feature_hw=2, heatmap_size=8))
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(16, 64, 64, 3)).astype(np.float32))
+    k = torch.from_numpy(rng.uniform(0.5, 2.0, 16).astype(np.float32))
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = SarConfig(input_size=64, feature_hw=2, heatmap_size=8, compute_dtype=dt)
+        out[dt] = (estimate_root_depth(params, x, k, cfg).double(),
+                   estimate_root_depth(_to(params, dev), x.to(dev), k.to(dev), cfg)
+                   .double().cpu())
+    cpu32, card32 = out["float32"]
+    torch.testing.assert_close(card32, cpu32, rtol=2e-3, atol=2e-3)
+    cpu16, card16 = out["bfloat16"]
+    assert torch.isfinite(card16).all()
+    assert (card16 - cpu32).abs().max() <= 2.0 * (cpu16 - cpu32).abs().max()
+
+
+def test_batched_pipeline_on_cuda(dev):
+    """BatchedPipeline on the card at the --tiny config with RootNet: the
+    hands and slots of the one-frame program on each frame; F2's checks."""
+    from hamer_yolo_tpu_torch.cli.main import pipeline_config
+    from hamer_yolo_tpu_torch.core.checkpoint import init_pipeline_params
+    from hamer_yolo_tpu_torch.core.mano_assets import synthetic_mano_model
+    from hamer_yolo_tpu_torch.models.mano import ManoModel
+    from hamer_yolo_tpu_torch.pipeline.runner import FrameProgram
+    from hamer_yolo_tpu_torch.pipeline.serving import BatchedPipeline
+
+    cfg = pipeline_config(tiny=True)
+    mano = ManoModel.from_arrays(synthetic_mano_model(0), dev)
+    params = init_pipeline_params(0, mano, cfg.yolo, cfg.hamer, cfg.sar, device=dev)
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 256, (120, 160, 3), dtype=np.uint8) for _ in range(3)]
+    K = np.float32([[200.0, 0, 80], [0, 200.0, 60], [0, 0, 1]])
+    pipe = BatchedPipeline(params, mano, cfg, batch_size=4, device=dev)
+    out = pipe.process_batch(frames, K)
+    assert out["root_depth"].shape == (3, cfg.max_hands)
+    program = FrameProgram(params, mano, cfg, dev)
+    for i, f in enumerate(frames):
+        one = program(f, K)
+        assert (one["valid"] == out["valid"][i]).all()
+        for k, v in one.items():
+            assert np.isfinite(out[k][i]).all() if v.dtype != bool else True
+    with pytest.raises(ValueError, match="5 frames for a batch of 4"):
+        pipe.process_batch(frames + frames[:2], K)
+    with pytest.raises(ValueError, match="outside 0..255"):
+        pipe.process_batch([frames[0].astype(np.float32) - 1.0], K)
+
+
 # Last in the file: on the card (PyTorch 2.11), a profiler session early in
 # the process left test_k9_matches_plain's sessions, after the tests between,
 # recording no device activity at all; back to back they both record.

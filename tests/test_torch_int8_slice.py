@@ -144,10 +144,11 @@ def test_calibrate_frames_matches_collect(image_dir):
     over all crops equal the max over batches of two."""
     import cv2
 
-    from hamer_yolo_tpu_torch.cli.main import pipeline_config
+    from hamer_yolo_tpu_torch.cli.main import load_mano, pipeline_config
 
     cfg = pipeline_config(tiny=True)
-    params = init_pipeline_params(0, cfg.yolo, cfg.hamer, "cpu")
+    params = init_pipeline_params(0, load_mano(None, "cpu"), cfg.yolo, cfg.hamer,
+                                  with_sar=False, device="cpu")
     frames = [cv2.imread(os.path.join(image_dir, f)) for f in sorted(os.listdir(image_dir))]
     stats, n = calibrate_int8.calibrate_frames(params, frames, cfg, "cpu", batch=2)
     crops = torch.cat([calibrate_int8.frame_crops(params["yolo"], f, cfg, "cpu") for f in frames])
