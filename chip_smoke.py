@@ -26,7 +26,26 @@ ResNet-34 RootNet at 256; seeded random weights, synthetic MANO, numpy-made
   K9); B, no scales with HYT_ATTN=pallas_fusedqkv (K5, K8). Each is held to
   the default int8 path of the same batch;
 - the mask-driven path (``infer --mask-dir``: boxes from masks, the detector
-  bypassed: K2 only).
+  bypassed: K2 only);
+- the serving path ("serving"): the runner, the batched runner, the masked
+  runner and BatchedPipeline run as captured CUDA graphs, one per bucket
+  (pipeline/captured.py). BatchedPipeline at batch 4 (bf16 and int8 static)
+  and FrameProgram must equal eager ``infer_frames`` / ``infer_frame`` on
+  the same padded inputs bit for bit (or, where two eager runs differ,
+  within their spread, printed); ``stream_multi`` over four iterator
+  sources at ``detect_every=2`` must follow the keyframe cadence, a tracked
+  tick's replay must launch K2's kernels and no K1 (counted by name with
+  torch.profiler), a keyframe's both, and the tracked tick must equal eager
+  ``infer_frames_tracked`` on the same state; the HTTP server on port 0
+  must answer six concurrent POSTs in at most two batches (``decode_image``
+  is replaced by np.load of .npy bodies: the script needs no cv2) and shut
+  down within a time limit. It prints graph against eager e2e p50 at B = 1,
+  4, 16 (bf16, int8 static), the stream_multi ticks' times and each graph's
+  memory pool. A captured program's first call of a bucket counts its
+  launches twice (the warm-up and the capture), a replay not at all;
+- the CLI ("cli"): ``serve --batch 4``, ``serve --multi --detect-every 2``
+  and ``serve-http`` through cli.main at full width, with a stand-in for
+  cv2 that reads .npy files (the script needs no cv2).
 
 A phase "ToMe shapes" holds K3, K4, K5 and K7 against their plain versions
 at the token counts ToMe gives them (N = 124 and 68 a crop, 16 crops), and
@@ -139,6 +158,10 @@ BF16_ACCURACY_FACTOR = 2.0  # bf16 RootNet: |card - CPU f32| <= this x |CPU bf16
 
 TOME_N = (124, 68)    # ToMe token counts held against the plain versions: blocks 17 and 31
 N_FRAMES = 3          # frames through the runner (FrameProgram)
+# A captured program's first call of a bucket runs its function twice, the
+# warm-up and the capture, and its launch counters count both; a replay
+# launches its kernels without passing the wrappers (pipeline/captured.py).
+CAPTURE_RUNS = 2
 BATCH = 4             # frames in the infer_frames batch
 TIMED_ITERS = 10
 AXIS_ANGLE_KEYS = ("theta", "pose_hand", "pose_global")
@@ -324,8 +347,9 @@ def main() -> int:
 
     (program, stats, batch_out, npys, objs), n = run_counted(bf16_path)
     launches.update(K1=n["K1"], K2=n["K2"])
-    vit_forwards = N_FRAMES + 1
-    print(f"bf16 path: {stats.frames} frames, {stats.hands} hands via the runner -> "
+    vit_forwards = CAPTURE_RUNS + 1  # the runner's one bucket, then the infer_frames batch
+    print(f"bf16 path: {stats.frames} frames, {stats.hands} hands via the runner (captured, "
+          f"{len(program.program.pool_bytes)} graph) -> "
           f"{len(npys)} npy, {len(objs)} obj; infer_frames batch {BATCH} -> "
           f"{int(batch_out['valid'].sum())} valid slots; launches {n}")
     if len(npys) != N_FRAMES or not objs:
@@ -366,10 +390,10 @@ def main() -> int:
           f"{bstats.hands} hands, {bstats.skipped} skipped; launches {n}")
     if bstats.skipped or bstats.frames != BATCH:
         raise RuntimeError(f"batched runner: {bstats}")
-    expect_launches("batched runner", n, {"K1": 1, "K2": depth,
+    expect_launches("batched runner", n, {"K1": CAPTURE_RUNS, "K2": CAPTURE_RUNS * depth,
                                           **dict.fromkeys(INT8_KERNELS + ("K9",), 0)})
-    # the same program on the same 4 frames as the bf16 path's infer_frames
-    # batch: its files hold that batch's outputs bit for bit
+    # the same program, captured, on the same 4 frames as the bf16 path's
+    # eager infer_frames batch: its files hold that batch's outputs bit for bit
     compare_npys(bnpys, {f"frame{i}.npy": frame_outputs_to_hand_dicts(
         {k: v[i].cpu().numpy() for k, v in batch_out.items()}) for i in range(BATCH)},
         "batched runner vs the infer_frames batch", tol=0.0)
@@ -444,7 +468,7 @@ def main() -> int:
     mstats, mout, n = masked_path(params, mano, cfg, dev, frames[:N_FRAMES], K)
     print(f"masked path: {mstats.frames} frames, {mstats.hands} hands, {mstats.skipped} skipped; "
           f"launches {n}; root_depth of the mask's hand {float(mout['root_depth'][0]):.4g}")
-    expect_launches("masked path", n, {"K1": 0, "K2": depth * N_FRAMES,
+    expect_launches("masked path", n, {"K1": 0, "K2": CAPTURE_RUNS * depth,
                                        **dict.fromkeys(INT8_KERNELS + ("K9",), 0)})
 
     # -- the main path's own kernel inputs -----------------------------------
@@ -483,14 +507,9 @@ def main() -> int:
             with switches(env):
                 int8_ms[name] = cuda_time_ms(lambda: infer_frames(p, mano, imgs, hws, Ks, c),
                                              iters=5)
-        single = []
-        for _ in range(2):
-            program(frames[0], K)
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            program(frames[0], K)  # ends in a device-to-host copy
-            single.append((time.perf_counter() - t0) * 1e3)
+    single = interleaved_p50({"graph": lambda: program(frames[0], K),
+                              "eager": lambda: eager_frame(params, mano, cfg, dev, frames[0], K)},
+                             rounds=3)
     print(f"RootNet stage (estimate_depths: {BATCH * cfg.max_hands} SAR patches of "
           f"{cfg.sar.input_size}x{cfg.sar.input_size}, ResNet-34 in {cfg.sar.compute_dtype}) at "
           f"b{BATCH}: p50 {depth_ms:.3f} ms on {smi} (CUDA events, 2 warm-up, 5 timed)")
@@ -501,7 +520,12 @@ def main() -> int:
         print(f"e2e infer_frames b{BATCH} 720p, int8 {name}: p50 {ms:.2f} ms = "
               f"{BATCH / ms * 1e3:.2f} frames/s (CUDA events, 2 warm-up, 5 timed)")
     print(f"e2e FrameProgram single 720p frame incl. upload and copy back: p50 "
-          f"{float(np.median(single)):.2f} ms (host clock, 2 warm-up, 5 timed)")
+          f"{single['graph']:.2f} ms by its captured graph, {single['eager']:.2f} ms eager "
+          "(host clock, in turns graph, eager, eager, graph; 1 warm-up, 6 timed each)")
+
+    # -- serving: captured programs, stream_multi, the HTTP server ----------
+    serving_phase(params, sparams, qcfg, mano, cfg, dev, smi)
+    cli_phase(dev, depth)
 
     # -- reference checks on a small input: the card against the CPU path ----
     check_reference(dev)
@@ -530,6 +554,455 @@ def check_batch(out, cfg, what):
         raise RuntimeError(f"{what}: vertices shape {tuple(out['vertices'].shape)}")
     if not out["valid"].any():
         raise RuntimeError(f"{what}: no valid hand slot")
+
+
+def interleaved_p50(fns, rounds=3, warmup=1):
+    """Host-clock p50 in ms of each fn() (each ends in a copy to the host),
+    after ``warmup`` calls each, in turns a, b, ..., b, a for ``rounds``."""
+    import torch
+
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k in list(fns) + list(fns)[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[k]()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def eager_frame(params, mano, cfg, dev, frame, K):
+    """FrameProgram's work without its graph: pad, upload, infer_frame, copy back."""
+    import torch
+
+    from hamer_yolo_tpu_torch.pipeline.frame import infer_frame
+    from hamer_yolo_tpu_torch.pipeline.runner import _bucket_pad
+
+    padded, hw = _bucket_pad(frame)
+    with torch.inference_mode():
+        out = infer_frame(params, mano, torch.from_numpy(padded).to(dev).to(torch.float32),
+                          torch.from_numpy(hw).to(dev),
+                          torch.from_numpy(np.asarray(K, np.float32)).to(dev), cfg)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def eager_batch(pipe, frames, K, state=None):
+    """BatchedPipeline's work without its graphs: pad, upload, infer_frames
+    (or infer_frames_tracked on ``state``, the previous tick's stacked
+    outputs), copy back."""
+    import torch
+
+    from hamer_yolo_tpu_torch.pipeline.frame import infer_frames, infer_frames_tracked
+
+    images, hws, Ks = pipe._pad_frames(frames, K)
+    dev = pipe.device
+    t = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev))  # noqa: E731
+    with torch.inference_mode():
+        if state is None:
+            out = infer_frames(pipe.params, pipe.mano_model, t(images).to(torch.float32), t(hws),
+                               t(Ks), pipe.cfg)
+        else:
+            out = infer_frames_tracked(pipe.params, pipe.mano_model, t(images).to(torch.float32),
+                                       t(state["keypoints_2d"]), t(state["is_right"]),
+                                       t(state["valid"]), t(hws), t(Ks), pipe.cfg,
+                                       track_expand=pipe.track_expand)
+    return {k: v[:len(frames)].cpu().numpy() for k, v in out.items()}
+
+
+def _max_diff(a, b):
+    if a.dtype == bool:
+        return float(np.count_nonzero(a != b))
+    return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
+
+
+def hold_to_eager(got, eager, eager_again, what):
+    """The captured program's outputs ``got`` equal to the eager ones bit for
+    bit, or, for an output where two eager runs differ, within that spread
+    (printed with the output's name)."""
+    if set(got) != set(eager):
+        raise RuntimeError(f"{what}: outputs {sorted(got)} against eager {sorted(eager)}")
+    spread = {k: _max_diff(eager[k], eager_again[k]) for k in eager}
+    diff = {k: _max_diff(got[k], eager[k]) for k in eager}
+    noisy = {k: v for k, v in spread.items() if v}
+    if noisy:
+        print(f"{what}: two eager runs differ in {noisy} (the graph is held to that spread)")
+    bad = {k: d for k, d in diff.items() if d > spread[k]}
+    if bad:
+        raise RuntimeError(f"{what}: the captured graph departs from eager: {bad}")
+    same = [k for k, d in diff.items() if d == 0]
+    print(f"{what}: captured graph against eager: {len(same)} of {len(diff)} outputs bit for "
+          f"bit{'' if len(same) == len(diff) else ', the rest within the eager spread'}")
+
+
+# The device kernels of K1 and of K2's three launches, counted by name in a
+# profile of a graph replay (a replay does not pass the launch counters).
+K1_KERNEL = "nms_keep_kernel"
+K2_KERNELS = ("ln_rows_kernel", "qkv_gemm_kernel", "attention_bf16_kernel")
+
+
+def kernels_by_name(fn, again=None, tries=3):
+    """(fn(), {device kernel name: launches}) from torch.profiler. Now and
+    then a session records no device activity at all; then ``again()``, a
+    replay of the same graph on the same inputs, is profiled instead, up to
+    ``tries`` sessions in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out, counts = None, {}
+    for i in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = fn() if i == 0 else again()
+            torch.cuda.synchronize()
+        out = res if i == 0 else out
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                counts[ev.name] = counts.get(ev.name, 0) + 1
+        if counts or again is None:
+            break
+    return out, counts
+
+
+def named(counts, part):
+    return sum(c for name, c in counts.items() if part in name)
+
+
+def expect_replay(what, counts, k1, depth):
+    """A replay's profile: ``k1`` K1 launches, each of K2's kernels once a
+    ViT block."""
+    got = {"K1": named(counts, K1_KERNEL), **{n: named(counts, n) for n in K2_KERNELS}}
+    want = {"K1": k1, **dict.fromkeys(K2_KERNELS, depth)}
+    print(f"{what}: device kernels by name in one replay: {got} of {sum(counts.values())} "
+          "launches in all")
+    if got != want:
+        raise RuntimeError(f"{what}: a replay launched {got}, expected {want}")
+
+
+def serving_phase(params, sparams, qcfg, mano, cfg, dev, smi):
+    """The serving path at full width on the captured programs: (a) graphs
+    against eager, bit for bit; (b) stream_multi with tracking; (c) the
+    HTTP server; (d) graph against eager times and each graph's pool."""
+    import torch
+
+    from hamer_yolo_tpu_torch.pipeline.runner import FrameProgram, default_intrinsics
+    from hamer_yolo_tpu_torch.pipeline.serving import BatchedPipeline
+
+    depth = cfg.hamer.vit.depth
+    frames = frames_720p(16, SEED + 1)
+    K = default_intrinsics(frames[0].shape)
+    none = dict.fromkeys(KERNELS, 0)
+    pools = {}
+
+    # (a) BatchedPipeline (bf16, int8 static) and FrameProgram against eager
+    runs = (("bf16", params, cfg, {"K1": CAPTURE_RUNS, "K2": CAPTURE_RUNS * depth}),
+            ("int8 static", sparams, qcfg, {"K1": CAPTURE_RUNS, "K3": CAPTURE_RUNS * depth,
+                                            "K4": CAPTURE_RUNS * depth}))
+    for name, p, c, want in runs:
+        pipe = BatchedPipeline(p, mano, c, batch_size=BATCH, device=dev)
+        got, n = run_counted(lambda: pipe.process_batch(frames[:BATCH], K))
+        expect_launches(f"serving: BatchedPipeline {name} capture", n, {**none, **want})
+        hold_to_eager(got, eager_batch(pipe, frames[:BATCH], K),
+                      eager_batch(pipe, frames[:BATCH], K), f"serving: BatchedPipeline b{BATCH} {name}")
+        again, counts = kernels_by_name(lambda: pipe.process_batch(frames[:BATCH], K),
+                                        lambda: pipe.process_batch(frames[:BATCH], K))
+        hold_to_eager(again, got, got, f"serving: BatchedPipeline b{BATCH} {name}, a replay")
+        if name == "bf16":
+            expect_replay(f"serving: BatchedPipeline b{BATCH} bf16", counts, 1, depth)
+        pools[f"BatchedPipeline {name} b{BATCH}"] = pipe.programs["detect"].pool_bytes
+    program = FrameProgram(params, mano, cfg, dev)
+    got, n = run_counted(lambda: program(frames[0], K))
+    expect_launches("serving: FrameProgram capture", n, {**none, "K1": CAPTURE_RUNS,
+                                                         "K2": CAPTURE_RUNS * depth})
+    hold_to_eager(got, eager_frame(params, mano, cfg, dev, frames[0], K),
+                  eager_frame(params, mano, cfg, dev, frames[0], K), "serving: FrameProgram")
+    pools["FrameProgram bf16"] = program.program.pool_bytes
+
+    # (b) stream_multi: four sources, detect_every=2
+    tick_ms = stream_multi_phase(params, mano, cfg, dev, frames, K, depth, pools)
+
+    # (c) the HTTP server
+    http_phase(params, mano, cfg, dev, frames[:6], depth, pools)
+
+    # (d) graph against eager, end to end, at B = 1, 4, 16
+    for name, p, c, _ in runs:
+        for B in (1, 4, 16):
+            pipe = BatchedPipeline(p, mano, c, batch_size=B, device=dev)
+            ms = interleaved_p50({"graph": lambda: pipe.process_batch(frames[:B], K),
+                                  "eager": lambda: eager_batch(pipe, frames[:B], K)})
+            print(f"serving e2e b{B} 720p {name} (pad, upload, program, copy back): p50 "
+                  f"{ms['graph']:.2f} ms by its captured graph = {B / ms['graph'] * 1e3:.2f} "
+                  f"frames/s, {ms['eager']:.2f} ms eager = {B / ms['eager'] * 1e3:.2f} frames/s "
+                  f"on {smi} (host clock, in turns graph, eager, eager, graph; 1 warm-up, "
+                  "6 timed each)")
+            pools[f"BatchedPipeline {name} b{B}"] = pipe.programs["detect"].pool_bytes
+            del pipe
+    print(f"serving: stream_multi tick (4 sources, 720p, read, pad, upload, replay, copy back): "
+          f"p50 keyframe {tick_ms['keyframe']:.2f} ms, tracked {tick_ms['tracked']:.2f} ms on "
+          f"{smi} (host clock, 3 ticks each)")
+    for what, by_key in pools.items():
+        for key, nbytes in by_key.items():
+            print(f"serving: graph pool {what} [{key}]: {nbytes / 2**20:.1f} MiB")
+    torch.cuda.synchronize()
+
+
+def stream_multi_phase(params, mano, cfg, dev, frames, K, depth, pools):
+    """stream_multi over four iterator sources of 720p frames at
+    detect_every=2, 8 ticks: the cadence of "detected", the launches of the
+    two captures, a keyframe replay's and a tracked replay's kernels by
+    name (K2 in both, K1 only in the keyframe), the tracked tick against
+    eager infer_frames_tracked on the same state bit for bit, and the ticks'
+    times: {"keyframe": ms, "tracked": ms}."""
+    from hamer_yolo_tpu_torch.pipeline.serving import BatchedPipeline
+
+    n_src, n_ticks = 4, 8
+    srcs = [[frames[(n_src * t + s) % len(frames)] for t in range(n_ticks)] for s in range(n_src)]
+    pipe = BatchedPipeline(params, mano, cfg, batch_size=n_src, detect_every=2, device=dev)
+    gen = pipe.stream_multi([iter(f) for f in srcs], K, max_batches=n_ticks, timeout=30.0,
+                            buffer=n_ticks)
+    none = dict.fromkeys(KERNELS, 0)
+    ticks = []
+    tick, n = run_counted(lambda: next(gen))
+    ticks.append(tick)
+    expect_launches("serving: stream_multi tick 0, the detect capture", n,
+                    {**none, "K1": CAPTURE_RUNS, "K2": CAPTURE_RUNS * depth})
+    tick, n = run_counted(lambda: next(gen))
+    ticks.append(tick)
+    expect_launches("serving: stream_multi tick 1, the tracked capture", n,
+                    {**none, "K2": CAPTURE_RUNS * depth})
+    tick, counts = kernels_by_name(lambda: next(gen), lambda: pipe.process_batch(
+        [srcs[s][2] for s in range(n_src)], K))
+    ticks.append(tick)
+    expect_replay("serving: stream_multi tick 2, a keyframe", counts, 1, depth)
+    state = [{"kp2d": tick["outputs"]["keypoints_2d"][s], "is_right": tick["outputs"]["is_right"][s],
+              "valid": tick["outputs"]["valid"][s]} for s in range(n_src)]
+    tick, counts = kernels_by_name(lambda: next(gen), lambda: pipe._fetch(*pipe._dispatch_tracked(
+        [srcs[s][3] for s in range(n_src)], state, K)))
+    ticks.append(tick)
+    expect_replay("serving: stream_multi tick 3, tracked", counts, 0, depth)
+    ms = {"keyframe": [], "tracked": []}
+    for t in range(4, n_ticks):
+        t0 = time.perf_counter()
+        ticks.append(next(gen))
+        ms["keyframe" if t % 2 == 0 else "tracked"].append((time.perf_counter() - t0) * 1e3)
+    if next(gen, None) is not None:
+        raise RuntimeError("stream_multi: more ticks than max_batches")
+    want = [list(range(n_src)) if t % 2 == 0 else [] for t in range(n_ticks)]
+    got = [t["detected"] for t in ticks]
+    print(f"serving: stream_multi {n_src} sources, detect_every 2, {n_ticks} ticks: detected "
+          f"{got}; valid slots a tick {[int(t['outputs']['valid'].sum()) for t in ticks]}")
+    if got != want or any(t["source_idx"] != list(range(n_src)) for t in ticks):
+        raise RuntimeError(f"stream_multi: detected {got}, expected {want}")
+    cur = [srcs[s][3] for s in range(n_src)]
+    hold_to_eager(ticks[3]["outputs"], eager_batch(pipe, cur, K, ticks[2]["outputs"]),
+                  eager_batch(pipe, cur, K, ticks[2]["outputs"]),
+                  "serving: stream_multi tick 3 (tracked)")
+    pools.update({f"stream_multi {k} b{n_src}": prog.pool_bytes
+                  for k, prog in pipe.programs.items()})
+    return {k: float(np.median(v)) for k, v in ms.items()}
+
+
+def http_phase(params, mano, cfg, dev, frames, depth, pools):
+    """The HTTP server at --batch 4 on port 0 in a thread: six concurrent
+    POSTs of .npy frames come back as valid JSON in at most two batches;
+    the server stops within a time limit."""
+    import io
+    import threading
+    import urllib.request
+
+    from hamer_yolo_tpu_torch.pipeline import http_server
+    from hamer_yolo_tpu_torch.pipeline.serving import BatchedPipeline
+
+    print("serving: HTTP server: for this phase decode_image is replaced by np.load of .npy "
+          "bodies, so that the script needs no cv2")
+    wait_s = 120.0
+    pipe = BatchedPipeline(params, mano, cfg, batch_size=BATCH, device=dev)
+    decode = http_server.decode_image
+    http_server.decode_image = lambda raw: np.load(io.BytesIO(raw))
+    srv = http_server.make_http_server(pipe, "127.0.0.1", 0, max_wait_ms=500.0)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=wait_s) as r:
+            return json.loads(r.read())
+
+    try:
+        bodies = []
+        for f in frames:
+            buf = io.BytesIO()
+            np.save(buf, f)
+            bodies.append(buf.getvalue())
+        results, errors = [None] * len(bodies), []
+
+        def post(i):
+            try:
+                req = urllib.request.Request(url + "/infer", data=bodies[i], method="POST")
+                with urllib.request.urlopen(req, timeout=wait_s) as r:
+                    results[i] = json.loads(r.read())
+            except Exception as e:  # raised below
+                errors.append(e)
+
+        def burst():
+            before = get("/stats")
+            clients = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=wait_s)
+            return before, get("/stats"), any(c.is_alive() for c in clients)
+
+        (before, after, hung), n = run_counted(burst)
+        health = get("/healthz")
+        batches = after["batches"] - before["batches"]
+        print(f"serving: HTTP {len(bodies)} concurrent POSTs at batch {BATCH}: "
+              f"{after['frames'] - before['frames']} frames in {batches} batches; hands per "
+              f"request {[len(r['hands']) if r else None for r in results]}; launches {n}; "
+              f"/healthz {health}")
+        if errors or hung or any(r is None or (r["height"], r["width"]) != (720, 1280)
+                                 or not isinstance(r["hands"], list) for r in results):
+            raise RuntimeError(f"HTTP server: errors {errors}, hung {hung}")
+        if not 1 <= batches <= 2 or after["frames"] - before["frames"] != len(bodies):
+            raise RuntimeError(f"HTTP server: {len(bodies)} requests in {batches} batches")
+        expect_launches("serving: HTTP dispatcher's capture", n,
+                        {**dict.fromkeys(KERNELS, 0), "K1": CAPTURE_RUNS,
+                         "K2": CAPTURE_RUNS * depth})
+        if health.get("device") != str(dev) or not health.get("device_name"):
+            raise RuntimeError(f"HTTP server: /healthz {health}")
+        pools[f"HTTP BatchedPipeline b{BATCH}"] = pipe.programs["detect"].pool_bytes
+    finally:
+        t0 = time.perf_counter()
+        srv.shutdown()
+        srv.server_close()
+        srv.batcher.close()
+        server.join(timeout=30.0)
+        http_server.decode_image = decode
+    stopped = not server.is_alive() and not srv.batcher._thread.is_alive()
+    print(f"serving: HTTP server shut down in {time.perf_counter() - t0:.2f} s")
+    if not stopped:
+        raise RuntimeError("HTTP server: a thread did not stop")
+
+
+def cv2_stand_in():
+    """A module to stand in for cv2 on a machine without it: every file
+    holds .npy data whatever its name (an image one frame, a video a stack
+    of frames), and an encoded image is .npy bytes."""
+    import io
+    import types
+
+    class VideoCapture:
+        def __init__(self, source):
+            ok = isinstance(source, str) and os.path.exists(source)
+            self.frames = list(np.load(source)) if ok else None
+
+        def isOpened(self):
+            return self.frames is not None
+
+        def read(self):
+            return (True, self.frames.pop(0)) if self.frames else (False, None)
+
+        def release(self):
+            self.frames = []
+
+    cv2 = types.ModuleType("cv2")
+    cv2.IMREAD_COLOR = 1
+    cv2.imread = lambda path: np.load(path)
+    cv2.imdecode = lambda buf, flag: np.load(io.BytesIO(np.asarray(buf).tobytes()))
+    cv2.VideoCapture = VideoCapture
+    return cv2
+
+
+def cli_phase(dev, depth):
+    """``serve``, ``serve --multi --detect-every 2`` and ``serve-http``
+    through cli.main on the card at full width, with cv2_stand_in() in
+    place of cv2 (the script needs none): JAX's output lines, the captures'
+    launches, one HTTP request answered and the server shut down."""
+    import io
+    import threading
+    import urllib.request
+
+    from hamer_yolo_tpu_torch.cli.main import main as cli
+    from hamer_yolo_tpu_torch.pipeline import http_server
+
+    print("cli: serve, serve --multi and serve-http through cli.main on the card, with a "
+          "stand-in for cv2 that reads .npy files, so that the script needs no cv2")
+    frames = frames_720p(8, SEED + 2)
+    none = dict.fromkeys(KERNELS, 0)
+    capture = {**none, "K1": CAPTURE_RUNS, "K2": CAPTURE_RUNS * depth}
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = cv2_stand_in()
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            os.makedirs(os.path.join(root, "in"))
+            for i, f in enumerate(frames):
+                with open(os.path.join(root, "in", f"f{i}.png"), "wb") as fh:
+                    np.save(fh, f)
+            videos = []
+            for j in range(4):
+                videos.append(os.path.join(root, f"s{j}.avi"))
+                with open(videos[-1], "wb") as fh:
+                    np.save(fh, np.stack(frames[2 * j:2 * j + 2] * 2))
+
+            def run(argv):
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    rc = cli(argv)
+                return rc, out.getvalue().strip().splitlines()
+
+            (rc, lines), n = run_counted(lambda: run(["serve", "--input", os.path.join(root, "in"),
+                                                      "--batch", "4"]))
+            print(f"cli serve --batch 4: rc {rc}; {lines}; launches {n}")
+            if rc or [ln.split(",")[0] for ln in lines[:-1]] != ["batch: 4 frames"] * 2 \
+                    or not lines[-1].startswith("8 frames in "):
+                raise RuntimeError("cli serve: unexpected output")
+            expect_launches("cli serve", n, capture)
+            (rc, lines), n = run_counted(lambda: run(
+                ["serve", "--multi", "--input", ",".join(videos), "--detect-every", "2",
+                 "--max-frames", "4"]))
+            print(f"cli serve --multi --detect-every 2: rc {rc}; {lines}; launches {n}")
+            det = [ln.split(" (detected: ")[-1] for ln in lines[:-1]]
+            if rc or det != ["[0, 1, 2, 3])", "[])"] * 2 or not lines[-1].startswith("16 frames in"):
+                raise RuntimeError("cli serve --multi: unexpected output")
+            expect_launches("cli serve --multi", n, {**capture,
+                                                     "K2": 2 * CAPTURE_RUNS * depth})
+        made = []
+        build = http_server.make_http_server
+        http_server.make_http_server = lambda *a, **kw: made.append(build(*a, **kw)) or made[-1]
+        rcs = []
+        thread = threading.Thread(target=lambda: rcs.append(cli(
+            ["serve-http", "--port", "0", "--batch", "2", "--max-wait-ms", "5"])), daemon=True)
+        try:
+            thread.start()
+            for _ in range(600):
+                if made or not thread.is_alive():
+                    break
+                thread.join(timeout=0.1)
+            if not made:
+                raise RuntimeError("cli serve-http: no server")
+            body = io.BytesIO()
+            np.save(body, frames[0])
+            url = f"http://127.0.0.1:{made[0].server_address[1]}"
+            req = urllib.request.Request(url + "/infer", data=body.getvalue(), method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                res = json.loads(r.read())
+            with urllib.request.urlopen(url + "/healthz", timeout=120) as r:
+                health = json.loads(r.read())
+        finally:
+            if made:
+                made[0].shutdown()
+            thread.join(timeout=60)
+            http_server.make_http_server = build
+        print(f"cli serve-http: one POST -> {len(res['hands'])} hands at {res['height']}x"
+              f"{res['width']}; /healthz {health}; rc {rcs}")
+        if thread.is_alive() or rcs != [0] or (res["height"], res["width"]) != (720, 1280):
+            raise RuntimeError("cli serve-http: not answered or not shut down")
+    finally:
+        if saved is None:
+            sys.modules.pop("cv2", None)
+        else:
+            sys.modules["cv2"] = saved
 
 
 def read_npys(out_dir):

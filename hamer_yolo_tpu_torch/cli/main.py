@@ -4,6 +4,13 @@
                [--intrinsics cam_K.txt] [--depth-refine] [--batch N]
                [--mask-dir DIR [--mask-value V] [--mask-hand right|left]]
                [--profile DIR] [--no-obj]
+  serve        batched video / image-dir / glob processing, one line a batch
+               [--batch 16] [--max-frames N] [--upload-dtype uint8|float32]
+               [--multi: --input is a comma list of live sources, one batch
+               a tick [--detect-every K]] [--intrinsics cam_K.txt]
+  serve-http   POST /infer an image, get its hands as JSON, with dynamic
+               micro-batching [--host H] [--port P] [--batch 8]
+               [--max-wait-ms MS] [--intrinsics cam_K.txt]
   detect       hand boxes only, one JSON line per image
                [--save-txt DIR [--save-conf]]
   depth        RootNet's absolute root depth, one JSON line per image
@@ -16,7 +23,8 @@ Every subcommand takes [--tiny] [--device cuda] [--mano-dir DIR]
 Weights come from a random init seeded with 0; MANO from
 assets/mano_right.npz when present, else the seeded synthetic model. It runs
 on the card unless ``--device`` names another device; without a card, pass
-``--device cpu``.
+``--device cpu``. On the card every program runs as a captured CUDA graph per
+bucket (pipeline/captured.py).
 
 ``--fast-path int8`` quantizes the ViT's block linears to W8A8 int8
 (core/quant.py); ``--calib-scales`` attaches the static activation scales
@@ -25,8 +33,8 @@ of a stats file written by ``hamer_yolo_tpu_torch.tools.calibrate_int8``
 ``tome`` merges ``--tome-r`` tokens after each ViT block (models/tome.py);
 ``int8-tome`` does both. Not ported yet (ROADMAP.md, Queue 1): ``detect
 --augment`` and ``--save-img``, ``reconstruct --overlay-images``,
-``--checkpoint``, ``--int8-yolo``, and the ``serve``, ``serve-http``, ``rgbd``
-and ``bench`` subcommands.
+``--checkpoint``, ``--int8-yolo``, and the ``rgbd`` and ``bench``
+subcommands.
 """
 from __future__ import annotations
 
@@ -141,6 +149,59 @@ def cmd_infer(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """Batched processing of a video file / image dir / glob, or with
+    ``--multi`` of N live sources, one batch a tick."""
+    from hamer_yolo_tpu_torch.io.video import iter_media
+    from hamer_yolo_tpu_torch.pipeline.serving import BatchedPipeline
+
+    params, mano, cfg, device = load_runtime(args)
+    K = load_intrinsics(args.intrinsics) if args.intrinsics else None
+    K = K if K is not None else default_intrinsics((720, 1280))
+    if args.multi:
+        sources = [int(s) if s.isdigit() else s for s in args.input.split(",")]
+        pipe = BatchedPipeline(params, mano, cfg, batch_size=len(sources),
+                               detect_every=args.detect_every, upload_dtype=args.upload_dtype,
+                               device=device)
+        for tick in pipe.stream_multi(sources, K, max_batches=args.max_frames):
+            n = int(np.asarray(tick["outputs"]["valid"]).sum())
+            det = f" (detected: {tick['detected']})" if "detected" in tick else ""
+            print(f"tick: sources {tick['source_idx']}, {n} hands{det}")
+    else:
+        pipe = BatchedPipeline(params, mano, cfg, batch_size=args.batch,
+                               upload_dtype=args.upload_dtype, device=device)
+        for out in pipe.stream(iter_media(args.input, args.max_frames), K):
+            n = int(np.asarray(out["valid"]).sum())
+            print(f"batch: {out['boxes'].shape[0]} frames, {n} hands")
+    stats = pipe.last_stats
+    print(f"{stats.frames} frames in {stats.total_s:.1f}s = {stats.fps:.1f} fps")
+    return 0
+
+
+def cmd_serve_http(args) -> int:
+    """The HTTP front end over a BatchedPipeline (pipeline/http_server.py),
+    until interrupted or shut down."""
+    from hamer_yolo_tpu_torch.pipeline import http_server
+    from hamer_yolo_tpu_torch.pipeline.serving import BatchedPipeline
+
+    params, mano, cfg, device = load_runtime(args)
+    K = load_intrinsics(args.intrinsics) if args.intrinsics else None
+    pipe = BatchedPipeline(params, mano, cfg, batch_size=args.batch, device=device)
+    srv = http_server.make_http_server(pipe, args.host, args.port, K_default=K,
+                                       max_wait_ms=args.max_wait_ms)
+    print(f"serving on http://{args.host}:{srv.server_address[1]} "
+          f"(batch {args.batch}, window {args.max_wait_ms} ms); "
+          "POST /infer, GET /healthz /stats", flush=True)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.server_close()
+        srv.batcher.close()
+    return 0
+
+
 def detections(out) -> list:
     """One frame's valid slots as JSON-able records, slot order."""
     return [{"label": "right" if out["is_right"][i] > 0.5 else "left",
@@ -249,6 +310,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the run to DIR/trace.json")
     p.set_defaults(fn=cmd_infer)
+
+    p = sub.add_parser("serve", help="batched video / stream processing")
+    common(p)
+    p.add_argument("--input", required=True, help="video file / image dir / glob")
+    p.add_argument("--intrinsics", default=None, help="cam_K.txt path")
+    p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--max-frames", type=int, default=None)
+    p.add_argument("--multi", action="store_true",
+                   help="treat --input as a comma list of N live sources (capture index / "
+                        "file / URL); one batch a tick across all sources")
+    p.add_argument("--detect-every", type=int, default=1,
+                   help="with --multi: run the detector every K-th tick per source, tracking "
+                        "boxes from the previous tick's keypoints in between")
+    p.add_argument("--upload-dtype", default=None, choices=["uint8", "float32"],
+                   help="pin the frame upload dtype (default: uint8 when every frame of a "
+                        "batch is uint8); a pinned dtype keeps a stray float frame from "
+                        "capturing a second program")
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("serve-http", help="HTTP endpoint: POST /infer an image, get hands "
+                                          "JSON (dynamic micro-batching)")
+    common(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8100)
+    p.add_argument("--batch", type=int, default=8, help="most frames in one micro-batch")
+    p.add_argument("--max-wait-ms", type=float, default=15.0,
+                   help="micro-batch collection window")
+    p.add_argument("--intrinsics", default=None, help="cam_K.txt path")
+    p.set_defaults(fn=cmd_serve_http)
 
     p = sub.add_parser("detect", help="hand detection only")
     common(p)

@@ -14,6 +14,7 @@ memory, which cuDNN takes as it is).
 """
 from __future__ import annotations
 
+import functools
 import math
 import weakref
 from typing import Any, Callable, Dict
@@ -96,6 +97,14 @@ def derived(w: torch.Tensor, tag, make: Callable[[], Any]) -> Any:
     value = make()
     _DERIVED[key] = (weakref.ref(w, lambda _, key=key: _DERIVED.pop(key, None)), version, value)
     return value
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values, dtype)`` on ``device``, made once: a constant
+    copied from the host inside a forward would keep the forward from being
+    captured in a CUDA graph (pipeline/captured.py)."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def cast_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -348,6 +348,10 @@ extern "C" int hyt_ln_qkv(const void* tok, int tok_f32, const void* wmap, const 
     ln_rows_kernel<bf16><<<rows, RW * 32, 0, st>>>((const bf16*)tok, g, b, M, K, (bf16*)xhat);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  // The maps of x-hat and qkv are encoded from their addresses on every call
+  // and passed by value: a CUDA graph that captures these launches
+  // (pipeline/captured.py) keeps the maps of the capture, which is right only
+  // because a replay uses the same addresses, those of the graph's pool.
   CUtensorMap amap, wm, omap;
   memcpy(&wm, wmap, sizeof wm);
   int rc = bf16_map(&amap, xhat, M, K);

@@ -1190,6 +1190,10 @@ extern "C" int hyt_int8_gemm(const void* a, const void* wmap, int M, int N, int 
   if ((epi == EPI_GELU_Q) != (out_kind == 2) || (epi == EPI_GELU_Q && !out_scale))
     return (int)cudaErrorInvalidValue;
   if (!row_scale && !s) return (int)cudaErrorInvalidValue;
+  // A's map is encoded from its address on every call and passed by value:
+  // a CUDA graph that captures this launch (pipeline/captured.py) keeps the
+  // map of the capture, which is right only because a replay reads A at the
+  // same address, the graph's static buffer.
   CUtensorMap amap, wm;
   const int rc = encode_kmajor(&amap, a, M, K);
   if (rc) return rc;

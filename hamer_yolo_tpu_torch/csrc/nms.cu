@@ -417,7 +417,10 @@ nms_keep_kernel(const float* __restrict__ boxes, const IoT* __restrict__ active,
 __global__ void nms_floor_kernel() {}
 
 // The diagnostic form's workspace and per-image counters (zeroed once),
-// grown as needed; made before a CUDA graph captures the launch.
+// grown as needed; made before a CUDA graph captures the launch (the first,
+// eager run of a captured program makes it). A buffer outgrown by a larger
+// (B, K) is never freed: a graph captured on it replays into it for as long
+// as the graph lives.
 int tail_workspace(int B, int K, cudaStream_t st, uint32_t** ws, unsigned** counters) {
   static uint32_t* g_ws = nullptr;
   static unsigned* g_counters = nullptr;
@@ -427,14 +430,12 @@ int tail_workspace(int B, int K, cudaStream_t st, uint32_t** ws, unsigned** coun
   const size_t words = (size_t)B * (stripe_words(W, 1) + W);
   cudaError_t err = cudaSuccess;
   if (words > g_words) {
-    cudaFree(g_ws);
     g_words = 0;
     if ((err = cudaMalloc(&g_ws, words * 4)) != cudaSuccess) return (int)err;
     if ((err = cudaMemsetAsync(g_ws, 0, words * 4, st)) != cudaSuccess) return (int)err;  // flags
     g_words = words;
   }
   if (B > g_images) {
-    cudaFree(g_counters);
     g_images = 0;
     if ((err = cudaMalloc(&g_counters, (size_t)B * 4)) != cudaSuccess) return (int)err;
     if ((err = cudaMemsetAsync(g_counters, 0, (size_t)B * 4, st)) != cudaSuccess) return (int)err;

@@ -81,6 +81,23 @@ def hamer_box_params(bbox_xyxy: torch.Tensor, rescale_factor: float = 2.5,
     return center, torch.amax(expanded, dim=-1)
 
 
+def track_boxes_from_keypoints(kp2d: torch.Tensor, valid: torch.Tensor, orig_hw: torch.Tensor,
+                               expand: float = 1.3, min_size: float = 32.0) -> torch.Tensor:
+    """Detector-shaped boxes from a previous tick's projected 2D keypoints,
+    the detect-skip tracking primitive: kp2d (..., S, 21, 2) full-image
+    pixels, valid (..., S), orig_hw (..., 2) (h, w) -> (..., S, 4) xyxy: the
+    keypoints' extent times ``expand``, at least ``min_size`` a side, clipped
+    to the frame and rounded, invalid slots zeroed (the contract of
+    ``detect_hands`` boxes)."""
+    lo = torch.amin(kp2d, dim=-2)
+    hi = torch.amax(kp2d, dim=-2)
+    center = (lo + hi) / 2.0
+    wh = torch.clamp((hi - lo) * expand, min=min_size)
+    xyxy = torch.cat([center - wh / 2.0, center + wh / 2.0], dim=-1)
+    xyxy = torch.round(clip_boxes(xyxy, orig_hw[..., None, 0], orig_hw[..., None, 1]))
+    return xyxy * valid.to(xyxy.dtype)[..., None]
+
+
 def sanitize_bbox_xywh(bbox: torch.Tensor, img_w: torch.Tensor, img_h: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Clamp an xywh box into the image -> (box, valid). The reference

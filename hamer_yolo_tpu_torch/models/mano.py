@@ -13,8 +13,10 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-MANO_TO_OPENPOSE = [0, 13, 14, 15, 16, 1, 2, 3, 17, 4, 5, 6, 18, 10, 11, 12, 19, 7, 8, 9, 20]
-SMPLX_TIP_IDS = [744, 320, 443, 554, 671]
+from hamer_yolo_tpu_torch.core import nn
+
+MANO_TO_OPENPOSE = (0, 13, 14, 15, 16, 1, 2, 3, 17, 4, 5, 6, 18, 10, 11, 12, 19, 7, 8, 9, 20)
+SMPLX_TIP_IDS = (744, 320, 443, 554, 671)
 
 
 @dataclass(frozen=True)
@@ -87,8 +89,10 @@ def mano_forward_rotmat(model: ManoModel, global_orient: torch.Tensor,
         verts, joints16 = mano_lbs_fused(model, betas, rotmats)
     else:
         verts, joints16 = lbs(model, betas, rotmats)
-    tips = verts[:, SMPLX_TIP_IDS]
-    joints = torch.cat([joints16, tips], dim=1)[:, MANO_TO_OPENPOSE]
+    # index tensors made once (nn.constant): a list index is copied from the host
+    tips = verts[:, nn.constant(SMPLX_TIP_IDS, torch.long, verts.device)]
+    joints = torch.cat([joints16, tips], dim=1)[:, nn.constant(MANO_TO_OPENPOSE, torch.long,
+                                                               verts.device)]
     return ManoOutput(vertices=verts, joints=joints)
 
 

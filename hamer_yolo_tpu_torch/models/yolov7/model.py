@@ -157,8 +157,8 @@ def yolov7_backbone_forward(params: nn.Params, x: torch.Tensor,
 
 def decode_detections(det_maps: List[torch.Tensor], cfg: YoloConfig = YoloConfig()) -> torch.Tensor:
     """Raw head maps -> (B, sum(Hl Wl na), nc + 5) decoded xywh + scores, in f32."""
-    anchors = torch.tensor(np.asarray(cfg.anchors, np.float32).reshape(cfg.nl, cfg.na, 2),
-                           device=det_maps[0].device)
+    anchors = nn.constant(cfg.anchors, torch.float32, det_maps[0].device).reshape(
+        cfg.nl, cfg.na, 2)
     outs = []
     for lvl, m in enumerate(det_maps):
         m = m.float()

@@ -12,7 +12,8 @@ Every stage runs over a batch dimension: the detector over frames, the
 RootNet and HaMeR stages over all B*S slots at once (the flat formulation
 the JAX tests pin equal to the per-frame vmap), the epilogue over crops.
 RootNet runs whenever ``"sar"`` is in the params (or ``use_depth_refine``
-asks for it), as in JAX.
+asks for it), as in JAX. ``infer_frames_tracked`` is the detector-skip
+form: boxes from the previous tick's keypoints, the same outputs after them.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from hamer_yolo_tpu_torch.core import nn
-from hamer_yolo_tpu_torch.geometry.boxes import hamer_box_params, process_bbox, scale_coords
+from hamer_yolo_tpu_torch.geometry.boxes import (hamer_box_params, process_bbox, scale_coords,
+                                                 track_boxes_from_keypoints)
 from hamer_yolo_tpu_torch.geometry.camera import (calculate_k_value, custom_cam_crop_to_full,
                                                   project_with_intrinsics)
 from hamer_yolo_tpu_torch.geometry.flip import correct_pred_cam, flip_keypoints3d
@@ -154,6 +156,20 @@ def _npy_fields(dets: Tensors, rec: Tensors, depth: Optional[torch.Tensor]) -> T
     return out
 
 
+def _infer_from_dets(params: nn.Params, mano_model: ManoModel, images_bgr: torch.Tensor,
+                     dets: Tensors, orig_hws: torch.Tensor, Ks: torch.Tensor,
+                     cfg: PipelineConfig, run_depth: bool) -> Tensors:
+    """Everything after the detector over a frame batch: RootNet depth
+    (where ``run_depth``) -> HaMeR -> npy-schema fields (B, S, ...); the
+    lift is refined by the depth under ``use_depth_refine``."""
+    depth = None
+    if run_depth:
+        depth = estimate_depths(params["sar"], images_bgr, dets, orig_hws, Ks, cfg)
+    refine = depth if cfg.use_depth_refine else None
+    rec = recover_hands(params["hamer"], mano_model, images_bgr, dets, Ks, cfg, refine)
+    return _npy_fields(dets, rec, depth)
+
+
 def infer_frames(params: nn.Params, mano_model: ManoModel, images_bgr: torch.Tensor,
                  orig_hws: torch.Tensor, Ks: torch.Tensor, cfg: PipelineConfig) -> Tensors:
     """The full program over a frame batch: images_bgr (B, Hb, Wb, 3) f32
@@ -162,12 +178,8 @@ def infer_frames(params: nn.Params, mano_model: ManoModel, images_bgr: torch.Ten
     JAX's conditions: depth runs under ``use_depth_refine`` or with "sar" in
     the params, and refines the lift only under ``use_depth_refine``."""
     dets = detect_hands_batched(params["yolo"], images_bgr, orig_hws, cfg)
-    depth = None
-    if cfg.use_depth_refine or "sar" in params:
-        depth = estimate_depths(params["sar"], images_bgr, dets, orig_hws, Ks, cfg)
-    refine = depth if cfg.use_depth_refine else None
-    rec = recover_hands(params["hamer"], mano_model, images_bgr, dets, Ks, cfg, refine)
-    return _npy_fields(dets, rec, depth)
+    return _infer_from_dets(params, mano_model, images_bgr, dets, orig_hws, Ks, cfg,
+                            cfg.use_depth_refine or "sar" in params)
 
 
 def infer_frame(params: nn.Params, mano_model: ManoModel, image_bgr: torch.Tensor,
@@ -175,6 +187,29 @@ def infer_frame(params: nn.Params, mano_model: ManoModel, image_bgr: torch.Tenso
     """One frame: image_bgr (Hb, Wb, 3), orig_hw (2,), K (3, 3) -> (S, ...)."""
     out = infer_frames(params, mano_model, image_bgr[None], orig_hw[None], K[None], cfg)
     return {k: v[0] for k, v in out.items()}
+
+
+def infer_frames_tracked(params: nn.Params, mano_model: ManoModel, images_bgr: torch.Tensor,
+                         prev_kp2d: torch.Tensor, prev_is_right: torch.Tensor,
+                         prev_valid: torch.Tensor, orig_hws: torch.Tensor, Ks: torch.Tensor,
+                         cfg: PipelineConfig, track_expand: float = 1.3,
+                         track_min_size: float = 32.0) -> Tensors:
+    """The detector-skip program over a frame batch: each slot's box is
+    ``track_boxes_from_keypoints`` of the previous tick's ``keypoints_2d``
+    (prev_kp2d (B, S, 21, 2)), the detector does not run. prev_is_right and
+    prev_valid (B, S) carry over; ``scores`` is the validity mask and
+    ``classes`` is ``cfg.right_class`` where is_right > 0.5, else 0 (the
+    raw class id is not recoverable). The key set and shapes are those of
+    ``infer_frames``, so that serving can stitch detected and tracked
+    sub-batches tick by tick."""
+    boxes = track_boxes_from_keypoints(prev_kp2d, prev_valid, orig_hws, expand=track_expand,
+                                       min_size=track_min_size)
+    dets = {"boxes": boxes, "scores": prev_valid.to(torch.float32),
+            "is_right": prev_is_right.to(torch.float32),
+            "classes": torch.where(prev_is_right > 0.5, cfg.right_class, 0).to(torch.int32),
+            "valid": prev_valid.to(torch.bool)}
+    return _infer_from_dets(params, mano_model, images_bgr, dets, orig_hws, Ks, cfg,
+                            cfg.use_depth_refine or "sar" in params)
 
 
 def infer_frame_with_boxes(params: nn.Params, mano_model: ManoModel, image_bgr: torch.Tensor,
@@ -188,11 +223,6 @@ def infer_frame_with_boxes(params: nn.Params, mano_model: ManoModel, image_bgr: 
     pred_cam."""
     dets = {"boxes": boxes[None], "scores": box_valid.to(torch.float32)[None],
             "is_right": is_right.to(torch.float32)[None], "valid": box_valid.to(torch.bool)[None]}
-    depth = None
-    if "sar" in params:
-        depth = estimate_depths(params["sar"], image_bgr[None], dets, orig_hw[None], K[None],
-                                cfg)
-    refine = depth if cfg.use_depth_refine else None
-    rec = recover_hands(params["hamer"], mano_model, image_bgr[None], dets, K[None], cfg, refine)
-    out = _npy_fields(dets, rec, depth)
+    out = _infer_from_dets(params, mano_model, image_bgr[None], dets, orig_hw[None], K[None],
+                           cfg, "sar" in params)
     return {k: v[0] for k, v in out.items() if k != "pred_cam"}

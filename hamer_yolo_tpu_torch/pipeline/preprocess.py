@@ -8,6 +8,7 @@ from typing import Tuple
 
 import torch
 
+from hamer_yolo_tpu_torch.core import nn
 from hamer_yolo_tpu_torch.ops import warp_matmul
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -22,9 +23,9 @@ def device_letterbox(img: torch.Tensor, orig_hw: torch.Tensor, out_size: int = 6
 
 
 def normalize_imagenet(patch_rgb01: torch.Tensor) -> torch.Tensor:
-    mean = torch.tensor(IMAGENET_MEAN, dtype=patch_rgb01.dtype, device=patch_rgb01.device)
-    std = torch.tensor(IMAGENET_STD, dtype=patch_rgb01.dtype, device=patch_rgb01.device)
-    return (patch_rgb01 - mean) / std
+    dtype, dev = patch_rgb01.dtype, patch_rgb01.device
+    return (patch_rgb01 - nn.constant(IMAGENET_MEAN, dtype, dev)) / nn.constant(IMAGENET_STD,
+                                                                                dtype, dev)
 
 
 def hamer_crop(img_bgr: torch.Tensor, center: torch.Tensor, size: torch.Tensor,

@@ -8,7 +8,9 @@ lazily), and ``process_frames`` (one frame a call), ``process_frames_batched``
 bypassed) take numpy frames and need no cv2, so a machine without it can
 drive every path. Frames are padded to a bucket shape and uploaded as uint8
 where they are uint8; the cast to f32 happens on the device (exact for
-0..255, 4x fewer bytes over the bus).
+0..255, 4x fewer bytes over the bus). On the card each program runs as a
+captured CUDA graph per bucket (pipeline/captured.py), as JAX jits one per
+bucket.
 
 Unlike the JAX runner, an inference error in the one-frame and the masked
 paths is not turned into a skipped frame: a device fault stops the run where
@@ -29,6 +31,7 @@ from hamer_yolo_tpu_torch.core import nn
 from hamer_yolo_tpu_torch.io.writers import (frame_outputs_to_hand_dicts, list_images,
                                              load_intrinsics, save_hand_npy)
 from hamer_yolo_tpu_torch.models.mano import ManoModel
+from hamer_yolo_tpu_torch.pipeline.captured import CapturedProgram
 from hamer_yolo_tpu_torch.pipeline.frame import PipelineConfig, infer_frame, infer_frame_with_boxes
 from hamer_yolo_tpu_torch.pipeline.reconstruct import reconstruct_and_save_obj
 from hamer_yolo_tpu_torch.pipeline.sar_mesh import bbox_from_mask
@@ -57,20 +60,20 @@ def default_intrinsics(shape) -> np.ndarray:
     return np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
 
 
-def _bucket_upload(image_bgr: np.ndarray, device: torch.device):
-    """Pad one frame to its bucket and upload it (uint8 frames as uint8):
-    (f32 image, (h, w))."""
+def _bucket_pad(image_bgr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """One frame padded to its bucket (uint8 frames stay uint8; the cast to
+    f32 is made on the device) and its (h, w)."""
     h, w = image_bgr.shape[:2]
     bh, bw = pick_bucket(h, w)
     padded = np.zeros((bh, bw, 3), np.uint8 if image_bgr.dtype == np.uint8 else np.float32)
     padded[:h, :w] = image_bgr
-    img = torch.from_numpy(padded).to(device).to(torch.float32)
-    return img, torch.tensor([h, w], dtype=torch.float32, device=device)
+    return padded, np.float32([h, w])
 
 
 class FrameProgram:
     """One frame through the pipeline on ``device`` (the card unless the
-    caller names another): numpy in, numpy out."""
+    caller names another), numpy in, numpy out: a captured CUDA graph per
+    bucket and upload dtype on the card (pipeline/captured.py)."""
 
     def __init__(self, params: nn.Params, mano_model: ManoModel, cfg: PipelineConfig,
                  device="cuda"):
@@ -78,26 +81,30 @@ class FrameProgram:
         self.mano_model = mano_model
         self.cfg = cfg
         self.device = torch.device(device)
+        self.program = CapturedProgram(type(self).__name__, self._fn, self.device)
 
-    @torch.inference_mode()
+    def _fn(self, image, hw, K):
+        return infer_frame(self.params, self.mano_model, image.to(torch.float32), hw, K,
+                           self.cfg)
+
     def __call__(self, image_bgr: np.ndarray, K: np.ndarray) -> Dict[str, np.ndarray]:
-        img, hw = _bucket_upload(image_bgr, self.device)
-        Kt = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
-        out = infer_frame(self.params, self.mano_model, img, hw, Kt, self.cfg)
+        padded, hw = _bucket_pad(image_bgr)
+        out = self.program(padded, hw, np.asarray(K, np.float32))
         return {k: v.cpu().numpy() for k, v in out.items()}
 
 
 class MaskedProgram(FrameProgram):
     """One frame with its hand boxes given (``infer_frame_with_boxes``)."""
 
-    @torch.inference_mode()
+    def _fn(self, image, boxes, is_right, valid, hw, K):
+        return infer_frame_with_boxes(self.params, self.mano_model, image.to(torch.float32),
+                                      boxes, is_right, valid, hw, K, self.cfg)
+
     def __call__(self, image_bgr: np.ndarray, boxes: np.ndarray, is_right: np.ndarray,
                  valid: np.ndarray, K: np.ndarray) -> Dict[str, np.ndarray]:
-        dev = self.device
-        img, hw = _bucket_upload(image_bgr, dev)
-        t = (lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev))  # noqa: E731
-        out = infer_frame_with_boxes(self.params, self.mano_model, img, t(boxes), t(is_right),
-                                     t(valid), hw, t(K), self.cfg)
+        padded, hw = _bucket_pad(image_bgr)
+        f32 = (lambda a: np.asarray(a, np.float32))  # noqa: E731
+        out = self.program(padded, f32(boxes), f32(is_right), f32(valid), hw, f32(K))
         return {k: v.cpu().numpy() for k, v in out.items()}
 
 

@@ -1110,6 +1110,129 @@ def test_batched_pipeline_on_cuda(dev):
         pipe.process_batch([frames[0].astype(np.float32) - 1.0], K)
 
 
+def _tiny_runtime(dev, fast_path="none"):
+    from hamer_yolo_tpu_torch.cli.main import apply_fast_path, pipeline_config
+    from hamer_yolo_tpu_torch.core.checkpoint import init_pipeline_params
+    from hamer_yolo_tpu_torch.core.mano_assets import synthetic_mano_model
+    from hamer_yolo_tpu_torch.models.mano import ManoModel
+
+    cfg = pipeline_config(tiny=True)
+    mano = ManoModel.from_arrays(synthetic_mano_model(0), dev)
+    params = init_pipeline_params(0, mano, cfg.yolo, cfg.hamer, cfg.sar, device=dev)
+    params, cfg = apply_fast_path(params, cfg, fast_path)
+    return params, mano, cfg
+
+
+def _eager(pipe, frames, K, state=None):
+    """BatchedPipeline's outputs without its graphs, on the same padded batch."""
+    from hamer_yolo_tpu_torch.pipeline.frame import infer_frames, infer_frames_tracked
+
+    images, hws, Ks = pipe._pad_frames(frames, K)
+    t = (lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(pipe.device))  # noqa: E731
+    with torch.inference_mode():
+        if state is None:
+            out = infer_frames(pipe.params, pipe.mano_model, t(images).float(), t(hws), t(Ks),
+                               pipe.cfg)
+        else:  # the previous tick's rows, zero rows for the pad frames (as _dispatch_tracked)
+            pad = {k: np.zeros((pipe.batch_size,) + state[k].shape[1:], state[k].dtype)
+                   for k in ("keypoints_2d", "is_right", "valid")}
+            for k, v in pad.items():
+                v[:len(frames)] = state[k][:len(frames)]
+            out = infer_frames_tracked(pipe.params, pipe.mano_model, t(images).float(),
+                                       t(pad["keypoints_2d"]), t(pad["is_right"]),
+                                       t(pad["valid"]), t(hws), t(Ks), pipe.cfg)
+    return {k: v[:len(frames)].cpu().numpy() for k, v in out.items()}
+
+
+def _assert_same(got, ref):
+    assert set(got) == set(ref)
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("fast_path", ["none", "int8"])
+def test_captured_programs_match_eager(dev, fast_path):
+    """Every captured program against the same function run eagerly on the
+    same inputs, bit for bit, at the --tiny config: BatchedPipeline's detect
+    and tracked programs, FrameProgram and MaskedProgram; a second call of
+    a bucket is a replay (no launch counted)."""
+    from hamer_yolo_tpu_torch.ops.attn_block import fused_bf16_attn_block
+    from hamer_yolo_tpu_torch.pipeline.frame import infer_frame, infer_frame_with_boxes
+    from hamer_yolo_tpu_torch.pipeline.runner import FrameProgram, MaskedProgram, _bucket_pad
+    from hamer_yolo_tpu_torch.pipeline.serving import BatchedPipeline
+
+    params, mano, cfg = _tiny_runtime(dev, fast_path)
+    rng = np.random.default_rng(7)
+    frames = [rng.integers(0, 256, (120, 160, 3), dtype=np.uint8) for _ in range(3)]
+    K = np.float32([[200.0, 0, 80], [0, 200.0, 60], [0, 0, 1]])
+    pipe = BatchedPipeline(params, mano, cfg, batch_size=4, device=dev)
+    got = pipe.process_batch(frames, K)
+    _assert_same(got, _eager(pipe, frames, K))
+    before = (greedy_nms_keep.launches, fused_bf16_attn_block.launches, fused_int8_matmul.launches)
+    _assert_same(pipe.process_batch(frames, K), got)
+    assert (greedy_nms_keep.launches, fused_bf16_attn_block.launches,
+            fused_int8_matmul.launches) == before
+    tracked = pipe._fetch(*pipe._dispatch_tracked(
+        frames, [{"kp2d": got["keypoints_2d"][i], "is_right": got["is_right"][i],
+                  "valid": got["valid"][i]} for i in range(3)], K))
+    _assert_same(tracked, _eager(pipe, frames, K, got))
+    program = FrameProgram(params, mano, cfg, dev)
+    padded, hw = _bucket_pad(frames[0])
+    img = torch.from_numpy(padded).to(dev).float()
+    t = (lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev))  # noqa: E731
+    with torch.inference_mode():
+        ref = {k: v.cpu().numpy() for k, v in infer_frame(
+            params, mano, img, t(hw), t(K), cfg).items()}
+    _assert_same(program(frames[0], K), ref)
+    masked = MaskedProgram(params, mano, cfg, dev)
+    S = cfg.max_hands
+    boxes = np.zeros((S, 4), np.float32)
+    boxes[0] = [30, 20, 90, 100]
+    valid = (np.arange(S) == 0).astype(np.float32)
+    with torch.inference_mode():
+        ref = {k: v.cpu().numpy() for k, v in infer_frame_with_boxes(
+            params, mano, img, t(boxes), t(np.ones(S)), t(valid), t(hw), t(K), cfg).items()}
+    _assert_same(masked(frames[0], boxes, np.ones(S, np.float32), valid, K), ref)
+
+
+def test_capture_after_a_larger_batch_keeps_the_earlier_graph(dev):
+    """A graph captured at batch 2, then another at batch 8 (K1's launch
+    grows what it sizes by B), then the batch-2 graph replayed: still equal
+    to eager, as is the batch-8 one."""
+    from hamer_yolo_tpu_torch.pipeline.serving import BatchedPipeline
+
+    params, mano, cfg = _tiny_runtime(dev)
+    rng = np.random.default_rng(8)
+    frames = [rng.integers(0, 256, (120, 160, 3), dtype=np.uint8) for _ in range(8)]
+    K = np.float32([[200.0, 0, 80], [0, 200.0, 60], [0, 0, 1]])
+    small = BatchedPipeline(params, mano, cfg, batch_size=2, device=dev)
+    first = small.process_batch(frames[:2], K)
+    large = BatchedPipeline(params, mano, cfg, batch_size=8, device=dev)
+    _assert_same(large.process_batch(frames, K), _eager(large, frames, K))
+    _assert_same(small.process_batch(frames[:2], K), first)
+    _assert_same(small.process_batch(frames[2:4], K), _eager(small, frames[2:4], K))
+
+
+def test_two_batches_in_flight_keep_their_outputs(dev):
+    """stream's depth 2: batch B is uploaded and replayed on the same graph
+    before batch A is fetched; each gets its own outputs (cloned before the
+    next replay, staged in a slot of its own)."""
+    from hamer_yolo_tpu_torch.pipeline.serving import BatchedPipeline
+
+    params, mano, cfg = _tiny_runtime(dev)
+    rng = np.random.default_rng(9)
+    frames = [rng.integers(0, 256, (120, 160, 3), dtype=np.uint8) for _ in range(6)]
+    K = np.float32([[200.0, 0, 80], [0, 200.0, 60], [0, 0, 1]])
+    pipe = BatchedPipeline(params, mano, cfg, batch_size=2, device=dev)
+    pipe.process_batch(frames[:2], K)  # capture
+    pending = [pipe._dispatch(frames[i:i + 2], K) for i in (0, 2, 4)]
+    for i, (out, n) in zip((0, 2, 4), pending):
+        _assert_same(pipe._fetch(out, n), _eager(pipe, frames[i:i + 2], K))
+    outs = list(pipe.stream(iter(frames), K, depth=3))
+    for i, o in zip((0, 2, 4), outs):
+        _assert_same(o, _eager(pipe, frames[i:i + 2], K))
+
+
 # Last in the file: on the card (PyTorch 2.11), a profiler session early in
 # the process left test_k9_matches_plain's sessions, after the tests between,
 # recording no device activity at all; back to back they both record.

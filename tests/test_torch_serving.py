@@ -158,3 +158,143 @@ def test_batched_runner_writes_the_per_frame_files(setup, tmp_path):
     st = process_frames_batched(bad, str(tmp_path / "c"), pipe, K, progress=False)
     assert (st.frames, st.skipped) == (1, 2)
     assert sorted(os.listdir(tmp_path / "c")) == ["g2.npy", "obj"]
+
+
+def _ticks_of(pipe, frames_by_src, n_ticks):
+    """stream_multi over iterator sources of the given frames, every frame
+    buffered (no drops), as a list of ticks; a dry source sits a tick out
+    after a 2 s wait."""
+    return list(pipe.stream_multi([iter(f) for f in frames_by_src], K, max_batches=n_ticks,
+                                  timeout=2.0, buffer=len(frames_by_src[0])))
+
+
+@pytest.fixture(scope="module")
+def multi(setup):
+    """Three static sources (the setup's frames, as JAX's own cadence test
+    streams static frames), the third one shorter: two ticks with all
+    three, then two with the first two."""
+    frames = setup[-1]
+    return [[frames[0]] * 4, [frames[1]] * 4, [frames[2]] * 2]
+
+
+def test_stream_multi_matches_jax(setup, multi):
+    """detect_every=2 over three synthetic sources, the port against JAX's
+    stream_multi: the same source_idx and detected lists per tick (keyframes
+    on ticks 0 and 2, none between), and the same slots (f32 reassociation,
+    root depth at 2e-3), tracked ticks included."""
+    jcfg, tcfg, params, jm, tm, _ = setup
+    jpipe = JaxBatchedPipeline(jax.tree_util.tree_map(jnp.asarray, params), jm, jcfg,
+                               batch_size=3, bucket_hw=(130, 130), detect_every=2)
+    pipe = BatchedPipeline(to_port(params), tm, tcfg, batch_size=3, bucket_hw=(130, 130),
+                           detect_every=2, device="cpu")
+    ref, got = _ticks_of(jpipe, multi, 4), _ticks_of(pipe, multi, 4)
+    assert [t["source_idx"] for t in got] == [t["source_idx"] for t in ref] == \
+        [[0, 1, 2], [0, 1, 2], [0, 1], [0, 1]]
+    assert [t["detected"] for t in got] == [t["detected"] for t in ref] == \
+        [[0, 1, 2], [], [0, 1], []]
+    for n, (g, r) in enumerate(zip(got, ref)):
+        assert set(g["outputs"]) == set(r["outputs"])
+        for j in range(len(r["source_idx"])):
+            rj = {k: np.asarray(v[j]) for k, v in r["outputs"].items()}
+            gj = {k: v[j] for k, v in g["outputs"].items()}
+            depth = rj.pop("root_depth")
+            _same_slots(gj, rj, f"tick {n} source {j}")
+            _same_slots({"root_depth": gj["root_depth"], "boxes": gj["boxes"],
+                         "valid": gj["valid"]},
+                        {"root_depth": depth, "boxes": rj["boxes"], "valid": rj["valid"]},
+                        f"tick {n} source {j} depth", atol=2e-3)
+    assert (pipe.last_stats.frames, pipe.last_stats.batches) == (10, 4)
+
+
+def test_stream_multi_keyframes_equal_process_batch(setup, multi):
+    """A keyframe tick is the detect program on the tick's frames, bit for
+    bit; a tracked tick carries the keyframe's validity; detect_every=1
+    detects on every tick and has no "detected" entry."""
+    _, tcfg, params, _, tm, _ = setup
+    pipe = BatchedPipeline(to_port(params), tm, tcfg, batch_size=3, bucket_hw=(130, 130),
+                           detect_every=2, device="cpu")
+    ticks = _ticks_of(pipe, multi, 3)
+    ref = pipe.process_batch([f[2] for f in multi[:2]], K)
+    for k, v in ticks[2]["outputs"].items():
+        np.testing.assert_array_equal(v, ref[k], err_msg=k)
+    np.testing.assert_array_equal(ticks[1]["outputs"]["valid"], ticks[0]["outputs"]["valid"])
+    every = BatchedPipeline(to_port(params), tm, tcfg, batch_size=3, bucket_hw=(130, 130),
+                            device="cpu")
+    plain = _ticks_of(every, multi, 2)
+    assert all("detected" not in t for t in plain)
+    for k, v in plain[0]["outputs"].items():
+        np.testing.assert_array_equal(v, ticks[0]["outputs"][k], err_msg=k)
+
+
+def test_bucket_and_upload_dtype_pinned(setup):
+    """bucket_hw pads every batch to one shape (a frame that does not fit
+    raises); upload_dtype="uint8" uploads integral float frames as uint8,
+    with the outputs of the same frames given as uint8."""
+    _, tcfg, params, _, tm, frames = setup
+    tp = to_port(params)
+    pinned = BatchedPipeline(tp, tm, tcfg, batch_size=3, bucket_hw=(160, 160),
+                             upload_dtype="uint8", device="cpu")
+    images, hws, _ = pinned._pad_frames([f.astype(np.float32) for f in frames], K)
+    assert images.shape == (3, 160, 160, 3) and images.dtype == np.uint8
+    np.testing.assert_array_equal(hws, [f.shape[:2] for f in frames])
+    a = pinned.process_batch([f.astype(np.float32) for f in frames], K)
+    b = pinned.process_batch(frames, K)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    with pytest.raises(ValueError, match="does not fit the bucket"):
+        BatchedPipeline(tp, tm, tcfg, batch_size=3, bucket_hw=(96, 96),
+                        device="cpu").process_batch(frames, K)
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_stream_depth_keeps_order(setup, depth):
+    """stream with ``depth`` batches in flight yields the batches in order,
+    each equal to process_batch of its frames."""
+    _, tcfg, params, _, tm, frames = setup
+    pipe = BatchedPipeline(to_port(params), tm, tcfg, batch_size=1, device="cpu")
+    outs = list(pipe.stream(iter(frames), K, depth=depth))
+    assert len(outs) == 3
+    for f, o in zip(frames, outs):
+        ref = pipe.process_batch([f], K)
+        for k in ref:
+            np.testing.assert_array_equal(o[k], ref[k], err_msg=k)
+
+
+def _video(path, frames):
+    import cv2
+
+    h, w = frames[0].shape[:2]
+    out = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 10, (w, h))
+    for f in frames:
+        out.write(f)
+    out.release()
+
+
+def test_cli_serve(tmp_path, capsys):
+    """``serve`` over an image dir in batches of 2 and ``serve --multi
+    --detect-every 2`` over two video files, through cli.main on the CPU:
+    JAX's output lines."""
+    import cv2
+
+    from hamer_yolo_tpu_torch.cli.main import main
+
+    rng = np.random.default_rng(2)
+    (tmp_path / "in").mkdir()
+    for i in range(3):
+        cv2.imwrite(str(tmp_path / "in" / f"f{i}.png"),
+                    rng.integers(0, 256, (120, 160, 3), dtype=np.uint8))
+    common = ["--tiny", "--device", "cpu", "--max-hands", "2"]
+    assert main(["serve", "--input", str(tmp_path / "in"), "--batch", "2", *common]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [ln.split(",")[0] for ln in lines[:2]] == ["batch: 2 frames", "batch: 1 frames"]
+    assert lines[-1].startswith("3 frames in ") and lines[-1].endswith(" fps")
+    for j in range(2):
+        _video(tmp_path / f"s{j}.avi",
+               [rng.integers(0, 256, (120, 160, 3), dtype=np.uint8) for _ in range(3)])
+    srcs = f"{tmp_path / 's0.avi'},{tmp_path / 's1.avi'}"
+    assert main(["serve", "--multi", "--input", srcs, "--detect-every", "2", "--max-frames", "3",
+                 *common]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [ln.split(" (detected")[1] for ln in lines[:3]] == [": [0, 1])", ": [])", ": [0, 1])"]
+    assert all(ln.startswith("tick: sources [0, 1], ") for ln in lines[:3])
+    assert lines[-1].startswith("6 frames in ")
