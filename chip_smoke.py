@@ -45,7 +45,23 @@ ResNet-34 RootNet at 256; seeded random weights, synthetic MANO, numpy-made
   launches twice (the warm-up and the capture), a replay not at all;
 - the CLI ("cli"): ``serve --batch 4``, ``serve --multi --detect-every 2``
   and ``serve-http`` through cli.main at full width, with a stand-in for
-  cv2 that reads .npy files (the script needs no cv2).
+  cv2 that reads .npy files (the script needs no cv2);
+- real weights ("checkpoint"): the full-width seeded weights written in the
+  reference's three torch formats, converted (core/convert), saved as a port
+  checkpoint and run by ``infer --checkpoint`` through cli.main on 720p
+  frames (K1, K2), whose npy files must equal those of the converted tree
+  held in memory bit for bit; the seconds of each step are printed;
+- the rest of the YOLO family ("YOLO family"): a spec of every deploy op and
+  variant at 256-1024 channels with the DET, BIN and KPT heads at 640, a
+  P6 yaml dict at 1280, the f32 forward against the CPU's, ``detect
+  --augment`` through cli.main and the TTA detector at B = 4, Merge-NMS
+  and the keypoint NMS on K1 against the CPU's (K1's keep sets against its
+  plain version); the detect stage's ms with and without TTA are printed;
+- the bounded graph cache ("graph cache"): each default bucket's graph pool,
+  then MAX_GRAPHS + 2 sizes past the largest bucket through one
+  FrameProgram: at most MAX_GRAPHS graphs held, the memory of evicted ones
+  returned, an evicted key captured again bit-equal to its first capture
+  and to eager.
 
 A phase "ToMe shapes" holds K3, K4, K5 and K7 against their plain versions
 at the token counts ToMe gives them (N = 124 and 68 a crop, 16 crops), and
@@ -526,6 +542,11 @@ def main() -> int:
     # -- serving: captured programs, stream_multi, the HTTP server ----------
     serving_phase(params, sparams, qcfg, mano, cfg, dev, smi)
     cli_phase(dev, depth)
+
+    # -- real-weight plumbing, the YOLO family, the bounded graph cache -----
+    checkpoint_phase(dev, cfg, depth, smi)
+    family_phase(params, mano, cfg, dev, depth, smi)
+    graph_cache_phase(params, mano, cfg, dev, smi)
 
     # -- reference checks on a small input: the card against the CPU path ----
     check_reference(dev)
@@ -2341,6 +2362,353 @@ def check_reference_tome(p, pg, tok, vit, what, share_close) -> None:
         raise AssertionError(f"int8-tome {what}: {frac:.4f} of elements within 0.02 (limit "
                              "0.99) on the card's merges")
     torch.testing.assert_close(got, ref, rtol=0.2, atol=0.1)
+
+
+# -- the checkpoint, YOLO family and graph cache phases ----------------------
+
+def checkpoint_phase(dev, cfg, depth, smi):
+    """Real-weight plumbing at full width: the seeded init of the default
+    pipeline (YOLOv7 deploy, ViT-H 32 x 1280 + the 6-layer MANO head, SAR's
+    ResNet-34 + head + RootNet) as numpy in JAX layout, written with
+    torch.save in the reference's three formats by the tests' builders
+    (tests/test_torch_state_dicts.py, which imports no JAX): yolov7_best.pt a
+    pickled module tree with an "ema" entry, hamer.ckpt a Lightning
+    {'state_dict'}, SAR-resnet34-Root.pth {'network', 'rootnet'} with
+    module. prefixes. Then core/convert.convert_pipeline_checkpoints (leaf
+    for leaf the tree that went in), core/checkpoint.save_checkpoint, and
+    ``infer --checkpoint x.npz`` through cli.main on 720p frames (K1, K2),
+    whose npy files must equal, bit for bit, those of the same runner on the
+    converted tree held in memory. Prints the seconds of each step."""
+    import torch
+
+    from hamer_yolo_tpu_torch.cli.main import load_mano
+    from hamer_yolo_tpu_torch.cli.main import main as cli
+    from hamer_yolo_tpu_torch.core.bridge import from_jax_params
+    from hamer_yolo_tpu_torch.core.checkpoint import (init_pipeline_params, load_checkpoint,
+                                                      save_checkpoint)
+    from hamer_yolo_tpu_torch.core.convert import convert_pipeline_checkpoints
+    from hamer_yolo_tpu_torch.io.writers import load_hand_npy
+    from hamer_yolo_tpu_torch.pipeline.runner import process_image_dir
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from test_torch_state_dicts import assert_leaf_equal, port_tree_to_numpy, write_reference_files
+
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    mano = load_mano(None, dev)  # what the CLI loads
+    tree = timed("init (CPU)", lambda: port_tree_to_numpy(init_pipeline_params(
+        SEED + 5, mano, cfg.yolo, cfg.hamer, cfg.sar, device="cpu")))
+    frames = frames_720p(N_FRAMES, SEED + 5)
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = cv2_stand_in()
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            paths = timed("torch.save x3", lambda: write_reference_files(root, tree))
+            sizes = {os.path.basename(p): os.path.getsize(p) / 2 ** 20 for p in paths}
+            conv = timed("convert", lambda: convert_pipeline_checkpoints(
+                *paths, template=mano.v_template.cpu().numpy()))
+            assert_leaf_equal(conv, tree)
+            npz = os.path.join(root, "pipeline.npz")
+            timed("save_checkpoint", lambda: save_checkpoint(npz, conv))
+
+            def load():
+                p = load_checkpoint(npz, dev)
+                torch.cuda.synchronize()
+                return p
+
+            timed("load_checkpoint to the card", load)
+            os.makedirs(os.path.join(root, "in"))
+            for i, f in enumerate(frames):
+                with open(os.path.join(root, "in", f"f{i}.png"), "wb") as fh:
+                    np.save(fh, f)
+            out_cli, out_mem = os.path.join(root, "cli"), os.path.join(root, "mem")
+            rc, n = run_counted(lambda: timed("infer --checkpoint (cli.main)", lambda: cli(
+                ["infer", "--checkpoint", npz, "--input", os.path.join(root, "in"),
+                 "--output", out_cli, "--no-obj"])))
+            if rc:
+                raise RuntimeError(f"infer --checkpoint: rc {rc}")
+            expect_launches("infer --checkpoint", n, {"K2": CAPTURE_RUNS * depth})
+            if n["K1"] < CAPTURE_RUNS:
+                raise RuntimeError(f"infer --checkpoint: K1 launched {n['K1']} times")
+            params = from_jax_params(conv, dev)
+            with torch.inference_mode():
+                process_image_dir(os.path.join(root, "in"), out_mem, params, mano, cfg,
+                                  save_obj=False, device=dev, progress=False)
+            names = sorted(f for f in os.listdir(out_mem) if f.endswith(".npy"))
+            hands = 0
+            if names != sorted(f for f in os.listdir(out_cli) if f.endswith(".npy")) or \
+                    len(names) != N_FRAMES:
+                raise RuntimeError(f"infer --checkpoint wrote {os.listdir(out_cli)}")
+            for name in names:
+                a = load_hand_npy(os.path.join(out_cli, name))
+                b = load_hand_npy(os.path.join(out_mem, name))
+                for side in ("left", "right"):
+                    if (a[side] is None) != (b[side] is None):
+                        raise RuntimeError(f"{name} {side}: a hand in one run only")
+                    if a[side] is None:
+                        continue
+                    hands += 1
+                    for k, v in b[side].items():
+                        if not np.array_equal(np.asarray(a[side][k]), np.asarray(v)):
+                            raise RuntimeError(f"{name} {side} {k}: infer --checkpoint differs "
+                                               "from the tree in memory")
+    finally:
+        if saved is None:
+            sys.modules.pop("cv2", None)
+        else:
+            sys.modules["cv2"] = saved
+    print(f"checkpoint: {N_FRAMES} 720p frames, {hands} hands; infer --checkpoint's npy files "
+          f"equal the in-memory tree's bit for bit; launches {n}; files "
+          + ", ".join(f"{k} {v:.1f} MiB" for k, v in sizes.items()))
+    print(f"checkpoint seconds on {smi} (host clock, this machine's disk): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+
+
+# A spec with every deploy op and every variant, at 256-1024 channels, 3
+# levels at 640 (strides 8, 16, 32); the head op is filled in per use.
+FAMILY_SPEC = [
+    (-1, "REORG", ()), (-1, "C", (256, 3, 2)), (-1, "GSTEM", (256,)),
+    (1, "STEM", (256,)), (1, "C", (256, 3, 2)),
+    (-1, "GHOSTC", (256, 3, 1)), (-1, "GHOST", (256, 3, 1)),               # 6: P3
+    (-1, "GHOST", (512, 3, 2)), ((-1, 2, 3), "CAT", ()),
+    (-1, "GCSPA", (512, 1)), (-1, "GCSPB", (512, 1)), (-1, "GCSPC", (512, 1)),
+    (-1, "SP_", (3,)), ((-1, -2), "ADD", ()),                              # 13: P4
+    (-1, "DOWNC", (512,)), (-1, "GSPP", (512,)),
+    (-1, "STCSPA", (1024, 1)), (-1, "STCSPB", (512, 1)), (-1, "STCSPC", (1024, 1)),
+    (-1, "SWINB", (512, 16, 2)), (-1, "SPP", (512,)),                      # 20: P5
+    (-1, "C", (256, 1, 1)), (-1, "UP", ()), ((-1, 13), "CAT", ()), (-1, "MP", ()),
+    (6, "REP", (256,)), (23, "REP", (512,)), (20, "REP", (512,)),
+]
+# the w6 family's shape at 1280: ReOrg stem, DownC downsampling, 4 levels (8 ... 64)
+P6_YAML = {
+    "nc": 3, "depth_multiple": 1.0, "width_multiple": 1.0,
+    "anchors": [[19, 27, 44, 40, 38, 94], [96, 68, 86, 152, 180, 137],
+                [140, 301, 303, 264, 238, 542], [436, 615, 739, 380, 925, 792]],
+    "backbone": [[-1, 1, "ReOrg", []], [-1, 1, "Conv", [64, 3, 1]], [-1, 1, "DownC", [128]],
+                 [-1, 1, "Conv", [128, 3, 1]], [-1, 1, "DownC", [256]],
+                 [-1, 1, "Conv", [256, 1, 1]], [-1, 1, "DownC", [384]], [-1, 1, "DownC", [512]],
+                 [-1, 1, "DownC", [512]], [-1, 1, "SPPCSPC", [256]]],
+    "head": [[8, 1, "Conv", [256, 1, 1]], [[-1, 9], 1, "Shortcut", []],
+             [-1, 1, "nn.Upsample", [None, 2, "nearest"]], [[-1, 7], 1, "Concat", [1]],
+             [5, 1, "SP", [5]], [6, 1, "RepConv", [256, 3, 1]], [13, 1, "Conv", [256, 1, 1]],
+             [11, 1, "Conv", [256, 1, 1]],
+             [[14, 15, 16, 17], 1, "IDetect", ["nc", "anchors"]]],
+}
+
+
+def family_phase(params, mano, cfg, dev, depth, smi):
+    """The rest of the YOLO family on the card: FAMILY_SPEC with each head
+    (DET, BIN, KPT) at 640 and the P6 yaml dict at 1280, bf16, finite and of
+    their shapes; FAMILY_SPEC's f32 forward on the card against the CPU's on
+    a small input at the composed-oracle limit 2e-3; ``detect --augment``
+    through cli.main on 720p frames (the whole one-frame program, as JAX's
+    detect runs it: K1 and K2) and the TTA detector at B = 4; K1's keep
+    sets on the TTA candidates equal to greedy_nms_keep_ref's; Merge-NMS and
+    the keypoint NMS through K1 against the same functions on the CPU. Prints
+    the detect stage's ms with and without TTA and K1's launches a batch."""
+    import io
+
+    import torch
+
+    from hamer_yolo_tpu_torch.cli.main import main as cli
+    from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig, init_yolov7, yolov7_forward
+    from hamer_yolo_tpu_torch.models.yolov7.yaml_spec import spec_from_yaml
+    from hamer_yolo_tpu_torch.ops.nms import (greedy_nms_keep_mask, greedy_nms_keep_ref,
+                                              nms_candidates, non_max_suppression,
+                                              non_max_suppression_kpt)
+    from hamer_yolo_tpu_torch.pipeline.frame import detect_hands_batched
+    from hamer_yolo_tpu_torch.pipeline.preprocess import device_letterbox
+
+    heads = {"DET": (), "BIN": (), "KPT": (17,)}
+    ycfg = YoloConfig(nc=3)
+    outs = {}
+    with torch.inference_mode():
+        x640 = torch.rand((2, 640, 640, 3), generator=torch.Generator().manual_seed(SEED))
+        for head, args in heads.items():
+            spec = FAMILY_SPEC + [((25, 26, 27), head, args)]
+            p = init_yolov7(torch.Generator(device=dev).manual_seed(SEED), ycfg, spec=spec)
+            out, n = run_counted(lambda: yolov7_forward(p, x640.to(dev), ycfg, spec=spec))
+            width = ycfg.no + (3 * 17 if head == "KPT" else 0)
+            if tuple(out.shape) != (2, 3 * (80 * 80 + 40 * 40 + 20 * 20), width) or \
+                    not torch.isfinite(out).all():
+                raise RuntimeError(f"family spec {head}: {tuple(out.shape)}, not finite or "
+                                   "not of its shape")
+            outs[head] = out
+        spec6, cfg6 = spec_from_yaml(P6_YAML)
+        p6 = init_yolov7(torch.Generator(device=dev).manual_seed(SEED), cfg6, spec=spec6)
+        x1280 = torch.rand((1, 1280, 1280, 3), generator=torch.Generator().manual_seed(SEED))
+        out6 = yolov7_forward(p6, x1280.to(dev), cfg6, spec=spec6)
+        if tuple(out6.shape) != (1, 3 * (160 ** 2 + 80 ** 2 + 40 ** 2 + 20 ** 2), 8) or \
+                not torch.isfinite(out6).all():
+            raise RuntimeError(f"P6 spec at 1280: {tuple(out6.shape)}")
+        print(f"YOLO family: the every-op spec ({len(FAMILY_SPEC) + 1} layers, 256-1024 "
+              f"channels) with DET, BIN and KPT heads at 640 in bf16 -> "
+              + ", ".join(f"{h} {tuple(o.shape)}" for h, o in outs.items())
+              + f"; the P6 yaml ({len(spec6)} layers, strides {cfg6.strides}) at 1280 -> "
+              f"{tuple(out6.shape)}; all finite")
+        # f32, the card against the CPU on a small input
+        c32 = dataclasses.replace(ycfg, compute_dtype="float32")
+        spec = FAMILY_SPEC + [((25, 26, 27), "DET", ())]
+        p = init_yolov7(torch.Generator().manual_seed(SEED + 1), c32, spec=spec)
+        x = torch.rand((1, 128, 128, 3), generator=torch.Generator().manual_seed(SEED + 1))
+        ref = yolov7_forward(p, x, c32, spec=spec)
+        got = yolov7_forward(_to(p, dev), x.to(dev), c32, spec=spec).cpu()
+        torch.testing.assert_close(got, ref, rtol=2e-3, atol=2e-3)
+        print(f"YOLO family f32 (card vs CPU, the every-op spec at 128): max abs diff "
+              f"{float((got - ref).abs().max()):.4g}, max |ref| {float(ref.abs().max()):.4g}")
+
+    # detect --augment through cli.main, then the TTA detector at B = 4
+    frames = frames_720p(4, SEED + 6)
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = cv2_stand_in()
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            for i, f in enumerate(frames):
+                with open(os.path.join(root, f"f{i}.png"), "wb") as fh:
+                    np.save(fh, f)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                (rc, n) = run_counted(lambda: cli(["detect", "--augment", "--input", root]))
+            lines = buf.getvalue().strip().splitlines()
+    finally:
+        if saved is None:
+            sys.modules.pop("cv2", None)
+        else:
+            sys.modules["cv2"] = saved
+    dets = [json.loads(ln) for ln in lines]
+    print(f"detect --augment (cli.main, {len(frames)} 720p frames, one captured bucket): rc {rc}, "
+          f"{sum(len(d['detections']) for d in dets)} hands; launches {n}")
+    if rc or len(dets) != len(frames):
+        raise RuntimeError("detect --augment: unexpected output")
+    expect_launches("detect --augment", n, {"K1": CAPTURE_RUNS, "K2": CAPTURE_RUNS * depth})
+    tcfg = dataclasses.replace(cfg, tta=True)
+    imgs = torch.from_numpy(np.stack(frames)).to(dev).to(torch.float32)
+    hws = torch.tensor([[720.0, 1280.0]] * 4, device=dev)
+    stage_ms = {}
+    with torch.inference_mode():
+        for B in (1, 4):
+            for name, c in (("plain", cfg), ("tta", tcfg)):
+                out, n = run_counted(lambda: detect_hands_batched(params["yolo"], imgs[:B],
+                                                                  hws[:B], c))
+                if n["K1"] != 1 or not torch.isfinite(out["boxes"]).all():
+                    raise RuntimeError(f"detect B {B} {name}: K1 launched {n['K1']} times")
+                stage_ms[(B, name)] = cuda_time_ms(
+                    lambda: detect_hands_batched(params["yolo"], imgs[:B], hws[:B], c), iters=5)
+        lb, _, _ = device_letterbox(imgs, hws, cfg.det_size)
+        from hamer_yolo_tpu_torch.models.yolov7.tta import yolov7_forward_tta
+
+        pred = yolov7_forward_tta(params["yolo"], lb.flip(-1) / 255.0, cfg.yolo)
+        cand = nms_candidates(pred, cfg.conf_thres, cfg.classes, cfg.agnostic_nms,
+                              cfg.max_nms_static)
+        keep = greedy_nms_keep_mask(cand.shifted, cand.active, cfg.iou_thres)
+        ref_keep = greedy_nms_keep_ref(cand.shifted, cand.active.float(), cfg.iou_thres) > 0.5
+        if not torch.equal(keep, ref_keep):
+            raise RuntimeError("K1 on the TTA candidates differs from greedy_nms_keep_ref")
+        kw = dict(conf_thres=cfg.conf_thres, iou_thres=cfg.iou_thres, max_det=100,
+                  max_nms_static=cfg.max_nms_static)
+        for redundant in (True, False):
+            got, n = run_counted(lambda: non_max_suppression(pred, merge=True, redundant=redundant,
+                                                             **kw))
+            ref = non_max_suppression(pred.cpu(), merge=True, redundant=redundant, **kw)
+            _same_nms(got, ref, n, f"Merge-NMS redundant={redundant}")
+        kpred = outs["KPT"].float()
+        got, n = run_counted(lambda: non_max_suppression_kpt(kpred, nc=3, **kw))
+        ref = non_max_suppression_kpt(kpred.cpu(), nc=3, **kw)
+        _same_nms(got, ref, n, "keypoint NMS")
+        if not torch.equal(got.kpts.cpu(), ref.kpts):
+            raise RuntimeError("keypoint NMS: keypoints differ from the CPU's")
+    print(f"TTA: K1's keep set on the {int(cand.active.sum())} active TTA candidates of "
+          f"{tuple(pred.shape)} equals greedy_nms_keep_ref's")
+    print(f"detect stage (detect_hands_batched: letterbox, YOLOv7, NMS) on {smi}, CUDA events, "
+          "2 warm-up, 5 timed: " + ", ".join(f"B {b} {k} {v:.3f} ms" for (b, k), v in
+                                             stage_ms.items()) + "; K1 launches a batch: 1")
+
+
+def _same_nms(got, ref, n, what):
+    """An NMS on the card (one K1 launch) against the same on the CPU: the
+    same valid slots, classes and scores, boxes within f32 sum order."""
+    import torch
+
+    if n["K1"] != 1:
+        raise RuntimeError(f"{what}: K1 launched {n['K1']} times")
+    for k in ("valid", "classes", "scores"):
+        if not torch.equal(getattr(got, k).cpu(), getattr(ref, k)):
+            raise RuntimeError(f"{what}: {k} differ from the CPU's")
+    torch.testing.assert_close(got.boxes.cpu(), ref.boxes, rtol=1e-5, atol=1e-5)
+    print(f"{what} on the card: {int(ref.valid.sum())} kept of the batch, the CPU's keep set; "
+          f"boxes max abs diff {float((got.boxes.cpu() - ref.boxes).abs().max()):.3g}; K1 1")
+
+
+def graph_cache_phase(params, mano, cfg, dev, smi):
+    """ROADMAP F15 on the card. Each default bucket's graph and its pool
+    through one FrameProgram (B = 1, uint8); then MAX_GRAPHS + 2 sizes past
+    the largest bucket through a fresh FrameProgram: it never holds more
+    than MAX_GRAPHS graphs; after torch.cuda.empty_cache the memory reserved
+    after the two extra keys is within one pool of that before them; the
+    first size, evicted and captured again, gives outputs equal bit for bit
+    to its first capture's and to eager infer_frame's."""
+    import torch
+
+    from hamer_yolo_tpu_torch.pipeline.captured import MAX_GRAPHS
+    from hamer_yolo_tpu_torch.pipeline.runner import DEFAULT_BUCKETS, FrameProgram
+
+    rng = np.random.default_rng(SEED + 7)
+    K = np.float32([[1000, 0, 640], [0, 1000, 360], [0, 0, 1]])
+    program = FrameProgram(params, mano, cfg, dev)
+    pools = {}
+    for h, w in DEFAULT_BUCKETS:
+        program(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), K)
+        pools[f"{h}x{w}"] = list(program.program.pool_bytes.values())[-1] / 2 ** 20
+    if len(program.program._graphs) != len(DEFAULT_BUCKETS):
+        raise RuntimeError("the five default buckets did not fit in one program's cache")
+    print(f"graph cache: MAX_GRAPHS {MAX_GRAPHS}; FrameProgram pool a bucket (B = 1, uint8) on "
+          f"{smi}: " + ", ".join(f"{k} {v:.1f} MiB" for k, v in pools.items()))
+    del program
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def reserved():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(dev)
+
+    program = FrameProgram(params, mano, cfg, dev)
+    sizes = [(2160 + 64 * (i + 1), 3840) for i in range(MAX_GRAPHS + 2)]
+    frames = {s: rng.integers(0, 256, s + (3,), dtype=np.uint8) for s in sizes}
+    first = None
+    r0 = reserved()
+    levels, big = [], 0
+    for i, s in enumerate(sizes):
+        out = program(frames[s], K)
+        if i == 0:
+            first = out
+        held = len(program.program._graphs)
+        if held > MAX_GRAPHS:
+            raise RuntimeError(f"graph cache holds {held} graphs, more than {MAX_GRAPHS}")
+        big = max([big] + list(program.program.pool_bytes.values()))
+        if i >= MAX_GRAPHS - 1:
+            levels.append(reserved())
+    before, after = levels[0], levels[-1]
+    print(f"graph cache: {len(sizes)} sizes past the largest bucket "
+          f"({sizes[0][0]}..{sizes[-1][0]} x 3840), at most {MAX_GRAPHS} graphs held; reserved "
+          f"after empty_cache: {r0 / 2 ** 20:.0f} MiB before any, {before / 2 ** 20:.0f} MiB "
+          f"with the cache full, {after / 2 ** 20:.0f} MiB after 2 more keys (2 evicted); the "
+          f"largest pool {big / 2 ** 20:.1f} MiB")
+    if after > before + big:
+        raise RuntimeError("evicted graphs did not return their memory")
+    again = program(frames[sizes[0]], K)
+    eager = eager_frame(params, mano, cfg, dev, frames[sizes[0]], K)
+    for k, v in first.items():
+        if not (np.array_equal(again[k], v) and np.array_equal(eager[k], v)):
+            raise RuntimeError(f"graph cache: {k} of the recaptured key differs")
+    print(f"graph cache: {sizes[0][0]}x3840, evicted and captured again: all {len(first)} "
+          "outputs equal its first capture's and eager infer_frame's bit for bit")
 
 
 def _to(tree, dev):

@@ -12,16 +12,21 @@
                micro-batching [--host H] [--port P] [--batch 8]
                [--max-wait-ms MS] [--intrinsics cam_K.txt]
   detect       hand boxes only, one JSON line per image
-               [--save-txt DIR [--save-conf]]
+               [--save-txt DIR [--save-conf]] [--augment: 3-scale + flip TTA]
   depth        RootNet's absolute root depth, one JSON line per image
   reconstruct  saved .npy dir -> .obj meshes
 
-Every subcommand takes [--tiny] [--device cuda] [--mano-dir DIR]
-[--max-hands N] [--conf-thres T] [--iou-thres T] and the ViT's fast paths
-[--fast-path none|int8|tome|int8-tome [--tome-r R] [--calib-scales NPZ]].
+Every subcommand takes [--tiny] [--device cuda] [--checkpoint NPZ]
+[--mano-dir DIR] [--max-hands N] [--conf-thres T] [--iou-thres T] and the
+ViT's fast paths [--fast-path none|int8|tome|int8-tome [--tome-r R]
+[--calib-scales NPZ]].
 
-Weights come from a random init seeded with 0; MANO from
-assets/mano_right.npz when present, else the seeded synthetic model. It runs
+Weights come from ``--checkpoint``, a port checkpoint (core/checkpoint.py:
+made from the reference's torch files by core/convert, or from a JAX orbax
+checkpoint), applied before a fast path quantizes; without one, or where its
+path does not exist (a warning on stderr, as in JAX), from a random init
+seeded with 0. A checkpoint leaf the port has no rule for raises. MANO comes
+from assets/mano_right.npz when present, else the seeded synthetic model. It runs
 on the card unless ``--device`` names another device; without a card, pass
 ``--device cpu``. On the card every program runs as a captured CUDA graph per
 bucket (pipeline/captured.py).
@@ -32,9 +37,8 @@ of a stats file written by ``hamer_yolo_tpu_torch.tools.calibrate_int8``
 (or by the JAX package's tools/calibrate_int8.py: the format is shared).
 ``tome`` merges ``--tome-r`` tokens after each ViT block (models/tome.py);
 ``int8-tome`` does both. Not ported yet (ROADMAP.md, Queue 1): ``detect
---augment`` and ``--save-img``, ``reconstruct --overlay-images``,
-``--checkpoint``, ``--int8-yolo``, and the ``rgbd`` and ``bench``
-subcommands.
+--save-img``, ``reconstruct --overlay-images``, ``--int8-yolo``, and the
+``rgbd`` and ``bench`` subcommands.
 """
 from __future__ import annotations
 
@@ -49,7 +53,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from hamer_yolo_tpu_torch.core.checkpoint import init_pipeline_params
+from hamer_yolo_tpu_torch.core.checkpoint import init_pipeline_params, load_checkpoint
 from hamer_yolo_tpu_torch.core.mano_assets import load_mano_model, synthetic_mano_model
 from hamer_yolo_tpu_torch.core.quant import (attach_static_act_scales, load_act_stats,
                                              quantize_vit_params)
@@ -121,12 +125,21 @@ def apply_fast_path(params, cfg: PipelineConfig, fast_path: str = "none",
 
 
 def load_runtime(args):
-    """(params, MANO model, config, device) for a subcommand's arguments."""
+    """(params, MANO model, config, device) for a subcommand's arguments:
+    the weights of ``--checkpoint`` or the seeded init, then the fast path."""
     device = torch.device(args.device)
     cfg = pipeline_config(args.tiny, args.max_hands, args.conf_thres, args.iou_thres,
                           getattr(args, "depth_refine", False))
     mano = load_mano(args.mano_dir, device)
-    params = init_pipeline_params(0, mano, cfg.yolo, cfg.hamer, cfg.sar, device=device)
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        params = load_checkpoint(args.checkpoint, device)
+    else:
+        if args.checkpoint:
+            print(f"warning: checkpoint {args.checkpoint} not found; random init",
+                  file=sys.stderr)
+        params = init_pipeline_params(0, mano, cfg.yolo, cfg.hamer, cfg.sar, device=device)
+    if getattr(args, "augment", False):
+        cfg = dataclasses.replace(cfg, tta=True)
     params, cfg = apply_fast_path(params, cfg, args.fast_path, args.calib_scales, args.tome_r)
     return params, mano, cfg, device
 
@@ -283,6 +296,8 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--tiny", action="store_true", help="scaled-down models (CPU smoke)")
         p.add_argument("--device", default="cuda",
                        help="torch device (default: the card; cpu for a machine without one)")
+        p.add_argument("--checkpoint", default=None, metavar="NPZ",
+                       help="port checkpoint (core/checkpoint.save_checkpoint's .npz)")
         p.add_argument("--fast-path", default="none", choices=FAST_PATHS,
                        help="int8: W8A8 int8 ViT blocks (K3/K4 with --calib-scales, else "
                             "K5/K7); tome: --tome-r tokens merged per ViT block; int8-tome: both")
@@ -348,6 +363,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "cls x_c y_c w h, normalized)")
     p.add_argument("--save-conf", action="store_true",
                    help="append confidence to --save-txt rows")
+    p.add_argument("--augment", action="store_true",
+                   help="3-scale + flip detector TTA (detect.py --augment)")
     p.set_defaults(fn=cmd_detect)
 
     p = sub.add_parser("depth", help="RootNet absolute depth only")

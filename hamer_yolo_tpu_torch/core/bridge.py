@@ -8,7 +8,8 @@ core/quant (``quantize_vit_params``, ``attach_static_act_scales``) load as
 they are: "q" int8 weights, "scale" f32 vectors, "sx" f32 scalars.
 
 Layouts (the JAX conventions are NHWC, HWIO convs, (in, out) linears):
-conv weights HWIO -> OIHW, transposed once here; linear weights stay
+conv weights HWIO -> OIHW, transposed once here (a grouped conv's HWIO
+weight has I = C / groups and gets the same transpose); linear weights stay
 (in, out), the layout core/nn.linear and kernel K2 take; vectors and
 embeddings are copied as they are. Values stay float32, int8 weights int8
 in the same (in, out) layout.
@@ -37,6 +38,7 @@ _RULES = {
     ("adj", 2): lambda a: a,                      # SAR graph conv's (V, V) adjacency
     ("template", 2): lambda a: a,                 # SAR's MANO template (V, 3)
     ("beta", 1): lambda a: a,                     # SAR soft-heatmap weights
+    ("rpb", 2): lambda a: a,                      # Swin's relative position bias table
 }
 # int8 leaves: (parent key, key, rank) -> the rule. Only the int8 linears of
 # quantize_vit_params ({"wq": {"q", "scale"}}) are ported; the int8 convs of

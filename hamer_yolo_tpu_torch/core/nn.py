@@ -48,8 +48,9 @@ def linear_init(gen: torch.Generator, in_dim: int, out_dim: int, bias: bool = Tr
     return p
 
 
-def conv_init(gen: torch.Generator, k: int, c_in: int, c_out: int, bias: bool = False) -> Params:
-    p = {"w": kaiming_uniform((c_out, c_in, k, k), c_in * k * k, gen)}
+def conv_init(gen: torch.Generator, k: int, c_in: int, c_out: int, bias: bool = False,
+              groups: int = 1) -> Params:
+    p = {"w": kaiming_uniform((c_out, c_in // groups, k, k), c_in // groups * k * k, gen)}
     if bias:
         p["b"] = torch.zeros(c_out, device=gen.device)
     return p
@@ -156,12 +157,14 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
 
 
-def conv2d(p: Params, x: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:
-    """x (B, H, W, C) NHWC, p["w"] (O, I, kh, kw) -> (B, H', W', O).
+def conv2d(p: Params, x: torch.Tensor, stride: int = 1, padding: int = 0,
+           groups: int = 1) -> torch.Tensor:
+    """x (B, H, W, C) NHWC, p["w"] (O, C / groups, kh, kw) -> (B, H', W', O).
 
-    Symmetric integer padding only (every conv of the ported path uses it).
+    Symmetric integer padding only (every conv of the ported paths uses it).
     """
-    y = F.conv2d(x.permute(0, 3, 1, 2), cast_weight(p["w"], x.dtype), None, stride, padding)
+    y = F.conv2d(x.permute(0, 3, 1, 2), cast_weight(p["w"], x.dtype), None, stride, padding,
+                 1, groups)
     y = y.permute(0, 2, 3, 1)
     if "b" in p:
         y = y + cast_weight(p["b"], x.dtype)

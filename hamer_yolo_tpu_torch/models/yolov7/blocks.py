@@ -1,6 +1,8 @@
 """YOLOv7 deploy-form blocks on NHWC tensors (port of
 hamer_yolo_tpu/models/yolov7/blocks.py): fused Conv(+BN)+SiLU, max pools,
-SPPCSPC, nearest 2x upsample and deploy RepConv (one fused 3x3 conv)."""
+ReOrg (space to depth), SPPCSPC, nearest 2x upsample and deploy RepConv (one
+fused 3x3 conv). JAX's peephole that fuses ReOrg into the 3x3 conv after it
+(``HYT_FUSE_REORG``, on only on a TPU) is not ported: ReOrg runs unfused."""
 from __future__ import annotations
 
 import torch
@@ -30,6 +32,15 @@ def mp(x: torch.Tensor, k: int = 2) -> torch.Tensor:
 
 def sp(x: torch.Tensor, k: int = 3) -> torch.Tensor:
     return nn.max_pool(x, k, 1, padding=k // 2)
+
+
+def reorg(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/2, W/2, 4C) space to depth, channels in the
+    reference's order ([::2, ::2], [1::2, ::2], [::2, 1::2], [1::2, 1::2]),
+    by JAX's reshape and transpose."""
+    B, H, W, C = x.shape
+    y = x.reshape(B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 4, 2, 5)
+    return y.reshape(B, H // 2, W // 2, 4 * C)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,17 @@
-"""YOLOv7 detector: built-in deploy spec, graph walk and anchor decode
-(port of hamer_yolo_tpu/models/yolov7/model.py).
+"""YOLOv7 detector: spec-driven graph walk and anchor decode (port of
+hamer_yolo_tpu/models/yolov7/model.py), NHWC.
 
-Only the built-in deploy topology (cfg/deploy/yolov7.yaml, ops
-C/MP/CAT/SPP/UP/REP/DET) is ported: a bf16 trunk of fused conv+SiLU and an
-f32 decode, xy = (2 sigmoid - 0.5 + grid) stride, wh = (2 sigmoid)^2 anchor,
-flattened anchor-major per level, P3 -> P4 -> P5 (B, 25200, nc + 5) at 640.
+A spec is a list of (from, op, args) entries, the reference's yaml layer list
+(models/yolov7/yaml_spec.py reads one); ``yolov7_spec`` is the built-in
+deploy yolov7 (cfg/deploy/yolov7.yaml). The deploy ops: C (conv + SiLU, BN
+folded), MP (2x2 max pool), SP_ (k x k max pool, stride 1), CAT, ADD, SPP
+(SPPCSPC), UP (nearest 2x), REORG (space to depth), DOWNC, REP (fused
+RepConv), the Ghost / Stem / Swin variants (models/yolov7/variants.py), and
+the heads DET, BIN and KPT (models/yolov7/heads.py). The trunk runs in the
+compute dtype (bf16 by default) and the decode in f32: xy = (2 sigmoid - 0.5
++ grid) stride, wh = (2 sigmoid)^2 anchor, flattened anchor-major per level,
+P3 -> P4 -> P5, so (B, 25200, nc + 5) at 640. The training form waits for
+the training port.
 """
 from __future__ import annotations
 
@@ -16,8 +23,12 @@ import torch
 
 from hamer_yolo_tpu_torch.core import nn
 from hamer_yolo_tpu_torch.models.yolov7 import blocks as B
+from hamer_yolo_tpu_torch.models.yolov7 import heads as H
+from hamer_yolo_tpu_torch.models.yolov7 import variants as V
 
 C, MP_, CAT, SPP, UP, REP, DET = "C", "MP", "CAT", "SPP", "UP", "REP", "DET"
+BIN, KPT = "BIN", "KPT"
+ADD, REORG, SP_, DOWNC = "ADD", "REORG", "SP_", "DOWNC"
 Spec = List[Tuple[Any, str, tuple]]
 
 
@@ -66,6 +77,8 @@ YOLOV7_ANCHORS = np.array([[[12, 16], [19, 36], [40, 28]],
                            [[142, 110], [192, 243], [459, 401]]], np.float32)
 
 
+
+
 @dataclass(frozen=True)
 class YoloConfig:
     nc: int = 3
@@ -73,6 +86,9 @@ class YoloConfig:
     anchors: tuple = tuple(map(tuple, YOLOV7_ANCHORS.reshape(3, 6).tolist()))
     strides: tuple = (8, 16, 32)
     compute_dtype: str = "bfloat16"
+    # the IBin and IKeypoint heads' parameters (used where a spec ends in BIN / KPT)
+    bin_count: int = 21
+    nkpt: int = 17
 
     @property
     def no(self) -> int:
@@ -92,11 +108,13 @@ def _resolve(frm, idx: int) -> List[int]:
     return [idx + f if f < 0 else f for f in frs]
 
 
-def init_yolov7(gen: torch.Generator, cfg: YoloConfig = YoloConfig()) -> nn.Params:
-    """Deploy-form parameters, walking the spec and tracking channels."""
+def init_yolov7(gen: torch.Generator, cfg: YoloConfig = YoloConfig(), spec: Spec = None
+                ) -> nn.Params:
+    """Deploy-form parameters of ``spec`` (default: the built-in deploy
+    yolov7), walking it and tracking channels; None for parameter-free ops."""
     channels: List[int] = []
     layers: List[Any] = []
-    for i, (frm, op, args) in enumerate(yolov7_spec()):
+    for i, (frm, op, args) in enumerate(spec if spec is not None else yolov7_spec()):
         srcs = _resolve(frm, i)
         c_srcs = [3] if i == 0 else [channels[s] for s in srcs]
         c1, c2, p = c_srcs[0], c_srcs[0], None
@@ -105,16 +123,34 @@ def init_yolov7(gen: torch.Generator, cfg: YoloConfig = YoloConfig()) -> nn.Para
             p = B.conv_block_init(gen, c1, c2, k)
         elif op == CAT:
             c2 = sum(c_srcs)
+        elif op == REORG:
+            c2 = 4 * c1
         elif op == SPP:
             (c2,) = args
             p = B.sppcspc_init(gen, c1, c2)
+        elif op == DOWNC:
+            (c2,) = args
+            p = {"cv1": B.conv_block_init(gen, c1, c1, 1),
+                 "cv2": B.conv_block_init(gen, c1, c2 // 2, 3),
+                 "cv3": B.conv_block_init(gen, c1, c2 // 2, 1)}
         elif op == REP:
             c2 = args[0]
             p = B.repconv_init(gen, c1, c2)
+        elif op in V.VARIANT_OPS:
+            p = V.init_variant(op, gen, c1, args)
+            c2 = int(args[0])
         elif op == DET:
             p = {"m": [nn.conv_init(gen, 1, channels[s], cfg.na * cfg.no, bias=True)
                        for s in srcs]}
             c2 = 0
+        elif op == BIN:
+            p = H.init_bin_head(gen, [channels[s] for s in srcs], cfg.na, cfg.nc, cfg.bin_count)
+            c2 = 0
+        elif op == KPT:
+            p = H.init_keypoint_head(gen, [channels[s] for s in srcs], cfg.na, cfg.nc, cfg.nkpt)
+            c2 = 0
+        elif op not in (MP_, ADD, UP, SP_):
+            raise ValueError(op)
         layers.append(p)
         channels.append(c2)
     return {"layers": layers}
@@ -124,10 +160,11 @@ def _save_set(spec: Spec) -> set:
     return {s for i, (frm, _, _) in enumerate(spec) for s in _resolve(frm, i) if s != i - 1}
 
 
-def yolov7_backbone_forward(params: nn.Params, x: torch.Tensor,
-                            cfg: YoloConfig = YoloConfig()) -> List[torch.Tensor]:
-    """x (B, H, W, 3) in [0, 1] -> nl raw head maps (B, Hl, Wl, na * no)."""
-    spec = yolov7_spec()
+def yolov7_backbone_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig = YoloConfig(),
+                            spec: Spec = None) -> List[torch.Tensor]:
+    """x (B, H, W, 3) in [0, 1] -> nl raw head maps (B, Hl, Wl, na * no)
+    (KPT: the detect and keypoint channels concatenated)."""
+    spec = spec if spec is not None else yolov7_spec()
     saved = _save_set(spec)
     y: Dict[int, torch.Tensor] = {}
     out = x.to(getattr(torch, cfg.compute_dtype))
@@ -141,14 +178,29 @@ def yolov7_backbone_forward(params: nn.Params, x: torch.Tensor,
             out = B.mp(inputs[0])
         elif op == CAT:
             out = torch.cat(inputs, dim=-1)
+        elif op == ADD:
+            out = inputs[0] + inputs[1]
         elif op == SPP:
             out = B.sppcspc(p, inputs[0])
         elif op == UP:
             out = B.upsample2x(inputs[0])
+        elif op == REORG:
+            out = B.reorg(inputs[0])
+        elif op == SP_:
+            out = B.sp(inputs[0], args[0] if args else 3)
+        elif op == DOWNC:
+            a = B.conv_block(p["cv2"], B.conv_block(p["cv1"], inputs[0]), s=2)
+            out = torch.cat([a, B.conv_block(p["cv3"], B.mp(inputs[0]))], dim=-1)
         elif op == REP:
-            out = B.repconv(p, inputs[0])
-        elif op == DET:
+            out = B.repconv(p, inputs[0], s=args[1] if len(args) > 1 else 1)
+        elif op in V.VARIANT_OPS:
+            out = V.apply_variant(op, p, inputs[0], args)
+        elif op in (DET, BIN):
             det_maps = [nn.conv2d(hp, inp) for hp, inp in zip(p["m"], inputs)]
+            out = inputs[-1]
+        elif op == KPT:
+            det_maps = [torch.cat([nn.conv2d(hp, inp), nn.conv2d(kp, inp)], dim=-1)
+                        for hp, kp, inp in zip(p["m"], p["m_kpt"], inputs)]
             out = inputs[-1]
         if i in saved:
             y[i] = out
@@ -176,7 +228,22 @@ def decode_detections(det_maps: List[torch.Tensor], cfg: YoloConfig = YoloConfig
     return torch.cat(outs, dim=1)
 
 
-def yolov7_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig = YoloConfig()
-                   ) -> torch.Tensor:
-    """Image (B, H, W, 3) in [0, 1] -> decoded (B, N, nc + 5)."""
-    return decode_detections(yolov7_backbone_forward(params, x, cfg), cfg)
+def yolov7_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig = YoloConfig(),
+                   spec: Spec = None) -> torch.Tensor:
+    """Image (B, H, W, 3) in [0, 1] -> decoded (B, N, nc + 5); a KPT spec
+    appends 3 nkpt keypoint columns."""
+    maps = yolov7_backbone_forward(params, x, cfg, spec)
+    head_op = (spec if spec is not None else yolov7_spec())[-1][1]
+    if head_op == BIN:
+        return H.decode_bin_detections(maps, cfg, cfg.bin_count)
+    if head_op == KPT:
+        return H.decode_keypoint_detections(maps, cfg, cfg.nkpt)
+    return decode_detections(maps, cfg)
+
+
+def yolov7_ensemble_forward(params_list, x: torch.Tensor, cfg: YoloConfig = YoloConfig()
+                            ) -> torch.Tensor:
+    """Several checkpoints of the built-in spec as one detector: their
+    decoded predictions concatenated along the candidates, for one NMS after
+    (the reference's Ensemble)."""
+    return torch.cat([yolov7_forward(p, x, cfg) for p in params_list], dim=1)

@@ -1,13 +1,14 @@
 """Batched class-aware NMS with fixed-capacity outputs, and kernel K1.
 
-Port of hamer_yolo_tpu/ops/nms.py (``non_max_suppression`` without the
-merge and keypoint variants) and of the TPU kernel
+Port of hamer_yolo_tpu/ops/nms.py (``non_max_suppression`` with its
+Merge-NMS option, and ``non_max_suppression_kpt``) and of the TPU kernel
 hamer_yolo_tpu/ops/nms_pallas.py:greedy_nms_keep, whose CUDA counterpart is
 ``csrc/nms.cu``. Steps: score = obj * cls, best class, class whitelist and
 conf threshold as masks, static top-K (K = min(max_nms_static, N)) by a
 stable descending sort (lower index first on ties, as ``jax.lax.top_k``),
 class-offset boxes, greedy keep mask, then the kept boxes compacted to the
-front and capped at ``max_det``.
+front and capped at ``max_det``. Merge-NMS and the keypoint NMS run the same
+keep mask, K1 on the card.
 """
 from __future__ import annotations
 
@@ -116,6 +117,7 @@ class NmsCandidates(NamedTuple):
     classes: torch.Tensor  # (B, K) int32
     active: torch.Tensor   # (B, K) bool
     shifted: torch.Tensor  # (B, K, 4) class-offset boxes, the input of K1
+    index: torch.Tensor    # (B, K) each candidate's row in the prediction
 
 
 def nms_candidates(prediction: torch.Tensor, conf_thres: float = 0.25,
@@ -148,27 +150,90 @@ def nms_candidates(prediction: torch.Tensor, conf_thres: float = 0.25,
     top_cls = torch.gather(cls_id, 1, top_idx)
     offset = 0.0 if agnostic else MAX_WH
     shifted = top_boxes + top_cls[..., None].to(top_boxes.dtype) * offset
-    return NmsCandidates(top_scores, top_boxes, top_cls, top_scores > conf_thres, shifted)
+    return NmsCandidates(top_scores, top_boxes, top_cls, top_scores > conf_thres, shifted,
+                         top_idx)
 
 
-def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25,
-                        iou_thres: float = 0.45, classes: Optional[Tuple[int, ...]] = None,
-                        agnostic: bool = False, max_det: int = 300,
-                        max_nms_static: int = 512) -> NmsOutput:
-    """prediction: (B, N, 5 + nc) decoded xywh + obj + class scores."""
+def _merge(keep: torch.Tensor, cand: NmsCandidates, iou_thres: float, redundant: bool
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge-NMS: each kept box becomes the score-weighted mean of every
+    active candidate whose IoU with it (class-offset boxes) is above the
+    threshold, itself included; under ``redundant`` a kept box that no second
+    candidate overlaps is dropped. -> (boxes (B, K, 4), keep (B, K))."""
+    ov = (box_iou(cand.shifted, cand.shifted) > iou_thres) & cand.active[:, None, :]
+    w = ov.to(cand.boxes.dtype) * cand.scores[:, None, :]  # (B, K, K)
+    denom = torch.clamp(torch.sum(w, dim=2, keepdim=True), min=1e-12)
+    merged = (w @ cand.boxes) / denom
+    boxes = torch.where(keep[..., None], merged, cand.boxes)
+    if redundant:
+        keep = keep & (torch.sum(ov, dim=2) > 1)
+    return boxes, keep
+
+
+def _nms_core(prediction: torch.Tensor, conf_thres: float, iou_thres: float,
+              classes: Optional[Tuple[int, ...]], agnostic: bool, max_det: int,
+              max_nms_static: int, merge: bool, redundant: bool
+              ) -> Tuple[NmsOutput, torch.Tensor]:
+    """``non_max_suppression`` and the kept candidates' rows in the
+    prediction (B, max_det), for side payloads such as keypoints."""
     cand = nms_candidates(prediction, conf_thres, classes, agnostic, max_nms_static)
     B, K = cand.scores.shape
     keep = greedy_nms_keep_mask(cand.shifted, cand.active, iou_thres)
+    boxes = cand.boxes
+    if merge:
+        boxes, keep = _merge(keep, cand, iou_thres, redundant)
 
     keep_score = torch.where(keep, cand.scores, torch.full_like(cand.scores, -1.0))
     m = min(max_det, K)
     out_scores, order = _topk_stable(keep_score, m)
-    out_boxes = torch.gather(cand.boxes, 1, order[..., None].expand(B, m, 4))
+    out_boxes = torch.gather(boxes, 1, order[..., None].expand(B, m, 4))
     out_cls = torch.gather(cand.classes, 1, order)
+    out_idx = torch.gather(cand.index, 1, order)
     if m < max_det:
         pad = max_det - m
         out_scores = torch.nn.functional.pad(out_scores, (0, pad), value=-1.0)
         out_boxes = torch.nn.functional.pad(out_boxes, (0, 0, 0, pad))
         out_cls = torch.nn.functional.pad(out_cls, (0, pad))
+        out_idx = torch.nn.functional.pad(out_idx, (0, pad))
     return NmsOutput(boxes=out_boxes, scores=torch.clamp(out_scores, min=0.0),
-                     classes=out_cls, valid=out_scores > 0.0)
+                     classes=out_cls, valid=out_scores > 0.0), out_idx
+
+
+def non_max_suppression(prediction: torch.Tensor, conf_thres: float = 0.25,
+                        iou_thres: float = 0.45, classes: Optional[Tuple[int, ...]] = None,
+                        agnostic: bool = False, max_det: int = 300,
+                        max_nms_static: int = 512, merge: bool = False,
+                        redundant: bool = True) -> NmsOutput:
+    """prediction: (B, N, 5 + nc) decoded xywh + obj + class scores.
+    ``merge`` is the reference's Merge-NMS (``_merge``); the candidate set
+    is the static top-K, so the (K, K) overlap matrix needs no size guard."""
+    return _nms_core(prediction, conf_thres, iou_thres, classes, agnostic, max_det,
+                     max_nms_static, merge, redundant)[0]
+
+
+class NmsKptOutput(NamedTuple):
+    boxes: torch.Tensor    # (B, max_det, 4) xyxy
+    scores: torch.Tensor   # (B, max_det)
+    classes: torch.Tensor  # (B, max_det) int32
+    kpts: torch.Tensor     # (B, max_det, 3 nkpt) x, y, conf per keypoint
+    valid: torch.Tensor    # (B, max_det) bool
+
+
+def non_max_suppression_kpt(prediction: torch.Tensor, conf_thres: float = 0.25,
+                            iou_thres: float = 0.45, nc: int = 1,
+                            classes: Optional[Tuple[int, ...]] = None, agnostic: bool = False,
+                            max_det: int = 300, max_nms_static: int = 512) -> NmsKptOutput:
+    """The keypoint NMS: prediction (B, N, 5 + nc + 3 nkpt) from the
+    IKeypoint decode; each kept box carries its 3 nkpt columns (0 on padded
+    rows). The same suppression as ``non_max_suppression`` (no merge); one
+    class scores by obj * cls, as the reference's keypoint path does."""
+    det, kpts = prediction[..., :5 + nc], prediction[..., 5 + nc:]
+    if nc == 1:
+        det = torch.cat([det[..., :4], (det[..., 4] * det[..., 5])[..., None], det[..., 5:6]],
+                        dim=-1)
+    out, idx = _nms_core(det, conf_thres, iou_thres, classes, agnostic, max_det,
+                         max_nms_static, False, True)
+    out_kpts = torch.gather(kpts, 1, idx[..., None].expand(*idx.shape, kpts.shape[-1]))
+    out_kpts = torch.where(out.valid[..., None], out_kpts, torch.zeros_like(out_kpts))
+    return NmsKptOutput(boxes=out.boxes, scores=out.scores, classes=out.classes, kpts=out_kpts,
+                        valid=out.valid)

@@ -36,19 +36,64 @@ The host work of the kernels' wrappers (argument checks, TMA maps encoded
 from device addresses) is captured with them, which is right only because a
 replay reads and writes the addresses of the capture.
 
+A program keeps at most ``MAX_GRAPHS`` keys (``LruCache``). A new key past
+that evicts the least recently used one, and with it everything the key holds:
+the graph, its static inputs and outputs, its pinned slots and its private
+memory pool, which ``torch.cuda.empty_cache`` then returns to the card. The
+outputs already handed to callers are clones and outlive it. Past the largest
+bucket each new frame size is a new key (runner.pick_bucket), so without the
+bound a long run over frames of many sizes would keep a pool for each.
+
 On the CPU the function runs eagerly on the arrays: CUDA graphs exist only on
 the card. A capture that fails raises, naming the program and the key. One
 thread at a time may call a program.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+from collections import OrderedDict
+from typing import Any, Callable, Dict, Hashable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 Tensors = Dict[str, torch.Tensor]
 SLOTS = 2  # staging buffers per key: batches whose uploads may be in flight at once
+# Keys (graphs) a program keeps: the five default buckets at one batch and
+# upload dtype, and three more (portrait frames, a float upload, sizes past
+# the largest bucket) before the least recently used goes.
+MAX_GRAPHS = 8
+
+
+class LruCache:
+    """At most ``capacity`` values by key, least recently used first. ``get``
+    returns the value of a key and marks it used, making it with ``make()``
+    where the key is new; a new key past the capacity first evicts the least
+    recently used one, handing it to ``release(key, value)``."""
+
+    def __init__(self, capacity: int, release: Callable[[Hashable, Any], None]):
+        self.capacity = capacity
+        self.release = release
+        self._values: "OrderedDict[Hashable, Any]" = OrderedDict()
+
+    def get(self, key: Hashable, make: Callable[[], Any]) -> Tuple[Any, bool]:
+        """(value, whether it was made by this call)."""
+        if key in self._values:
+            self._values.move_to_end(key)
+            return self._values[key], False
+        while len(self._values) >= self.capacity:
+            self.release(*self._values.popitem(last=False))
+        value = self._values[key] = make()
+        return value, True
+
+    def __len__(self) -> int:
+        return len(self._values)
+
+    def keys(self) -> List[Hashable]:
+        """The keys, least recently used first."""
+        return list(self._values)
+
+    def items(self) -> Iterator[Tuple[Hashable, Any]]:
+        return iter(list(self._values.items()))
 
 
 class _Graph:
@@ -76,6 +121,14 @@ class _Graph:
             d.copy_(h, non_blocking=True)
         copied.record()
 
+    def release(self) -> None:
+        """Drops the graph, its buffers and its pinned slots, once the card
+        has finished with them; the private pool's memory goes back to the
+        caching allocator with the last tensor allocated in it."""
+        torch.cuda.synchronize(self.static[0].device if self.static else None)
+        self.graph.reset()
+        self.static, self.slots, self.outputs = [], [], {}
+
 
 def _describe_key(key: Tuple) -> str:
     return ", ".join(f"{tuple(shape)} {np.dtype(dt).name}" for shape, dt in key)
@@ -90,7 +143,7 @@ class CapturedProgram:
         self.name = name
         self.fn = fn
         self.device = torch.device(device)
-        self._graphs: Dict[Tuple, _Graph] = {}
+        self._graphs = LruCache(MAX_GRAPHS, lambda key, g: g.release())
 
     def __call__(self, *arrays: np.ndarray) -> Tensors:
         """The outputs of ``fn`` on the arrays, on the program's device. On
@@ -100,11 +153,8 @@ class CapturedProgram:
             if self.device.type != "cuda":
                 return self.fn(*(torch.from_numpy(a).to(self.device) for a in arrays))
             key = tuple((a.shape, a.dtype.str) for a in arrays)
-            g = self._graphs.get(key)
-            if g is None:
-                g = self._capture(key, arrays)
-                self._graphs[key] = g
-            else:
+            g, made = self._graphs.get(key, lambda: self._capture(key, arrays))
+            if not made:
                 g.upload(arrays)
             g.graph.replay()
             return {k: v.clone() for k, v in g.outputs.items()}
@@ -129,7 +179,8 @@ class CapturedProgram:
 
     @property
     def pool_bytes(self) -> Dict[str, int]:
-        """The bytes each captured graph's private memory pool holds, by key."""
+        """The bytes each kept graph's private memory pool held after its
+        capture, by key, least recently used first."""
         return {_describe_key(k): g.pool_bytes for k, g in self._graphs.items()}
 
 

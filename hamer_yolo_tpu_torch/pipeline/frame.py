@@ -33,6 +33,7 @@ from hamer_yolo_tpu_torch.models.hamer import HamerConfig, hamer_forward
 from hamer_yolo_tpu_torch.models.mano import ManoModel
 from hamer_yolo_tpu_torch.models.sar import SarConfig, estimate_root_depth
 from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig, yolov7_forward
+from hamer_yolo_tpu_torch.models.yolov7.tta import yolov7_forward_tta
 from hamer_yolo_tpu_torch.ops.nms import non_max_suppression
 from hamer_yolo_tpu_torch.pipeline.preprocess import device_letterbox, hamer_crop, sar_patch
 
@@ -51,6 +52,7 @@ class PipelineConfig:
     right_class: int = 1  # cls == 1 -> right hand
     crop_size: int = 256
     use_depth_refine: bool = False  # tz forced to RootNet's depth (infer --depth-refine)
+    tta: bool = False  # the detector's 3-scale + flip TTA (detect --augment; models/yolov7/tta.py)
     yolo: YoloConfig = field(default_factory=lambda: YoloConfig(nc=3))
     hamer: HamerConfig = field(default_factory=HamerConfig)
     sar: SarConfig = field(default_factory=SarConfig)
@@ -60,9 +62,12 @@ def detect_hands_batched(yolo_params: nn.Params, images_bgr: torch.Tensor,
                          orig_hws: torch.Tensor, cfg: PipelineConfig) -> Tensors:
     """Detector over a frame batch: images_bgr (B, Hb, Wb, 3) f32 0..255,
     orig_hws (B, 2) -> per-slot boxes (B, S, 4) xyxy in the original frame,
-    scores, is_right, classes and valid (B, S)."""
+    scores, is_right, classes and valid (B, S). Under ``cfg.tta`` the
+    detector runs its TTA branches on the whole batch (JAX maps the one-frame
+    detector over the frames: the same arithmetic per frame)."""
     lb, gain, pad = device_letterbox(images_bgr, orig_hws, cfg.det_size)
-    pred = yolov7_forward(yolo_params, lb.flip(-1) / 255.0, cfg.yolo)  # BGR -> RGB in [0, 1]
+    forward = yolov7_forward_tta if cfg.tta else yolov7_forward
+    pred = forward(yolo_params, lb.flip(-1) / 255.0, cfg.yolo)  # BGR -> RGB in [0, 1]
     nms = non_max_suppression(pred, conf_thres=cfg.conf_thres, iou_thres=cfg.iou_thres,
                               classes=cfg.classes, agnostic=cfg.agnostic_nms,
                               max_det=cfg.max_hands, max_nms_static=cfg.max_nms_static)

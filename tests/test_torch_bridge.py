@@ -59,6 +59,8 @@ def numpy_params(init_fn, seed: int = 0):
             v = np.eye(shape[0]) + 0.02 * rng.uniform(size=shape)
         elif key == "beta":
             v = 1.0 + 0.1 * rng.normal(size=shape)
+        elif key == "rpb":  # Swin's relative position bias table
+            v = 0.02 * rng.normal(size=shape)
         else:
             raise KeyError(path)
         return v.astype(np.float32)

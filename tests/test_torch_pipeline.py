@@ -106,3 +106,56 @@ def test_detect_hands_matches_jax(setup, dtype):
     ref1 = np_tree(jax_exact(lambda i, h: jax_detect_hands(jyolo, i, h, jcfg), imgs[0], hws[0]))
     got1 = np_tree(detect_hands(tyolo, torch.from_numpy(imgs[0]), torch.from_numpy(hws[0]), tcfg))
     _check_frame(got1, ref1, dtype, "single frame")
+
+
+# ROADMAP F12: the bf16 limits above hold for this file's seeds only. For any
+# seed, the port's bf16 HaMeR fields are held to the JAX model's own bf16
+# noise: per field, |port bf16 - JAX f32| <= BF16_ACCURACY_FACTOR x
+# |JAX bf16 - JAX f32| over the matched slots, as tests/test_torch_sar.py
+# holds RootNet. The f32 reference runs the same bf16 detector (the same
+# boxes) and an f32 HaMeR. Slots are matched by box; a slot that the port's
+# bf16 detector filled with another candidate must be a near tie (F3): its
+# score within the bf16 detector's limit above, 8e-3, of JAX's.
+BF16_ACCURACY_FACTOR = 2.0
+HAMER_FIELDS = ("betas", "theta", "pose_hand", "pose_global", "cam_t", "pred_cam",
+                "keypoints_3d", "keypoints_2d", "vertices")
+
+
+@pytest.mark.parametrize("seed", [13, 14, 15, 16, 17])
+def test_infer_frames_bf16_accuracy_any_seed(setup, seed):
+    import dataclasses
+
+    jm, tm, (imgs, hws, Ks) = setup
+    jcfg, tcfg = tiny_configs("bfloat16")
+    jcfg32 = dataclasses.replace(jcfg, hamer=dataclasses.replace(
+        jcfg.hamer, vit=dataclasses.replace(jcfg.hamer.vit, compute_dtype="float32")))
+    params = pipeline_params(jcfg, seed=seed)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    run = lambda c: np_tree(jax_exact(  # noqa: E731
+        lambda i, h, k: jax_infer_frames(jp, jm, i, h, k, c), imgs, hws, Ks))
+    ref, ref32 = run(jcfg), run(jcfg32)
+    got = np_tree(infer_frames(to_port(params), tm, torch.from_numpy(imgs), torch.from_numpy(hws),
+                               torch.from_numpy(Ks), tcfg))
+    floor = dict.fromkeys(HAMER_FIELDS, 0.0)
+    err = dict.fromkeys(HAMER_FIELDS, 0.0)
+    n = 0
+    for b in range(B):
+        for i in np.flatnonzero(ref["valid"][b]):
+            box = ref["boxes"][b, i]
+            j = np.flatnonzero(got["valid"][b] & (got["boxes"][b] == box).all(-1))
+            j32 = np.flatnonzero(ref32["valid"][b] & (ref32["boxes"][b] == box).all(-1))
+            assert j32.size, f"frame {b} slot {i} box {box} not in the f32 reference"
+            if not j.size:  # another candidate in this slot: a near tie
+                assert np.abs(got["scores"][b][got["valid"][b]] - ref["scores"][b, i]).min() \
+                    <= 8e-3, f"frame {b} slot {i} box {box} not found"
+                continue
+            for k in ("classes", "is_right"):
+                assert got[k][b, j[0]] == ref[k][b, i], (b, i, k)
+            for k in HAMER_FIELDS:
+                floor[k] = max(floor[k], np.abs(ref[k][b, i] - ref32[k][b, j32[0]]).max())
+                err[k] = max(err[k], np.abs(got[k][b, j[0]] - ref32[k][b, j32[0]]).max())
+            n += 1
+    assert n and got["valid"].sum() == ref["valid"].sum()
+    for k in HAMER_FIELDS:
+        assert floor[k] > 0 and err[k] <= BF16_ACCURACY_FACTOR * floor[k], (
+            f"seed {seed} {k}: port bf16 vs JAX f32 {err[k]:.4g}, JAX bf16 vs f32 {floor[k]:.4g}")

@@ -298,3 +298,56 @@ def test_cli_serve(tmp_path, capsys):
     assert [ln.split(" (detected")[1] for ln in lines[:3]] == [": [0, 1])", ": [])", ": [0, 1])"]
     assert all(ln.startswith("tick: sources [0, 1], ") for ln in lines[:3])
     assert lines[-1].startswith("6 frames in ")
+
+
+def _cam_t_limit(pred_cam, cam_t):
+    """ROADMAP F14: the f32 limit of a slot's cam_t, propagated from that of
+    its pred_cam (s, px, py) through the lift. cam_t's z is 2 f / (s b) and
+    its x, y are p + 2 (box centre - principal point) / (s b), b the box
+    size, so an error d in s moves them by about |cam_t - (px, py, 0)| d / s:
+    the limit scales with 1 / (s b) through cam_t itself."""
+    s = abs(float(pred_cam[0]))
+    lever = np.abs(np.asarray(cam_t, np.float64) - [pred_cam[1], pred_cam[2], 0.0]).max()
+    return 1e-4 * (1.0 + lever / s)
+
+
+def _kp2d_limit(kp2d, cam_t, cam_limit):
+    """The limit of the full-image keypoints that project kp3d + cam_t:
+    x = f (X + tx) / (Z + tz) + c moves by about (f + |x - c|) / tz per unit
+    of cam_t (|X|, |Z| << tz at these crops), on top of _same_slots' 1e-4."""
+    lever = K[0, 0] + np.abs(np.asarray(kp2d, np.float64) - K[:2, 2]).max()
+    return 1e-4 + lever / abs(float(cam_t[2])) * cam_limit
+
+
+@pytest.mark.parametrize("frame_seed", [0, 1, 2, 3, 4])
+def test_process_batch_matches_jax_on_any_frames(setup, frame_seed):
+    """F14: the port's BatchedPipeline against JAX's on random 96 x 128 frames
+    of any seed: every field at _same_slots' limits but cam_t, which is held
+    to _cam_t_limit of the slot's own pred_cam and cam_t (JAX's), and the
+    keypoints projected with it, held to _kp2d_limit."""
+    jcfg, tcfg, params, jm, tm, _ = setup
+    rng = np.random.default_rng(100 + frame_seed)
+    frames = [rng.integers(0, 256, (96, 128, 3), dtype=np.uint8) for _ in range(4)]
+    ref = JaxBatchedPipeline(jax.tree_util.tree_map(jnp.asarray, params), jm, jcfg,
+                             batch_size=4).process_batch(frames, K)
+    got = BatchedPipeline(to_port(params), tm, tcfg, batch_size=4,
+                          device="cpu").process_batch(frames, K)
+    n = 0
+    for b in range(4):
+        r = {k: np.asarray(v[b]) for k, v in ref.items()}
+        g = {k: v[b] for k, v in got.items()}
+        r_cam, r_kp2d, depth = r.pop("cam_t"), r.pop("keypoints_2d"), r.pop("root_depth")
+        _same_slots({k: g[k] for k in r}, r, f"seed {frame_seed} frame {b}")
+        _same_slots({"root_depth": g["root_depth"], "boxes": g["boxes"], "valid": g["valid"]},
+                    {"root_depth": depth, "boxes": r["boxes"], "valid": r["valid"]},
+                    f"seed {frame_seed} frame {b} depth", atol=2e-3)
+        for i in np.flatnonzero(r["valid"]):
+            j = np.flatnonzero(g["valid"] & (g["boxes"] == r["boxes"][i]).all(-1))[0]
+            lim = _cam_t_limit(r["pred_cam"][i], r_cam[i])
+            np.testing.assert_allclose(g["cam_t"][j], r_cam[i], rtol=1e-4, atol=lim,
+                                       err_msg=f"seed {frame_seed} frame {b} slot {i} cam_t")
+            np.testing.assert_allclose(g["keypoints_2d"][j], r_kp2d[i], rtol=1e-4,
+                                       atol=_kp2d_limit(r_kp2d[i], r_cam[i], lim),
+                                       err_msg=f"seed {frame_seed} frame {b} slot {i} kp2d")
+            n += 1
+    assert n, "no valid slot: the comparison would be empty"
