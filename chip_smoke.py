@@ -61,7 +61,19 @@ ResNet-34 RootNet at 256; seeded random weights, synthetic MANO, numpy-made
   then MAX_GRAPHS + 2 sizes past the largest bucket through one
   FrameProgram: at most MAX_GRAPHS graphs held, the memory of evicted ones
   returned, an evicted key captured again bit-equal to its first capture
-  and to eager.
+  and to eager;
+- the RGB-D branch ("rgbd"): KPFusion at the default config (29,375,132
+  parameters: two ResNet-18 UNets at 128 x 128, two stages of DESA, BERT
+  and the cross decoder over 1,024 points; seeded weights) in RGBDRuntime on
+  a numpy-made 1920x1080 RGB-D frame, its forward one captured CUDA graph,
+  against the same runtime on the CPU with the same RandomState seed (final
+  joints at atol 5e-4, rtol 1e-3; the img2pcl_index and ball-query index
+  sets that differ between the two are counted), the graph bit-equal to
+  eager, and ``rgbd --kpf-checkpoint`` through cli.main (a KPFusion .pth
+  written by torch.save; the cv2 stand-in) printing the runtime's JSON line.
+  No TPU kernel lies on this path (plain torch ops, as JAX's are plain
+  JAX), so no kernel may launch. It prints the forward's device time by
+  graph replay and eager, by part, and the host's pre- and post-processing.
 
 A phase "ToMe shapes" holds K3, K4, K5 and K7 against their plain versions
 at the token counts ToMe gives them (N = 124 and 68 a crop, 16 crops), and
@@ -547,6 +559,7 @@ def main() -> int:
     checkpoint_phase(dev, cfg, depth, smi)
     family_phase(params, mano, cfg, dev, depth, smi)
     graph_cache_phase(params, mano, cfg, dev, smi)
+    rgbd_phase(dev, smi)
 
     # -- reference checks on a small input: the card against the CPU path ----
     check_reference(dev)
@@ -2709,6 +2722,253 @@ def graph_cache_phase(params, mano, cfg, dev, smi):
             raise RuntimeError(f"graph cache: {k} of the recaptured key differs")
     print(f"graph cache: {sizes[0][0]}x3840, evicted and captured again: all {len(first)} "
           "outputs equal its first capture's and eager infer_frame's bit for bit")
+
+
+RGBD_BBOX = [880.0, 460.0, 160.0, 150.0]  # x, y, w, h in the 1920x1080 frame
+KPF_PARAMS = 29_375_132                  # the default KPFusionConfig's parameters
+KPF_RADII = (0.1, 0.2, 0.4)              # DESA's ball-query radii, 64 samples each
+
+
+def rgbd_frame(seed):
+    """A numpy-made 1920x1080 uint8 RGB frame and a depth frame (mm, f32)
+    with a hand-like blob at 400-700 mm on a disk inside RGBD_BBOX."""
+    rng = np.random.default_rng(seed)
+    depth = np.zeros((1080, 1920), np.float32)
+    x0, y0, w, h = (int(v) for v in RGBD_BBOX)
+    yy, xx = np.mgrid[0:h, 0:w]
+    blob = 550.0 + 150.0 * np.sin(xx / 9.0) * np.cos(yy / 7.0)
+    blob[((xx - w / 2) ** 2 + (yy - h / 2) ** 2) > (min(h, w) / 2.2) ** 2] = 0
+    depth[y0:y0 + h, x0:x0 + w] = blob
+    return rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8), depth
+
+
+def kaiming_heads(tree, gen):
+    """Redraw the init's N(0, 0.001) weights (the UNets' finals, the
+    stages' embeddings, heads and gates) Kaiming-uniform like every other
+    weight, in place, so that the random model's joints move by O(1) as a
+    trained model's do, not by 1e-3."""
+    import torch
+
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "w" and isinstance(v, torch.Tensor) and float(v.std()) < 0.01:
+                fan_in = v.shape[0] if v.ndim == 2 else v[0].numel()
+                bound = float(np.sqrt(6.0 / fan_in))
+                v.uniform_(-bound, bound, generator=gen)
+            else:
+                kaiming_heads(v, gen)
+    elif isinstance(tree, list):
+        for v in tree:
+            kaiming_heads(v, gen)
+
+
+def rgbd_index_sets(out, inputs, cfg):
+    """The index sets a forward chose, recomputed from its own outputs:
+    img2pcl_index's 4 pixels a point (N, 4), and for each stage and radius
+    DESA's ball query around its joints (J, 64), each row in index order."""
+    import torch
+
+    from hamer_yolo_tpu_torch.models.kpfusion_rgbd import geometry as G
+    from hamer_yolo_tpu_torch.ops.pointnet import ball_query
+
+    _, img, pcl, center, M, cube, cam = inputs
+    img_down = G._resize_nearest_torch(img, cfg.feature_size).permute(0, 2, 3, 1)
+    _, pidx = G.img2pcl_index(pcl, img_down, center, M, cube, cam, cfg.img_size)
+    nodes = [G.uvd_nl2xyznl(out["joint_uvd_init"], center, M, cube, cam, cfg.img_size)]
+    nodes += [out["results"][3 + 2 * s] for s in range(cfg.num_stages - 1)]
+    balls = [ball_query(n, torch.cat([pcl, n], dim=1), r, 64) for n in nodes for r in KPF_RADII]
+    return torch.sort(pidx[0], dim=-1).values.cpu(), [b[0].cpu() for b in balls]
+
+
+def rgbd_parts(params, cfg, dev_in):
+    """{part: (device ms, device kernels)} of the forward's parts: the two
+    UNets, the geometry between them and the stages (initial joints, the
+    pcl index), and each stage's block."""
+    import torch
+
+    from hamer_yolo_tpu_torch.models.kpfusion_rgbd import geometry as G
+    from hamer_yolo_tpu_torch.models.kpfusion_rgbd.model import block_forward
+    from hamer_yolo_tpu_torch.models.kpfusion_rgbd.resunet import unet_forward
+
+    img_rgb, img, pcl, center, M, cube, cam = dev_in
+    geo = (center, M, cube, cam)
+    with torch.inference_mode():
+        def unets():
+            return (unet_forward(params["backbone_d"], img.permute(0, 2, 3, 1)),
+                    unet_forward(params["backbone_rgb"], img_rgb.permute(0, 2, 3, 1)))
+
+        (off, feat), (_, feat_rgb) = unets()
+        off, feat, feat_rgb = (t.permute(0, 3, 1, 2) for t in (off, feat, feat_rgb))
+        img_down = G._resize_nearest_torch(img, feat.shape[2])
+
+        def geometry():
+            uvd = G.offset2joint_weight(off, img, cfg.kernel)
+            return (G.uvd_nl2xyznl(uvd, *geo, cfg.img_size),
+                    *G.img2pcl_index(pcl, img_down.permute(0, 2, 3, 1), *geo, cfg.img_size))
+
+        joint_xyz, closeness, index = geometry()
+
+        def stage(i, joints, updated):
+            return lambda: block_forward(params["blocks"][i], cfg, feat, feat_rgb, pcl, joints,
+                                         closeness, index, off, updated, img_down, *geo)
+
+        _, r2d, updated, _ = stage(0, joint_xyz, None)()
+        parts = {"UNets": unets, "geometry": geometry, "stage 1": stage(0, joint_xyz, None),
+                 "stage 2": stage(1, r2d, updated)}
+        return {k: (graph_time_ms(fn, reps=5, iters=5), sum(kernels_by_name(fn)[1].values()))
+                for k, fn in parts.items()}
+
+
+def rgbd_phase(dev, smi):
+    """The RGB-D branch at full width (the default KPFusionConfig: 21
+    joints, dim 128, 4 heads, two stages, 128 x 128 crops, 32 x 32 features,
+    1,024 points; seeded weights, the init's N(0, 0.001) heads redrawn
+    Kaiming-uniform (kaiming_heads) and each BN's variance set to its input's
+    mean square on this frame, as the CPU tests do) on a numpy-made
+    1920x1080 RGB-D frame: RGBDRuntime on the card (its forward one captured
+    CUDA graph) against the same runtime on the CPU with the same
+    RandomState seed, final joints within JAX's full-forward tolerance (atol
+    5e-4, rtol 1e-3); the index sets (img2pcl_index, DESA's ball queries)
+    that differ between card and CPU counted; the graph bit-equal to eager;
+    ``rgbd --kpf-checkpoint`` through cli.main (cv2_stand_in) on a KPFusion
+    .pth written by torch.save prints the runtime's JSON line; no kernel
+    launched. Times: the forward alone (graph replay and eager, CUDA
+    events), the host's pre- and post-processing and a whole call."""
+    import io
+
+    import torch
+
+    from hamer_yolo_tpu_torch.cli.main import main as cli
+    from hamer_yolo_tpu_torch.models.kpfusion_rgbd.model import (KPFusionConfig, init_kpfusion,
+                                                                 kpfusion_forward)
+    from hamer_yolo_tpu_torch.models.kpfusion_rgbd.runtime import RGBDRuntime
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from test_torch_state_dicts import (calibrating_batch_norm, port_tree_to_numpy,
+                                        write_kpfusion_file)
+
+    cfg = KPFusionConfig()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = init_kpfusion(gen, cfg)
+    kaiming_heads(params, gen)
+    n_params = sum(t.numel() for t in torch.utils._pytree.tree_leaves(params))
+    if n_params != KPF_PARAMS:
+        raise RuntimeError(f"rgbd: {n_params} parameters, not the default config's {KPF_PARAMS}")
+    rgb, depth = rgbd_frame(SEED + 9)
+    rt = RGBDRuntime(params, cfg, dev)
+    prep = rt.prepare(rgb, depth, RGBD_BBOX, np.random.RandomState(SEED))
+    dev_in = [torch.from_numpy(a).to(dev) for a in prep["inputs"]]
+    with torch.no_grad(), calibrating_batch_norm():
+        kpfusion_forward(params, *dev_in, cfg)
+    cpu_params = _to(params, "cpu")
+    cpu_rt = RGBDRuntime(cpu_params, cfg, "cpu")
+    print(f"rgbd: KPFusion at full width ({n_params:,} parameters; {cfg}); a 1920x1080 frame, "
+          f"bbox {RGBD_BBOX}, center {np.round(prep['center'], 2).tolist()}, "
+          f"{int((~np.isclose(prep['crop_depth'], 1)).sum())} valid crop pixels")
+
+    # the runtime on the card (captured) against the CPU's, the same seed
+    got, n = run_counted(lambda: rt.estimate_pose_rgbd(rgb, depth, RGBD_BBOX,
+                                                       np.random.RandomState(SEED)))
+    expect_launches("rgbd", n, dict.fromkeys(KERNELS, 0))
+    ref = cpu_rt.estimate_pose_rgbd(rgb, depth, RGBD_BBOX, np.random.RandomState(SEED))
+    with torch.inference_mode():
+        card = rt.program(*prep["inputs"])
+        eager = rt.forward(*dev_in)
+        cpu_out = kpfusion_forward(cpu_params, *[torch.from_numpy(a) for a in prep["inputs"]],
+                                   cfg)
+        dev_out = kpfusion_forward(params, *dev_in, cfg)
+    joints, ref_joints = card["joints"].cpu(), cpu_out["joints"]
+    if not torch.isfinite(joints).all() or joints.shape != (1, cfg.joint_num, 3):
+        raise RuntimeError(f"rgbd: joints {tuple(joints.shape)} not finite")
+    err = float((joints - ref_joints).abs().max())
+    print(f"rgbd card vs CPU: final joints (normalized) max abs diff {err:.3g} at |ref| <= "
+          f"{float(ref_joints.abs().max()):.3g}; joint_xyz_world max abs diff "
+          f"{float(np.abs(got['joint_xyz_world'] - ref['joint_xyz_world']).max()):.3g} m, "
+          f"joint_uvd_full {float(np.abs(got['joint_uvd_full'] - ref['joint_uvd_full']).max()):.3g}"
+          f" px; every stage's joints: " + ", ".join(
+              f"{float((a.cpu() - b).abs().max()):.3g}" for a, b in
+              zip(dev_out["results"][2:], cpu_out["results"][2:])))
+    torch.testing.assert_close(joints, ref_joints, atol=5e-4, rtol=1e-3)
+    for k in ("joint_xyz_world", "joint_uvd_full"):
+        if not np.isfinite(got[k]).all():
+            raise RuntimeError(f"rgbd: {k} not finite")
+    dev_sets = rgbd_index_sets(dev_out, dev_in, cfg)
+    cpu_sets = rgbd_index_sets(cpu_out, [torch.from_numpy(a) for a in prep["inputs"]], cfg)
+    d_pcl = int((dev_sets[0] != cpu_sets[0]).any(-1).sum())
+    d_ball = sum(int((a != b).any(-1).sum()) for a, b in zip(dev_sets[1], cpu_sets[1]))
+    print(f"rgbd index sets that differ between card and CPU: img2pcl_index {d_pcl} of "
+          f"{dev_sets[0].shape[0]} points; DESA ball query {d_ball} of "
+          f"{len(dev_sets[1]) * cfg.joint_num} (stage, radius, joint) groups")
+    for k in ("joints", "uvd"):
+        if not torch.equal(card[k], eager[k]):
+            raise RuntimeError(f"rgbd: the captured graph's {k} differ from eager")
+    print("rgbd: the captured graph's joints and uvd equal eager's bit for bit "
+          f"(graph pool {list(rt.program.pool_bytes.values())[0] / 2 ** 20:.1f} MiB)")
+
+    # rgbd through cli.main: a KPFusion .pth written by torch.save
+    line = json.dumps({"joint_uvd_full": got["joint_uvd_full"].tolist(),
+                       "joint_xyz_world": got["joint_xyz_world"].tolist(),
+                       "center": np.asarray(got["center"]).tolist()})
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = cv2_stand_in()
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            pth = os.path.join(root, "kpfusion.pth")
+            write_kpfusion_file(pth, port_tree_to_numpy(params))
+            png, npy = os.path.join(root, "rgb.png"), os.path.join(root, "depth.npy")
+            with open(png, "wb") as fh:
+                np.save(fh, rgb)
+            np.save(npy, depth)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli(["rgbd", "--rgb", png, "--depth", npy, "--bbox",
+                          ",".join(f"{v:g}" for v in RGBD_BBOX), "--kpf-checkpoint", pth,
+                          "--seed", str(SEED)])
+            size = os.path.getsize(pth) / 2 ** 20
+    finally:
+        if saved is None:
+            sys.modules.pop("cv2", None)
+        else:
+            sys.modules["cv2"] = saved
+    lines = out.getvalue().strip().splitlines()
+    if rc or lines != [line]:
+        raise RuntimeError(f"rgbd through cli.main: rc {rc}, {lines[:1]} is not the runtime's "
+                           f"{line[:200]}")
+    print(f"rgbd cli.main --kpf-checkpoint ({size:.1f} MiB .pth, torch.save): the runtime's "
+          "JSON line, character for character")
+
+    # times
+    g = next(iter(rt.program._graphs.items()))[1]
+    with torch.inference_mode():
+        graph_ms = cuda_time_ms(g.graph.replay, iters=20)
+        eager_ms = cuda_time_ms(lambda: rt.forward(*dev_in), iters=20)
+    print(f"rgbd forward by part on {smi} (device ms by CUDA graph replay of each part alone on "
+          "the forward's own inputs; device kernels of one eager call, torch.profiler): "
+          + "; ".join(f"{k} {ms:.3f} ms, {n} kernels" for k, (ms, n) in
+                      rgbd_parts(params, cfg, dev_in).items()))
+    host = {"prepare": [], "finish": [], "call": []}
+    for _ in range(7):
+        t0 = time.perf_counter()
+        pr = rt.prepare(rgb, depth, RGBD_BBOX, np.random.RandomState(SEED))
+        t1 = time.perf_counter()
+        rt.finish(pr, card["joints"].cpu().numpy(), card["uvd"].cpu().numpy())
+        t2 = time.perf_counter()
+        rt.estimate_pose_rgbd(rgb, depth, RGBD_BBOX, np.random.RandomState(SEED))
+        t3 = time.perf_counter()
+        host["prepare"].append((t1 - t0) * 1e3)
+        host["finish"].append((t2 - t1) * 1e3)
+        host["call"].append((t3 - t2) * 1e3)
+    p50 = {k: float(np.median(v)) for k, v in host.items()}
+    _, counts = kernels_by_name(g.graph.replay, again=g.graph.replay)
+    top = sorted(counts.items(), key=lambda kv: -kv[1])[:6]
+    print(f"rgbd forward alone on {smi}: p50 {graph_ms:.3f} ms by graph replay, {eager_ms:.3f} ms "
+          f"eager (CUDA events, 2 warm-up, 20 timed); {sum(counts.values())} device kernels a "
+          "replay (torch.profiler), the most frequent: "
+          + "; ".join(f"{c} x {name[:60]}" for name, c in top))
+    print(f"rgbd host on {smi}: prepare (center, crops, point cloud) p50 {p50['prepare']:.3f} ms, "
+          f"finish {p50['finish']:.3f} ms; a whole estimate_pose_rgbd call p50 {p50['call']:.3f} "
+          "ms (host clock, 7 timed)")
 
 
 def _to(tree, dev):

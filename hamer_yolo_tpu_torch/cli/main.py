@@ -15,8 +15,11 @@
                [--save-txt DIR [--save-conf]] [--augment: 3-scale + flip TTA]
   depth        RootNet's absolute root depth, one JSON line per image
   reconstruct  saved .npy dir -> .obj meshes
+  rgbd         RGB-D KeypointFusion on one RGB + depth frame and a hand box, one
+               JSON line: --rgb IMG --depth NPY|PNG (--bbox x,y,w,h |
+               --bbox-file TXT) [--kpf-checkpoint PTH] [--seed S] [--device]
 
-Every subcommand takes [--tiny] [--device cuda] [--checkpoint NPZ]
+Every subcommand but rgbd takes [--tiny] [--device cuda] [--checkpoint NPZ]
 [--mano-dir DIR] [--max-hands N] [--conf-thres T] [--iou-thres T] and the
 ViT's fast paths [--fast-path none|int8|tome|int8-tome [--tome-r R]
 [--calib-scales NPZ]].
@@ -38,7 +41,13 @@ of a stats file written by ``hamer_yolo_tpu_torch.tools.calibrate_int8``
 ``tome`` merges ``--tome-r`` tokens after each ViT block (models/tome.py);
 ``int8-tome`` does both. Not ported yet (ROADMAP.md, Queue 1): ``detect
 --save-img``, ``reconstruct --overlay-images``, ``--int8-yolo``, and the
-``rgbd`` and ``bench`` subcommands.
+``bench`` subcommand.
+
+``rgbd`` (models/kpfusion_rgbd/runtime.py) takes KPFusion's weights from the
+reference's ``.pth`` (``--kpf-checkpoint``, through core/convert), else a
+random init seeded with 0 (a warning on stderr), and samples the point cloud
+with ``np.random.RandomState(--seed)``. cv2 reads the RGB image, and the
+depth unless it is a ``.npy`` file.
 """
 from __future__ import annotations
 
@@ -53,12 +62,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from hamer_yolo_tpu_torch.core.bridge import from_jax_params
 from hamer_yolo_tpu_torch.core.checkpoint import init_pipeline_params, load_checkpoint
 from hamer_yolo_tpu_torch.core.mano_assets import load_mano_model, synthetic_mano_model
 from hamer_yolo_tpu_torch.core.quant import (attach_static_act_scales, load_act_stats,
                                              quantize_vit_params)
 from hamer_yolo_tpu_torch.io.writers import load_hand_npy, load_intrinsics
 from hamer_yolo_tpu_torch.models.hamer import HamerConfig
+from hamer_yolo_tpu_torch.models.kpfusion_rgbd.model import KPFusionConfig, init_kpfusion
 from hamer_yolo_tpu_torch.models.mano import ManoModel
 from hamer_yolo_tpu_torch.models.mano_head import ManoHeadConfig
 from hamer_yolo_tpu_torch.models.sar import SarConfig
@@ -283,6 +294,60 @@ def cmd_reconstruct(args) -> int:
     return 0
 
 
+def cmd_rgbd(args) -> int:
+    """RGB-D KeypointFusion inference (Model_RGBD.estimate_pose_RGBD): the
+    final joints in the original image's uvd and in metric xyz, and the
+    hand's center, as one JSON line."""
+    from hamer_yolo_tpu_torch.models.kpfusion_rgbd.runtime import RGBDRuntime
+
+    if not args.bbox and not args.bbox_file:
+        print("error: rgbd needs --bbox x,y,w,h or --bbox-file", file=sys.stderr)
+        return 2
+    device = torch.device(args.device)
+    cfg = KPFusionConfig()
+    if args.kpf_checkpoint:
+        from hamer_yolo_tpu_torch.core.convert import convert_kpfusion_checkpoint
+
+        params = from_jax_params(convert_kpfusion_checkpoint(args.kpf_checkpoint), device)
+    else:
+        print("warning: no --kpf-checkpoint; random weights", file=sys.stderr)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        params = init_kpfusion(gen, cfg)
+
+    import cv2
+
+    rgb = cv2.imread(args.rgb)
+    if rgb is None:
+        print(f"error: cannot read RGB image {args.rgb}", file=sys.stderr)
+        return 2
+    if args.depth.endswith(".npy"):
+        depth = np.load(args.depth)
+    else:
+        depth = cv2.imread(args.depth, cv2.IMREAD_ANYDEPTH)
+        if depth is None:
+            print(f"error: cannot read depth image {args.depth}", file=sys.stderr)
+            return 2
+    depth = depth.astype(np.float32)
+    if args.bbox_file:
+        # the reference's wild-test fixtures hold normalized CENTER boxes:
+        # cx, cy, w, h in fractions of the image
+        v = np.loadtxt(args.bbox_file).reshape(-1)[:4]
+        H, W = depth.shape[:2]
+        bw, bh = v[2] * W, v[3] * H
+        bbox = [v[0] * W - bw / 2, v[1] * H - bh / 2, bw, bh]
+    else:
+        bbox = [float(x) for x in args.bbox.split(",")]
+
+    rt = RGBDRuntime(params, cfg, device)
+    out = rt.estimate_pose_rgbd(rgb.astype(np.float32), depth, bbox,
+                                np.random.RandomState(args.seed))
+    print(json.dumps({"joint_uvd_full": out["joint_uvd_full"].tolist(),
+                      "joint_xyz_world": out["joint_xyz_world"].tolist(),
+                      "center": np.asarray(out["center"]).tolist()}))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="hamer_yolo_tpu_torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -378,6 +443,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input", required=True)
     p.add_argument("--output", required=True)
     p.set_defaults(fn=cmd_reconstruct)
+
+    p = sub.add_parser("rgbd", help="RGB-D KeypointFusion inference (Model_RGBD equivalent)")
+    p.add_argument("--rgb", required=True, help="RGB image path")
+    p.add_argument("--depth", required=True, help="depth image (.npy / 16-bit png, mm)")
+    p.add_argument("--bbox", default=None, help="x,y,w,h")
+    p.add_argument("--bbox-file", default=None,
+                   help="txt with a normalized center box cx cy w h (the reference's "
+                        "test/20_bbox.txt fixtures)")
+    p.add_argument("--kpf-checkpoint", default=None, help="KPFusion .pth (Model_RGBD format)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="point-cloud sampling seed (deterministic output)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: the card; cpu for a machine without one)")
+    p.set_defaults(fn=cmd_rgbd)
     return parser
 
 

@@ -39,6 +39,14 @@ _RULES = {
     ("template", 2): lambda a: a,                 # SAR's MANO template (V, 3)
     ("beta", 1): lambda a: a,                     # SAR soft-heatmap weights
     ("rpb", 2): lambda a: a,                      # Swin's relative position bias table
+    # KPFusion (models/kpfusion_rgbd): the decoders' fused in_proj (in, 3 out)
+    # and learned per-joint embeddings, BERT's position table, the GAM gate
+    ("in_proj_w", 2): lambda a: a,
+    ("in_proj_b", 1): lambda a: a,
+    ("self_posembed", 2): lambda a: a,
+    ("cross_posembed", 2): lambda a: a,
+    ("pos_embed", 2): lambda a: a,
+    ("weight_dis", 1): lambda a: a,
 }
 # int8 leaves: (parent key, key, rank) -> the rule. Only the int8 linears of
 # quantize_vit_params ({"wq": {"q", "scale"}}) are ported; the int8 convs of

@@ -1,8 +1,9 @@
 """The reference's torch checkpoints -> parameter trees in JAX layout (port of
-hamer_yolo_tpu/core/convert.py, the YOLOv7, HaMeR and SAR converters).
+hamer_yolo_tpu/core/convert.py, the YOLOv7, HaMeR, SAR and KPFusion converters).
 
-Converters for the reference's three model files, ``yolov7_best.pt``,
-``hamer.ckpt`` and ``SAR-resnet34-Root.pth``. Every step is numpy arithmetic
+Converters for the reference's model files, ``yolov7_best.pt``,
+``hamer.ckpt``, ``SAR-resnet34-Root.pth`` and KPFusion's ``.pth``
+(``convert_kpfusion_checkpoint``; also its centerNet head). Every step is numpy arithmetic
 in float32, the same steps in the same order as the JAX package's, so the
 trees come out leaf for leaf equal to JAX's; torch only deserializes. The
 trees are what ``core/bridge.from_jax_params`` reads and what
@@ -527,3 +528,210 @@ def convert_pipeline_checkpoints(yolo_pt: Optional[str], hamer_ckpt: Optional[st
             raise ValueError("SAR conversion needs the MANO template")
         params["sar"] = convert_sar_checkpoint(sar_pth, template)
     return params
+
+
+# ---------------------------------------------------------------------------
+# KeypointFusion RGB-D (models/kpfusion_rgbd)
+# ---------------------------------------------------------------------------
+
+def _kpf_bn(sd, prefix: str) -> Dict[str, np.ndarray]:
+    return _bn(sd, prefix)
+
+
+def _kpf_conv(sd, prefix: str, bias: bool) -> Dict[str, np.ndarray]:
+    p = {"w": conv_w(sd[f"{prefix}.weight"])}
+    if bias:
+        p["b"] = sd[f"{prefix}.bias"]
+    return p
+
+
+def _convert_hg_residual(sd, prefix: str) -> Dict[str, Any]:
+    """hourglass.Residual; its Conv wraps an nn.Conv2d as ``.conv`` with a bias."""
+    p = {
+        "bn1": _kpf_bn(sd, f"{prefix}.bn1"),
+        "conv1": _kpf_conv(sd, f"{prefix}.conv1.conv", True),
+        "bn2": _kpf_bn(sd, f"{prefix}.bn2"),
+        "conv2": _kpf_conv(sd, f"{prefix}.conv2.conv", True),
+        "bn3": _kpf_bn(sd, f"{prefix}.bn3"),
+        "conv3": _kpf_conv(sd, f"{prefix}.conv3.conv", True),
+    }
+    # skip_layer is in the module even where it is unused; it is mapped only
+    # where the widths differ
+    w_in = sd[f"{prefix}.conv1.conv.weight"].shape[1]
+    w_out = sd[f"{prefix}.conv3.conv.weight"].shape[0]
+    if w_in != w_out:
+        p["skip"] = _kpf_conv(sd, f"{prefix}.skip_layer.conv", True)
+    return p
+
+
+def _convert_kpf_resnet18(sd, prefix: str) -> Dict[str, Any]:
+    p: Dict[str, Any] = {"conv1": {"w": conv_w(sd[f"{prefix}.conv1.weight"])},
+                         "bn1": _kpf_bn(sd, f"{prefix}.bn1"), "stages": []}
+    for li, n in enumerate((2, 2, 2, 2)):
+        blocks = []
+        for b in range(n):
+            bp = f"{prefix}.layer{li + 1}.{b}"
+            blk = {"conv1": {"w": conv_w(sd[f"{bp}.conv1.weight"])},
+                   "bn1": _kpf_bn(sd, f"{bp}.bn1"),
+                   "conv2": {"w": conv_w(sd[f"{bp}.conv2.weight"])},
+                   "bn2": _kpf_bn(sd, f"{bp}.bn2")}
+            if f"{bp}.downsample.0.weight" in sd:
+                blk["down"] = {"w": conv_w(sd[f"{bp}.downsample.0.weight"])}
+                blk["down_bn"] = _kpf_bn(sd, f"{bp}.downsample.1")
+            blocks.append(blk)
+        p["stages"].append(blocks)
+    return p
+
+
+def convert_kpf_unet(sd, prefix: str) -> Dict[str, Any]:
+    """OfficialResNetUnet(_RGB2offset_3D) -> resunet parameters. ``up{n}`` is
+    Sequential(Residual, Upsample), so its Residual is at ``.0``."""
+    p: Dict[str, Any] = {
+        "backbone": _convert_kpf_resnet18(sd, f"{prefix}.backbone"),
+        "skip4": _convert_hg_residual(sd, f"{prefix}.skip_layer4"),
+        "up4": _convert_hg_residual(sd, f"{prefix}.up4.0"),
+        "fuse4": _convert_hg_residual(sd, f"{prefix}.fusion_layer4"),
+        "skip3": _convert_hg_residual(sd, f"{prefix}.skip_layer3"),
+        "up3": _convert_hg_residual(sd, f"{prefix}.up3.0"),
+        "fuse3": _convert_hg_residual(sd, f"{prefix}.fusion_layer3"),
+        "skip2": _convert_hg_residual(sd, f"{prefix}.skip_layer2"),
+        "up2": _convert_hg_residual(sd, f"{prefix}.up2.0"),
+        "fuse2": _convert_hg_residual(sd, f"{prefix}.fusion_layer2"),
+        "finals": [],
+    }
+    i = 0
+    while f"{prefix}.finals.{i}.weight" in sd:
+        p["finals"].append(_kpf_conv(sd, f"{prefix}.finals.{i}", True))
+        i += 1
+    return p
+
+
+def _conv1d_w(w: np.ndarray) -> np.ndarray:
+    """torch Conv1d (out, in, 1) -> linear (in, out)."""
+    return np.transpose(w[:, :, 0])
+
+
+def _bn1d(sd, prefix: str) -> Dict[str, np.ndarray]:
+    return _bn(sd, prefix)
+
+
+def _convert_kpf_emb(sd, prefix: str) -> Dict[str, Any]:
+    """nn.Sequential(Conv1d(k=1), BatchNorm1d)."""
+    return {"conv": {"w": _conv1d_w(sd[f"{prefix}.0.weight"]), "b": sd[f"{prefix}.0.bias"]},
+            "bn": _bn1d(sd, f"{prefix}.1")}
+
+
+def _convert_desa(sd, prefix: str, n_scales: int = 3) -> Dict[str, Any]:
+    def conv_bn(conv, bn):
+        return {"conv": {"w": conv_w(sd[f"{conv}.weight"]), "b": sd[f"{conv}.bias"]},
+                "bn": _bn(sd, bn)}
+
+    scales = []
+    for i in range(n_scales):
+        sp = {"l0": conv_bn(f"{prefix}.conv_l0_blocks.{i}", f"{prefix}.bn_l0_blocks.{i}"),
+              "f0": conv_bn(f"{prefix}.conv_f0_blocks.{i}", f"{prefix}.bn_f0_blocks.{i}"),
+              "mlp": []}
+        j = 0
+        while f"{prefix}.conv_blocks.{i}.{j}.weight" in sd:
+            sp["mlp"].append(conv_bn(f"{prefix}.conv_blocks.{i}.{j}",
+                                     f"{prefix}.bn_blocks.{i}.{j}"))
+            j += 1
+        scales.append(sp)
+    fusion_w = _conv1d_w(sd[f"{prefix}.fusion.0.weight"])[None, None]
+    return {"scales": scales,
+            "fusion": {"conv": {"w": fusion_w, "b": sd[f"{prefix}.fusion.0.bias"]},
+                       "bn": _bn1d(sd, f"{prefix}.fusion.1")}}
+
+
+def _kpf_linear(sd, prefix: str) -> Dict[str, np.ndarray]:
+    return {"w": linear_w(sd[f"{prefix}.weight"]), "b": sd[f"{prefix}.bias"]}
+
+
+def _kpf_ln(sd, prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+
+
+def _convert_bert_encoder(sd, prefix: str, n_layers: int = 4) -> Dict[str, Any]:
+    layers = []
+    for i in range(n_layers):
+        lp = f"{prefix}.encoder.layer.{i}"
+        layers.append({
+            "q": _kpf_linear(sd, f"{lp}.attention.self.query"),
+            "k": _kpf_linear(sd, f"{lp}.attention.self.key"),
+            "v": _kpf_linear(sd, f"{lp}.attention.self.value"),
+            "attn_out": _kpf_linear(sd, f"{lp}.attention.output.dense"),
+            "attn_ln": _kpf_ln(sd, f"{lp}.attention.output.LayerNorm"),
+            "inter": _kpf_linear(sd, f"{lp}.intermediate.dense"),
+            "out": _kpf_linear(sd, f"{lp}.output.dense"),
+            "out_ln": _kpf_ln(sd, f"{lp}.output.LayerNorm"),
+        })
+    return {"pos_embed": sd[f"{prefix}.position_embeddings.weight"],
+            "img_embed": _kpf_linear(sd, f"{prefix}.img_embedding"), "layers": layers}
+
+
+def _convert_kp_interaction(sd, prefix: str, n_layers: int = 4) -> Dict[str, Any]:
+    return {"bert": _convert_bert_encoder(sd, f"{prefix}.bert", n_layers),
+            "cls_head": _kpf_linear(sd, f"{prefix}.cls_head"),
+            "residual": _kpf_linear(sd, f"{prefix}.residual")}
+
+
+def _convert_transfusion_decoder(sd, prefix: str, n_layers: int = 4) -> Dict[str, Any]:
+    layers = []
+    for i in range(n_layers):
+        lp = f"{prefix}.decoder.{i}"
+        p = {
+            "attn": {"in_proj_w": linear_w(sd[f"{lp}.multihead_attn.in_proj_weight"]),
+                     "in_proj_b": sd[f"{lp}.multihead_attn.in_proj_bias"],
+                     "out_proj": _kpf_linear(sd, f"{lp}.multihead_attn.out_proj")},
+            "linear1": _kpf_linear(sd, f"{lp}.linear1"),
+            "linear2": _kpf_linear(sd, f"{lp}.linear2"),
+            "norm2": _kpf_ln(sd, f"{lp}.norm2"),
+            "norm3": _kpf_ln(sd, f"{lp}.norm3"),
+        }
+        for name in ("self_posembed", "cross_posembed"):
+            if f"{lp}.{name}.weight" in sd:
+                p[name] = sd[f"{lp}.{name}.weight"]
+        layers.append(p)
+    return {"layers": layers}
+
+
+def _convert_kpf_block(sd, prefix: str) -> Dict[str, Any]:
+    p: Dict[str, Any] = {name: _convert_kpf_emb(sd, f"{prefix}.{name}") for name in (
+        "pcl_feat_emb", "pcl_xyz_emb", "pcl_pose_emb", "joint_feat_emb", "joint_xyz_emb",
+        "pcl_feat_emb_RGB")}
+    p.update({
+        "FA": _convert_desa(sd, f"{prefix}.FA"),
+        "init_TR": _convert_kp_interaction(sd, f"{prefix}.init_TR"),
+        "final_TR": _convert_kp_interaction(sd, f"{prefix}.final_TR"),
+        "crossTR": _convert_transfusion_decoder(sd, f"{prefix}.crossTR"),
+        "atten_spatial": {"w": np.transpose(sd[f"{prefix}.atten_spatial.weight"][:, :, 0, 0]),
+                          "b": sd[f"{prefix}.atten_spatial.bias"]},
+        "fc_spatial": _kpf_linear(sd, f"{prefix}.fc_spatial2joint_feature"),
+        "weight_dis": sd[f"{prefix}.weight_dis"],
+    })
+    return p
+
+
+def convert_kpfusion_state_dict(sd: Dict[str, np.ndarray], prefix: str = "",
+                                num_stages: int = 2) -> Dict[str, Any]:
+    """KPFusion's state dict -> kpfusion_rgbd parameters (strip a
+    DataParallel ``module.`` prefix first)."""
+    return {
+        "backbone_rgb": convert_kpf_unet(sd, f"{prefix}backbone_rgb"),
+        "backbone_d": convert_kpf_unet(sd, f"{prefix}backbone_d"),
+        "blocks": [_convert_kpf_block(sd, f"{prefix}block{i + 1}") for i in range(num_stages)],
+    }
+
+
+def convert_centernet(sd, prefix: str) -> Dict[str, Any]:
+    """The centerNet ResNet-18 regression head."""
+    return {"backbone": _convert_kpf_resnet18(sd, prefix),
+            "fc": _kpf_linear(sd, f"{prefix}.fc")}
+
+
+def convert_kpfusion_checkpoint(path: str, num_stages: int = 2) -> Dict[str, Any]:
+    """A KPFusion .pth (Model_RGBD's format: {'model': state_dict}, keys with
+    DataParallel's ``module.`` prefix) -> parameters."""
+    sd = load_torch_state_dict(path, key="model")
+    sd = {(k[7:] if k.startswith("module.") else k): v for k, v in sd.items()}
+    return convert_kpfusion_state_dict(sd, num_stages=num_stages)

@@ -1,22 +1,28 @@
 """MANO hand model: LBS forward on tensors (port of hamer_yolo_tpu/models/mano.py).
 
-smplx.MANOLayer convention as HaMeR uses it: rotation-matrix pose input,
-meters, 16 regressed joints + 5 fingertip vertices, OpenPose order. The
-LBS is the einsum form (``lbs``) unless ``fused`` asks for kernel K9
-(ops/mano_lbs.py), which is opt-in as in the JAX package.
+``mano_forward_rotmat``: smplx.MANOLayer's convention as HaMeR uses it:
+rotation-matrix pose input, meters, 16 regressed joints + 5 fingertip
+vertices, OpenPose order. The LBS is the einsum form (``lbs``) unless
+``fused`` asks for kernel K9 (ops/mano_lbs.py), which is opt-in as in the
+JAX package. ``mano_forward_manopth``: manopth.ManoLayer's convention
+(axis-angle or PCA pose, millimeters, manopth's fingertips), which
+KeypointFusion's MANO head uses.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from hamer_yolo_tpu_torch.core import nn
+from hamer_yolo_tpu_torch.geometry.rotations import aa_to_rotmat
 
 MANO_TO_OPENPOSE = (0, 13, 14, 15, 16, 1, 2, 3, 17, 4, 5, 6, 18, 10, 11, 12, 19, 7, 8, 9, 20)
 SMPLX_TIP_IDS = (744, 320, 443, 554, 671)
+MANOPTH_TIP_IDS_RIGHT = (745, 317, 444, 556, 673)
+MANOPTH_TIP_IDS_LEFT = (745, 317, 445, 556, 673)
 
 
 @dataclass(frozen=True)
@@ -30,16 +36,22 @@ class ManoModel:
     weights: torch.Tensor         # (778, 16)
     faces: np.ndarray             # (1538, 3) int32, host side (OBJ export)
     parents: Tuple[int, ...]      # static kinematic tree
+    hands_components: Optional[torch.Tensor] = None  # (45, 45) PCA basis (manopth)
+    hands_mean: Optional[torch.Tensor] = None        # (45,)
+    side: str = "right"
 
     @classmethod
-    def from_arrays(cls, data: Dict[str, np.ndarray], device="cpu") -> "ManoModel":
+    def from_arrays(cls, data: Dict[str, np.ndarray], device="cpu",
+                    side: str = "right") -> "ManoModel":
         def t(k):
             return torch.as_tensor(np.asarray(data[k], np.float32), device=device)
 
         return cls(v_template=t("v_template"), shapedirs=t("shapedirs"), posedirs=t("posedirs"),
                    J_regressor=t("J_regressor"), weights=t("weights"),
                    faces=np.asarray(data["f"], np.int32),
-                   parents=tuple(int(p) for p in data["kintree_parents"]))
+                   parents=tuple(int(p) for p in data["kintree_parents"]),
+                   hands_components=t("hands_components") if "hands_components" in data else None,
+                   hands_mean=t("hands_mean") if "hands_mean" in data else None, side=side)
 
 
 def lbs(model: ManoModel, betas: torch.Tensor, rotmats: torch.Tensor
@@ -94,6 +106,42 @@ def mano_forward_rotmat(model: ManoModel, global_orient: torch.Tensor,
     joints = torch.cat([joints16, tips], dim=1)[:, nn.constant(MANO_TO_OPENPOSE, torch.long,
                                                                verts.device)]
     return ManoOutput(vertices=verts, joints=joints)
+
+
+def mano_forward_manopth(model: ManoModel, pose_coeffs: torch.Tensor,
+                         betas: Optional[torch.Tensor] = None,
+                         trans: Optional[torch.Tensor] = None, use_pca: bool = False,
+                         ncomps: int = 45, flat_hand_mean: bool = True,
+                         center_idx: Optional[int] = None,
+                         root_palm: bool = False) -> ManoOutput:
+    """manopth.ManoLayer's forward: pose_coeffs (B, 3 + ncomps), the root's
+    axis-angle and the hand pose (PCA coefficients with ``use_pca``). Output
+    in MILLIMETERS, manopth's fingertips, OpenPose joint order."""
+    B = pose_coeffs.shape[0]
+    hand = pose_coeffs[:, 3:3 + ncomps]
+    if use_pca:
+        hand = hand @ model.hands_components[:ncomps]
+    if not flat_hand_mean:
+        hand = hand + model.hands_mean
+    rotmats = aa_to_rotmat(torch.cat([pose_coeffs[:, :3], hand], dim=1).reshape(B, 16, 3))
+    if betas is None:
+        betas = torch.zeros((B, 10), dtype=pose_coeffs.dtype, device=pose_coeffs.device)
+    verts, joints16 = lbs(model, betas, rotmats)
+    tip_ids = MANOPTH_TIP_IDS_RIGHT if model.side == "right" else MANOPTH_TIP_IDS_LEFT
+    tips = verts[:, nn.constant(tip_ids, torch.long, verts.device)]
+    if root_palm:
+        palm = (verts[:, 95] + verts[:, 22])[:, None] / 2.0
+        joints16 = torch.cat([palm, joints16[:, 1:]], dim=1)
+    joints = torch.cat([joints16, tips], dim=1)[:, nn.constant(MANO_TO_OPENPOSE, torch.long,
+                                                               verts.device)]
+    if trans is not None:
+        joints = joints + trans[:, None]
+        verts = verts + trans[:, None]
+    elif center_idx is not None:
+        center = joints[:, center_idx:center_idx + 1]
+        joints = joints - center
+        verts = verts - center
+    return ManoOutput(vertices=verts * 1000.0, joints=joints * 1000.0)
 
 
 def watertight_closure_faces() -> np.ndarray:

@@ -61,6 +61,15 @@ def numpy_params(init_fn, seed: int = 0):
             v = 1.0 + 0.1 * rng.normal(size=shape)
         elif key == "rpb":  # Swin's relative position bias table
             v = 0.02 * rng.normal(size=shape)
+        elif key == "in_proj_w":  # KPFusion's decoders: the fused (in, 3 out) in_proj
+            bound = np.sqrt(6.0 / shape[0])
+            v = rng.uniform(-bound, bound, shape)
+        elif key == "in_proj_b":
+            v = 0.05 * rng.normal(size=shape)
+        elif key in ("self_posembed", "cross_posembed"):  # learned per-joint embeddings
+            v = 0.02 * rng.normal(size=shape)
+        elif key == "weight_dis":  # KPFusion's GAM / spatial gate logit
+            v = rng.normal(size=shape)
         else:
             raise KeyError(path)
         return v.astype(np.float32)
@@ -199,7 +208,11 @@ class TestBridge:
         {"w": {"q": np.zeros((4, 4), np.int8), "scale": np.ones(4, np.float32)}},
         {"bn": {"mean": np.zeros((4, 4), np.float32)}},
         {"w": np.zeros((2, 2, 2), np.float32)},
-    ], ids=["int8_weight", "batchnorm_stats", "rank3_weight"])
+        {"attn": {"in_proj_w": np.zeros((1, 4, 12), np.float32)}},
+        {"weight_dis": np.zeros((1, 1), np.float32)},
+        {"unknown": np.zeros(3, np.float32)},
+    ], ids=["int8_weight", "batchnorm_stats", "rank3_weight", "rank3_in_proj",
+            "rank2_weight_dis", "unknown_key"])
     def test_unmapped_leaf_raises(self, leaf):
         with pytest.raises(KeyError, match="bridge: no mapping"):
             from_jax_params({"layer": leaf})
@@ -218,6 +231,32 @@ class TestBridge:
             w.shape[3], w.shape[2], w.shape[0], w.shape[1])
         q = params["hamer"]["backbone"]["blocks"][0]["attn"]["qkv"]["w"]
         assert tuple(port["hamer"]["backbone"]["blocks"][0]["attn"]["qkv"]["w"].shape) == q.shape
+
+
+    def test_kpfusion_tree_maps(self):
+        """Every leaf of the JAX KPFusion tree has a rule: the decoders' fused
+        in_proj, the learned per-joint embeddings, BERT's rank-2 position
+        table and the gate logit keep their shapes; convs go to OIHW."""
+        from hamer_yolo_tpu.models.kpfusion_rgbd.model import KPFusionConfig, init_kpfusion
+
+        cfg = KPFusionConfig(dim=32, img_size=64, feature_size=16, sample_num=128)
+        params = numpy_params(lambda k: init_kpfusion(k, cfg))
+        port = to_port(params)
+        n_port = len([x for x in jax.tree_util.tree_leaves(port) if isinstance(x, torch.Tensor)])
+        assert n_port == len(jax.tree_util.tree_leaves(params))
+        blk, pblk = params["blocks"][0], port["blocks"][0]
+        layer = blk["crossTR"]["layers"][0]
+        for key, shape in (("in_proj_w", (32, 96)), ("in_proj_b", (96,))):
+            assert tuple(pblk["crossTR"]["layers"][0]["attn"][key].shape) == shape
+            np.testing.assert_array_equal(pblk["crossTR"]["layers"][0]["attn"][key].numpy(),
+                                          layer["attn"][key])
+        for key in ("self_posembed", "cross_posembed"):
+            assert tuple(pblk["crossTR"]["layers"][0][key].shape) == (21, 32)
+        assert tuple(pblk["init_TR"]["bert"]["pos_embed"].shape) == (512, 32)
+        assert tuple(pblk["weight_dis"].shape) == (1,)
+        w = params["backbone_d"]["backbone"]["conv1"]["w"]
+        assert tuple(port["backbone_d"]["backbone"]["conv1"]["w"].shape) == (64, 1, 7, 7) \
+            and w.shape == (7, 7, 1, 64)
 
 
 class TestMano:

@@ -2,7 +2,8 @@
 JAX package's (hamer_yolo_tpu/core/convert.py) on the same torch-layout state
 dicts, made from numpy trees in JAX layout (tests/test_torch_state_dicts.py):
 every output leaf equal, dtype and bits. resize_pos_embed against JAX's
-jax.image bicubic resize within 1e-6."""
+jax.image bicubic resize within 1e-6. KPFusion's converters (the RGB-D
+branch) at a small config: the UNets are ResNet-18 whatever the config."""
 import os
 
 import numpy as np
@@ -15,7 +16,8 @@ from hamer_yolo_tpu.core import convert as jcv
 from hamer_yolo_tpu.models.yolov7 import model as JM
 from hamer_yolo_tpu_torch.core import convert as tcv
 from test_torch_bridge import mano_pair, numpy_params, tiny_configs
-from test_torch_state_dicts import (assert_leaf_equal, hamer_state_dict, sar_state_dicts,
+from test_torch_state_dicts import (assert_leaf_equal, centernet_state_dict, hamer_state_dict,
+                                    kpfusion_state_dict, sar_state_dicts, write_kpfusion_file,
                                     write_reference_files, yolo_state_dict)
 from test_torch_yolo_family import family_spec
 
@@ -192,3 +194,29 @@ def test_convert_pipeline_checkpoints_from_files(pipeline_tree, tmp_path):
     ref = jcv.convert_pipeline_checkpoints(*paths, template=template)
     assert_leaf_equal(got, ref)
     assert_leaf_equal(got, full)
+
+
+def test_kpfusion_and_centernet_converters(tmp_path):
+    """KPFusion's state dict (every equal-width hourglass Residual with the
+    unused skip_layer the module carries) and its .pth file ({'model'},
+    module. prefixes): the port's trees equal JAX's and the tree that went
+    in, leaf for leaf; the same for the centerNet head."""
+    from hamer_yolo_tpu.models.kpfusion_rgbd.centernet import centernet_init
+    from hamer_yolo_tpu.models.kpfusion_rgbd.model import KPFusionConfig, init_kpfusion
+
+    cfg = KPFusionConfig(dim=32, img_size=64, feature_size=16, sample_num=128)
+    tree = _np_tree(numpy_params(lambda k: init_kpfusion(k, cfg), seed=11))
+    sd = kpfusion_state_dict(tree)
+    assert "backbone_d.skip_layer4.skip_layer.conv.weight" in sd
+    got = tcv.convert_kpfusion_state_dict(sd)
+    assert_leaf_equal(got, jcv.convert_kpfusion_state_dict(sd))
+    assert_leaf_equal(got, tree)
+    assert "skip" not in got["backbone_d"]["skip4"] and "skip" in got["backbone_d"]["fuse4"]
+    path = str(tmp_path / "kpfusion.pth")
+    write_kpfusion_file(path, tree)
+    assert_leaf_equal(tcv.convert_kpfusion_checkpoint(path), jcv.convert_kpfusion_checkpoint(path))
+    cn = _np_tree(numpy_params(lambda k: centernet_init(k, 21), seed=12))
+    csd = centernet_state_dict(cn)
+    got = tcv.convert_centernet(csd, "net")
+    assert_leaf_equal(got, jcv.convert_centernet(csd, "net"))
+    assert_leaf_equal(got, cn)

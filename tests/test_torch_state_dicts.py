@@ -8,6 +8,7 @@ imports no JAX, so chip_smoke can use it on a machine without it.
 Layouts: HWIO conv -> OIHW, (in, out) linear -> (out, in); BN dicts {scale,
 bias, mean, var} -> weight, bias, running_mean, running_var.
 """
+import contextlib
 import os
 
 import numpy as np
@@ -260,6 +261,165 @@ def write_reference_files(out_dir, params, sar_layout="sar"):
     return paths
 
 
+def _kpf_resnet18(sd, prefix, p):
+    """resunet.resnet18 parameters -> torchvision's conv1 / bn1 / layer1..4."""
+    sd[f"{prefix}.conv1.weight"] = t_conv(p["conv1"]["w"])
+    _bn(sd, f"{prefix}.bn1", p["bn1"])
+    for li, blocks in enumerate(p["stages"]):
+        for b, blk in enumerate(blocks):
+            bp = f"{prefix}.layer{li + 1}.{b}"
+            sd[f"{bp}.conv1.weight"] = t_conv(blk["conv1"]["w"])
+            _bn(sd, f"{bp}.bn1", blk["bn1"])
+            sd[f"{bp}.conv2.weight"] = t_conv(blk["conv2"]["w"])
+            _bn(sd, f"{bp}.bn2", blk["bn2"])
+            if "down" in blk:
+                sd[f"{bp}.downsample.0.weight"] = t_conv(blk["down"]["w"])
+                _bn(sd, f"{bp}.downsample.1", blk["down_bn"])
+
+
+def _kpf_residual(sd, prefix, p, rng):
+    """An hourglass Residual; its skip_layer is in the module whatever the
+    widths, so one of equal widths gets random weights the converter must
+    leave out."""
+    for i in (1, 2, 3):
+        _bn(sd, f"{prefix}.bn{i}", p[f"bn{i}"])
+        sd[f"{prefix}.conv{i}.conv.weight"] = t_conv(p[f"conv{i}"]["w"])
+        sd[f"{prefix}.conv{i}.conv.bias"] = np.asarray(p[f"conv{i}"]["b"])
+    if "skip" in p:
+        sd[f"{prefix}.skip_layer.conv.weight"] = t_conv(p["skip"]["w"])
+        sd[f"{prefix}.skip_layer.conv.bias"] = np.asarray(p["skip"]["b"])
+    else:
+        c_in, c_out = np.asarray(p["conv1"]["w"]).shape[2], np.asarray(p["conv3"]["w"]).shape[3]
+        sd[f"{prefix}.skip_layer.conv.weight"] = rng.normal(size=(c_out, c_in, 1, 1)).astype(
+            np.float32)
+        sd[f"{prefix}.skip_layer.conv.bias"] = np.zeros(c_out, np.float32)
+
+
+def _kpf_unet(sd, prefix, p, rng):
+    _kpf_resnet18(sd, f"{prefix}.backbone", p["backbone"])
+    for ours, theirs in (("skip4", "skip_layer4"), ("up4", "up4.0"), ("fuse4", "fusion_layer4"),
+                         ("skip3", "skip_layer3"), ("up3", "up3.0"), ("fuse3", "fusion_layer3"),
+                         ("skip2", "skip_layer2"), ("up2", "up2.0"), ("fuse2", "fusion_layer2")):
+        _kpf_residual(sd, f"{prefix}.{theirs}", p[ours], rng)
+    for i, fp in enumerate(p["finals"]):
+        sd[f"{prefix}.finals.{i}.weight"] = t_conv(fp["w"])
+        sd[f"{prefix}.finals.{i}.bias"] = np.asarray(fp["b"])
+
+
+def _kpf_emb(sd, prefix, p):
+    """{"conv": (in, out) linear, "bn"} -> Sequential(Conv1d(k=1), BatchNorm1d)."""
+    sd[f"{prefix}.0.weight"] = t_lin(p["conv"]["w"])[:, :, None]
+    sd[f"{prefix}.0.bias"] = np.asarray(p["conv"]["b"])
+    _bn(sd, f"{prefix}.1", p["bn"])
+
+
+def _kpf_bert(sd, prefix, p):
+    sd[f"{prefix}.bert.position_embeddings.weight"] = np.asarray(p["bert"]["pos_embed"])
+    _linear(sd, f"{prefix}.bert.img_embedding", p["bert"]["img_embed"])
+    for i, lp in enumerate(p["bert"]["layers"]):
+        b = f"{prefix}.bert.encoder.layer.{i}"
+        for ours, theirs in (("q", "attention.self.query"), ("k", "attention.self.key"),
+                             ("v", "attention.self.value"), ("attn_out", "attention.output.dense"),
+                             ("inter", "intermediate.dense"), ("out", "output.dense")):
+            _linear(sd, f"{b}.{theirs}", lp[ours])
+        _bn_free_ln(sd, f"{b}.attention.output.LayerNorm", lp["attn_ln"])
+        _bn_free_ln(sd, f"{b}.output.LayerNorm", lp["out_ln"])
+    _linear(sd, f"{prefix}.cls_head", p["cls_head"])
+    _linear(sd, f"{prefix}.residual", p["residual"])
+
+
+def _kpf_block(sd, prefix, p):
+    for name in ("pcl_feat_emb", "pcl_xyz_emb", "pcl_pose_emb", "joint_feat_emb",
+                 "joint_xyz_emb", "pcl_feat_emb_RGB"):
+        _kpf_emb(sd, f"{prefix}.{name}", p[name])
+    fa = p["FA"]
+    for i, sp in enumerate(fa["scales"]):
+        for ours, conv, bn in (("l0", "conv_l0_blocks", "bn_l0_blocks"),
+                               ("f0", "conv_f0_blocks", "bn_f0_blocks")):
+            sd[f"{prefix}.FA.{conv}.{i}.weight"] = t_conv(sp[ours]["conv"]["w"])
+            sd[f"{prefix}.FA.{conv}.{i}.bias"] = np.asarray(sp[ours]["conv"]["b"])
+            _bn(sd, f"{prefix}.FA.{bn}.{i}", sp[ours]["bn"])
+        for j, mp in enumerate(sp["mlp"]):
+            sd[f"{prefix}.FA.conv_blocks.{i}.{j}.weight"] = t_conv(mp["conv"]["w"])
+            sd[f"{prefix}.FA.conv_blocks.{i}.{j}.bias"] = np.asarray(mp["conv"]["b"])
+            _bn(sd, f"{prefix}.FA.bn_blocks.{i}.{j}", mp["bn"])
+    sd[f"{prefix}.FA.fusion.0.weight"] = t_conv(fa["fusion"]["conv"]["w"])[:, :, :, 0]
+    sd[f"{prefix}.FA.fusion.0.bias"] = np.asarray(fa["fusion"]["conv"]["b"])
+    _bn(sd, f"{prefix}.FA.fusion.1", fa["fusion"]["bn"])
+    _kpf_bert(sd, f"{prefix}.init_TR", p["init_TR"])
+    _kpf_bert(sd, f"{prefix}.final_TR", p["final_TR"])
+    for i, lp in enumerate(p["crossTR"]["layers"]):
+        d = f"{prefix}.crossTR.decoder.{i}"
+        sd[f"{d}.multihead_attn.in_proj_weight"] = t_lin(lp["attn"]["in_proj_w"])
+        sd[f"{d}.multihead_attn.in_proj_bias"] = np.asarray(lp["attn"]["in_proj_b"])
+        _linear(sd, f"{d}.multihead_attn.out_proj", lp["attn"]["out_proj"])
+        _linear(sd, f"{d}.linear1", lp["linear1"])
+        _linear(sd, f"{d}.linear2", lp["linear2"])
+        _bn_free_ln(sd, f"{d}.norm2", lp["norm2"])
+        _bn_free_ln(sd, f"{d}.norm3", lp["norm3"])
+        for name in ("self_posembed", "cross_posembed"):
+            if name in lp:
+                sd[f"{d}.{name}.weight"] = np.asarray(lp[name])
+    sd[f"{prefix}.atten_spatial.weight"] = t_lin(p["atten_spatial"]["w"])[:, :, None, None]
+    sd[f"{prefix}.atten_spatial.bias"] = np.asarray(p["atten_spatial"]["b"])
+    _linear(sd, f"{prefix}.fc_spatial2joint_feature", p["fc_spatial"])
+    sd[f"{prefix}.weight_dis"] = np.asarray(p["weight_dis"])
+
+
+def kpfusion_state_dict(tree, seed=0):
+    """A kpfusion_rgbd tree (numpy leaves, JAX layout) -> KPFusion's state
+    dict (backbone_rgb.*, backbone_d.*, block1.*, block2.*); the unused
+    skip_layer of each equal-width Residual gets random weights drawn from
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    _kpf_unet(sd, "backbone_rgb", tree["backbone_rgb"], rng)
+    _kpf_unet(sd, "backbone_d", tree["backbone_d"], rng)
+    for i, bp in enumerate(tree["blocks"]):
+        _kpf_block(sd, f"block{i + 1}", bp)
+    return sd
+
+
+def write_kpfusion_file(path, tree):
+    """KPFusion's .pth as Model_RGBD saves it: {'model': state dict} with
+    DataParallel's ``module.`` prefix on every key."""
+    torch.save({"epoch": -1, "model": {f"module.{k}": torch.from_numpy(np.array(v))
+                                       for k, v in kpfusion_state_dict(tree).items()}}, path)
+
+
+def centernet_state_dict(tree, prefix="net"):
+    """centernet parameters -> centerNet's ResNet-18 + fc keys under ``prefix``."""
+    sd = {}
+    _kpf_resnet18(sd, prefix, tree["backbone"])
+    _linear(sd, f"{prefix}.fc", tree["fc"])
+    return sd
+
+
+@contextlib.contextmanager
+def calibrating_batch_norm():
+    """Within the block every core/nn.batch_norm first sets its running
+    variance to its input's mean square, one value for all channels, so
+    that it scales its input to O(1) as a trained BN would. One forward so
+    keeps a seeded tree's activations O(1): with the init's stats the random
+    ResNet-UNets' grow to 1e4 and more. (Per-channel batch statistics would
+    also do that, but over the few pixels of a small map they amplify
+    near-constant channels, and with them every rounding difference.) Run
+    it under torch.no_grad: the variances are set in place."""
+    from hamer_yolo_tpu_torch.core import nn
+
+    plain = nn.batch_norm
+
+    def calibrating(p, x, eps=1e-3):
+        p["var"].fill_(float(x.square().mean()))
+        return plain(p, x, eps)
+
+    nn.batch_norm = calibrating
+    try:
+        yield
+    finally:
+        nn.batch_norm = plain
+
+
 def port_tree_to_numpy(tree):
     """The port's parameters (tensors) -> numpy leaves in JAX layout, the
     inverse of core/bridge: OIHW conv weights back to HWIO."""
@@ -345,3 +505,18 @@ def test_pipeline_files_round_trip(port_tree, tmp_path, layout):
     assert_leaf_equal(got, {"yolo": tree["yolo"], "sar": tree["sar"]})
     with pytest.raises(ValueError, match="MANO template"):
         convert.convert_pipeline_checkpoints(None, None, paths[2])
+
+
+def test_kpfusion_round_trip(tmp_path):
+    """A seeded kpfusion_rgbd tree (small widths: the UNets are ResNet-18 at
+    64 x 64) written as KPFusion's .pth and read back by
+    convert_kpfusion_checkpoint: leaf for leaf the tree that went in."""
+    from hamer_yolo_tpu_torch.models.kpfusion_rgbd.model import KPFusionConfig, init_kpfusion
+
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    cfg = KPFusionConfig(dim=32, img_size=64, feature_size=16, sample_num=128)
+    tree = port_tree_to_numpy(init_kpfusion(gen, cfg))
+    path = str(tmp_path / "kpfusion.pth")
+    write_kpfusion_file(path, tree)
+    assert_leaf_equal(convert.convert_kpfusion_checkpoint(path), tree)
