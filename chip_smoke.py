@@ -73,7 +73,23 @@ ResNet-34 RootNet at 256; seeded random weights, synthetic MANO, numpy-made
   written by torch.save; the cv2 stand-in) printing the runtime's JSON line.
   No TPU kernel lies on this path (plain torch ops, as JAX's are plain
   JAX), so no kernel may launch. It prints the forward's device time by
-  graph replay and eager, by part, and the host's pre- and post-processing.
+  graph replay and eager, by part, and the host's pre- and post-processing;
+- the int8 detector, the ConvNeXt SAR and the overlays ("int8 detector,
+  ConvNeXt SAR, overlays"): ``--int8-yolo 1x1`` and ``all`` (the detector's
+  convs W8A8 on torch._int_mm, static scales calibrated on two of the
+  phase's 720p frames) through infer_frames with the bf16 ViT (K1, K2) and
+  the int8 static ViT (K1, K3, K4), K1's keep sets on their candidates, a
+  BatchedPipeline graph against eager; the detect stage's device ms against
+  the bf16 trunk at B = 1, 4, 16 and infer_frames at B = 4 with and without
+  the 1x1 trunk, in turns; the card against the CPU at 64 (every int8 conv
+  bit-equal on the same input, the int8 activations that differ over a
+  whole forward counted); SAR with ConvNeXt-base at 256 (its depth stage
+  on 16 slots beside ResNet-34's; sar_full_mesh with RootNet's depth and
+  with a depth image; card against CPU at 64); two lit MANO hands on a
+  720p frame by utils/render.py, card against CPU and timed, and
+  ``reconstruct --overlay-images`` through cli.main with the cv2 stand-in.
+  No TPU kernel lies on these modules; ``detect --save-img`` draws with
+  cv2 and is left to the CPU tests.
 
 A phase "ToMe shapes" holds K3, K4, K5 and K7 against their plain versions
 at the token counts ToMe gives them (N = 124 and 68 a crop, 16 crops), and
@@ -560,6 +576,7 @@ def main() -> int:
     family_phase(params, mano, cfg, dev, depth, smi)
     graph_cache_phase(params, mano, cfg, dev, smi)
     rgbd_phase(dev, smi)
+    int8_sar_overlay_phase(params, sparams, qcfg, mano, cfg, dev, depth, smi)
 
     # -- reference checks on a small input: the card against the CPU path ----
     check_reference(dev)
@@ -922,7 +939,7 @@ def http_phase(params, mano, cfg, dev, frames, depth, pools):
 def cv2_stand_in():
     """A module to stand in for cv2 on a machine without it: every file
     holds .npy data whatever its name (an image one frame, a video a stack
-    of frames), and an encoded image is .npy bytes."""
+    of frames; imwrite writes one), and an encoded image is .npy bytes."""
     import io
     import types
 
@@ -944,6 +961,13 @@ def cv2_stand_in():
     cv2.IMREAD_COLOR = 1
     cv2.imread = lambda path: np.load(path)
     cv2.imdecode = lambda buf, flag: np.load(io.BytesIO(np.asarray(buf).tobytes()))
+
+    def imwrite(path, img):
+        with open(path, "wb") as fh:
+            np.save(fh, img)
+        return True
+
+    cv2.imwrite = imwrite
     cv2.VideoCapture = VideoCapture
     return cv2
 
@@ -2969,6 +2993,466 @@ def rgbd_phase(dev, smi):
     print(f"rgbd host on {smi}: prepare (center, crops, point cloud) p50 {p50['prepare']:.3f} ms, "
           f"finish {p50['finish']:.3f} ms; a whole estimate_pose_rgbd call p50 {p50['call']:.3f} "
           "ms (host clock, 7 timed)")
+
+
+# -- int8 detector, ConvNeXt SAR, overlays ------------------------------------
+CALIB_REL = 0.03  # int8 detector scales, card against CPU (tests/test_torch_int8_yolo.py)
+DETECT_BATCHES = (1, 4, 16)
+OVERLAY_MAX_DIFF_FRAC = 1e-4  # overlay pixels that may differ by one level, card against CPU
+
+
+def _tree_leaves(tree, key=None):
+    """The tensors of a parameter tree, depth first; with ``key``, only the
+    leaves stored under that key."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if key is not None and k == key:
+                yield v
+            else:
+                yield from _tree_leaves(v, key)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tree_leaves(v, key)
+    elif tree is not None and key is None:
+        yield tree
+
+
+def _in_turns(fns, time_fn):
+    """{name: [time, time]}: each fn timed by time_fn in the order a, b, ...,
+    b, a."""
+    times = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        times[k].append(time_fn(fns[k]))
+    return times
+
+
+def _fmt_turns(times):
+    return "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)}" for k, v in times.items())
+
+
+def int8_sar_overlay_phase(params, sparams, qcfg, mano, cfg, dev, depth, smi):
+    """The phase "int8 detector, ConvNeXt SAR, overlays" at full width:
+    int8_detector_phase, convnext_sar_phase and overlay_phase."""
+    print(f"int8 detector, ConvNeXt SAR, overlays: on {smi}")
+    int8_detector_phase(params, sparams, qcfg, mano, cfg, dev, depth)
+    convnext_sar_phase(params, mano, cfg, dev)
+    overlay_phase(dev)
+
+
+def int8_detector_phase(params, sparams, qcfg, mano, cfg, dev, depth):
+    """``--int8-yolo 1x1`` and ``all`` on the default YOLOv7 at 640: quantized
+    and calibrated on two of the phase's 720p frames (the CLI's centred
+    letterbox), run on the card through infer_frames with the bf16 ViT (K1,
+    K2) and the int8 static ViT (K1, K3, K4), launches counted; K1's keep
+    sets against its plain version on the int8 trunk's candidates; a
+    BatchedPipeline graph with the int8 trunk against eager; the detect
+    stage's device ms (graph replay) against the bf16 trunk at B = 1, 4, 16,
+    and infer_frames at B = 4 with and without the 1x1 trunk on both ViT
+    paths, in turns; then the card against the CPU at 64."""
+    import torch
+
+    from hamer_yolo_tpu_torch.core.quant import calibrate_yolo_act_scales, quantize_yolo_params
+    from hamer_yolo_tpu_torch.io.images import letterbox_centered
+    from hamer_yolo_tpu_torch.ops.nms import greedy_nms_keep, greedy_nms_keep_ref
+    from hamer_yolo_tpu_torch.pipeline.frame import detect_hands_batched, infer_frames
+    from hamer_yolo_tpu_torch.pipeline.runner import default_intrinsics
+    from hamer_yolo_tpu_torch.pipeline.serving import BatchedPipeline
+
+    frames = frames_720p(max(DETECT_BATCHES + (BATCH,)), SEED + 5)
+    K = default_intrinsics(frames[0].shape)
+    calib = [letterbox_centered(f, cfg.det_size)[..., ::-1].astype(np.float32) / 255.0
+             for f in frames[:2]]
+    yolo = {"bf16": params["yolo"]}
+    for mode in ("1x1", "all"):
+        t0 = time.perf_counter()
+        q = quantize_yolo_params(params["yolo"], only_1x1=mode == "1x1")
+        yolo[mode] = calibrate_yolo_act_scales(q, calib, cfg.yolo)
+        torch.cuda.synchronize()
+        sx = torch.stack(list(_tree_leaves(yolo[mode], "sx")))
+        print(f"int8 detector {mode}: quantized and calibrated on 2 letterboxed 720p frames in "
+              f"{time.perf_counter() - t0:.2f} s: {len(sx)} int8 convs, sx "
+              f"{float(sx.min()):.4g}..{float(sx.max()):.4g}")
+
+    def batch(B):
+        return (torch.from_numpy(np.stack(frames[:B])).to(dev).to(torch.float32),
+                torch.tensor([[720.0, 1280.0]] * B, device=dev),
+                torch.from_numpy(np.stack([K] * B)).to(dev))
+
+    imgs, hws, Ks = batch(BATCH)
+    none = dict.fromkeys(KERNELS, 0)
+    for mode in ("1x1", "all"):
+        for vit, p, c, want in (("bf16", params, cfg, {"K1": 1, "K2": depth}),
+                                ("int8 static", sparams, qcfg,
+                                 {"K1": 1, "K3": depth, "K4": depth})):
+            p = {**p, "yolo": yolo[mode]}
+            with torch.inference_mode():
+                out, n = run_counted(lambda: infer_frames(p, mano, imgs, hws, Ks, c))
+            print(f"int8 detector {mode} + {vit} ViT: infer_frames batch {BATCH} -> "
+                  f"{int(out['valid'].sum())} valid slots; launches {n}")
+            expect_launches(f"int8 detector {mode} + {vit} ViT", n, {**none, **want})
+            check_batch(out, cfg, f"int8 detector {mode} + {vit} ViT")
+        cands = detector_candidates(yolo[mode], cfg, dev, BATCH)
+        bx, act = cands.shifted.contiguous(), cands.active.to(torch.float32)
+        got, ref = greedy_nms_keep(bx, act, cfg.iou_thres), greedy_nms_keep_ref(bx, act,
+                                                                              cfg.iou_thres)
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"K1 on the int8 {mode} trunk's candidates: keep sets differ")
+        print(f"K1 on the int8 {mode} trunk's candidates at B {BATCH}: keep set identical to "
+              f"its plain version ({int(got.sum())} kept of {int(act.sum())} active)")
+
+    pipe = BatchedPipeline({**params, "yolo": yolo["all"]}, mano, cfg, batch_size=BATCH,
+                           device=dev)
+    got, n = run_counted(lambda: pipe.process_batch(frames[:BATCH], K))
+    expect_launches("int8 detector all: BatchedPipeline capture", n,
+                    {**none, "K1": CAPTURE_RUNS, "K2": CAPTURE_RUNS * depth})
+    again, n = run_counted(lambda: pipe.process_batch(frames[:BATCH], K))
+    expect_launches("int8 detector all: BatchedPipeline replay", n, none)
+    hold_to_eager(again, eager_batch(pipe, frames[:BATCH], K),
+                  eager_batch(pipe, frames[:BATCH], K), "int8 detector all, BatchedPipeline")
+    if any(not np.array_equal(got[k], again[k]) for k in got):
+        raise RuntimeError("int8 detector all: two replays of one graph differ")
+
+    for B in DETECT_BATCHES:
+        bi, bh, _ = batch(B)
+        stages = {m: (lambda p=yolo[m]: detect_hands_batched(p, bi, bh, cfg))
+                  for m in ("bf16", "1x1", "all")}
+        with torch.inference_mode():
+            times = _in_turns(stages, lambda fn: graph_time_ms(fn, reps=5, iters=5))
+            tops = {m: top_kernels(fn) for m, fn in stages.items()} if B == 16 else {}
+        print(f"detect stage B {B} (letterbox, YOLOv7 at {cfg.det_size}, NMS on K1), device ms "
+              f"by graph replay, in turns: {_fmt_turns(times)}")
+        for m, (total, n_kernels, top) in tops.items():
+            print(f"detect stage B {B}, {m} trunk, one eager call under torch.profiler: "
+                  f"{total:.3f} device ms in {n_kernels} kernels; the largest by name: "
+                  + "; ".join(f"{name[:60]} {ms:.3f} ms x{count}" for name, ms, count in top))
+    runs = {"bf16 ViT, bf16 trunk": (params, cfg),
+            "bf16 ViT, int8 1x1 trunk": ({**params, "yolo": yolo["1x1"]}, cfg),
+            "int8 static ViT, bf16 trunk": (sparams, qcfg),
+            "int8 static ViT, int8 1x1 trunk": ({**sparams, "yolo": yolo["1x1"]}, qcfg)}
+    with torch.inference_mode():
+        times = _in_turns({k: (lambda p=p, c=c: infer_frames(p, mano, imgs, hws, Ks, c))
+                           for k, (p, c) in runs.items()}, lambda fn: cuda_time_ms(fn, iters=5))
+    print(f"e2e infer_frames b{BATCH} 720p, ms (CUDA events, 2 warm-up, 5 timed), in turns: "
+          f"{_fmt_turns(times)}")
+    check_reference_int8_detector(dev)
+
+
+def top_kernels(fn, n=6, tries=3):
+    """(device ms, kernels, [(name, ms, launches)] of the n largest by name)
+    of one call of fn under torch.profiler, after one call outside it; a
+    session that records no device activity is tried again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    by_name = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                ms, count = by_name.get(ev.name, (0.0, 0))
+                by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, count + 1)
+        if by_name:
+            break
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return (sum(ms for ms, _ in by_name.values()), sum(c for _, c in by_name.values()),
+            [(name, ms, count) for name, (ms, count) in top])
+
+
+def check_reference_int8_detector(dev) -> None:
+    """The --tiny detector (YOLOv7's widths at 64) quantized and calibrated
+    on the CPU, on the card against the CPU: every int8 conv on the CPU's
+    own input bit-equal (int32 sums are exact); over the whole forward the
+    int8 activations that differ (quantize flips, from the floating-point
+    ops before them: cuDNN's conv sums where spatial convs stay bf16, the
+    elementwise ops) counted, as ROADMAP F8 counts them; the scales
+    calibrated on the card within CALIB_REL of the CPU's; the decoded
+    output as accurate as the CPU's against the CPU's f32 float detector
+    within a factor BF16_ACCURACY_FACTOR."""
+    import torch
+
+    from hamer_yolo_tpu_torch.cli.main import pipeline_config
+    from hamer_yolo_tpu_torch.core import int8_conv
+    from hamer_yolo_tpu_torch.core.quant import calibrate_yolo_act_scales, quantize_yolo_params
+    from hamer_yolo_tpu_torch.models.yolov7.model import init_yolov7, yolov7_forward
+
+    ycfg = pipeline_config(tiny=True).yolo
+    params = init_yolov7(torch.Generator().manual_seed(SEED), ycfg)
+    rng = np.random.default_rng(SEED + 6)
+    calib = list(rng.random((2, 64, 64, 3)).astype(np.float32))
+    x = torch.from_numpy(rng.random((4, 64, 64, 3)).astype(np.float32))
+    ref32 = yolov7_forward(params, x, dataclasses.replace(ycfg, compute_dtype="float32"))
+    conv = int8_conv.int8_conv2d
+
+    def recorded(tree, inp):
+        calls = []
+
+        def record(p, xx, *args):
+            calls.append((p, xx, args))
+            return conv(p, xx, *args)
+
+        int8_conv.int8_conv2d = record
+        try:
+            with torch.inference_mode():
+                out = yolov7_forward(tree, inp, ycfg)
+        finally:
+            int8_conv.int8_conv2d = conv
+        return out, calls
+
+    for mode in ("1x1", "all"):
+        q = quantize_yolo_params(params, only_1x1=mode == "1x1")
+        tree = calibrate_yolo_act_scales(q, calib, ycfg)
+        card_sx = torch.stack([t.cpu() for t in _tree_leaves(calibrate_yolo_act_scales(
+            _to(q, dev), calib, ycfg), "sx")])
+        cpu_sx = torch.stack(list(_tree_leaves(tree, "sx")))
+        rel = float(((card_sx - cpu_sx).abs() / cpu_sx).max())
+        ref, ref_calls = recorded(tree, x)
+        got, got_calls = recorded(_to(tree, dev), x.to(dev))
+        same_input = flips = total = 0
+        for (p, xc, args), (_, xg, _) in zip(ref_calls, got_calls):
+            with torch.inference_mode():
+                on_card = conv(_to(p, dev), xc.to(dev), *args).cpu()
+                if not torch.equal(on_card, conv(p, xc, *args)):
+                    raise RuntimeError(f"int8 detector {mode}: an int8 conv on the card departs "
+                                       "from the CPU's on the same input")
+                same_input += 1
+                qc = int8_conv._quantize(xc, p["sx"])
+                qg = int8_conv._quantize(xg.cpu(), p["sx"])
+            flips += int((qc != qg).sum())
+            total += qc.numel()
+        got = got.cpu()
+        floor = float((ref - ref32).abs().max())
+        err = float((got - ref32).abs().max())
+        print(f"int8 detector {mode} at 64, card against CPU: {same_input} int8 convs bit-equal "
+              f"on the CPU's own inputs; over the whole forward {flips} of {total} int8 "
+              f"activations differ ({flips / total:.2e}); decoded output max diff "
+              f"{float((got - ref).abs().max()):.4g}; |card - CPU f32| {err:.4g} against |CPU "
+              f"int8 - CPU f32| {floor:.4g}; scales calibrated on the card within {rel:.2e} "
+              "of the CPU's")
+        if not torch.isfinite(got).all() or err > BF16_ACCURACY_FACTOR * floor or rel > CALIB_REL:
+            raise RuntimeError(f"int8 detector {mode}: the card departs from the CPU")
+
+
+def convnext_sar_phase(params, mano, cfg, dev):
+    """SAR with ConvNeXt-base (1024 channels) at 256 beside ResNet-34's: the
+    depth stage (estimate_depths: patches, backbone, RootNet) on 16 slots of
+    four 720p frames, device ms by graph replay in turns; sar_full_mesh on
+    four slots of a 720p frame with RootNet's k value and with a depth
+    image, timed; no kernel launches on either; then the card against the
+    CPU at 64. The layer scale gamma is redrawn to U(0.5, 1) (the init's
+    1e-6 would leave the blocks out of the sum)."""
+    import torch
+
+    from hamer_yolo_tpu_torch.models.sar import init_sar
+    from hamer_yolo_tpu_torch.pipeline.frame import detect_hands_batched, estimate_depths
+    from hamer_yolo_tpu_torch.pipeline.runner import default_intrinsics
+    from hamer_yolo_tpu_torch.pipeline.sar_mesh import sar_full_mesh
+
+    ccfg = dataclasses.replace(cfg, sar=dataclasses.replace(cfg.sar, backbone="convnext"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    csar = convnext_gamma(init_sar(gen, mano.v_template, ccfg.sar), gen)
+    n_params = sum(t.numel() for t in _tree_leaves(csar["backbone"]))
+    frames = frames_720p(BATCH, SEED + 8)
+    K = default_intrinsics(frames[0].shape)
+    imgs = torch.from_numpy(np.stack(frames)).to(dev).to(torch.float32)
+    hws = torch.tensor([[720.0, 1280.0]] * BATCH, device=dev)
+    Ks = torch.from_numpy(np.stack([K] * BATCH)).to(dev)
+    boxes = torch.tensor([[200.0, 150, 420, 390], [600, 100, 760, 300], [900, 380, 1180, 700],
+                          [40, 500, 200, 690]], device=dev)
+    with torch.inference_mode():
+        dets = detect_hands_batched(params["yolo"], imgs, hws, cfg)
+        dets = {**dets, "boxes": boxes.expand(BATCH, 4, 4).contiguous()}
+        depths, n = run_counted(lambda: estimate_depths(csar, imgs, dets, hws, Ks, ccfg))
+        expect_launches("ConvNeXt SAR depth stage", n, dict.fromkeys(KERNELS, 0))
+        if depths.shape != (BATCH, 4) or not torch.isfinite(depths).all():
+            raise RuntimeError(f"ConvNeXt SAR depth stage: {depths}")
+        times = _in_turns({"resnet34": lambda: estimate_depths(params["sar"], imgs, dets, hws,
+                                                               Ks, cfg),
+                           "convnext": lambda: estimate_depths(csar, imgs, dets, hws, Ks, ccfg)},
+                          lambda fn: graph_time_ms(fn, reps=3, iters=5))
+    print(f"ConvNeXt SAR: ConvNeXt-base {n_params:,} backbone parameters; depth stage on "
+          f"{BATCH * 4} slots at {cfg.sar.input_size} ({cfg.sar.compute_dtype}), device ms by "
+          f"graph replay, in turns: {_fmt_turns(times)}; depths "
+          f"{float(depths.min()):.4g}..{float(depths.max()):.4g} (random weights)")
+    depth_img = torch.from_numpy(np.random.default_rng(SEED + 8).uniform(
+        0.3, 1.5, (720, 1280)).astype(np.float32)).to(dev)
+    hw, Kt = hws[0], Ks[0]
+    for sar_p, scfg, name in ((params["sar"], cfg.sar, "resnet34"), (csar, ccfg.sar, "convnext")):
+        for dimg in (None, depth_img):
+            extra = () if dimg is None else (dimg,)
+            flip = torch.tensor([0.0, 1.0, 0.0, 1.0], device=dev)
+            with torch.inference_mode():
+                out, n = run_counted(lambda: sar_full_mesh(sar_p, imgs[0], boxes, hw, Kt, scfg,
+                                                           flip, *extra))
+                ms = cuda_time_ms(lambda: sar_full_mesh(sar_p, imgs[0], boxes, hw, Kt, scfg,
+                                                        flip, *extra), iters=5)
+            expect_launches(f"sar_full_mesh {name}", n, dict.fromkeys(KERNELS, 0))
+            if out["mesh_xyz"].shape != (4, 778, 3) or not all(
+                    torch.isfinite(v).all() for v in out.values()):
+                raise RuntimeError(f"sar_full_mesh {name}: bad outputs")
+            root = "depth image" if dimg is not None else "k value"
+            print(f"sar_full_mesh {name}, root depth from the {root}: 4 slots of a 720p frame, "
+                  f"p50 {ms:.3f} ms (CUDA events, 2 warm-up, 5 timed); root depths "
+                  f"{[round(float(v), 4) for v in out['root_depth']]}")
+    check_reference_convnext_sar(dev)
+
+
+def convnext_gamma(sar, gen):
+    """The SAR tree with each ConvNeXt block's gamma drawn from U(0.5, 1)."""
+    import torch
+
+    for blocks in sar["backbone"]["stages"]:
+        for blk in blocks:
+            blk["gamma"] = torch.rand(blk["gamma"].shape, generator=gen,
+                                      device=blk["gamma"].device) * 0.5 + 0.5
+    return sar
+
+
+def check_reference_convnext_sar(dev) -> None:
+    """SAR with ConvNeXt-base at 64 (the --tiny SAR size), card against CPU:
+    f32 uvd at the SAR limit (atol 1e-2, rtol 1e-3) and bf16 within
+    BF16_ACCURACY_FACTOR of the CPU's bf16 against f32; sar_full_mesh in f32
+    with both root depths, uvd at the SAR limit, xyz and root depth at 2e-3."""
+    import torch
+
+    from hamer_yolo_tpu_torch.core.mano_assets import synthetic_mano_model
+    from hamer_yolo_tpu_torch.models.mano import ManoModel
+    from hamer_yolo_tpu_torch.models.sar import SarConfig, init_sar, sar_forward
+    from hamer_yolo_tpu_torch.pipeline.sar_mesh import sar_full_mesh
+
+    small = dict(backbone="convnext", input_size=64, feature_hw=2, heatmap_size=8)
+    mano = ManoModel.from_arrays(synthetic_mano_model(SEED))
+    gen = torch.Generator().manual_seed(SEED)
+    params = convnext_gamma(init_sar(gen, mano.v_template, SarConfig(**small)), gen)
+    rng = np.random.default_rng(SEED + 10)
+    x = torch.from_numpy(rng.normal(size=(4, 64, 64, 3)).astype(np.float32))
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        c = SarConfig(**small, compute_dtype=dt)
+        with torch.inference_mode():
+            out[dt] = (sar_forward(params, x, c).double(),
+                       sar_forward(_to(params, dev), x.to(dev), c).double().cpu())
+    cpu32, card32 = out["float32"]
+    cpu16, card16 = out["bfloat16"]
+    d32 = float((card32 - cpu32).abs().max())
+    bad32 = not torch.allclose(card32, cpu32, rtol=1e-3, atol=1e-2)
+    floor, err = float((cpu16 - cpu32).abs().max()), float((card16 - cpu32).abs().max())
+    c = SarConfig(**small, compute_dtype="float32")
+    img = torch.from_numpy(rng.uniform(0, 255, (90, 120, 3)).astype(np.float32))
+    boxes = torch.tensor([[10.0, 20, 60, 70], [50, 5, 110, 80], [0, 0, 30, 30], [40, 40, 100, 88]])
+    hw, flip = torch.tensor([90.0, 120.0]), torch.tensor([0.0, 1.0, 0.0, 1.0])
+    K = torch.tensor([[300.0, 0, 60], [0, 310.0, 45], [0, 0, 1]])
+    dimg = torch.from_numpy(rng.uniform(0.3, 1.5, (90, 120)).astype(np.float32))
+    mesh_err = {}
+    for extra in ((), (dimg,)):
+        with torch.inference_mode():
+            ref = sar_full_mesh(params, img, boxes, hw, K, c, flip, *extra)
+            got = sar_full_mesh(_to(params, dev), img.to(dev), boxes.to(dev), hw.to(dev),
+                                K.to(dev), c, flip.to(dev), *(t.to(dev) for t in extra))
+        for k, r in ref.items():
+            g = got[k].cpu()
+            tol = dict(rtol=1e-3, atol=1e-2) if "uvd" in k else dict(rtol=0.0, atol=2e-3)
+            mesh_err[k] = max(mesh_err.get(k, 0.0), float((g - r).abs().max()))
+            bad32 |= not torch.allclose(g, r, **tol)
+    print(f"ConvNeXt SAR at 64, card against CPU: f32 uvd max diff {d32:.3g}; bf16 |card - "
+          f"CPU f32| {err:.4g} against |CPU bf16 - CPU f32| {floor:.4g}; sar_full_mesh (both "
+          f"root depths) max diffs {', '.join(f'{k} {v:.3g}' for k, v in mesh_err.items())}")
+    if bad32 or err > BF16_ACCURACY_FACTOR * floor:
+        raise RuntimeError("ConvNeXt SAR: the card departs from the CPU")
+
+
+def overlay_phase(dev):
+    """Two MANO hands (the CLI's MANO: cli.main.load_mano; seeded poses,
+    left and right, at 30 m under the
+    default intrinsics of 720p, about 170 px high) composited onto a 720p
+    frame by lit_mesh_overlay on the card and on the CPU: the same face at
+    every supersample (alpha equal), the uint8 images equal but for at most
+    OVERLAY_MAX_DIFF_FRAC of the pixels by one level (f64 shading rounds as
+    each device's libm and BLAS round); times on the host clock, whole calls
+    (upload, render, copy back), in turns; then ``reconstruct
+    --overlay-images`` through cli.main (cv2_stand_in) writes the card's
+    image. ``detect --save-img`` draws with cv2 and is not run here."""
+    import io
+
+    import torch
+
+    from hamer_yolo_tpu_torch.cli.main import load_mano, main as cli
+    from hamer_yolo_tpu_torch.io.writers import save_hand_npy
+    from hamer_yolo_tpu_torch.pipeline.reconstruct import reconstruct_hand_mesh
+    from hamer_yolo_tpu_torch.pipeline.runner import default_intrinsics
+    from hamer_yolo_tpu_torch.utils.render import lit_mesh_overlay, rasterize_mesh
+
+    rng = np.random.default_rng(SEED + 11)
+    frame = frames_720p(1, SEED + 12)[0]
+    K = default_intrinsics(frame.shape)
+    hands = {side: {"theta": (0.3 * rng.normal(size=48)).astype(np.float32),
+                    "betas": (0.5 * rng.normal(size=10)).astype(np.float32),
+                    "pose_hand": np.zeros(45, np.float32), "pose_global": np.zeros(3, np.float32),
+                    "is_right": float(side == "right"),
+                    "cam_t": np.array([0.1 if side == "right" else -0.1, 0.02, 30.0], np.float32)}
+             for side in ("left", "right")}
+    mano = load_mano(None, dev)
+    meshes = [reconstruct_hand_mesh(mano, hands[s]) for s in ("left", "right")]
+
+    def overlay(device):
+        out = frame
+        for m in meshes:
+            out = lit_mesh_overlay(out, m["vertices"], m["faces"], K, device=device)
+        return out
+
+    (card, n) = run_counted(lambda: overlay(dev))
+    expect_launches("lit_mesh_overlay", n, dict.fromkeys(KERNELS, 0))
+    cpu = overlay("cpu")
+    for m in meshes:
+        a_card = rasterize_mesh(m["vertices"], m["faces"], K, frame.shape[:2], device=dev)[1]
+        a_cpu = rasterize_mesh(m["vertices"], m["faces"], K, frame.shape[:2])[1]
+        if not torch.equal(a_card.cpu(), a_cpu):
+            raise RuntimeError("lit overlay: the card's coverage departs from the CPU's")
+    diff = np.abs(card.astype(int) - cpu.astype(int)).max(-1)
+    covered = int((cpu != frame).any(-1).sum())
+    times = interleaved_p50({"card": lambda: overlay(dev), "cpu": lambda: overlay("cpu")},
+                            rounds=2)
+    with torch.inference_mode():
+        dev_ms = cuda_time_ms(lambda: rasterize_mesh(meshes[0]["vertices"], meshes[0]["faces"], K,
+                                                     frame.shape[:2], device=dev), iters=5)
+    print(f"lit_mesh_overlay, two hands on a 720p frame ({covered} pixels covered): card "
+          f"{times['card']:.2f} ms, CPU {times['cpu']:.2f} ms a frame (host clock, whole calls, "
+          f"in turns; 1 warm-up, 4 timed each); one hand's rasterize_mesh on the card "
+          f"{dev_ms:.2f} ms (CUDA events); card against CPU: coverage equal, {int((diff > 0).sum())}"
+          f" pixels differ, by at most {int(diff.max())}")
+    if covered < 1000 or diff.max() > 1 or (diff > 0).sum() > OVERLAY_MAX_DIFF_FRAC * diff.size:
+        raise RuntimeError("lit overlay: the card's image departs from the CPU's")
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = cv2_stand_in()
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            for d in ("npys", "imgs", "out"):
+                os.makedirs(os.path.join(root, d))
+            save_hand_npy(os.path.join(root, "npys", "f0.npy"), hands)
+            with open(os.path.join(root, "imgs", "f0.png"), "wb") as fh:
+                np.save(fh, frame)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli(["reconstruct", "--input", os.path.join(root, "npys"), "--output",
+                          os.path.join(root, "out"), "--overlay-images",
+                          os.path.join(root, "imgs")])
+            written = np.load(os.path.join(root, "out", "f0_overlay.png"))
+    finally:
+        if saved is None:
+            sys.modules.pop("cv2", None)
+        else:
+            sys.modules["cv2"] = saved
+    print(f"cli reconstruct --overlay-images: rc {rc}; {out.getvalue().strip()}; f0_overlay.png "
+          f"{'equal to' if np.array_equal(written, card) else 'DIFFERENT from'} the card's "
+          "overlay. detect --save-img draws with cv2 (rectangle, text), which this machine "
+          "lacks: not run here (tests/test_torch_overlays.py holds it against the JAX CLI "
+          "on the CPU)")
+    if rc or not np.array_equal(written, card):
+        raise RuntimeError("cli reconstruct --overlay-images: not the card's overlay")
 
 
 def _to(tree, dev):

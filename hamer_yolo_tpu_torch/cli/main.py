@@ -12,17 +12,18 @@
                micro-batching [--host H] [--port P] [--batch 8]
                [--max-wait-ms MS] [--intrinsics cam_K.txt]
   detect       hand boxes only, one JSON line per image
-               [--save-txt DIR [--save-conf]] [--augment: 3-scale + flip TTA]
+               [--save-txt DIR [--save-conf]] [--save-img DIR]
+               [--augment: 3-scale + flip TTA]
   depth        RootNet's absolute root depth, one JSON line per image
-  reconstruct  saved .npy dir -> .obj meshes
+  reconstruct  saved .npy dir -> .obj meshes [--overlay-images DIR]
   rgbd         RGB-D KeypointFusion on one RGB + depth frame and a hand box, one
                JSON line: --rgb IMG --depth NPY|PNG (--bbox x,y,w,h |
                --bbox-file TXT) [--kpf-checkpoint PTH] [--seed S] [--device]
 
 Every subcommand but rgbd takes [--tiny] [--device cuda] [--checkpoint NPZ]
-[--mano-dir DIR] [--max-hands N] [--conf-thres T] [--iou-thres T] and the
+[--mano-dir DIR] [--max-hands N] [--conf-thres T] [--iou-thres T], the
 ViT's fast paths [--fast-path none|int8|tome|int8-tome [--tome-r R]
-[--calib-scales NPZ]].
+[--calib-scales NPZ]] and the detector's [--int8-yolo off|1x1|all].
 
 Weights come from ``--checkpoint``, a port checkpoint (core/checkpoint.py:
 made from the reference's torch files by core/convert, or from a JAX orbax
@@ -39,9 +40,23 @@ bucket (pipeline/captured.py).
 of a stats file written by ``hamer_yolo_tpu_torch.tools.calibrate_int8``
 (or by the JAX package's tools/calibrate_int8.py: the format is shared).
 ``tome`` merges ``--tome-r`` tokens after each ViT block (models/tome.py);
-``int8-tome`` does both. Not ported yet (ROADMAP.md, Queue 1): ``detect
---save-img``, ``reconstruct --overlay-images``, ``--int8-yolo``, and the
-``bench`` subcommand.
+``int8-tome`` does both. ``--int8-yolo`` quantizes the detector's convs to
+W8A8 int8 (``1x1``: the pointwise ones; ``all``: every conv but the head;
+core/quant.quantize_yolo_params) and calibrates their static activation
+scales on up to two frames of ``--input`` (``calibration_frames``: the JAX
+CLI's centred letterbox, with cv2's resize in numpy, io/images.py), or on
+seeded noise where it holds none; it composes with ``--fast-path`` and
+``--calib-scales``. ``reconstruct`` loads no detector, so the flag changes
+nothing there. Not ported yet (ROADMAP.md, Queue 1): the ``bench``
+subcommand.
+
+``detect --save-img DIR`` writes each image with its boxes drawn
+(utils/viz.plot_box; green right, orange left) and ``reconstruct
+--overlay-images DIR`` writes ``<stem>_overlay.png`` next to the OBJs for
+each npy whose image DIR holds: both hands lit, z-buffered and
+anti-aliased (utils/render.lit_mesh_overlay, on ``--device``) over the
+image, under the default intrinsics of its size. Both read and write
+images with cv2.
 
 ``rgbd`` (models/kpfusion_rgbd/runtime.py) takes KPFusion's weights from the
 reference's ``.pth`` (``--kpf-checkpoint``, through core/convert), else a
@@ -65,8 +80,10 @@ import torch
 from hamer_yolo_tpu_torch.core.bridge import from_jax_params
 from hamer_yolo_tpu_torch.core.checkpoint import init_pipeline_params, load_checkpoint
 from hamer_yolo_tpu_torch.core.mano_assets import load_mano_model, synthetic_mano_model
-from hamer_yolo_tpu_torch.core.quant import (attach_static_act_scales, load_act_stats,
-                                             quantize_vit_params)
+from hamer_yolo_tpu_torch.core.quant import (attach_static_act_scales,
+                                             calibrate_yolo_act_scales, load_act_stats,
+                                             quantize_vit_params, quantize_yolo_params)
+from hamer_yolo_tpu_torch.io.images import letterbox_centered
 from hamer_yolo_tpu_torch.io.writers import load_hand_npy, load_intrinsics
 from hamer_yolo_tpu_torch.models.hamer import HamerConfig
 from hamer_yolo_tpu_torch.models.kpfusion_rgbd.model import KPFusionConfig, init_kpfusion
@@ -76,13 +93,16 @@ from hamer_yolo_tpu_torch.models.sar import SarConfig
 from hamer_yolo_tpu_torch.models.vit import ViTConfig
 from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig
 from hamer_yolo_tpu_torch.pipeline.frame import PipelineConfig
-from hamer_yolo_tpu_torch.pipeline.reconstruct import reconstruct_and_save_obj
+from hamer_yolo_tpu_torch.pipeline.reconstruct import (reconstruct_and_save_obj,
+                                                       reconstruct_hand_mesh)
 from hamer_yolo_tpu_torch.pipeline.runner import (FrameProgram, default_intrinsics,
                                                   process_image_dir, process_masked_dir,
                                                   read_images)
 from hamer_yolo_tpu_torch.utils.profiling import trace
 
 FAST_PATHS = ("none", "int8", "tome", "int8-tome")
+INT8_YOLO = ("off", "1x1", "all")
+IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp")  # --overlay-images looks in this order
 
 
 def pipeline_config(tiny: bool = False, max_hands: int = 4, conf_thres: float = 0.25,
@@ -135,6 +155,46 @@ def apply_fast_path(params, cfg: PipelineConfig, fast_path: str = "none",
     return params, dataclasses.replace(cfg, hamer=hcfg)
 
 
+def calibration_frames(input_dir: Optional[str], det_size: int, n: int = 2) -> list:
+    """Up to ``n`` frames for the detector's int8 calibration: the first
+    images of ``input_dir`` (sorted by name), each letterboxed into the
+    middle of a det_size square padded with 114, BGR -> RGB, / 255; where
+    it holds none, ``n`` frames of numpy noise seeded with 2."""
+    frames = []
+    if input_dir:
+        import glob
+
+        paths = sorted(p for p in glob.glob(os.path.join(input_dir, "*"))
+                       if p.lower().endswith(IMAGE_EXTS))[:n]
+        if paths:
+            import cv2
+
+            for path in paths:
+                img = cv2.imread(path)
+                if img is not None:
+                    canvas = letterbox_centered(img, det_size)
+                    frames.append(canvas[..., ::-1].astype(np.float32) / 255.0)
+    if not frames:
+        rng = np.random.default_rng(2)
+        frames = list(rng.random((n, det_size, det_size, 3), dtype=np.float64)
+                      .astype(np.float32))
+    return frames
+
+
+def apply_int8_yolo(params, cfg: PipelineConfig, mode: str = "off",
+                    input_dir: Optional[str] = None):
+    """``--int8-yolo``: "1x1" or "all" quantizes the detector
+    (quantize_yolo_params) and attaches the static activation scales
+    calibrated on ``calibration_frames(input_dir)``; "off" leaves it."""
+    if mode not in INT8_YOLO:
+        raise ValueError(f"unknown --int8-yolo mode {mode!r}")
+    if mode == "off":
+        return params
+    q = quantize_yolo_params(params["yolo"], only_1x1=mode == "1x1")
+    frames = calibration_frames(input_dir, cfg.det_size)
+    return {**params, "yolo": calibrate_yolo_act_scales(q, frames, cfg.yolo)}
+
+
 def load_runtime(args):
     """(params, MANO model, config, device) for a subcommand's arguments:
     the weights of ``--checkpoint`` or the seeded init, then the fast path."""
@@ -152,6 +212,7 @@ def load_runtime(args):
     if getattr(args, "augment", False):
         cfg = dataclasses.replace(cfg, tta=True)
     params, cfg = apply_fast_path(params, cfg, args.fast_path, args.calib_scales, args.tome_r)
+    params = apply_int8_yolo(params, cfg, args.int8_yolo, getattr(args, "input", None))
     return params, mano, cfg, device
 
 
@@ -250,8 +311,9 @@ def yolo_label_lines(dets: list, h: int, w: int, save_conf: bool = False) -> lis
 def cmd_detect(args) -> int:
     params, mano, cfg, device = load_runtime(args)
     program = FrameProgram(params, mano, cfg, device)
-    if args.save_txt:
-        os.makedirs(args.save_txt, exist_ok=True)
+    for d in (args.save_txt, args.save_img):
+        if d:
+            os.makedirs(d, exist_ok=True)
     for name, img in read_images(args.input):
         if img is None:
             continue
@@ -261,6 +323,16 @@ def cmd_detect(args) -> int:
             with open(os.path.join(args.save_txt, os.path.splitext(name)[0] + ".txt"),
                       "w") as f:
                 f.write("\n".join(lines) + ("\n" if lines else ""))
+        if args.save_img:  # each box and its "<label> <score>" tag: right green, left orange
+            import cv2
+
+            from hamer_yolo_tpu_torch.utils.viz import plot_box
+
+            vis = img
+            for d in dets:
+                vis = plot_box(vis, d["box"], label=f"{d['label']} {d['score']:.2f}",
+                               color=(0, 200, 0) if d["label"] == "right" else (0, 120, 255))
+            cv2.imwrite(os.path.join(args.save_img, name), vis)
         print(json.dumps({"image": name, "detections": dets}))
     return 0
 
@@ -280,7 +352,8 @@ def cmd_depth(args) -> int:
 
 
 def cmd_reconstruct(args) -> int:
-    mano = load_mano(args.mano_dir, torch.device(args.device))
+    device = torch.device(args.device)
+    mano = load_mano(args.mano_dir, device)
     os.makedirs(args.output, exist_ok=True)
     count = 0
     for f in sorted(os.listdir(args.input)):
@@ -290,8 +363,36 @@ def cmd_reconstruct(args) -> int:
         obj_path = os.path.join(args.output, f.replace(".npy", ".obj"))
         if reconstruct_and_save_obj(mano, results, obj_path) is not None:
             count += 1
+        if args.overlay_images:
+            write_lit_overlay(mano, results, f[:-4], args.overlay_images, args.output, device)
     print(f"wrote {count} OBJ files to {args.output}")
     return 0
+
+
+def write_lit_overlay(mano: ManoModel, results: dict, stem: str, image_dir: str, out_dir: str,
+                      device) -> None:
+    """``reconstruct --overlay-images``: the frame's hands (left, then right)
+    rendered lit over ``image_dir``'s image of the same stem, under the
+    default intrinsics of its size, to ``out_dir``/<stem>_overlay.png; no
+    file where there is no such image or no hand."""
+    import cv2
+
+    from hamer_yolo_tpu_torch.utils.render import lit_mesh_overlay
+
+    img = None
+    for ext in IMAGE_EXTS:
+        path = os.path.join(image_dir, stem + ext)
+        if os.path.exists(path):
+            img = cv2.imread(path)
+            break
+    hands = [reconstruct_hand_mesh(mano, results[s]) for s in ("left", "right")
+             if results.get(s) is not None]
+    if img is None or not hands:
+        return
+    K = default_intrinsics(img.shape)
+    for h in hands:
+        img = lit_mesh_overlay(img, h["vertices"], h["faces"], K, device=device)
+    cv2.imwrite(os.path.join(out_dir, stem + "_overlay.png"), img)
 
 
 def cmd_rgbd(args) -> int:
@@ -371,6 +472,10 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--calib-scales", default=None, metavar="NPZ",
                        help="static activation scales (calibrate_int8 stats) for --fast-path "
                             "int8 / int8-tome")
+        p.add_argument("--int8-yolo", default="off", choices=INT8_YOLO,
+                       help="W8A8 the detector with static scales calibrated on the first "
+                            "frames of --input: 1x1 = pointwise convs only, all = spatial "
+                            "convs too; composes with --fast-path")
 
     p = sub.add_parser("infer", help="full pipeline over an image dir")
     common(p)
@@ -428,6 +533,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "cls x_c y_c w h, normalized)")
     p.add_argument("--save-conf", action="store_true",
                    help="append confidence to --save-txt rows")
+    p.add_argument("--save-img", default=None, metavar="DIR",
+                   help="write each image with its boxes drawn (plot_one_box equivalent)")
     p.add_argument("--augment", action="store_true",
                    help="3-scale + flip detector TTA (detect.py --augment)")
     p.set_defaults(fn=cmd_detect)
@@ -442,6 +549,9 @@ def build_parser() -> argparse.ArgumentParser:
     common(p)
     p.add_argument("--input", required=True)
     p.add_argument("--output", required=True)
+    p.add_argument("--overlay-images", default=None, metavar="DIR",
+                   help="source image dir: also write lit z-buffered mesh overlays "
+                        "(<stem>_overlay.png) next to the OBJs")
     p.set_defaults(fn=cmd_reconstruct)
 
     p = sub.add_parser("rgbd", help="RGB-D KeypointFusion inference (Model_RGBD equivalent)")

@@ -2,10 +2,12 @@
 
 The structure (nested dicts and lists, None for parameter-free layers) is
 kept; every leaf is mapped by its key and rank, and a leaf that no rule
-covers raises, so an unported parameter form (int8 conv weights, a new
-head) can never be loaded silently wrong. The int8 trees of
-core/quant (``quantize_vit_params``, ``attach_static_act_scales``) load as
-they are: "q" int8 weights, "scale" f32 vectors, "sx" f32 scalars.
+covers raises, so an unported parameter form (a new head) can never be
+loaded silently wrong. The int8 trees of
+core/quant (``quantize_vit_params``, ``attach_static_act_scales``,
+``quantize_yolo_params``, ``calibrate_yolo_act_scales``) load as they are:
+"q" int8 weights (an int8 conv's HWIO -> OIHW as a float conv's), "scale"
+f32 vectors, "sx" f32 scalars.
 
 Layouts (the JAX conventions are NHWC, HWIO convs, (in, out) linears):
 conv weights HWIO -> OIHW, transposed once here (a grouped conv's HWIO
@@ -47,11 +49,13 @@ _RULES = {
     ("cross_posembed", 2): lambda a: a,
     ("pos_embed", 2): lambda a: a,
     ("weight_dis", 1): lambda a: a,
+    ("gamma", 1): lambda a: a,                    # ConvNeXt's layer scale
 }
-# int8 leaves: (parent key, key, rank) -> the rule. Only the int8 linears of
-# quantize_vit_params ({"wq": {"q", "scale"}}) are ported; the int8 convs of
-# JAX's quantize_yolo_params ({"w": {"q", "scale"}}) still raise.
-_INT8_RULES = {("wq", "q", 2): lambda a: a}       # (in, out) int8 linear
+# int8 leaves: (parent key, key, rank) -> the rule: the int8 linears of
+# quantize_vit_params ({"wq": {"q", "scale"}}) and the int8 convs of
+# quantize_yolo_params ({"w": {"q", "scale"}, "sx"?}).
+_INT8_RULES = {("wq", "q", 2): lambda a: a,       # (in, out) int8 linear
+               ("w", "q", 4): _RULES[("w", 4)]}   # int8 conv, HWIO -> OIHW
 
 
 def _convert(node: Any, path: Tuple[str, ...], device) -> Any:

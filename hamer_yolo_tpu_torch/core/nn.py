@@ -17,7 +17,7 @@ from __future__ import annotations
 import functools
 import math
 import weakref
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -157,15 +157,49 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
 
 
-def conv2d(p: Params, x: torch.Tensor, stride: int = 1, padding: int = 0,
+def resolve_padding(padding: Any, hw: Tuple[int, int], k: Tuple[int, int],
+                    stride: Tuple[int, int]) -> list:
+    """JAX's padding forms -> ((top, bottom), (left, right)): an int, "SAME"
+    (XLA's: the total pad split with the extra row at the end), "VALID", or
+    explicit pairs."""
+    if isinstance(padding, int):
+        return [(padding, padding), (padding, padding)]
+    if padding == "VALID":
+        return [(0, 0), (0, 0)]
+    if padding == "SAME":
+        pads = []
+        for dim, kk, s in zip(hw, k, stride):
+            tot = max((-(-dim // s) - 1) * s + kk - dim, 0)
+            pads.append((tot // 2, tot - tot // 2))
+        return pads
+    return [tuple(int(v) for v in p) for p in padding]
+
+
+def conv_kernel_size(w) -> int:
+    """kh of a conv weight: an (O, C, kh, kw) tensor or an int8 {"q", "scale"}."""
+    return (w["q"] if isinstance(w, dict) else w).shape[2]
+
+
+def conv2d(p: Params, x: torch.Tensor, stride: int = 1, padding: Any = 0,
            groups: int = 1) -> torch.Tensor:
     """x (B, H, W, C) NHWC, p["w"] (O, C / groups, kh, kw) -> (B, H', W', O).
 
-    Symmetric integer padding only (every conv of the ported paths uses it).
+    ``padding`` is an int, or JAX's "SAME", "VALID" or ((top, bottom),
+    (left, right)). Where p["w"] is an int8 {"q", "scale"} the conv takes
+    JAX's W8A8 routes (core/int8_conv.py).
     """
-    y = F.conv2d(x.permute(0, 3, 1, 2), cast_weight(p["w"], x.dtype), None, stride, padding,
-                 1, groups)
-    y = y.permute(0, 2, 3, 1)
+    strides = (stride, stride) if isinstance(stride, int) else tuple(stride)
+    if isinstance(p["w"], dict):
+        from hamer_yolo_tpu_torch.core.int8_conv import int8_conv2d
+
+        y = int8_conv2d(p, x, strides, padding, groups)
+    else:
+        xc = x.permute(0, 3, 1, 2)
+        w = cast_weight(p["w"], x.dtype)
+        if not isinstance(padding, int):
+            (pt, pb), (pl, pr) = resolve_padding(padding, x.shape[1:3], w.shape[2:], strides)
+            xc, padding = F.pad(xc, (pl, pr, pt, pb)), 0
+        y = F.conv2d(xc, w, None, strides, padding, 1, groups).permute(0, 2, 3, 1)
     if "b" in p:
         y = y + cast_weight(p["b"], x.dtype)
     return y

@@ -1,4 +1,4 @@
-"""W8A8 int8 ViT (port of hamer_yolo_tpu/core/quant.py, ViT part).
+"""W8A8 int8 ViT and detector (port of hamer_yolo_tpu/core/quant.py).
 
 - weights: per-output-channel symmetric int8, quantized once
   (``quantize_vit_params``; on the card with the K-major copies the int8
@@ -9,6 +9,11 @@
   per-tensor scale ("sx", attached by ``attach_static_act_scales`` from the
   stats of ``collect_vit_act_stats``);
 - int32 sums, dequantized to the compute dtype.
+
+The detector's convs (``quantize_yolo_params``: {"w": {"q", "scale"}} per
+conv, the pointwise ones or all but the head) take nn.conv2d's int8 routes
+(core/int8_conv.py); ``calibrate_yolo_act_scales`` attaches each one's
+static scale "sx" from an eager pass over a few frames.
 
 ``vit_forward_int8`` runs either the unfused composition (``int8_linear`` +
 the einsum or K7 attention, in the compute dtype, as JAX's ``fused=False``)
@@ -351,3 +356,86 @@ def vit_blocks_int8(params_q: Params, tok: torch.Tensor, cfg, fused: Optional[bo
                                                 cfg.num_heads)
             tok = tok + int8_mlp_gelu(blk["mlp"], nn.layer_norm(blk["norm2"], tok))
     return nn.layer_norm(params_q["last_norm"], tok)
+
+
+# ------------------------------------------------------------ the detector
+def quantize_conv_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """(O, C, kh, kw) f32 -> {q int8 (O, C, kh, kw), scale (O,) f32}, per
+    output channel."""
+    absmax = torch.amax(torch.abs(w), dim=(1, 2, 3))
+    scale = torch.clamp(_div127(absmax), min=1e-8)
+    q = torch.clamp(torch.round(w / scale[:, None, None, None]), -127, 127).to(torch.int8)
+    return {"q": q, "scale": scale.float()}
+
+
+def quantize_conv_tree(tree: Any, only_1x1: bool = False) -> Any:
+    """W8A8 every conv ({"w": 4-d, ...}) of a tree, recursively; with
+    ``only_1x1`` only the pointwise ones. Linears and norms stay as they are."""
+    if isinstance(tree, dict):
+        w = tree.get("w")
+        if isinstance(w, torch.Tensor) and w.ndim == 4:
+            if only_1x1 and w.shape[2:] != (1, 1):
+                return tree
+            return {**tree, "w": quantize_conv_weight(w)}
+        return {k: quantize_conv_tree(v, only_1x1) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(quantize_conv_tree(v, only_1x1) for v in tree)
+    return tree
+
+
+def quantize_yolo_params(params: Params, quant_detect: bool = False,
+                         only_1x1: bool = True) -> Params:
+    """W8A8 the detector's convs (``only_1x1``: the pointwise ones, JAX's
+    default; else every conv). The last layer, the detect / bin / keypoint
+    head, keeps its f32 weights unless ``quant_detect``."""
+    layers = params["layers"]
+    qlayers = [quantize_conv_tree(layer, only_1x1) for layer in layers[:-1]]
+    qlayers.append(quantize_conv_tree(layers[-1], only_1x1) if quant_detect else layers[-1])
+    return {**params, "layers": qlayers}
+
+
+def calibrate_yolo_act_scales(params_q: Params, images, cfg=None, spec=None) -> Params:
+    """Static per-tensor activation scales for a quantize_yolo_params tree:
+    runs the int8 forward eagerly over ``images`` ((H, W, 3) RGB frames in
+    [0, 1] at the detector's input size), one frame a call, on the tree's
+    device, recording each int8 conv's input absmax (core/int8_conv.
+    record_conv_absmax), so the statistics see the quantized upstream
+    activations. Returns the tree with "sx" = max(absmax / 127, 1e-8), an
+    f32 scalar, on every conv that ran; raises where none did."""
+    from hamer_yolo_tpu_torch.core.int8_conv import record_conv_absmax
+    from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig, yolov7_forward
+
+    cfg = cfg or YoloConfig()
+    device = next(t.device for layer in params_q["layers"] if layer is not None
+                  for t in _tensors(layer))
+    with torch.no_grad(), record_conv_absmax() as stats:
+        for img in images:
+            x = torch.as_tensor(np.asarray(img, np.float32), device=device)[None]
+            yolov7_forward(params_q, x, cfg, spec)
+    if not stats:
+        raise RuntimeError("calibration saw no quantized conv: pass a quantize_yolo_params tree")
+
+    def attach(tree):
+        if isinstance(tree, dict):
+            w = tree.get("w")
+            if isinstance(w, dict) and w["q"] in stats:
+                sx = np.float32(max(stats[w["q"]] / 127.0, 1e-8))
+                return {**tree, "sx": torch.tensor(sx, device=w["q"].device)}
+            return {k: attach(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(attach(v) for v in tree)
+        return tree
+
+    return attach(params_q)
+
+
+def _tensors(tree: Any):
+    """The tensors of a tree, depth first."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)

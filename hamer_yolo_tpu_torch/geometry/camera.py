@@ -1,6 +1,7 @@
 """Camera models on tensors (port of hamer_yolo_tpu/geometry/camera.py):
 projection, the crop-camera -> full-image lift under real intrinsics (with
-RootNet's depth refine) and RootNet's k value."""
+RootNet's depth refine), pixel (u, v, depth) <-> camera xyz, and RootNet's
+k value."""
 from __future__ import annotations
 
 from typing import Optional
@@ -64,3 +65,24 @@ def calculate_k_value(bbox_wh: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
     slot's zero box gives a finite k and not inf."""
     area = torch.clamp(bbox_wh[..., 0] * bbox_wh[..., 1], min=1.0)
     return torch.sqrt(real_area * fx * fy / area)
+
+
+def _intrinsics(K: torch.Tensor):
+    """fx, fy, cx, cy of (..., 3, 3) K, each (..., 1)."""
+    return (K[..., 0, 0:1], K[..., 1, 1:2], K[..., 0, 2:3], K[..., 1, 2:3])
+
+
+def uvd2xyz(uvd: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """(..., N, 3) pixel (u, v, depth) -> camera xyz under (..., 3, 3) K."""
+    fx, fy, cx, cy = _intrinsics(K)
+    x = (uvd[..., 0] - cx) * uvd[..., 2] / fx
+    y = (uvd[..., 1] - cy) * uvd[..., 2] / fy
+    return torch.stack([x, y, uvd[..., 2]], dim=-1)
+
+
+def xyz2uvd(xyz: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """(..., N, 3) camera xyz -> pixel (u, v, depth) under (..., 3, 3) K."""
+    fx, fy, cx, cy = _intrinsics(K)
+    u = xyz[..., 0] * fx / xyz[..., 2] + cx
+    v = xyz[..., 1] * fy / xyz[..., 2] + cy
+    return torch.stack([u, v, xyz[..., 2]], dim=-1)

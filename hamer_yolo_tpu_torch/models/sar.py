@@ -11,9 +11,12 @@ hamer_yolo_tpu/models/sar.py).
   z = sum(heatmap * z map). Output (B, 799, 3) uvd: 778 vertices, 21 joints.
 - RootNet: global average pool of the backbone map -> 1x1 conv -> gamma;
   absolute depth = gamma * k_value (geometry/camera.calculate_k_value).
+- The backbone: ResNet-34 (512 channels) or, with ``backbone="convnext"``,
+  ConvNeXt-base (1024 channels, models/convnext.py), the reference's two
+  RootNets.
 
-The main path runs only the backbone and ``rootnet_depth``; the head is
-ported so that ``init_sar`` makes JAX's tree and ``sar_forward`` matches it.
+The main path runs only the backbone and ``rootnet_depth``;
+pipeline/sar_mesh.sar_full_mesh runs the head too.
 """
 from __future__ import annotations
 
@@ -23,12 +26,13 @@ from typing import Tuple
 import torch
 
 from hamer_yolo_tpu_torch.core import nn
+from hamer_yolo_tpu_torch.models.convnext import convnext_forward, init_convnext
 from hamer_yolo_tpu_torch.models.resnet import init_resnet34, resnet34_forward
 
 
 @dataclass(frozen=True)
 class SarConfig:
-    backbone: str = "resnet34"  # or "convnext" (base): not ported yet
+    backbone: str = "resnet34"  # or "convnext" (base)
     input_size: int = 256
     num_verts: int = 778
     num_joints: int = 21
@@ -54,13 +58,6 @@ class SarConfig:
     @property
     def graph_in_dim(self) -> int:
         return self.num_fms * self.feature_size + 3
-
-
-def _check_backbone(cfg: SarConfig) -> None:
-    if cfg.backbone != "resnet34":
-        raise NotImplementedError(
-            f"SAR backbone {cfg.backbone!r}: only resnet34 is ported; the ConvNeXt backbone "
-            "is queued in ROADMAP.md, Queue 1 item 9")
 
 
 def graph_conv_init(gen: torch.Generator, num_nodes: int, in_dim: int, out_dim: int
@@ -147,10 +144,11 @@ def sar_head_forward(p: nn.Params, feats: torch.Tensor, cfg: SarConfig = SarConf
 
 def init_sar(gen: torch.Generator, template: torch.Tensor, cfg: SarConfig = SarConfig()
              ) -> nn.Params:
-    """Random-init SAR: backbone, head and RootNet's depth layer, drawn from
-    ``gen`` in that order on its device."""
-    _check_backbone(cfg)
-    return {"backbone": init_resnet34(gen),
+    """Random-init SAR: backbone (ResNet-34 or ConvNeXt-base, as
+    ``cfg.backbone`` says), head and RootNet's depth layer, drawn from ``gen``
+    in that order on its device."""
+    backbone = init_resnet34(gen) if cfg.backbone == "resnet34" else init_convnext(gen, "base")
+    return {"backbone": backbone,
             "head": init_sar_head(gen, template, cfg),
             "rootnet": {"depth_layer": nn.conv_init(gen, 1, cfg.backbone_channels, 1,
                                                     bias=True)}}
@@ -159,8 +157,10 @@ def init_sar(gen: torch.Generator, template: torch.Tensor, cfg: SarConfig = SarC
 def sar_backbone_forward(params: nn.Params, x: torch.Tensor, cfg: SarConfig = SarConfig()
                          ) -> torch.Tensor:
     """(B, H, W, 3) normalised patch -> (B, H/32, W/32, C) in the compute dtype."""
-    _check_backbone(cfg)
-    return resnet34_forward(params["backbone"], x.to(getattr(torch, cfg.compute_dtype)))
+    x = x.to(getattr(torch, cfg.compute_dtype))
+    if cfg.backbone == "resnet34":
+        return resnet34_forward(params["backbone"], x)
+    return convnext_forward(params["backbone"], x)
 
 
 def sar_forward(params: nn.Params, x: torch.Tensor, cfg: SarConfig = SarConfig()

@@ -22,7 +22,7 @@ def conv_block_init(gen: torch.Generator, c1: int, c2: int, k: int = 1) -> nn.Pa
 
 
 def conv_block(p: nn.Params, x: torch.Tensor, s: int = 1) -> torch.Tensor:
-    k = p["conv"]["w"].shape[-1]
+    k = nn.conv_kernel_size(p["conv"]["w"])
     return silu(nn.conv2d(p["conv"], x, stride=s, padding=k // 2))
 
 

@@ -41,7 +41,7 @@ _CSP = {"GCSPA": "a", "GCSPB": "b", "GCSPC": "c"}
 def _conv(p: Params, x: torch.Tensor, s: int = 1, act: bool = True,
           groups: int = 1) -> torch.Tensor:
     """Conv (BN folded) + SiLU, grouped where ``groups`` says."""
-    k = p["conv"]["w"].shape[-1]
+    k = nn.conv_kernel_size(p["conv"]["w"])
     y = nn.conv2d(p["conv"], x, stride=s, padding=k // 2, groups=groups)
     return B.silu(y) if act else y
 

@@ -70,6 +70,8 @@ def numpy_params(init_fn, seed: int = 0):
             v = 0.02 * rng.normal(size=shape)
         elif key == "weight_dis":  # KPFusion's GAM / spatial gate logit
             v = rng.normal(size=shape)
+        elif key == "gamma":  # ConvNeXt's layer scale: O(1), where JAX's 1e-6 init
+            v = rng.uniform(0.5, 1.0, shape)  # would hide every block
         else:
             raise KeyError(path)
         return v.astype(np.float32)

@@ -67,7 +67,8 @@ def _at(tree, path):
 
 @pytest.mark.parametrize("leaf", [
     {"w": np.zeros((2, 2, 2), np.float32)},
-    {"conv": {"w": {"q": np.zeros((1, 1, 4, 4), np.int8), "scale": np.ones(4, np.float32)}}},
+    # an int8 conv weight maps (HWIO q); a rank-3 one has no rule
+    {"conv": {"w": {"q": np.zeros((1, 4, 4), np.int8), "scale": np.ones(4, np.float32)}}},
     {"mystery": np.ones(3, np.float32)},
 ], ids=["rank3_weight", "int8_conv", "unknown_key"])
 def test_unmapped_leaf_raises(tmp_path, leaf):

@@ -1110,8 +1110,8 @@ def test_batched_pipeline_on_cuda(dev):
         pipe.process_batch([frames[0].astype(np.float32) - 1.0], K)
 
 
-def _tiny_runtime(dev, fast_path="none"):
-    from hamer_yolo_tpu_torch.cli.main import apply_fast_path, pipeline_config
+def _tiny_runtime(dev, fast_path="none", int8_yolo="off"):
+    from hamer_yolo_tpu_torch.cli.main import apply_fast_path, apply_int8_yolo, pipeline_config
     from hamer_yolo_tpu_torch.core.checkpoint import init_pipeline_params
     from hamer_yolo_tpu_torch.core.mano_assets import synthetic_mano_model
     from hamer_yolo_tpu_torch.models.mano import ManoModel
@@ -1120,7 +1120,7 @@ def _tiny_runtime(dev, fast_path="none"):
     mano = ManoModel.from_arrays(synthetic_mano_model(0), dev)
     params = init_pipeline_params(0, mano, cfg.yolo, cfg.hamer, cfg.sar, device=dev)
     params, cfg = apply_fast_path(params, cfg, fast_path)
-    return params, mano, cfg
+    return apply_int8_yolo(params, cfg, int8_yolo), mano, cfg
 
 
 def _eager(pipe, frames, K, state=None):
@@ -1150,18 +1150,20 @@ def _assert_same(got, ref):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
 
 
-@pytest.mark.parametrize("fast_path", ["none", "int8"])
+@pytest.mark.parametrize("fast_path", ["none", "int8", "int8-yolo-all"])
 def test_captured_programs_match_eager(dev, fast_path):
     """Every captured program against the same function run eagerly on the
     same inputs, bit for bit, at the --tiny config: BatchedPipeline's detect
     and tracked programs, FrameProgram and MaskedProgram; a second call of
-    a bucket is a replay (no launch counted)."""
+    a bucket is a replay (no launch counted). "int8-yolo-all": the bf16 ViT
+    behind the W8A8 detector (--int8-yolo all)."""
     from hamer_yolo_tpu_torch.ops.attn_block import fused_bf16_attn_block
     from hamer_yolo_tpu_torch.pipeline.frame import infer_frame, infer_frame_with_boxes
     from hamer_yolo_tpu_torch.pipeline.runner import FrameProgram, MaskedProgram, _bucket_pad
     from hamer_yolo_tpu_torch.pipeline.serving import BatchedPipeline
 
-    params, mano, cfg = _tiny_runtime(dev, fast_path)
+    params, mano, cfg = (_tiny_runtime(dev, "none", "all") if fast_path == "int8-yolo-all"
+                         else _tiny_runtime(dev, fast_path))
     rng = np.random.default_rng(7)
     frames = [rng.integers(0, 256, (120, 160, 3), dtype=np.uint8) for _ in range(3)]
     K = np.float32([[200.0, 0, 80], [0, 200.0, 60], [0, 0, 1]])
@@ -1233,26 +1235,182 @@ def test_two_batches_in_flight_keep_their_outputs(dev):
         _assert_same(o, _eager(pipe, frames[i:i + 2], K))
 
 
-# Last in the file: on the card (PyTorch 2.11), a profiler session early in
-# the process left test_k9_matches_plain's sessions, after the tests between,
-# recording no device activity at all; back to back they both record.
+# ------------------------------------------- int8 detector, ConvNeXt SAR, overlays
+def test_int8_conv_routes_on_cuda_match_cpu(dev):
+    """Each int8 conv route on the card (torch._int_mm with K, N and the
+    rows padded) against the CPU, bit for bit: int32 sums are exact and the
+    quantize and dequantize are the same elementwise ops."""
+    from hamer_yolo_tpu_torch.core.quant import quantize_conv_weight
+
+    rng = np.random.default_rng(0)
+    for k, cin, cout, stride, pad, groups, static in (
+            (1, 16, 24, 1, 0, 1, True), (1, 16, 24, 2, 0, 1, False), (1, 3, 5, 1, 0, 1, False),
+            (3, 3, 32, 2, 1, 1, True), (3, 16, 24, 1, "SAME", 1, True),
+            (3, 16, 24, 2, ((1, 2), (0, 1)), 1, True), (3, 16, 24, 1, 1, 4, True),
+            (5, 16, 16, 2, 2, 16, False), (3, 16, 24, 1, 1, 1, False)):
+        w = torch.from_numpy(rng.uniform(-0.3, 0.3, (cout, cin // groups, k, k)).astype(np.float32))
+        x = torch.from_numpy((2 * rng.normal(size=(2, 11, 13, cin))).astype(np.float32))
+        p = {"w": quantize_conv_weight(w), "b": torch.from_numpy(
+            (0.1 * rng.normal(size=cout)).astype(np.float32))}
+        if static:
+            p["sx"] = torch.tensor(float(x.abs().max()) * 0.9 / 127)
+        ref = nn.conv2d(p, x.bfloat16(), stride, pad, groups)
+        got = nn.conv2d(_to(p, dev), x.bfloat16().to(dev), stride, pad, groups)
+        assert torch.equal(got.cpu(), ref), (k, cin, cout, stride, pad, groups, static)
+
+
+def test_int8_detector_on_cuda_matches_cpu(dev):
+    """The --tiny detector quantized ("1x1" and "all") and calibrated on the
+    card: the scales within 3% of the CPU's (a flipped int8 step upstream
+    moves an absmax; tests/test_torch_int8_yolo.py's CALIB_REL), and the
+    decoded output as accurate as the CPU's against the CPU's f32 float
+    detector within a factor 2."""
+    from hamer_yolo_tpu_torch.cli.main import pipeline_config
+    from hamer_yolo_tpu_torch.models.yolov7.model import init_yolov7, yolov7_forward
+
+    cfg = pipeline_config(tiny=True).yolo
+    params = init_yolov7(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(1)
+    frames = list(rng.random((2, 64, 64, 3)).astype(np.float32))
+    x = torch.from_numpy(rng.random((4, 64, 64, 3)).astype(np.float32))
+    ref32 = yolov7_forward(params, x, dataclasses.replace(cfg, compute_dtype="float32"))
+    for mode in ("1x1", "all"):
+        q = quant.quantize_yolo_params(params, only_1x1=mode == "1x1")
+        cpu = quant.calibrate_yolo_act_scales(q, frames, cfg)
+        card = quant.calibrate_yolo_act_scales(_to(q, dev), frames, cfg)
+        sx_cpu = torch.stack([t for t in _leaves(cpu, "sx")])
+        sx_card = torch.stack([t.cpu() for t in _leaves(card, "sx")])
+        torch.testing.assert_close(sx_card, sx_cpu, rtol=0.03, atol=0)
+        got = yolov7_forward(_to(cpu, dev), x.to(dev), cfg).cpu()
+        ref = yolov7_forward(cpu, x, cfg)
+        assert torch.isfinite(got).all()
+        assert (got - ref32).abs().max() <= 2.0 * (ref - ref32).abs().max(), mode
+
+
+def _leaves(tree, key):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == key:
+                yield v
+            else:
+                yield from _leaves(v, key)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v, key)
+
+
+def test_convnext_sar_on_cuda_matches_cpu(dev):
+    """SAR with ConvNeXt-base at 64 (gamma redrawn to O(1)) and the full mesh
+    on the card: f32 uvd at the SAR limit (atol 1e-2, rtol 1e-3), root depth
+    and xyz at 2e-3; bf16 within a factor 2 of the CPU's bf16 against f32."""
+    from hamer_yolo_tpu_torch.core.mano_assets import synthetic_mano_model
+    from hamer_yolo_tpu_torch.models.mano import ManoModel
+    from hamer_yolo_tpu_torch.models.sar import SarConfig, init_sar, sar_forward
+    from hamer_yolo_tpu_torch.pipeline.sar_mesh import sar_full_mesh
+
+    mano = ManoModel.from_arrays(synthetic_mano_model(0))
+    gen = torch.Generator().manual_seed(0)
+    params = init_sar(gen, mano.v_template, SarConfig(backbone="convnext", input_size=64,
+                                                     feature_hw=2, heatmap_size=8))
+    for blocks in params["backbone"]["stages"]:
+        for blk in blocks:
+            blk["gamma"] = torch.rand(blk["gamma"].shape, generator=gen) * 0.5 + 0.5
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(4, 64, 64, 3)).astype(np.float32))
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = SarConfig(backbone="convnext", input_size=64, feature_hw=2, heatmap_size=8,
+                        compute_dtype=dt)
+        out[dt] = (sar_forward(params, x, cfg).double(),
+                   sar_forward(_to(params, dev), x.to(dev), cfg).double().cpu())
+    torch.testing.assert_close(out["float32"][1], out["float32"][0], rtol=1e-3, atol=1e-2)
+    cpu16, card16 = out["bfloat16"]
+    assert (card16 - out["float32"][0]).abs().max() <= 2.0 * (cpu16 - out["float32"][0]).abs().max()
+    cfg = SarConfig(backbone="convnext", input_size=64, feature_hw=2, heatmap_size=8,
+                    compute_dtype="float32")
+    img = torch.from_numpy(rng.uniform(0, 255, (90, 120, 3)).astype(np.float32))
+    boxes = torch.tensor([[10, 20, 60, 70], [50, 5, 110, 80], [0, 0, 30, 30], [40, 40, 100, 88.]])
+    hw, flip = torch.tensor([90.0, 120.0]), torch.tensor([0.0, 1.0, 0.0, 1.0])
+    K = torch.tensor([[300.0, 0, 60], [0, 310.0, 45], [0, 0, 1]])
+    depth = torch.from_numpy(rng.uniform(0.3, 1.5, (90, 120)).astype(np.float32))
+    for dimg in (None, depth):
+        extra = () if dimg is None else (dimg,)
+        ref = sar_full_mesh(params, img, boxes, hw, K, cfg, flip, *extra)
+        got = sar_full_mesh(_to(params, dev), img.to(dev), boxes.to(dev), hw.to(dev), K.to(dev),
+                            cfg, flip.to(dev), *(t.to(dev) for t in extra))
+        for k in ref:
+            tol = dict(rtol=1e-3, atol=1e-2) if "uvd" in k else dict(rtol=0, atol=2e-3)
+            torch.testing.assert_close(got[k].cpu(), ref[k], **tol, msg=k)
+
+
+def test_rasterize_on_cuda_matches_cpu(dev):
+    """The lit rasterizer on the card: the same face a supersample (alpha
+    equal), colours to f64 rounding, the uint8 overlay equal."""
+    from hamer_yolo_tpu_torch.core.mano_assets import synthetic_mano_model
+    from hamer_yolo_tpu_torch.models.mano import ManoModel
+    from hamer_yolo_tpu_torch.pipeline.reconstruct import reconstruct_hand_mesh
+    from hamer_yolo_tpu_torch.utils.render import lit_mesh_overlay, rasterize_mesh
+
+    mano = ManoModel.from_arrays(synthetic_mano_model(0))
+    rng = np.random.default_rng(3)
+    hand = {"theta": (0.3 * rng.normal(size=48)).astype(np.float32),
+            "betas": (0.5 * rng.normal(size=10)).astype(np.float32), "is_right": 1.0,
+            "cam_t": np.array([0.02, 0.0, 0.6], np.float32)}
+    m = reconstruct_hand_mesh(mano, hand)
+    K = np.array([[600.0, 0, 160], [0, 600.0, 120], [0, 0, 1]], np.float32)
+    img = rng.integers(0, 255, (240, 320, 3)).astype(np.uint8)
+    rgb, alpha = rasterize_mesh(m["vertices"], m["faces"], K, (240, 320))
+    rgb_d, alpha_d = rasterize_mesh(m["vertices"], m["faces"], K, (240, 320), device=dev)
+    assert (alpha > 0).sum() > 1000 and torch.equal(alpha_d.cpu(), alpha)
+    torch.testing.assert_close(rgb_d.cpu(), rgb, rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(lit_mesh_overlay(img, m["vertices"], m["faces"], K, device=dev),
+                                  lit_mesh_overlay(img, m["vertices"], m["faces"], K))
+
+
+# On the card (PyTorch 2.11) a profiler session followed by enough other
+# work in the same process leaves the next sessions recording no device
+# activity at all (back to back they both record); this test's sessions came
+# after test_k9_matches_plain's. So it profiles K1 in a process of its own.
+_K1_PROFILE = """
+import sys
+import numpy as np
+import torch
+from hamer_yolo_tpu_torch.ops.nms import greedy_nms_keep, greedy_nms_keep_mask
+
+dev = torch.device("cuda")
+rng = np.random.default_rng(3)
+boxes = np.zeros((4, 512, 4), np.float32)  # _boxes(rng, 4, 512)
+boxes[..., :2] = rng.uniform(0, 600, (4, 512, 2))
+boxes[..., 2:] = boxes[..., :2] + rng.uniform(10, 120, (4, 512, 2))
+boxes = torch.from_numpy(boxes).to(dev)
+active = torch.from_numpy(rng.uniform(0, 1, (4, 512)) > 0.2).to(dev)
+fn, act = ((greedy_nms_keep, active.float()) if sys.argv[1] == "f32" else
+           (greedy_nms_keep_mask, active))
+fn(boxes, act, 0.45)
+torch.cuda.synchronize()
+for _ in range(3):  # now and then the profiler records no device activity at all
+    before = greedy_nms_keep.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn(boxes, act, 0.45)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert greedy_nms_keep.launches == before + 1
+    if kernels:
+        break
+assert len(kernels) == 1 and "nms_keep_kernel" in kernels[0], kernels
+"""
+
+
 @pytest.mark.parametrize("entry", ["f32", "bool"])
 def test_nms_kernel_is_one_launch(dev, entry):
-    rng = np.random.default_rng(3)
-    boxes = torch.from_numpy(_boxes(rng, 4, 512)).to(dev)
-    active = torch.from_numpy(rng.uniform(0, 1, (4, 512)) > 0.2).to(dev)
-    fn, act = ((greedy_nms_keep, active.float()) if entry == "f32" else
-               (greedy_nms_keep_mask, active))
-    fn(boxes, act, 0.45)
-    torch.cuda.synchronize()
-    for _ in range(3):  # now and then the profiler records no device activity at all
-        before = greedy_nms_keep.launches
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn(boxes, act, 0.45)
-            torch.cuda.synchronize()
-        kernels = [e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        assert greedy_nms_keep.launches == before + 1
-        if kernels:
-            break
-    assert len(kernels) == 1 and "nms_keep_kernel" in kernels[0], kernels
+    """K1 (both entries) is one device kernel a call, by name in a profile
+    (in a process of its own, see above), and one count of its counter."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    res = subprocess.run([sys.executable, "-c", _K1_PROFILE, entry], cwd=repo, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-3000:]

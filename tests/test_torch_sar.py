@@ -23,7 +23,6 @@ absolute limits of the JAX package (root depth atol 2e-3,
 tests/test_composed_entrypoints.py:213-221; SAR uvd atol 1e-2 rtol 1e-3,
 tests/test_golden.py:113-123) are f32 limits and hold the f32 trunk.
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -292,16 +291,15 @@ def test_bridge_still_refuses_unmapped_sar_leaves(leaf):
 
 
 def test_port_init_matches_jax_tree_and_convnext_raises():
-    """init_sar makes JAX's tree (keys and shapes); the ConvNeXt backbone is
-    queued, not silently dropped."""
+    """init_sar makes JAX's tree (keys and shapes) with either backbone: the
+    ConvNeXt-base one no longer raises (it is ported, models/convnext.py)."""
     jm, tm = mano_pair()
-    cfg = jsar.SarConfig(**SMALL)
-    ref = jax.eval_shape(lambda k: jsar.init_sar(k, jm.v_template, cfg), jax.random.PRNGKey(0))
     gen = torch.Generator().manual_seed(0)
-    got = tsar.init_sar(gen, tm.v_template, tsar.SarConfig(**SMALL))
-    bridged = to_port(jax.tree_util.tree_map(lambda a: np.zeros(a.shape, np.float32), ref))
     shapes = lambda t: jax.tree_util.tree_map(lambda a: tuple(a.shape), t)  # noqa: E731
-    assert shapes(bridged) == shapes(got)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tsar.init_sar(gen, tm.v_template, dataclasses.replace(tsar.SarConfig(),
-                                                              backbone="convnext"))
+    for backbone in ("resnet34", "convnext"):
+        cfg = jsar.SarConfig(**SMALL, backbone=backbone)
+        ref = jax.eval_shape(lambda k: jsar.init_sar(k, jm.v_template, cfg),
+                             jax.random.PRNGKey(0))
+        got = tsar.init_sar(gen, tm.v_template, tsar.SarConfig(**SMALL, backbone=backbone))
+        bridged = to_port(jax.tree_util.tree_map(lambda a: np.zeros(a.shape, np.float32), ref))
+        assert shapes(bridged) == shapes(got), backbone
