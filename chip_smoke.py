@@ -89,7 +89,18 @@ ResNet-34 RootNet at 256; seeded random weights, synthetic MANO, numpy-made
   720p frame by utils/render.py, card against CPU and timed, and
   ``reconstruct --overlay-images`` through cli.main with the cv2 stand-in.
   No TPU kernel lies on these modules; ``detect --save-img`` draws with
-  cv2 and is left to the CPU tests.
+  cv2 and is left to the CPU tests;
+- training ("training"): tools/train_hamer at the default HamerConfig
+  (ViT-H, the discriminator) at B = 8 for 3 steps with its viz (K2, 32
+  launches a forward, under no_grad) and checkpoints, then --resume auto
+  for a fourth; YOLOv7's training form at 640, B = 8, three steps (the BN
+  stats move, the EMA counts 3); tools/train_kpfusion_rgbd at the default
+  KPFusionConfig, B = 4. No train step may launch a kernel. Each model's
+  step is timed (CUDA events) with its peak memory and profiled once; one
+  f32 step of each, card against CPU (HaMeR at full width with 2 blocks,
+  YOLO at 64 px, KPFusion at --tiny), the loss and each gradient held at
+  the stated limits; a train state reloaded bit-equal; K2 refusing a token
+  tensor that requires grad.
 
 A phase "ToMe shapes" holds K3, K4, K5 and K7 against their plain versions
 at the token counts ToMe gives them (N = 124 and 68 a crop, 16 crops), and
@@ -577,6 +588,7 @@ def main() -> int:
     graph_cache_phase(params, mano, cfg, dev, smi)
     rgbd_phase(dev, smi)
     int8_sar_overlay_phase(params, sparams, qcfg, mano, cfg, dev, depth, smi)
+    training_phase(dev, smi)
 
     # -- reference checks on a small input: the card against the CPU path ----
     check_reference(dev)
@@ -939,7 +951,8 @@ def http_phase(params, mano, cfg, dev, frames, depth, pools):
 def cv2_stand_in():
     """A module to stand in for cv2 on a machine without it: every file
     holds .npy data whatever its name (an image one frame, a video a stack
-    of frames; imwrite writes one), and an encoded image is .npy bytes."""
+    of frames; imwrite writes one), an encoded image is .npy bytes, and
+    line and circle draw nothing."""
     import io
     import types
 
@@ -968,6 +981,7 @@ def cv2_stand_in():
         return True
 
     cv2.imwrite = imwrite
+    cv2.line = cv2.circle = lambda img, *args, **kwargs: img  # draw nothing
     cv2.VideoCapture = VideoCapture
     return cv2
 
@@ -3453,6 +3467,312 @@ def overlay_phase(dev):
           "on the CPU)")
     if rc or not np.array_equal(written, card):
         raise RuntimeError("cli reconstruct --overlay-images: not the card's overlay")
+
+# -- training ----------------------------------------------------------------
+TRAIN_TIMED = 3            # train steps timed after one warm-up step
+HAMER_TRAIN_B, YOLO_TRAIN_B, KPF_TRAIN_B = 8, 8, 4
+
+
+def _captured(fn, *args):
+    """(fn(*args), what it printed), the print passed on as well."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    print(buf.getvalue(), end="")
+    return rc, buf.getvalue()
+
+
+def _allocated():
+    import torch
+
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _timed_steps(step, base, iters=TRAIN_TIMED):
+    """(median ms, [ms of each], the peak memory in bytes above ``base``,
+    last metrics): ``step()`` once to warm up, then ``iters`` times between
+    CUDA events. The peak is of all of them, the warm-up's included (it
+    makes the optimizer's state); ``base`` is what was allocated before the
+    model's train state and batch were made (_allocated), so the peak holds
+    them and not what earlier phases hold."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    times, out = [], None
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), times, torch.cuda.max_memory_allocated() - base, out
+
+
+def _finite(metrics, what):
+    bad = {k: float(v) for k, v in metrics.items() if not np.isfinite(float(v))}
+    if bad:
+        raise RuntimeError(f"{what}: non-finite losses {bad}")
+
+
+def _gib(nbytes):
+    return nbytes / 2 ** 30
+
+
+def print_train_profile(what, step):
+    """One train step under torch.profiler (top_kernels): its device ms, its
+    kernels and the six largest by name."""
+    dev_ms, kernels, top = top_kernels(step)
+    if not kernels:
+        print(f"training {what}: profile not measured (the session recorded no device activity)")
+        return
+    print(f"training {what} step under torch.profiler: {dev_ms:.2f} device ms in {kernels} "
+          f"kernels; largest: " + "; ".join(f"{name[:60]} {ms:.2f} ms ({n})"
+                                           for name, ms, n in top))
+
+
+def training_phase(dev, smi):
+    """The phase "training" at full width. HaMeR at the default HamerConfig (ViT-H, 32 blocks of 1280,
+    16 heads; the 6-layer MANO head; the discriminator):
+    tools/train_hamer.main --batch 8 --steps 3 --viz-every 2 --ckpt-every 2,
+    then --resume auto for a fourth step (the viz's forwards under no_grad
+    run K2, 32 launches each; the train steps launch no kernel); YOLOv7 in
+    training form at 640, four steps of make_yolo_train_step at B = 8;
+    KPFusion at the default KPFusionConfig, tools/train_kpfusion_rgbd.main
+    --batch 4 --steps 2. Each model's train step is timed after one warm-up
+    (CUDA events) with its peak memory, and profiled once (the largest
+    kernels by device time); then the card against the CPU
+    (tests/test_torch_train_pairs.py: one f32 step from the same weights and
+    batch, HaMeR at full width with 2 blocks, YOLO at 64 px and B = 8,
+    KPFusion at --tiny), a train state reloaded bit-equal, and K2 refusing a
+    token tensor that requires grad. The viz's K2 launches are checked and
+    printed here: the kernels line counts the bf16 path's own."""
+    import torch
+
+    t0 = time.perf_counter()
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = cv2_stand_in()
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            hamer_training(dev, smi, root)
+            yolo_training(dev, smi)
+            kpfusion_training(dev, smi, root)
+            training_card_against_cpu(dev, root)
+    finally:
+        if saved is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+    check_f22(dev)
+    torch.cuda.empty_cache()
+    print(f"phase training: {time.perf_counter() - t0:.1f} s")
+
+
+def hamer_training(dev, smi, root):
+    import torch
+
+    from hamer_yolo_tpu_torch.cli.main import load_mano
+    from hamer_yolo_tpu_torch.models.hamer import HamerConfig
+    from hamer_yolo_tpu_torch.tools import train_hamer as tool
+    from hamer_yolo_tpu_torch.training import train_hamer as T
+
+    out = os.path.join(root, "hamer")
+    args = ["--batch", str(HAMER_TRAIN_B), "--viz-every", "2", "--ckpt-every", "2",
+            "--device", "cuda", "--out", out]
+    t0 = time.perf_counter()
+    (rc, _), n = run_counted(lambda: _captured(tool.main, args + ["--steps", "3"]))
+    t_run = time.perf_counter() - t0
+    depth = HamerConfig().vit.depth
+    expect_launches("train_hamer (3 steps, viz at steps 0 and 2)", n,
+                    {k: (2 * depth if k == "K2" else 0) for k in n})
+    files = sorted(os.listdir(out))
+    imgs = sorted(os.listdir(os.path.join(out, "images")))
+    if rc != 0 or files != ["ckpt_2.npz", "ckpt_final.npz", "images", "metrics.jsonl"] \
+            or imgs != ["pred_grid_0.png", "pred_grid_2.png"]:
+        raise RuntimeError(f"train_hamer: rc {rc}, files {files}, images {imgs}")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if [r["step"] for r in recs] != [0]:
+        raise RuntimeError(f"train_hamer: metrics.jsonl steps {[r['step'] for r in recs]}")
+    _finite(recs[0], "train_hamer step 0")
+    ckpt_gb = os.path.getsize(os.path.join(out, "ckpt_final.npz")) / 1e9
+    os.remove(os.path.join(out, "ckpt_2.npz"))  # one full-width train state on disk at a time
+    t0 = time.perf_counter()
+    (rc, log), n2 = run_counted(lambda: _captured(tool.main, args + ["--steps", "4",
+                                                                      "--resume", "auto"]))
+    t_resume = time.perf_counter() - t0
+    expect_launches("train_hamer --resume auto (step 3, no viz)", n2, {k: 0 for k in n2})
+    if rc != 0 or "resumed at step 3" not in log:
+        raise RuntimeError(f"train_hamer --resume auto: rc {rc}, did not resume at step 3")
+
+    cfg = HamerConfig()
+    base = _allocated()
+    state = T.init_train_state(torch.Generator(dev).manual_seed(0), cfg)
+    batch = T.synthetic_batch(torch.Generator(dev).manual_seed(1), HAMER_TRAIN_B, cfg)
+    mano = load_mano(None, dev)
+    n_params = sum(t.numel() for t in _tree_leaves(state.params))
+    n_disc = sum(t.numel() for t in _tree_leaves(state.disc_params))
+    (ms, times, peak, metrics), n3 = run_counted(lambda: _timed_steps(
+        lambda: T.train_step(state, batch, mano, cfg), base))
+    expect_launches("HaMeR train steps", n3, {k: 0 for k in n3})
+    _finite(metrics, "HaMeR train step")
+    print(f"training HaMeR (ViT-H, {depth} blocks of {cfg.vit.embed_dim}; {n_params:,} + "
+          f"{n_disc:,} discriminator parameters) B={HAMER_TRAIN_B}: train_hamer 3 steps with "
+          f"the viz twice and 2 checkpoints {t_run:.1f} s (K2 {n['K2']} launches, the train "
+          f"steps none), --resume auto at step 3 {t_resume:.1f} s; a checkpoint "
+          f"{ckpt_gb:.2f} GB; train step p50 {ms:.2f} ms ({', '.join(f'{t:.2f}' for t in times)};"
+          f" CUDA events, 1 warm-up), peak memory {_gib(peak):.2f} GiB above what the phase "
+          f"held before; total "
+          f"{float(metrics['total']):.4f}, disc {float(metrics['disc_loss']):.4f} on {smi}")
+    print_train_profile("HaMeR", lambda: T.train_step(state, batch, mano, cfg))
+    del state, batch
+    torch.cuda.empty_cache()
+
+
+def yolo_training(dev, smi):
+    import torch
+
+    from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig
+    from hamer_yolo_tpu_torch.training import train_yolo as T
+
+    cfg = YoloConfig()
+    base = _allocated()
+    state = T.init_yolo_train_state(torch.Generator(dev).manual_seed(0), cfg)
+    batch = T.synthetic_yolo_batch(torch.Generator(dev).manual_seed(1), YOLO_TRAIN_B,
+                                   cfg.img_size)
+    step = T.make_yolo_train_step(cfg)
+    mean0 = state.params["layers"][0]["bn"]["mean"].clone()
+    n_params = sum(t.numel() for t in _tree_leaves(state.params))
+    (ms, times, peak, metrics), n = run_counted(lambda: _timed_steps(lambda: step(state, batch),
+                                                                     base))
+    expect_launches("YOLO train steps", n, {k: 0 for k in n})
+    _finite(metrics, "YOLO train step")
+    moved = float((state.params["layers"][0]["bn"]["mean"] - mean0).abs().max())
+    steps = 1 + TRAIN_TIMED
+    if state.step != steps or state.ema.updates != steps or not moved > 0:
+        raise RuntimeError(f"YOLO train: step {state.step}, EMA updates {state.ema.updates}, "
+                           f"BN mean moved {moved}")
+    print(f"training YOLOv7 (training form, {n_params:,} parameters, {cfg.compute_dtype}) at "
+          f"{cfg.img_size} B={YOLO_TRAIN_B}: {steps} steps, the EMA counted "
+          f"{state.ema.updates}, BN stats moved; train step p50 {ms:.2f} ms "
+          f"({', '.join(f'{t:.2f}' for t in times)}; CUDA events, 1 warm-up), peak memory "
+          f"{_gib(peak):.2f} GiB above what the phase held before; loss "
+          f"{float(metrics['loss']):.4f} on {smi}")
+    print_train_profile("YOLOv7", lambda: step(state, batch))
+    del state, batch
+    torch.cuda.empty_cache()
+
+
+def kpfusion_training(dev, smi, root):
+    import torch
+
+    from hamer_yolo_tpu_torch.models.kpfusion_rgbd.model import KPFusionConfig
+    from hamer_yolo_tpu_torch.tools import train_kpfusion_rgbd as tool
+    from hamer_yolo_tpu_torch.training import train_kpfusion_rgbd as T
+
+    out = os.path.join(root, "kpfusion")
+    t0 = time.perf_counter()
+    (rc, _), n = run_counted(lambda: _captured(tool.main, [
+        "--batch", str(KPF_TRAIN_B), "--steps", "2", "--log-every", "1", "--device", "cuda",
+        "--out", out]))
+    t_run = time.perf_counter() - t0
+    expect_launches("train_kpfusion_rgbd", n, {k: 0 for k in n})
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if rc != 0 or [r["step"] for r in recs] != [0, 1]:
+        raise RuntimeError(f"train_kpfusion_rgbd: rc {rc}, logged steps "
+                           f"{[r['step'] for r in recs]}")
+    for r in recs:
+        _finite(r, "train_kpfusion_rgbd")
+    cfg = KPFusionConfig()
+    base = _allocated()
+    state = T.init_train_state(torch.Generator(dev).manual_seed(0), cfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             T.synthetic_rgbd_batch(np.random.default_rng(1), KPF_TRAIN_B, cfg).items()}
+    (ms, times, peak, metrics), n2 = run_counted(lambda: _timed_steps(
+        lambda: T.train_step(state, batch, cfg), base))
+    expect_launches("KPFusion train steps", n2, {k: 0 for k in n2})
+    _finite(metrics, "KPFusion train step")
+    print(f"training KPFusion (default config) B={KPF_TRAIN_B}: train_kpfusion_rgbd 2 steps "
+          f"{t_run:.1f} s; train step p50 {ms:.2f} ms ({', '.join(f'{t:.2f}' for t in times)};"
+          f" CUDA events, 1 warm-up), peak memory {_gib(peak):.2f} GiB above what the phase "
+          f"held before; loss "
+          f"{float(metrics['loss']):.4f} on {smi}")
+    print_train_profile("KPFusion", lambda: T.train_step(state, batch, cfg))
+    del state, batch
+    torch.cuda.empty_cache()
+
+
+def training_card_against_cpu(dev, root):
+    """tests/test_torch_train_pairs.py's cases, held at its limits with no kernel
+    launched, and the HaMeR card state after its step saved and reloaded
+    bit-equal."""
+    import torch
+
+    from hamer_yolo_tpu_torch.training import train_hamer as TH
+    from hamer_yolo_tpu_torch.training.optim import named_leaves
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_train_pairs as P
+
+    res, n = run_counted(lambda: {case: P.card_against_cpu(case[0], dev, case[1])
+                                  for case in P.CASES})
+    expect_launches("train steps, card against CPU", n, {k: 0 for k in n})
+    card = res[("hamer", 2)]["card"]
+    path = os.path.join(root, "hamer_state.npz")
+    TH.save_train_state(path, card)
+    fresh = TH.load_train_state(path, TH.make_train_state(card.params, card.disc_params))
+    for (k, a), (_, b) in zip(named_leaves(TH.state_tree(card)), named_leaves(TH.state_tree(fresh))):
+        if not torch.equal(torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()):
+            raise RuntimeError(f"HaMeR train state reload: {k} not bit-equal")
+    if fresh.step != 1:
+        raise RuntimeError(f"HaMeR train state reload: step {fresh.step}")
+    parts = []
+    for (model, b), r in res.items():
+        err, leaf = r["worst"]
+        part = f"{model} B={b} {err:.2e} ({leaf}; limit {P.GRAD_REL[model]})"
+        if "f64" in r:
+            f64 = r["f64"]
+            part += (" [f32 from f64 at that leaf: card {:.2e}, CPU {:.2e}; ".format(
+                *f64["at_worst"]) + "; ".join(f"{d}'s worst {f64[d][0]:.2e} ({f64[d][1]})"
+                                              for d in ("card", "cpu")) + "]")
+        parts.append(part)
+    print("training card against CPU (one f32 step, same weights and batch, "
+          f"tests/test_torch_train_pairs.py; loss limits {P.LOSS_REL}): worst gradient "
+          + "; ".join(parts) + "; the HaMeR train state reloaded bit-equal")
+
+
+def check_f22(dev):
+    """K2's wrapper refuses a token tensor that requires grad under grad
+    mode, on the card; under no_grad the same call launches."""
+    import torch
+
+    from hamer_yolo_tpu_torch.ops.attn_block import fused_bf16_attn_block
+
+    g = torch.Generator(dev).manual_seed(8)
+    tok = torch.randn(2, 192, 1280, generator=g, device=dev, dtype=torch.bfloat16)
+    w = 0.02 * torch.randn(1280, 3840, generator=g, device=dev)
+    args = (w, torch.zeros(3840, device=dev), torch.ones(1280, device=dev),
+            torch.zeros(1280, device=dev), 16)
+    try:
+        fused_bf16_attn_block(tok.clone().requires_grad_(True), *args)
+    except ValueError as e:
+        if "fused_bf16_attn_block" not in str(e):
+            raise
+    else:
+        raise RuntimeError("K2 took a token tensor that requires grad under grad mode")
+    with torch.no_grad():
+        out = fused_bf16_attn_block(tok.clone().requires_grad_(True), *args)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        raise RuntimeError("K2 under no_grad: non-finite output")
+    print("training F22: K2 raised on a token tensor that requires grad under grad mode, "
+          "and launched under no_grad")
 
 
 def _to(tree, dev):

@@ -14,7 +14,8 @@ conv weights HWIO -> OIHW, transposed once here (a grouped conv's HWIO
 weight has I = C / groups and gets the same transpose); linear weights stay
 (in, out), the layout core/nn.linear and kernel K2 take; vectors and
 embeddings are copied as they are. Values stay float32, int8 weights int8
-in the same (in, out) layout.
+in the same (in, out) layout. A train state's step counts ("step",
+"updates") load as int32 scalars; ``to_jax_layout`` goes the other way.
 """
 from __future__ import annotations
 
@@ -58,6 +59,11 @@ _INT8_RULES = {("wq", "q", 2): lambda a: a,       # (in, out) int8 linear
                ("w", "q", 4): _RULES[("w", 4)]}   # int8 conv, HWIO -> OIHW
 
 
+# integer scalars of a train state (core/checkpoint): its step count and the
+# EMA's update count, kept as int32, JAX's dtype
+_INT_RULES = {("step", 0), ("updates", 0)}
+
+
 def _convert(node: Any, path: Tuple[str, ...], device) -> Any:
     if node is None:
         return None
@@ -67,6 +73,8 @@ def _convert(node: Any, path: Tuple[str, ...], device) -> Any:
         return [_convert(v, path + (str(i),), device) for i, v in enumerate(node)]
     arr = np.asarray(node)
     key = path[-1] if path else ""
+    if arr.dtype.kind in "iu" and (key, arr.ndim) in _INT_RULES:
+        return torch.from_numpy(arr.astype(np.int32)).to(device)
     if arr.dtype == np.int8:
         parent = path[-2] if len(path) > 1 else ""
         rule, dtype = _INT8_RULES.get((parent, key, arr.ndim)), np.int8
@@ -82,3 +90,19 @@ def from_jax_params(tree: Any, device="cpu") -> Any:
     """Convert a JAX parameter pytree whose leaves are numpy arrays (or
     anything ``np.asarray`` takes) into the port's tensors on ``device``."""
     return _convert(tree, (), device)
+
+
+def to_jax_layout(tree: Any) -> Any:
+    """The inverse of ``from_jax_params``: the port's tensors (any device) ->
+    numpy leaves in JAX layout, OIHW conv weights back to HWIO; numpy and
+    Python leaves are taken as they are."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: to_jax_layout(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_jax_layout(v) for v in tree]
+    if not isinstance(tree, torch.Tensor):
+        return np.asarray(tree)
+    a = tree.detach().cpu().numpy()
+    return np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if a.ndim == 4 else a

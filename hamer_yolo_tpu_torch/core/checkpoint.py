@@ -19,6 +19,8 @@ through ``core/convert``.
 from __future__ import annotations
 
 import json
+import os
+import re
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -93,3 +95,17 @@ def load_checkpoint(path: str, device="cuda") -> Any:
     (the card unless the caller names another). A leaf the bridge has no
     rule for raises ``KeyError``."""
     return from_jax_params(read_checkpoint(path), device)
+
+
+def latest_checkpoint(run_dir: str) -> Optional[str]:
+    """The checkpoint a run resumes from (JAX's rule over the port's files):
+    ``ckpt_final.npz`` in ``run_dir`` wins, else the ``ckpt_<step>.npz`` of
+    the highest step; None where there is none."""
+    if not os.path.isdir(run_dir):
+        return None
+    final = os.path.join(run_dir, "ckpt_final.npz")
+    if os.path.isfile(final):
+        return final
+    steps = [(int(m.group(1)), name) for name in os.listdir(run_dir)
+             if (m := re.fullmatch(r"ckpt_(\d+)\.npz", name))]
+    return os.path.join(run_dir, max(steps)[1]) if steps else None

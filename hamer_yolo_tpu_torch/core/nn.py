@@ -104,8 +104,11 @@ def derived(w: torch.Tensor, tag, make: Callable[[], Any]) -> Any:
 def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """``torch.tensor(values, dtype)`` on ``device``, made once: a constant
     copied from the host inside a forward would keep the forward from being
-    captured in a CUDA graph (pipeline/captured.py)."""
-    return torch.tensor(values, dtype=dtype, device=device)
+    captured in a CUDA graph (pipeline/captured.py). Made outside inference
+    mode whatever the caller's, so that autograd may save it (an index into
+    a train step's activations), also after an inference forward made it."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def cast_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -146,8 +149,11 @@ def weak_scalar(value: float, dtype: torch.dtype) -> float:
 
 def rsqrt(x: torch.Tensor) -> torch.Tensor:
     """rsqrt computed in f32 and rounded to x's dtype, which is what XLA does
-    for bf16 (torch's bf16 rsqrt rounds differently in a few elements)."""
-    return torch.rsqrt(x.float()).to(x.dtype)
+    for bf16 (torch's bf16 rsqrt rounds differently in a few elements); f32
+    and f64 in their own precision."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return torch.rsqrt(x.float()).to(x.dtype)
+    return torch.rsqrt(x)
 
 
 def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -215,11 +221,42 @@ def batch_norm(p: Params, x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
     rounded there, as JAX computes it (rsqrt(var + eps) included; eps 1e-3
     is YOLO's, pass it where it differs). Not folded into the conv: that
     rounds elsewhere. rsqrt(var + eps) depends on the weights alone, so it
-    is made once per var tensor and dtype (``derived``)."""
-    inv = derived(p["var"], ("batch_norm_inv", x.dtype, eps), lambda: rsqrt(
-        p["var"].to(x.dtype) + weak_scalar(eps, x.dtype)))
+    is made once per var tensor and dtype (``derived``), except where
+    autograd tracks var (a train step that trains the running stats, as
+    JAX's KPFusion step does): a cached value would carry no gradient."""
+    def make():
+        return rsqrt(p["var"].to(x.dtype) + weak_scalar(eps, x.dtype))
+
+    if p["var"].requires_grad and torch.is_grad_enabled():
+        inv = make()
+    else:
+        inv = derived(p["var"], ("batch_norm_inv", x.dtype, eps), make)
     return ((x - cast_weight(p["mean"], x.dtype)) * inv * cast_weight(p["scale"], x.dtype)
             + cast_weight(p["bias"], x.dtype))
+
+
+def batch_norm_train(p: Params, x: torch.Tensor, eps: float = 1e-3, momentum: float = 0.03
+                     ) -> Tuple[torch.Tensor, Params]:
+    """Training-mode BN over the batch statistics of x (B, ..., C), and the
+    updated running stats (torch's semantics: momentum 0.03, YOLOv7's
+    initialize_weights; the unbiased variance), in JAX's order of
+    operations: the moments are taken in f32 (jnp.mean and jnp.var upcast a
+    bf16 input) and rounded to x's dtype before they normalise x; the stats
+    update is made without gradient. Returns (y, a copy of p whose "mean"
+    and "var" are the new stats)."""
+    axes = tuple(range(x.ndim - 1))
+    xf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+    mean32 = xf.mean(dim=axes)
+    mean = mean32.to(x.dtype)
+    var = torch.square(xf - mean32).mean(dim=axes).to(x.dtype)
+    inv = rsqrt(var + weak_scalar(eps, x.dtype))
+    y = (x - mean) * inv * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
+    n = math.prod(x.shape[:-1])
+    with torch.no_grad():
+        unbiased = var * weak_scalar(n / max(n - 1, 1), x.dtype)
+        stats = {"mean": (1 - momentum) * p["mean"] + momentum * mean.to(p["mean"].dtype),
+                 "var": (1 - momentum) * p["var"] + momentum * unbiased.to(p["var"].dtype)}
+    return y, dict(p, **stats)
 
 
 def max_pool(x: torch.Tensor, k: int, stride: int, padding: int = 0) -> torch.Tensor:

@@ -1,8 +1,13 @@
-"""YOLOv7 deploy-form blocks on NHWC tensors (port of
-hamer_yolo_tpu/models/yolov7/blocks.py): fused Conv(+BN)+SiLU, max pools,
-ReOrg (space to depth), SPPCSPC, nearest 2x upsample and deploy RepConv (one
-fused 3x3 conv). JAX's peephole that fuses ReOrg into the 3x3 conv after it
-(``HYT_FUSE_REORG``, on only on a TPU) is not ported: ReOrg runs unfused."""
+"""YOLOv7 blocks on NHWC tensors (port of hamer_yolo_tpu/models/yolov7/blocks.py):
+fused Conv(+BN)+SiLU, max pools, ReOrg (space to depth), SPPCSPC, nearest 2x
+upsample and deploy RepConv (one fused 3x3 conv). ``deploy=False`` gives the
+training form: conv without bias + BN, and RepConv's 3x3, 1x1 and identity
+branches each with its BN. Each forward takes the BN step ``bn(p, y) -> y``
+(nn.batch_norm, the running stats, by default; the training forward's
+normalises by the batch statistics and records the new running stats,
+models/yolov7/model.yolov7_train_forward). JAX's peephole that fuses ReOrg
+into the 3x3 conv after it (``HYT_FUSE_REORG``, on only on a TPU) is not
+ported: ReOrg runs unfused."""
 from __future__ import annotations
 
 import torch
@@ -17,13 +22,20 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
-def conv_block_init(gen: torch.Generator, c1: int, c2: int, k: int = 1) -> nn.Params:
-    return {"conv": nn.conv_init(gen, k, c1, c2, bias=True)}
+def conv_block_init(gen: torch.Generator, c1: int, c2: int, k: int = 1,
+                    deploy: bool = True) -> nn.Params:
+    p = {"conv": nn.conv_init(gen, k, c1, c2, bias=deploy)}
+    if not deploy:
+        p["bn"] = nn.batch_norm_init(c2, gen.device)
+    return p
 
 
-def conv_block(p: nn.Params, x: torch.Tensor, s: int = 1) -> torch.Tensor:
+def conv_block(p: nn.Params, x: torch.Tensor, s: int = 1, bn=None) -> torch.Tensor:
     k = nn.conv_kernel_size(p["conv"]["w"])
-    return silu(nn.conv2d(p["conv"], x, stride=s, padding=k // 2))
+    y = nn.conv2d(p["conv"], x, stride=s, padding=k // 2)
+    if "bn" in p:
+        y = (bn or nn.batch_norm)(p["bn"], y)
+    return silu(y)
 
 
 def mp(x: torch.Tensor, k: int = 2) -> torch.Tensor:
@@ -48,27 +60,41 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 
 
-def sppcspc_init(gen: torch.Generator, c1: int, c2: int) -> nn.Params:
+def sppcspc_init(gen: torch.Generator, c1: int, c2: int, deploy: bool = True) -> nn.Params:
     c_ = c2
-    return {
-        "cv1": conv_block_init(gen, c1, c_), "cv2": conv_block_init(gen, c1, c_),
-        "cv3": conv_block_init(gen, c_, c_, 3), "cv4": conv_block_init(gen, c_, c_),
-        "cv5": conv_block_init(gen, 4 * c_, c_), "cv6": conv_block_init(gen, c_, c_, 3),
-        "cv7": conv_block_init(gen, 2 * c_, c2),
-    }
+    ins = {"cv1": (c1, 1), "cv2": (c1, 1), "cv3": (c_, 3), "cv4": (c_, 1), "cv5": (4 * c_, 1),
+           "cv6": (c_, 3), "cv7": (2 * c_, 1)}
+    return {name: conv_block_init(gen, c_in, c_, k, deploy) for name, (c_in, k) in ins.items()}
 
 
-def sppcspc(p: nn.Params, x: torch.Tensor) -> torch.Tensor:
-    x1 = conv_block(p["cv4"], conv_block(p["cv3"], conv_block(p["cv1"], x)))
+def sppcspc(p: nn.Params, x: torch.Tensor, bn=None) -> torch.Tensor:
+    def cb(name, v):
+        return conv_block(p[name], v, bn=bn)
+
+    x1 = cb("cv4", cb("cv3", cb("cv1", x)))
     pools = [sp(x1, k) for k in SPP_POOL_KS]
-    y1 = conv_block(p["cv6"], conv_block(p["cv5"], torch.cat([x1] + pools, dim=-1)))
-    y2 = conv_block(p["cv2"], x)
-    return conv_block(p["cv7"], torch.cat([y1, y2], dim=-1))
+    y1 = cb("cv6", cb("cv5", torch.cat([x1] + pools, dim=-1)))
+    y2 = cb("cv2", x)
+    return cb("cv7", torch.cat([y1, y2], dim=-1))
 
 
-def repconv_init(gen: torch.Generator, c1: int, c2: int) -> nn.Params:
-    return {"reparam": nn.conv_init(gen, 3, c1, c2, bias=True)}
+def repconv_init(gen: torch.Generator, c1: int, c2: int, s: int = 1,
+                 deploy: bool = True) -> nn.Params:
+    if deploy:
+        return {"reparam": nn.conv_init(gen, 3, c1, c2, bias=True)}
+    p = {"dense": nn.conv_init(gen, 3, c1, c2), "dense_bn": nn.batch_norm_init(c2, gen.device),
+         "1x1": nn.conv_init(gen, 1, c1, c2), "1x1_bn": nn.batch_norm_init(c2, gen.device)}
+    if c1 == c2 and s == 1:
+        p["id_bn"] = nn.batch_norm_init(c1, gen.device)
+    return p
 
 
-def repconv(p: nn.Params, x: torch.Tensor, s: int = 1) -> torch.Tensor:
-    return silu(nn.conv2d(p["reparam"], x, stride=s, padding=1))
+def repconv(p: nn.Params, x: torch.Tensor, s: int = 1, bn=None) -> torch.Tensor:
+    if "reparam" in p:
+        return silu(nn.conv2d(p["reparam"], x, stride=s, padding=1))
+    bn = bn or nn.batch_norm
+    y = bn(p["dense_bn"], nn.conv2d(p["dense"], x, stride=s, padding=1))
+    y = y + bn(p["1x1_bn"], nn.conv2d(p["1x1"], x, stride=s))
+    if "id_bn" in p:
+        y = y + bn(p["id_bn"], x)
+    return silu(y)

@@ -10,8 +10,9 @@ RepConv), the Ghost / Stem / Swin variants (models/yolov7/variants.py), and
 the heads DET, BIN and KPT (models/yolov7/heads.py). The trunk runs in the
 compute dtype (bf16 by default) and the decode in f32: xy = (2 sigmoid - 0.5
 + grid) stride, wh = (2 sigmoid)^2 anchor, flattened anchor-major per level,
-P3 -> P4 -> P5, so (B, 25200, nc + 5) at 640. The training form waits for
-the training port.
+P3 -> P4 -> P5, so (B, 25200, nc + 5) at 640. ``init_yolov7(deploy=False)``
+gives the training form (BN unfused, RepConv's branches), which
+``yolov7_train_forward`` runs over batch statistics for training/train_yolo.
 """
 from __future__ import annotations
 
@@ -108,34 +109,39 @@ def _resolve(frm, idx: int) -> List[int]:
     return [idx + f if f < 0 else f for f in frs]
 
 
-def init_yolov7(gen: torch.Generator, cfg: YoloConfig = YoloConfig(), spec: Spec = None
-                ) -> nn.Params:
+def init_yolov7(gen: torch.Generator, cfg: YoloConfig = YoloConfig(), spec: Spec = None,
+                deploy: bool = True) -> nn.Params:
     """Deploy-form parameters of ``spec`` (default: the built-in deploy
-    yolov7), walking it and tracking channels; None for parameter-free ops."""
+    yolov7), walking it and tracking channels; None for parameter-free ops.
+    ``deploy=False``: the training form of its conv, SPPCSPC, DownC and
+    RepConv layers (JAX's variant layers and heads take no training form
+    here: they raise)."""
     channels: List[int] = []
     layers: List[Any] = []
     for i, (frm, op, args) in enumerate(spec if spec is not None else yolov7_spec()):
         srcs = _resolve(frm, i)
         c_srcs = [3] if i == 0 else [channels[s] for s in srcs]
         c1, c2, p = c_srcs[0], c_srcs[0], None
+        if not deploy and op not in TRAIN_OPS:
+            raise ValueError(f"init_yolov7(deploy=False): no training form of {op} is ported")
         if op == C:
             c2, k, _ = args
-            p = B.conv_block_init(gen, c1, c2, k)
+            p = B.conv_block_init(gen, c1, c2, k, deploy)
         elif op == CAT:
             c2 = sum(c_srcs)
         elif op == REORG:
             c2 = 4 * c1
         elif op == SPP:
             (c2,) = args
-            p = B.sppcspc_init(gen, c1, c2)
+            p = B.sppcspc_init(gen, c1, c2, deploy)
         elif op == DOWNC:
             (c2,) = args
-            p = {"cv1": B.conv_block_init(gen, c1, c1, 1),
-                 "cv2": B.conv_block_init(gen, c1, c2 // 2, 3),
-                 "cv3": B.conv_block_init(gen, c1, c2 // 2, 1)}
+            p = {"cv1": B.conv_block_init(gen, c1, c1, 1, deploy),
+                 "cv2": B.conv_block_init(gen, c1, c2 // 2, 3, deploy),
+                 "cv3": B.conv_block_init(gen, c1, c2 // 2, 1, deploy)}
         elif op == REP:
             c2 = args[0]
-            p = B.repconv_init(gen, c1, c2)
+            p = B.repconv_init(gen, c1, c2, deploy=deploy)
         elif op in V.VARIANT_OPS:
             p = V.init_variant(op, gen, c1, args)
             c2 = int(args[0])
@@ -161,9 +167,10 @@ def _save_set(spec: Spec) -> set:
 
 
 def yolov7_backbone_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig = YoloConfig(),
-                            spec: Spec = None) -> List[torch.Tensor]:
+                            spec: Spec = None, bn=None) -> List[torch.Tensor]:
     """x (B, H, W, 3) in [0, 1] -> nl raw head maps (B, Hl, Wl, na * no)
-    (KPT: the detect and keypoint channels concatenated)."""
+    (KPT: the detect and keypoint channels concatenated). ``bn``: the BN
+    step of a training-form tree (models/yolov7/blocks.py)."""
     spec = spec if spec is not None else yolov7_spec()
     saved = _save_set(spec)
     y: Dict[int, torch.Tensor] = {}
@@ -173,7 +180,7 @@ def yolov7_backbone_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig 
         inputs = [out if s == i - 1 else y[s] for s in _resolve(frm, i)]
         p = params["layers"][i]
         if op == C:
-            out = B.conv_block(p, inputs[0], s=args[2])
+            out = B.conv_block(p, inputs[0], s=args[2], bn=bn)
         elif op == MP_:
             out = B.mp(inputs[0])
         elif op == CAT:
@@ -181,7 +188,7 @@ def yolov7_backbone_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig 
         elif op == ADD:
             out = inputs[0] + inputs[1]
         elif op == SPP:
-            out = B.sppcspc(p, inputs[0])
+            out = B.sppcspc(p, inputs[0], bn=bn)
         elif op == UP:
             out = B.upsample2x(inputs[0])
         elif op == REORG:
@@ -189,10 +196,10 @@ def yolov7_backbone_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig 
         elif op == SP_:
             out = B.sp(inputs[0], args[0] if args else 3)
         elif op == DOWNC:
-            a = B.conv_block(p["cv2"], B.conv_block(p["cv1"], inputs[0]), s=2)
-            out = torch.cat([a, B.conv_block(p["cv3"], B.mp(inputs[0]))], dim=-1)
+            a = B.conv_block(p["cv2"], B.conv_block(p["cv1"], inputs[0], bn=bn), s=2, bn=bn)
+            out = torch.cat([a, B.conv_block(p["cv3"], B.mp(inputs[0]), bn=bn)], dim=-1)
         elif op == REP:
-            out = B.repconv(p, inputs[0], s=args[1] if len(args) > 1 else 1)
+            out = B.repconv(p, inputs[0], s=args[1] if len(args) > 1 else 1, bn=bn)
         elif op in V.VARIANT_OPS:
             out = V.apply_variant(op, p, inputs[0], args)
         elif op in (DET, BIN):
@@ -205,6 +212,42 @@ def yolov7_backbone_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig 
         if i in saved:
             y[i] = out
     return det_maps
+
+
+# The ops that JAX's yolov7_train_forward runs (AUXDET waits for the aux
+# heads' loss).
+TRAIN_OPS = (C, MP_, CAT, ADD, SPP, UP, REORG, SP_, DOWNC, REP, DET)
+
+
+def yolov7_train_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig = YoloConfig(),
+                         spec: Spec = None):
+    """The training forward, BN over batch statistics (torch's semantics) in
+    one pass: x (B, H, W, 3) -> (the nl raw head maps, a copy of params
+    whose BN leaves hold the updated running stats, made without gradient).
+    training/train_yolo sets the stats into the train state after the
+    optimizer's step, as JAX's step does."""
+    spec = spec if spec is not None else yolov7_spec()
+    for _, op, _ in spec:
+        if op not in TRAIN_OPS:
+            raise ValueError(f"yolov7_train_forward: no training form of {op} is ported")
+    new_stats: Dict[int, nn.Params] = {}
+
+    def bn(p, y):
+        y, new_stats[id(p)] = nn.batch_norm_train(p, y)
+        return y
+
+    det_maps = yolov7_backbone_forward(params, x, cfg, spec, bn=bn)
+
+    def with_stats(tree):
+        if id(tree) in new_stats:
+            return new_stats[id(tree)]
+        if isinstance(tree, dict):
+            return {k: with_stats(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [with_stats(v) for v in tree]
+        return tree
+
+    return det_maps, with_stats(params)
 
 
 def decode_detections(det_maps: List[torch.Tensor], cfg: YoloConfig = YoloConfig()) -> torch.Tensor:

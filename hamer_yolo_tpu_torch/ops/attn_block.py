@@ -83,6 +83,7 @@ def fused_bf16_attn_block(tok: torch.Tensor, w: torch.Tensor, bias: Optional[tor
     tokens (the output has their dtype, as in JAX), any B and N, K and the
     head width multiples of 8, heads up to 128 wide; anything else raises.
     """
+    cuda_build.refuse_grad("fused_bf16_attn_block", tok, w, bias, ln_scale, ln_bias)
     if tok.device.type == "cpu":
         return fused_bf16_attn_block_ref(tok, w, bias, ln_scale, ln_bias, num_heads)
     if tok.device.type != "cuda":

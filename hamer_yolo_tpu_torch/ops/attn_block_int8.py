@@ -108,6 +108,8 @@ def fused_int8_attn_block(tok: torch.Tensor, wq: torch.Tensor, wscale: torch.Ten
     of the module docstring: K and 3D multiples of 16, the head width of 8
     (any N); anything else raises.
     """
+    cuda_build.refuse_grad("fused_int8_attn_block", tok, wq, wscale, bias, ln_scale, ln_bias,
+                           sx_qkv, sx_proj)
     if tok.device.type == "cpu":
         return fused_int8_attn_block_ref(tok, wq, wscale, bias, ln_scale, ln_bias, sx_qkv,
                                          sx_proj, num_heads)

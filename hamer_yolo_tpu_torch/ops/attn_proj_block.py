@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from hamer_yolo_tpu_torch.ops import cuda_build
 from hamer_yolo_tpu_torch.ops import int8_matmul as im
 from hamer_yolo_tpu_torch.ops.attn_block_int8 import attention_ref as _attention_ref
 from hamer_yolo_tpu_torch.ops.attn_block_int8 import launch_ln_qkv_attention
@@ -73,6 +74,8 @@ def fused_int8_attn_proj_block(tok: torch.Tensor, wq: torch.Tensor, wscale: torc
     of the module docstring: K, 3D and the head width multiples of 16 and 8
     (any N: the attention pads N in shared memory); anything else raises.
     """
+    cuda_build.refuse_grad("fused_int8_attn_proj_block", tok, wq, wscale, bias, ln_scale,
+                           ln_bias, sx_qkv, sx_proj, wp, pscale, pbias)
     if tok.device.type == "cpu":
         return fused_int8_attn_proj_block_ref(tok, wq, wscale, bias, ln_scale, ln_bias, sx_qkv,
                                               sx_proj, wp, pscale, pbias, num_heads)

@@ -22,6 +22,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -142,6 +144,20 @@ def aligned16(t):
     and a view into another tensor may start at any element."""
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise a ``ValueError`` naming the kernel ``what`` where autograd would
+    track the call: grad mode on and an input that requires grad. A kernel
+    writes its output through a raw pointer and has no backward, so its
+    result would carry no gradient and a train step would drop every one
+    behind it without a word. Checked on every device, the CPU included, and
+    nothing falls back to a plain version: train steps run the plain layers
+    by their configuration (training/)."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in tensors):
+        raise ValueError(f"{what}: an input requires grad, and the kernel has no backward; "
+                         "call it under torch.no_grad() or run the plain layers")
 
 
 def check(rc: int, what: str) -> None:

@@ -223,6 +223,8 @@ def fused_int8_matmul(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
     CPU tensors take the plain version. CUDA tensors launch
     ``csrc/int8_gemm.cu``: K and N multiples of 16; anything else raises.
     """
+    cuda_build.refuse_grad("fused_int8_matmul", x, wq, wscale, bias, ln_scale, ln_bias,
+                           static_scale)
     if x.device.type == "cpu":
         return fused_int8_matmul_ref(x, wq, wscale, bias, ln_scale, ln_bias, prologue=prologue,
                                      out_dtype=out_dtype, static_scale=static_scale)
@@ -269,6 +271,8 @@ def fused_int8_mlp_block(tok: torch.Tensor, w1q, w1scale, b1, w2q, w2scale, b2,
     ``csrc/int8_gemm.cu`` three times (quantize, fc1 + GELU + quantize, fc2
     + residual): K and H multiples of 16; anything else raises.
     """
+    cuda_build.refuse_grad("fused_int8_mlp_block", tok, w1q, w1scale, b1, w2q, w2scale, b2,
+                           ln_scale, ln_bias, sx1, sx2)
     if tok.device.type == "cpu":
         return fused_int8_mlp_block_ref(tok, w1q, w1scale, b1, w2q, w2scale, b2, ln_scale,
                                         ln_bias, sx1, sx2, gelu)
@@ -334,6 +338,8 @@ def fused_int8_mlp_block1(tok: torch.Tensor, w1q, w1scale, b1, w2q, w2scale, b2,
     through their K-major copies (``kmajor_weight``): K and H multiples of
     16, K at most 1280; anything else raises.
     """
+    cuda_build.refuse_grad("fused_int8_mlp_block1", tok, w1q, w1scale, b1, w2q, w2scale, b2,
+                           ln_scale, ln_bias, sx1, sx2)
     if tok.device.type == "cpu":
         return fused_int8_mlp_block1_ref(tok, w1q, w1scale, b1, w2q, w2scale, b2, ln_scale,
                                          ln_bias, sx1, sx2, gelu, hc)

@@ -134,6 +134,7 @@ def mano_lbs_fused(model, betas: torch.Tensor, rotmats: torch.Tensor
     ``csrc/mano_lbs.cu``: f32 betas and rotmats on the model's device, nb at
     most 64; anything else raises.
     """
+    cuda_build.refuse_grad("mano_lbs_fused", betas, rotmats)
     if betas.device.type == "cpu":
         return mano_lbs_fused_ref(model, betas, rotmats)
     what = "mano_lbs_fused"

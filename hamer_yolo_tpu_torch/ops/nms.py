@@ -58,6 +58,7 @@ def greedy_nms_keep(boxes: torch.Tensor, active: torch.Tensor,
     ``csrc/nms.cu`` (a cluster of CTAs per image), f32 active, K up to
     ``MAX_K``, and raise on anything the kernel does not take.
     """
+    cuda_build.refuse_grad("greedy_nms_keep", boxes, active)
     if boxes.device.type == "cpu":
         return greedy_nms_keep_ref(boxes, active, iou_thres)
     return _launch_keep(boxes, active, iou_thres, torch.float32)
@@ -68,6 +69,7 @@ def greedy_nms_keep_mask(boxes: torch.Tensor, active: torch.Tensor,
     """K1 on bool masks, non_max_suppression's entry: active (B, K) bool ->
     keep (B, K) bool, with no cast around the launch. Counted in
     ``greedy_nms_keep.launches``."""
+    cuda_build.refuse_grad("greedy_nms_keep", boxes, active)
     if boxes.device.type == "cpu":
         return greedy_nms_keep_ref(boxes, active, iou_thres) > 0.5
     return _launch_keep(boxes, active, iou_thres, torch.bool)

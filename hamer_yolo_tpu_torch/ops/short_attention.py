@@ -86,6 +86,7 @@ def fused_short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     is a (B, h, N, hd) view of a (B, N, h, hd) tensor, the layout the proj
     GEMM reads.
     """
+    cuda_build.refuse_grad("fused_short_attention", q, k, v, out_scale)
     if q.device.type == "cpu":
         return fused_short_attention_ref(q, k, v, out_scale)
     B, H, N, hd = q.shape
@@ -223,6 +224,7 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int, out_scale=None) -> to
     ``csrc/short_attention.cu``: bf16 or f32, the head width a multiple of
     8 (bf16: hd <= MAX_HD); anything else raises.
     """
+    cuda_build.refuse_grad("fused_qkv_attention", qkv, out_scale)
     if qkv.device.type == "cpu":
         return fused_qkv_attention_ref(qkv, num_heads, out_scale)
     what = "fused_qkv_attention"

@@ -1,0 +1,53 @@
+"""Training metric logging (port of hamer_yolo_tpu/utils/logging.py): every
+``log`` appends one JSON line, {"step", "time", the metrics}, to
+``<log_dir>/metrics.jsonl``, the run's record. ``log_image`` writes
+``<log_dir>/images/<name>_<step>.png`` through cv2, and skips the file where
+cv2 is missing or fails, as JAX's does. JAX's optional TensorBoard and
+Weights & Biases mirrors are not ported.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Dict
+
+import numpy as np
+
+
+class MetricLogger:
+    def __init__(self, log_dir: str):
+        os.makedirs(log_dir, exist_ok=True)
+        self.path = os.path.join(log_dir, "metrics.jsonl")
+        self._file = open(self.path, "a")
+
+    def log(self, step: int, metrics: Dict[str, float]) -> None:
+        rec = {"step": int(step), "time": time.time()}
+        for k, v in metrics.items():
+            try:
+                rec[k] = float(v)
+            except (TypeError, ValueError):
+                rec[k] = str(v)
+        self._file.write(json.dumps(rec) + "\n")
+        self._file.flush()
+
+    def log_image(self, step: int, name: str, image_bgr) -> None:
+        """A prediction image (the reference's hamer.py:213-267 grids) as
+        ``images/<name>_<step>.png``."""
+        img_dir = os.path.join(os.path.dirname(self.path), "images")
+        os.makedirs(img_dir, exist_ok=True)
+        try:
+            import cv2
+
+            cv2.imwrite(os.path.join(img_dir, f"{name}_{int(step)}.png"), np.asarray(image_bgr))
+        except Exception:  # no cv2, or it cannot write: the image is optional
+            pass
+
+    def close(self) -> None:
+        self._file.close()
+
+    def __enter__(self) -> "MetricLogger":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
