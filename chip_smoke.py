@@ -100,7 +100,17 @@ ResNet-34 RootNet at 256; seeded random weights, synthetic MANO, numpy-made
   f32 step of each, card against CPU (HaMeR at full width with 2 blocks,
   YOLO at 64 px, KPFusion at --tiny), the loss and each gradient held at
   the stated limits; a train state reloaded bit-equal; K2 refusing a token
-  tensor that requires grad.
+  tensor that requires grad;
+- YOLO training on data ("YOLO training on data"): tools/train_yolo at full
+  width (YOLOv7 at 640, nc 3, B = 16, the default recipe's mosaic, mixup,
+  HSV and perspective, SimOTA) on a labelled folder of 32 numpy-made 720p
+  frames (.npy bytes under .png names, read by the cv2 stand-in): 4 steps
+  with checkpoints, --resume auto for a fifth, detector_map over the 32
+  frames (K1 once an image: the kernels line's K1 keeps the bf16 path's
+  count under "launches" and gives these beside it under
+  "launches_by_path"), --evolve 2 --steps 1; the loader's host ms a batch
+  against the step's, the peak memory, SimOTA's step against the neighbor
+  assigner's in turns, the eval's images/s.
 
 A phase "ToMe shapes" holds K3, K4, K5 and K7 against their plain versions
 at the token counts ToMe gives them (N = 124 and 68 a crop, 16 crops), and
@@ -589,13 +599,19 @@ def main() -> int:
     rgbd_phase(dev, smi)
     int8_sar_overlay_phase(params, sparams, qcfg, mano, cfg, dev, depth, smi)
     training_phase(dev, smi)
+    eval_k1 = yolo_data_phase(dev, smi)
+    # "launches" stays the bf16 path's own count; detector_map's K1 launches,
+    # from a run of their own, go beside it
+    launches_by_path = {"K1": {"infer (bf16 path)": launches["K1"], "detector_map": eval_k1}}
 
     # -- reference checks on a small input: the card against the CPU path ----
     check_reference(dev)
     check_reference_int8(dev)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
-    print(json.dumps({"kernels": [dict(KERNELS[k], launches=launches[k], **record[k])
+    print(json.dumps({"kernels": [dict(KERNELS[k], launches=launches[k], **record[k],
+                                       **({"launches_by_path": launches_by_path[k]}
+                                          if k in launches_by_path else {}))
                                   for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3720,10 +3736,10 @@ def training_card_against_cpu(dev, root):
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     import test_torch_train_pairs as P
 
-    res, n = run_counted(lambda: {case: P.card_against_cpu(case[0], dev, case[1])
+    res, n = run_counted(lambda: {case: P.card_against_cpu(case[0], dev, case[1], case[2])
                                   for case in P.CASES})
     expect_launches("train steps, card against CPU", n, {k: 0 for k in n})
-    card = res[("hamer", 2)]["card"]
+    card = next(r["card"] for case, r in res.items() if case[0] == "hamer")
     path = os.path.join(root, "hamer_state.npz")
     TH.save_train_state(path, card)
     fresh = TH.load_train_state(path, TH.make_train_state(card.params, card.disc_params))
@@ -3733,9 +3749,10 @@ def training_card_against_cpu(dev, root):
     if fresh.step != 1:
         raise RuntimeError(f"HaMeR train state reload: step {fresh.step}")
     parts = []
-    for (model, b), r in res.items():
+    for (model, b, img), r in res.items():
         err, leaf = r["worst"]
-        part = f"{model} B={b} {err:.2e} ({leaf}; limit {P.GRAD_REL[model]})"
+        part = (f"{model} B={b}{f' at {img} px' if img else ''} {err:.2e} ({leaf}; limit "
+                f"{P.GRAD_REL[model]})")
         if "f64" in r:
             f64 = r["f64"]
             part += (" [f32 from f64 at that leaf: card {:.2e}, CPU {:.2e}; ".format(
@@ -3781,6 +3798,176 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return None if tree is None else tree.to(dev)
+
+
+# -- YOLO training on data ----------------------------------------------------
+
+YOLO_DATA_FRAMES = 32   # numpy-made 720p frames in the labelled folder
+YOLO_DATA_B = 16        # tools/train_yolo's default batch
+YOLO_DATA_TURNS = 3     # SimOTA and neighbor steps timed in turns, each
+
+
+def write_yolo_frames(root, n, seed):
+    """n numpy-made 720p frames (BGR, a dim noise floor and 1-4 filled boxes
+    of three colours, one a class) saved as .npy bytes under .png names (the
+    cv2 stand-in reads them), and their YOLO label files in the sibling
+    labels folder; the images folder's path."""
+    rng = np.random.default_rng(seed)
+    images, labels = os.path.join(root, "images"), os.path.join(root, "labels")
+    os.makedirs(images)
+    os.makedirs(labels)
+    h, w = 720, 1280
+    for i in range(n):
+        img = (rng.integers(0, 64, (h, w, 3), dtype=np.uint8))
+        rows = []
+        for _ in range(int(rng.integers(1, 5))):
+            bw, bh = int(rng.integers(60, 360)), int(rng.integers(60, 300))
+            x0, y0 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            c = int(rng.integers(0, 3))
+            img[y0:y0 + bh, x0:x0 + bw] = (70 + 80 * c, 220 - 70 * c, 130)
+            rows.append(f"{c} {(x0 + bw / 2) / w:.6f} {(y0 + bh / 2) / h:.6f} {bw / w:.6f} "
+                        f"{bh / h:.6f}")
+        with open(os.path.join(images, f"frame{i:03d}.png"), "wb") as fh:
+            np.save(fh, img)
+        with open(os.path.join(labels, f"frame{i:03d}.txt"), "w") as fh:
+            fh.write("\n".join(rows) + "\n")
+    return images
+
+
+def yolo_data_phase(dev, smi):
+    """The phase "YOLO training on data": tools/train_yolo at full width (the
+    built-in YOLOv7 at 640, nc 3, B = 16) on a labelled folder of 32
+    numpy-made 720p frames, under the default recipe (mosaic, mixup 0.15,
+    hyp.scratch.p5's HSV and perspective values; the numpy loader of
+    io/datasets.py) with --assigner simota (top k 10): 4 steps with a
+    checkpoint every 2, then --resume auto for a fifth; detector_map over
+    the 32 frames with the resumed run's EMA (K1 once an image, shown
+    under the kernels line's "launches_by_path"); --evolve 2 --steps 1
+    (K1 once an image of each generation's eval). No train step may launch a kernel. It prints the
+    loader's host ms a batch against the step's ms (CUDA events), the
+    peak memory, SimOTA's step against the neighbor assigner's in turns on
+    one loader batch, and the eval's images/s. Returns detector_map's K1
+    launches."""
+    import torch
+
+    from hamer_yolo_tpu_torch.core.checkpoint import latest_checkpoint
+    from hamer_yolo_tpu_torch.io.datasets import (YoloDataConfig, image_label_pairs,
+                                                  yolo_batch_iterator)
+    from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig
+    from hamer_yolo_tpu_torch.tools import train_yolo as tool
+    from hamer_yolo_tpu_torch.training import train_yolo as T
+    from hamer_yolo_tpu_torch.training.evolve import META, N_RESULT_COLS
+    from hamer_yolo_tpu_torch.utils.detect_eval import detector_map
+
+    t0 = time.perf_counter()
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = cv2_stand_in()
+    no_kernels = dict.fromkeys(KERNELS, 0)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            images = write_yolo_frames(root, YOLO_DATA_FRAMES, SEED)
+            out = os.path.join(root, "run")
+            base = ["--data", images, "--batch", str(YOLO_DATA_B), "--assigner", "simota",
+                    "--out", out, "--device", str(dev), "--log-every", "1", "--ckpt-every", "2"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            t1 = time.perf_counter()
+            (rc, times), n = run_counted(lambda: tool.run(base + ["--steps", "4"]))
+            tool_s = time.perf_counter() - t1
+            peak = torch.cuda.max_memory_allocated(dev) - held
+            expect_launches("train_yolo --steps 4", n, no_kernels)
+            files = sorted(f for f in os.listdir(out) if f.endswith(".npz"))
+            if rc != 0 or files != ["ckpt_2.npz", "ckpt_final.npz"]:
+                raise RuntimeError(f"train_yolo: exit {rc}, checkpoints {files}")
+            t1 = time.perf_counter()
+            (rc, more), n = run_counted(
+                lambda: tool.run(base + ["--steps", "5", "--resume", "auto"]))
+            resume_s = time.perf_counter() - t1
+            expect_launches("train_yolo --resume auto", n, no_kernels)
+            if rc != 0 or more["start"] != 4 or len(more["load_ms"]) != 1:
+                raise RuntimeError(f"train_yolo --resume auto: exit {rc}, {more}")
+            load_ms = times["load_ms"] + more["load_ms"]
+            step_ms = times["step_ms"] + more["step_ms"]
+            print(f"YOLO training on data: train_yolo at 640, B={YOLO_DATA_B}, simota, on "
+                  f"{YOLO_DATA_FRAMES} 720p frames: 4 steps + checkpoints {files} in "
+                  f"{tool_s:.1f} s, --resume auto from step 4 for a fifth in {resume_s:.1f} s; "
+                  f"loader {', '.join(f'{t:.0f}' for t in load_ms)} ms a batch (host) against "
+                  f"the step {', '.join(f'{t:.1f}' for t in step_ms)} ms (CUDA events; the "
+                  f"first steps build cuDNN plans); peak memory {_gib(peak):.2f} GiB above what "
+                  f"the phase held; no kernel launched; on {smi}", flush=True)
+
+            cfg = YoloConfig()
+            state = T.init_yolo_train_state(torch.Generator(dev).manual_seed(0), cfg, 5)
+            T.load_train_state(latest_checkpoint(out), state)
+            pairs = image_label_pairs(images)
+            res, n = run_counted(lambda: detector_map(state.ema.params, cfg, pairs))
+            expect_launches("detector_map", n, {**no_kernels, "K1": len(pairs)})
+            eval_k1 = n["K1"]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            again = detector_map(state.ema.params, cfg, pairs)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t1
+            if not all(np.isfinite(res)):
+                raise RuntimeError(f"detector_map: {res}")
+            print(f"YOLO training on data: detector_map of the EMA after 5 steps over "
+                  f"{len(pairs)} frames (letterbox, YOLOv7 bf16, NMS on K1): P {res[0]:.4f} "
+                  f"R {res[1]:.4f} mAP@.5 {res[2]:.4f} mAP@.5:.95 {res[3]:.4f} (random init, 5 "
+                  f"steps; a second pass {again}); K1 launched {eval_k1} times; the second pass "
+                  f"{eval_s:.2f} s = "
+                  f"{len(pairs) / eval_s:.1f} images/s (host clock, letterbox included)",
+                  flush=True)
+
+            evo = os.path.join(root, "evolve")
+            t1 = time.perf_counter()
+            rc, n = run_counted(lambda: tool.main(
+                ["--data", images, "--batch", str(YOLO_DATA_B), "--assigner", "simota",
+                 "--out", evo, "--device", str(dev), "--steps", "1", "--evolve", "2"]))
+            evolve_s = time.perf_counter() - t1
+            expect_launches("train_yolo --evolve 2", n, {**no_kernels, "K1": 2 * len(pairs)})
+            rows = np.loadtxt(os.path.join(evo, "evolve.txt"), ndmin=2)
+            with open(os.path.join(evo, "hyp_evolved.yaml")) as fh:
+                best = dict(line.split(": ") for line in fh.read().splitlines()
+                            if line and not line.startswith("#"))
+            if rc != 0 or rows.shape != (2, N_RESULT_COLS + len(META)) or list(best) != list(META):
+                raise RuntimeError(f"train_yolo --evolve 2: exit {rc}, rows {rows.shape}")
+            print(f"YOLO training on data: --evolve 2 --steps 1 in {evolve_s:.1f} s (K1 "
+                  f"{n['K1']} launches); evolve.txt {rows.shape}, hyp_evolved.yaml "
+                  f"{len(best)} hyps", flush=True)
+
+            # SimOTA's step against the neighbor assigner's, in turns, on one batch
+            batch = next(yolo_batch_iterator(images, YOLO_DATA_B, YoloDataConfig(), seed=1))
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            steps = {a: T.make_yolo_train_step(cfg, assigner=a) for a in ("simota", "neighbor")}
+            state = T.init_yolo_train_state(torch.Generator(dev).manual_seed(0), cfg, 100)
+            for step in steps.values():
+                step(state, batch)
+            turns = {a: [] for a in steps}
+            order = ["simota", "neighbor", "neighbor", "simota"] * ((YOLO_DATA_TURNS + 1) // 2)
+            for a in order[:2 * YOLO_DATA_TURNS]:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                metrics = steps[a](state, batch)
+                end.record()
+                torch.cuda.synchronize()
+                _finite(metrics, f"{a} step")
+                turns[a].append(start.elapsed_time(end))
+            print(f"YOLO training on data: a train step at {cfg.img_size}, B={YOLO_DATA_B}, on a "
+                  "loader batch, in turns "
+                  + "; ".join(f"{a} p50 {float(np.median(v)):.2f} ms ({', '.join(f'{t:.2f}' for t in v)})"
+                              for a, v in turns.items())
+                  + f" (CUDA events, 1 warm-up each) on {smi}", flush=True)
+            del state, batch
+    finally:
+        if saved is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+    torch.cuda.empty_cache()
+    print(f"phase YOLO training on data: {time.perf_counter() - t0:.1f} s")
+    return eval_k1
 
 
 if __name__ == "__main__":

@@ -11,11 +11,17 @@ counterpart of the JAX package's accelerator default; the proj linear and
 the MLP stay plain matmuls and GELU, as JAX leaves them outside any
 kernel. On the CPU the plain nn.mha_self_attention path runs, as in JAX.
 ``ViTConfig.fused_attn`` overrides the choice (JAX: ``HYT_ATTN_BF16``).
+
+Training's stochastic depth (the reference's drop_path_rate 0.55, ramped
+linearly over the blocks) runs where ``vit_forward`` gets a generator: each
+block's attention and MLP residuals are kept per sample with probability
+1 - rate and scaled by 1 / (1 - rate). The ViT then takes the plain layers,
+never K2, as JAX leaves its kernel when it gets an rng.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -38,6 +44,8 @@ class ViTConfig:
     # path, core/quant.vit_forward_int8): None picks them where the tokens
     # are on a CUDA device; True / False force them on / off on any device.
     fused_attn: Optional[bool] = None
+    # train-time stochastic depth, on only where vit_forward gets a generator
+    drop_path_rate: float = 0.55
 
     @property
     def grid_hw(self) -> tuple:
@@ -78,18 +86,44 @@ def embed_tokens(params: nn.Params, x: torch.Tensor, cfg: ViTConfig = ViTConfig(
     return tok + pos[:, 1:] + pos[:, :1]
 
 
-def vit_forward(params: nn.Params, x: torch.Tensor, cfg: ViTConfig = ViTConfig()
-                ) -> torch.Tensor:
-    """x (B, H, W, 3) normalised crop -> (B, N_tokens, embed_dim)."""
+def drop_path_rates(cfg: ViTConfig, depth: int) -> List[float]:
+    """Each block's drop rate: drop_path_rate i / (depth - 1)."""
+    return [cfg.drop_path_rate * i / max(depth - 1, 1) for i in range(depth)]
+
+
+def keep_masks(gen: torch.Generator, batch: int, cfg: ViTConfig, depth: int
+               ) -> List[torch.Tensor]:
+    """2 depth per-sample keep masks (B, 1, 1) bool on ``gen``'s device, a
+    block's attention then its MLP, each True with probability 1 - rate."""
+    return [torch.rand((batch, 1, 1), generator=gen, device=gen.device) < 1.0 - rate
+            for rate in drop_path_rates(cfg, depth) for _ in range(2)]
+
+
+def vit_forward(params: nn.Params, x: torch.Tensor, cfg: ViTConfig = ViTConfig(),
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """x (B, H, W, 3) normalised crop -> (B, N_tokens, embed_dim).
+    ``generator`` turns on stochastic depth (``keep_masks`` drawn from it)."""
     tok = embed_tokens(params, x, cfg)
-    fused = tok.is_cuda if cfg.fused_attn is None else cfg.fused_attn
-    for blk in params["blocks"]:
+    depth = len(params["blocks"])
+    masks = None
+    if generator is not None and cfg.drop_path_rate > 0.0:
+        masks = keep_masks(generator, x.shape[0], cfg, depth)
+    rates = drop_path_rates(cfg, depth)
+
+    def drop_path(residual, j):
+        if masks is None:
+            return residual
+        keep = 1.0 - rates[j // 2]
+        return residual * masks[j].to(residual.dtype) / keep
+
+    fused = generator is None and (tok.is_cuda if cfg.fused_attn is None else cfg.fused_attn)
+    for i, blk in enumerate(params["blocks"]):
         if fused:
             pre = fused_bf16_attn_block(tok, blk["attn"]["qkv"]["w"], blk["attn"]["qkv"].get("b"),
                                         blk["norm1"]["scale"], blk["norm1"]["bias"], cfg.num_heads)
             a = nn.linear(blk["attn"]["proj"], pre)
         else:
             a = nn.mha_self_attention(blk["attn"], nn.layer_norm(blk["norm1"], tok), cfg.num_heads)
-        tok = tok + a
-        tok = tok + nn.mlp_gelu(blk["mlp"], nn.layer_norm(blk["norm2"], tok))
+        tok = tok + drop_path(a, 2 * i)
+        tok = tok + drop_path(nn.mlp_gelu(blk["mlp"], nn.layer_norm(blk["norm2"], tok)), 2 * i + 1)
     return nn.layer_norm(params["last_norm"], tok)

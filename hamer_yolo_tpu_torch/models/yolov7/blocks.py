@@ -30,12 +30,16 @@ def conv_block_init(gen: torch.Generator, c1: int, c2: int, k: int = 1,
     return p
 
 
-def conv_block(p: nn.Params, x: torch.Tensor, s: int = 1, bn=None) -> torch.Tensor:
+def conv_block(p: nn.Params, x: torch.Tensor, s: int = 1, bn=None, act=True) -> torch.Tensor:
+    """Conv (+ BN) + activation: ``act`` True is SiLU (the reference's
+    default), False none, or any function of core/activations.py."""
     k = nn.conv_kernel_size(p["conv"]["w"])
     y = nn.conv2d(p["conv"], x, stride=s, padding=k // 2)
     if "bn" in p:
         y = (bn or nn.batch_norm)(p["bn"], y)
-    return silu(y)
+    if callable(act):
+        return act(y)
+    return silu(y) if act else y
 
 
 def mp(x: torch.Tensor, k: int = 2) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""IBin and IKeypoint detection heads, deploy form (port of
-hamer_yolo_tpu/models/yolov7/heads.py: init and inference decode).
+"""IBin and IKeypoint detection heads (port of
+hamer_yolo_tpu/models/yolov7/heads.py: init, inference decode and
+SigmoidBin's training loss).
 
 - IBin: box w and h come from SigmoidBin classification-plus-residual bins
   in place of the (2 sigmoid)^2 anchor decode. Per anchor: [x, y,
@@ -10,7 +11,9 @@ hamer_yolo_tpu/models/yolov7/heads.py: init and inference decode).
   before the (na, no) reshape. Keypoint x and y decode from the raw logits,
   (v 2 - 0.5 + grid) stride; their confidences are sigmoided.
 
-SigmoidBin's training loss waits for the training port.
+``sigmoid_bin_training_loss`` is SigmoidBin.training_loss as
+ComputeLossBinOTA configures it (no regression loss): BCE of the bin
+logits against the one-hot nearest bin.
 """
 from __future__ import annotations
 
@@ -52,6 +55,31 @@ def sigmoid_bin_decode(y: torch.Tensor, bin_count: int = BIN_COUNT, vmin: float 
     idx = torch.argmax(y[..., 1:1 + bin_count], dim=-1)
     return torch.clamp(reg + sigmoid_bin_centers(bin_count, y.device, vmin, vmax)[idx],
                        vmin, vmax)
+
+
+def sigmoid_bin_training_loss(pred_logits: torch.Tensor, target: torch.Tensor,
+                              weight: torch.Tensor = None, bin_count: int = BIN_COUNT,
+                              vmin: float = BIN_MIN, vmax: float = BIN_MAX,
+                              reg_scale: float = BIN_REG_SCALE):
+    """pred_logits (N, bin_count + 1) raw, target (N,) values, ``weight``
+    an optional (N,) mask (the reference indexes the matched rows instead)
+    -> (the mean masked BCE over the bin channels, the clamped regressed
+    value (N,)). The nearest bin is the first of equal distances, as
+    jnp.argmin picks; |x| has jnp.abs's gradient 1 at 0."""
+    step = (vmax - vmin) / bin_count
+    reg = (torch.sigmoid(pred_logits[..., 0]) * reg_scale - reg_scale / 2.0) * step
+    centers = sigmoid_bin_centers(bin_count, pred_logits.device, vmin, vmax)
+    idx = torch.argmin(torch.abs(target[..., None] - centers), dim=-1)
+    result = reg + centers[idx]
+    tgt = torch.nn.functional.one_hot(idx, bin_count).to(pred_logits.dtype)
+    lg = pred_logits[..., 1:]
+    bce = (torch.maximum(lg, lg.new_zeros(())) - lg * tgt
+           + torch.log1p(torch.exp(-torch.where(lg >= 0, lg, -lg))))
+    if weight is None:
+        loss = bce.mean()
+    else:
+        loss = (bce * weight[..., None]).sum() / torch.clamp(weight.sum() * bin_count, min=1.0)
+    return loss, torch.clamp(result, vmin, vmax)
 
 
 def init_bin_head(gen: torch.Generator, in_chs: Sequence[int], na: int, nc: int,

@@ -7,7 +7,11 @@ deploy yolov7 (cfg/deploy/yolov7.yaml). The deploy ops: C (conv + SiLU, BN
 folded), MP (2x2 max pool), SP_ (k x k max pool, stride 1), CAT, ADD, SPP
 (SPPCSPC), UP (nearest 2x), REORG (space to depth), DOWNC, REP (fused
 RepConv), the Ghost / Stem / Swin variants (models/yolov7/variants.py), and
-the heads DET, BIN and KPT (models/yolov7/heads.py). The trunk runs in the
+the heads DET, BIN and KPT (models/yolov7/heads.py); AUXDET is IAuxDetect's
+training form, nl lead heads and nl auxiliary ones over 2 nl inputs (the
+auxiliary heads leave the deploy graph, so inference runs the lead ones
+alone; the training forward gives lead then auxiliary maps, which
+``split_aux_maps`` parts for the loss). The trunk runs in the
 compute dtype (bf16 by default) and the decode in f32: xy = (2 sigmoid - 0.5
 + grid) stride, wh = (2 sigmoid)^2 anchor, flattened anchor-major per level,
 P3 -> P4 -> P5, so (B, 25200, nc + 5) at 640. ``init_yolov7(deploy=False)``
@@ -29,6 +33,7 @@ from hamer_yolo_tpu_torch.models.yolov7 import variants as V
 
 C, MP_, CAT, SPP, UP, REP, DET = "C", "MP", "CAT", "SPP", "UP", "REP", "DET"
 BIN, KPT = "BIN", "KPT"
+AUXDET = "AUXDET"
 ADD, REORG, SP_, DOWNC = "ADD", "REORG", "SP_", "DOWNC"
 Spec = List[Tuple[Any, str, tuple]]
 
@@ -149,6 +154,13 @@ def init_yolov7(gen: torch.Generator, cfg: YoloConfig = YoloConfig(), spec: Spec
             p = {"m": [nn.conv_init(gen, 1, channels[s], cfg.na * cfg.no, bias=True)
                        for s in srcs]}
             c2 = 0
+        elif op == AUXDET:
+            half = len(srcs) // 2
+            p = {"m": [nn.conv_init(gen, 1, channels[s], cfg.na * cfg.no, bias=True)
+                       for s in srcs[:half]],
+                 "m2": [nn.conv_init(gen, 1, channels[s], cfg.na * cfg.no, bias=True)
+                        for s in srcs[half:]]}
+            c2 = 0
         elif op == BIN:
             p = H.init_bin_head(gen, [channels[s] for s in srcs], cfg.na, cfg.nc, cfg.bin_count)
             c2 = 0
@@ -167,10 +179,11 @@ def _save_set(spec: Spec) -> set:
 
 
 def yolov7_backbone_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig = YoloConfig(),
-                            spec: Spec = None, bn=None) -> List[torch.Tensor]:
+                            spec: Spec = None, bn=None, aux: bool = False) -> List[torch.Tensor]:
     """x (B, H, W, 3) in [0, 1] -> nl raw head maps (B, Hl, Wl, na * no)
     (KPT: the detect and keypoint channels concatenated). ``bn``: the BN
-    step of a training-form tree (models/yolov7/blocks.py)."""
+    step of a training-form tree (models/yolov7/blocks.py). ``aux``: an
+    AUXDET head gives its nl auxiliary maps after the lead ones."""
     spec = spec if spec is not None else yolov7_spec()
     saved = _save_set(spec)
     y: Dict[int, torch.Tensor] = {}
@@ -205,6 +218,12 @@ def yolov7_backbone_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig 
         elif op in (DET, BIN):
             det_maps = [nn.conv2d(hp, inp) for hp, inp in zip(p["m"], inputs)]
             out = inputs[-1]
+        elif op == AUXDET:
+            half = len(p["m"])
+            det_maps = [nn.conv2d(hp, inp) for hp, inp in zip(p["m"], inputs[:half])]
+            if aux:
+                det_maps += [nn.conv2d(hp, inp) for hp, inp in zip(p["m2"], inputs[half:])]
+            out = inputs[-1]
         elif op == KPT:
             det_maps = [torch.cat([nn.conv2d(hp, inp), nn.conv2d(kp, inp)], dim=-1)
                         for hp, kp, inp in zip(p["m"], p["m_kpt"], inputs)]
@@ -214,15 +233,15 @@ def yolov7_backbone_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig 
     return det_maps
 
 
-# The ops that JAX's yolov7_train_forward runs (AUXDET waits for the aux
-# heads' loss).
-TRAIN_OPS = (C, MP_, CAT, ADD, SPP, UP, REORG, SP_, DOWNC, REP, DET)
+# The ops that JAX's yolov7_train_forward runs.
+TRAIN_OPS = (C, MP_, CAT, ADD, SPP, UP, REORG, SP_, DOWNC, REP, DET, AUXDET)
 
 
 def yolov7_train_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig = YoloConfig(),
                          spec: Spec = None):
     """The training forward, BN over batch statistics (torch's semantics) in
-    one pass: x (B, H, W, 3) -> (the nl raw head maps, a copy of params
+    one pass: x (B, H, W, 3) -> (the nl raw head maps, an AUXDET head's nl
+    auxiliary maps after them, a copy of params
     whose BN leaves hold the updated running stats, made without gradient).
     training/train_yolo sets the stats into the train state after the
     optimizer's step, as JAX's step does."""
@@ -236,7 +255,7 @@ def yolov7_train_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig = Y
         y, new_stats[id(p)] = nn.batch_norm_train(p, y)
         return y
 
-    det_maps = yolov7_backbone_forward(params, x, cfg, spec, bn=bn)
+    det_maps = yolov7_backbone_forward(params, x, cfg, spec, bn=bn, aux=True)
 
     def with_stats(tree):
         if id(tree) in new_stats:
@@ -248,6 +267,15 @@ def yolov7_train_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig = Y
         return tree
 
     return det_maps, with_stats(params)
+
+
+def split_aux_maps(det_maps: List[torch.Tensor], spec: Spec) -> Tuple[list, list]:
+    """(lead maps, auxiliary maps) of a training forward; no auxiliary maps
+    unless the spec ends in AUXDET."""
+    if spec[-1][1] != AUXDET:
+        return list(det_maps), []
+    nl = len(det_maps) // 2
+    return list(det_maps[:nl]), list(det_maps[nl:])
 
 
 def decode_detections(det_maps: List[torch.Tensor], cfg: YoloConfig = YoloConfig()) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """The reference's YOLOv7 model yamls -> specs (port of
-hamer_yolo_tpu/models/yolov7/yaml_spec.py, deploy form).
+hamer_yolo_tpu/models/yolov7/yaml_spec.py).
 
 The reference defines its model family as yaml layer lists that its
 ``parse_model`` builds (cfg/deploy/yolov7x.yaml, yolov7-w6.yaml,
@@ -10,7 +10,8 @@ list ``models/yolov7/model`` walks and its ``YoloConfig``:
 - the module map: Conv, MP, SP, SPPCSPC, RepConv (RepConv_OREPA too: its
   branches fuse into one RepConv at conversion), Concat, Shortcut,
   Upsample, ReOrg, DownC, Detect / IDetect / IAuxDetect (the auxiliary
-  heads dropped, as the reference does for inference), IBin, IKeypoint and
+  heads dropped, as the reference does for inference, or kept as AUXDET
+  with ``training_form``), IBin, IKeypoint and
   the Ghost / Stem / Swin variants;
 - strides doubling from P3 = 8, one level per head input.
 
@@ -21,8 +22,8 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, List, Tuple
 
-from hamer_yolo_tpu_torch.models.yolov7.model import (ADD, BIN, CAT, DET, DOWNC, KPT, MP_, REORG,
-                                                      REP, SP_, SPP, UP, C, YoloConfig)
+from hamer_yolo_tpu_torch.models.yolov7.model import (ADD, AUXDET, BIN, CAT, DET, DOWNC, KPT, MP_,
+                                                      REORG, REP, SP_, SPP, UP, C, YoloConfig)
 from hamer_yolo_tpu_torch.models.yolov7.variants import VARIANT_OPS
 
 _MODULES = {
@@ -42,10 +43,12 @@ def make_divisible(x: float, divisor: int = 8) -> int:
     return max(divisor, int(math.ceil(x / divisor) * divisor))
 
 
-def spec_from_yaml(cfg_dict: Dict[str, Any], nc: int = None
+def spec_from_yaml(cfg_dict: Dict[str, Any], nc: int = None, training_form: bool = False
                    ) -> Tuple[List[Tuple[Any, str, tuple]], YoloConfig]:
     """A reference model yaml, as a dict -> (spec, YoloConfig). ``nc``
-    overrides the yaml's class count."""
+    overrides the yaml's class count. ``training_form`` keeps IAuxDetect's
+    auxiliary heads (a cfg/training yaml run by the reference's
+    train_aux.py): the spec ends in AUXDET over all 2 nl inputs."""
     gd = float(cfg_dict.get("depth_multiple", 1.0))
     gw = float(cfg_dict.get("width_multiple", 1.0))
     nc = nc if nc is not None else int(cfg_dict.get("nc", 80))
@@ -85,20 +88,24 @@ def spec_from_yaml(cfg_dict: Dict[str, Any], nc: int = None
             spec.append((frm_t, op, (make_divisible(args[0] * gw),) + rest))
         else:  # DET, BIN, KPT
             det_from = frm_t
-            if module == "IAuxDetect":  # inference drops the auxiliary heads
-                det_from = tuple(det_from[:len(det_from) // 2])
+            if module == "IAuxDetect":
+                if training_form:
+                    op = AUXDET
+                else:  # inference drops the auxiliary heads
+                    det_from = tuple(det_from[:len(det_from) // 2])
             head_args = (int(args[2]),) if op == KPT and len(args) > 2 else ()
             spec.append((det_from, op, head_args))
-    strides = tuple(8 * (2 ** i) for i in range(len(det_from)))
+    nl = len(det_from) // 2 if spec[-1][1] == AUXDET else len(det_from)
+    strides = tuple(8 * (2 ** i) for i in range(nl))
     kw = {"nkpt": spec[-1][2][0]} if spec[-1][1] == KPT and spec[-1][2] else {}
     cfg = YoloConfig(nc=nc, anchors=tuple(tuple(a) for a in cfg_dict["anchors"]),
                      strides=strides, **kw)
     return spec, cfg
 
 
-def load_yaml_model_cfg(path: str, nc: int = None):
+def load_yaml_model_cfg(path: str, nc: int = None, training_form: bool = False):
     """``spec_from_yaml`` of a yaml file (PyYAML imported here, on first use)."""
     import yaml
 
     with open(path) as f:
-        return spec_from_yaml(yaml.safe_load(f), nc)
+        return spec_from_yaml(yaml.safe_load(f), nc, training_form)

@@ -11,6 +11,12 @@ ModelEMA with the decay 0.9999 (1 - exp(-updates / 2000)).
 The schedules compute in float32 as the JAX package's do. The step counter
 starts at 0, so under warmup the first update has the rate 0. Each group's
 base rate is 1.0, so that LambdaLR's rate is the schedule's value itself.
+
+``AdamW`` is optax.adamw's update, not torch.optim.AdamW's: torch decays a
+weight as p (1 - lr wd), a factor that rounds to 1 in float32 at HaMeR's lr
+1e-5 and wd 1e-4, so the decay never moves a parameter, and it takes Adam's
+bias corrections in float64; optax adds wd p into the update and takes the
+corrections in float32.
 """
 from __future__ import annotations
 
@@ -137,6 +143,106 @@ def yolo_optimizer(params: Params, lr0: float = 0.01, lrf: float = 0.1,
                           lr=1.0, momentum=momentum, nesterov=True)
     schedule = warmup_wrap(one_cycle_cosine(lr0, lrf, total_steps), warmup_steps)
     return opt, scheduler_at(opt, schedule, step)
+
+
+def _f32_bias_correction(decay: float, count: int) -> float:
+    """1 - decay^count as optax computes it: float32 decay raised in float64
+    (XLA's float32 pow, correctly rounded), the power rounded to float32,
+    then subtracted from 1 in float32."""
+    f32 = np.float32
+    return float(f32(1) - f32(np.float64(f32(decay)) ** count))
+
+
+class AdamW(torch.optim.Optimizer):
+    """optax.adamw over float32 leaves, op for op:
+    mu <- (1 - b1) g + b1 mu, nu <- (1 - b2) g^2 + b2 nu,
+    u <- (mu / c1) / (sqrt(nu / c2) + eps) + wd p, p <- p + (-lr) u,
+    with c = 1 - b^t in float32 (``_f32_bias_correction``), computed once a
+    step for the leaves of a group that share a step, device and dtype. Each
+    op is one ``torch._foreach_*`` call over those leaves, so each product
+    and sum is rounded on its own (no fused multiply-add), the divisions
+    are true divisions by tensors on the leaves' device (a division by a
+    Python number on CUDA multiplies by its reciprocal), and the square
+    root is taken in float64 and rounded back, so that the card's update
+    is bit-equal to the CPU's. The leaves go in runs of ADAMW_RUN elements,
+    so the temporaries stay within a few of those. The state holds
+    torch's names, "exp_avg", "exp_avg_sq" and "step" (training/state.py maps
+    them to optax's "mu" and "nu"); ``lr`` is a group's rate, so a LambdaLR
+    schedules it as optax.adamw's schedule does."""
+
+    def __init__(self, params, lr: float, betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 1e-4):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        f32 = np.float32
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            lr, eps, wd = (float(f32(group[k])) for k in ("lr", "eps", "weight_decay"))
+            live = [p for p in group["params"] if p.grad is not None]
+            for p in live:
+                if not self.state[p]:
+                    self.state[p].update(exp_avg=torch.zeros_like(p),
+                                         exp_avg_sq=torch.zeros_like(p), step=torch.tensor(0.0))
+            steps = [self.state[p]["step"] for p in live]
+            torch._foreach_add_(steps, 1.0)
+            buckets: Dict[tuple, List[torch.Tensor]] = {}
+            for p, t in zip(live, torch.stack(steps).tolist() if steps else []):
+                buckets.setdefault((int(t), p.device, p.dtype), []).append(p)
+            for (t, device, dtype), bucket in buckets.items():
+                c1 = torch.full((), _f32_bias_correction(b1, t), dtype=dtype, device=device)
+                c2 = torch.full((), _f32_bias_correction(b2, t), dtype=dtype, device=device)
+                for ps in _runs(bucket, ADAMW_RUN):
+                    self._update(ps, c1, c2, b1, b2, lr, eps, wd)
+
+    def _update(self, ps, c1, c2, b1, b2, lr, eps, wd):
+        f32 = np.float32
+        grads = [p.grad for p in ps]
+        mus = [self.state[p]["exp_avg"] for p in ps]
+        nus = [self.state[p]["exp_avg_sq"] for p in ps]
+        tmp = torch._foreach_mul(grads, float(f32(1 - b1)))
+        torch._foreach_mul_(mus, float(f32(b1)))
+        torch._foreach_add_(mus, tmp)
+        tmp = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(tmp, float(f32(1 - b2)))
+        torch._foreach_mul_(nus, float(f32(b2)))
+        torch._foreach_add_(nus, tmp)
+        del tmp
+        den = torch._foreach_div(nus, c2)
+        # torch's float32 sqrt on CUDA is not correctly rounded; float64's is,
+        # and rounded to float32 it is float32's correctly rounded one (the
+        # run's leaves in one buffer: a few launches, not one a leaf)
+        flat = torch.cat([d.reshape(-1) for d in den]).double().sqrt_().to(den[0].dtype)
+        torch._foreach_copy_(den, [v.view_as(d) for v, d in
+                                   zip(flat.split([d.numel() for d in den]), den)])
+        del flat
+        torch._foreach_add_(den, eps)
+        u = torch._foreach_div(mus, c1)
+        torch._foreach_div_(u, den)
+        del den
+        tmp = torch._foreach_mul(ps, wd)
+        torch._foreach_add_(u, tmp)
+        del tmp
+        torch._foreach_mul_(u, -lr)
+        torch._foreach_add_(ps, u)
+
+
+ADAMW_RUN = 1 << 25   # elements a run of leaves that AdamW updates together
+
+
+def _runs(leaves: List[torch.Tensor], limit: int):
+    """``leaves`` in order, in runs of at most ``limit`` elements (a larger
+    leaf alone), which bound the update's temporaries."""
+    run, n = [], 0
+    for p in leaves:
+        if run and n + p.numel() > limit:
+            yield run
+            run, n = [], 0
+        run.append(p)
+        n += p.numel()
+    if run:
+        yield run
 
 
 @dataclass

@@ -8,10 +8,11 @@ parameters' MSE and the LSGAN term under the yaml's weights) and updates the
 generator, then the discriminator's on the mocap batch and the generator's
 predictions, detached.
 
-torch.optim.AdamW decays the weight as p <- p (1 - lr wd) before Adam's
-step, optax.adamw as p <- p - lr (adam + wd p): the same update up to
-rounding. Adam's first step is about lr sign(g), so where a gradient is near
-0 the two packages can step a parameter in opposite directions.
+The optimizers are training/optim.AdamW, optax.adamw's update op for op
+(p <- p - lr (adam + wd p), the bias corrections in float32), not
+torch.optim.AdamW, whose decay factor 1 - lr wd rounds to 1 in float32 at
+these rates. Adam's first step is about lr sign(g), so where a gradient is
+near 0 the two packages can step a parameter in opposite directions.
 
 Parameters stay float32; the ViT computes in its compute dtype (bf16 by
 default). The step runs the plain layers, never a kernel: ``train_config``
@@ -37,7 +38,7 @@ from hamer_yolo_tpu_torch.training import state as S
 from hamer_yolo_tpu_torch.training.losses import (HAMER_LOSS_WEIGHTS, adversarial_disc_loss,
                                                   adversarial_gen_loss, keypoint_2d_loss,
                                                   keypoint_3d_loss, parameter_loss)
-from hamer_yolo_tpu_torch.training.optim import named_leaves, set_grads, trainable
+from hamer_yolo_tpu_torch.training.optim import AdamW, named_leaves, set_grads, trainable
 
 Params = Dict[str, Any]
 
@@ -46,14 +47,14 @@ Params = Dict[str, Any]
 class HamerTrainState:
     params: Params
     disc_params: Params
-    opt: torch.optim.AdamW
-    disc_opt: torch.optim.AdamW
+    opt: AdamW
+    disc_opt: AdamW
     step: int = 0
 
 
-def adamw(params: Params, lr: float, weight_decay: float) -> torch.optim.AdamW:
-    return torch.optim.AdamW([t for _, t in named_leaves(params)], lr=lr, betas=(0.9, 0.999),
-                             eps=1e-8, weight_decay=weight_decay)
+def adamw(params: Params, lr: float, weight_decay: float) -> AdamW:
+    return AdamW([t for _, t in named_leaves(params)], lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                 weight_decay=weight_decay)
 
 
 def make_train_state(params: Params, disc_params: Params, lr: float = 1e-5,

@@ -34,7 +34,7 @@ from hamer_yolo_tpu_torch.models.kpfusion_rgbd.model import (KPFusionConfig, ini
                                                              kpfusion_forward)
 from hamer_yolo_tpu_torch.training import state as S
 from hamer_yolo_tpu_torch.training.losses import abs_
-from hamer_yolo_tpu_torch.training.optim import (named_leaves, scheduler_at, set_grads,
+from hamer_yolo_tpu_torch.training.optim import (AdamW, named_leaves, scheduler_at, set_grads,
                                                  trainable)
 
 Params = Dict[str, Any]
@@ -120,7 +120,7 @@ def step_decay(lr: float, steps_per_epoch: int = 1000, step_size_epochs: int = 3
 @dataclass
 class KPFusionTrainState:
     params: Params
-    opt: torch.optim.AdamW
+    opt: AdamW
     sched: torch.optim.lr_scheduler.LambdaLR
     step: int = 0
 
@@ -129,9 +129,9 @@ def make_optimizer(params: Params, lr: float = 8e-4, steps_per_epoch: int = 1000
                    step_size_epochs: int = 30, step: int = 0):
     """AdamW (weight decay 0.01) under StepLR(gamma 0.1) - train.py:91,120 -
     over every leaf; (optimizer, its LambdaLR at ``step`` updates made).
-    torch's AdamW decays by the scheduled rate, as optax.adamw does."""
-    opt = torch.optim.AdamW([t for _, t in named_leaves(params)], lr=1.0, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=0.01)
+    optim.AdamW is optax.adamw's update: its decay takes the scheduled rate too."""
+    opt = AdamW([t for _, t in named_leaves(params)], lr=1.0, betas=(0.9, 0.999), eps=1e-8,
+                weight_decay=0.01)
     return opt, scheduler_at(opt, step_decay(lr, steps_per_epoch, step_size_epochs), step)
 
 

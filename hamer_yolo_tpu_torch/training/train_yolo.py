@@ -7,9 +7,12 @@ bf16 activations where the config says so, as JAX's step.
 The BN running stats are not the optimizer's: the training forward returns
 them updated from the batch statistics, and the step sets them into the
 parameters after the optimizer's update, as JAX's ``merge`` does. The EMA is
-updated after that, over every leaf. The step has only the "neighbor"
-assigner (training/losses.yolo_loss); spec entries without a training form
-raise (models/yolov7/model.TRAIN_OPS).
+updated after that, over every leaf. The loss is training/losses.yolo_loss
+with the "neighbor" or the "simota" assigner; over a spec that ends in
+AUXDET (IAuxDetect's training form, the reference's train_aux.py) the lead
+and auxiliary maps go to it apart, ComputeLossAuxOTA's form (simota, top k
+20 for the reference's parity). Spec entries without a training form raise
+(models/yolov7/model.TRAIN_OPS).
 """
 from __future__ import annotations
 
@@ -21,8 +24,8 @@ import torch
 
 from hamer_yolo_tpu_torch.core import nn
 from hamer_yolo_tpu_torch.core.checkpoint import load_checkpoint
-from hamer_yolo_tpu_torch.models.yolov7.model import (YoloConfig, init_yolov7,
-                                                      yolov7_train_forward)
+from hamer_yolo_tpu_torch.models.yolov7.model import (YoloConfig, init_yolov7, split_aux_maps,
+                                                      yolov7_spec, yolov7_train_forward)
 from hamer_yolo_tpu_torch.training import state as S
 from hamer_yolo_tpu_torch.training.losses import yolo_loss
 from hamer_yolo_tpu_torch.training.optim import (EmaState, ema_init, ema_update, is_bn_stat,
@@ -60,23 +63,29 @@ def init_yolo_train_state(gen: torch.Generator, cfg: YoloConfig, total_steps: in
 
 
 def yolo_loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: YoloConfig, spec=None,
-                 loss_kwargs: Optional[Dict[str, float]] = None):
+                 loss_kwargs: Optional[Dict[str, float]] = None, assigner: str = "neighbor",
+                 ota_topk: int = 10):
     """(yolo_loss's {"loss", "box", "obj", "cls"} of the training forward's
-    maps, taken in f32; the params with the forward's new BN stats)."""
+    maps, taken in f32, an AUXDET spec's auxiliary maps as ``aux_maps``;
+    the params with the forward's new BN stats)."""
     maps, with_stats = yolov7_train_forward(params, batch["img"], cfg, spec)
+    lead, aux = split_aux_maps(maps, spec if spec is not None else yolov7_spec())
     anchors = nn.constant(cfg.anchors, torch.float32, maps[0].device).reshape(cfg.nl, cfg.na, 2)
-    out = yolo_loss([m.float() for m in maps], batch["targets"], anchors, cfg.strides, cfg.nc,
-                    **(loss_kwargs or {}))
+    out = yolo_loss([m.float() for m in lead], batch["targets"], anchors, cfg.strides, cfg.nc,
+                    assigner=assigner, ota_topk=ota_topk,
+                    aux_maps=[m.float() for m in aux] if aux else None, **(loss_kwargs or {}))
     return out, with_stats
 
 
-def make_yolo_train_step(cfg: YoloConfig, spec=None,
-                         loss_kwargs: Optional[Dict[str, float]] = None):
+def make_yolo_train_step(cfg: YoloConfig, spec=None, assigner: str = "neighbor",
+                         ota_topk: int = 10, loss_kwargs: Optional[Dict[str, float]] = None):
     """(state, batch) -> metrics {"loss", "box", "obj", "cls"} (detached),
-    one step in place. ``loss_kwargs``: box_w / obj_w / cls_w / anchor_t."""
+    one step in place. ``assigner`` "neighbor" or "simota" (``ota_topk``
+    IoUs to dynamic k); ``loss_kwargs``: box_w / obj_w / cls_w / anchor_t."""
 
     def train_step(state: YoloTrainState, batch: Dict[str, torch.Tensor]):
-        out, with_stats = yolo_loss_fn(state.params, batch, cfg, spec, loss_kwargs)
+        out, with_stats = yolo_loss_fn(state.params, batch, cfg, spec, loss_kwargs, assigner,
+                                       ota_topk)
         leaves = [t for _, t in named_leaves(state.params) if t.requires_grad]
         set_grads(out["loss"], leaves)
         state.opt.step()

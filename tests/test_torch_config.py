@@ -10,10 +10,11 @@ from hamer_yolo_tpu.pipeline.frame import PipelineConfig as JP
 from hamer_yolo_tpu_torch.core import config as tconfig
 from hamer_yolo_tpu_torch.pipeline.frame import PipelineConfig as TP
 
-# Fields one package has and the other has not: JAX's ViT has a drop-path rate
-# for training, its HamerConfig the image normalisation (a constant of the
-# port's crop), and the port's ViTConfig the K2-or-plain switch.
-ONLY_JAX = {("hamer", "image_mean"), ("hamer", "image_std"), ("hamer", "vit", "drop_path_rate")}
+# Fields one package has and the other has not: JAX's HamerConfig has the
+# image normalisation (a constant of the port's crop), the port's ViTConfig
+# the K2-or-plain switch. (Both ViTs have the drop-path rate of training's
+# stochastic depth.)
+ONLY_JAX = {("hamer", "image_mean"), ("hamer", "image_std")}
 ONLY_PORT = {("hamer", "vit", "fused_attn")}
 
 NESTED = {"conf_thres": 0.3, "tta": True, "hamer": {"tome_r": 4, "vit": {"depth": 2}},

@@ -1464,15 +1464,40 @@ def test_nms_kernel_is_one_launch(dev, entry):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("model,batch", TRAIN_CASES, ids=[f"{m}_b{b}" for m, b in TRAIN_CASES])
-def test_train_step_on_card_matches_cpu(dev, model, batch):
+@pytest.mark.parametrize("model,batch,img_size", TRAIN_CASES,
+                         ids=[f"{m}_b{b}" for m, b, _ in TRAIN_CASES])
+def test_train_step_on_card_matches_cpu(dev, model, batch, img_size):
     """HaMeR at full width with 2 blocks, YOLOv7 at 64 px, KPFusion at
     --tiny: the loss's gradients and one train step, with no kernel
     launched, on the card against the CPU at test_torch_train_pairs' limits."""
     counters = (fused_bf16_attn_block, greedy_nms_keep, fused_short_attention, mano_lbs_fused)
     before = [f.launches for f in counters]
-    card_against_cpu(model, dev, batch)
+    card_against_cpu(model, dev, batch, img_size)
     assert [f.launches for f in counters] == before
+
+
+def test_adamw_on_card_matches_cpu(dev):
+    """training/optim.AdamW (optax's form, foreach ops) over 20 steps of
+    seeded gradients at HaMeR's lr 1e-5 and wd 1e-4, on leaves of several
+    shapes: the card's parameters and moments bit-equal to the CPU's."""
+    from hamer_yolo_tpu_torch.training.optim import AdamW
+
+    rng = np.random.default_rng(10)
+    shapes = [(1280, 3840), (3840,), (7, 3, 3), (1,)]
+    start = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[(1e-3 * rng.standard_normal(s)).astype(np.float32) for s in shapes]
+             for _ in range(20)]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        ps = [torch.tensor(a, device=d, requires_grad=True) for a in start]
+        opt = AdamW(ps, lr=1e-5, weight_decay=1e-4)
+        for gs in grads:
+            for p, g in zip(ps, gs):
+                p.grad = torch.tensor(g, device=d)
+            opt.step()
+        out[d.type] = [t.detach().cpu() for p in ps
+                       for t in (p, opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"])]
+    assert all(torch.equal(a, b) for a, b in zip(out["cuda"], out["cpu"]))
 
 
 def test_hamer_train_step_never_launches_k2(dev):

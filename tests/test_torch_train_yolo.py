@@ -457,17 +457,23 @@ def test_bridge_maps_the_training_form(setup):
 
 @pytest.mark.parametrize("what", ["simota", "aux", "bin", "variant"])
 def test_what_is_not_ported_raises(what):
+    """What neither package trains raises: an assigner other than neighbor
+    and simota; a training form of the IBin head (JAX's training forward
+    has none: IBin's loss is taken on raw maps) or of a variant layer; the
+    IBin loss under the neighbor assigner (the reference has only
+    ComputeLossBinOTA). SimOTA, the auxiliary heads and IBin's loss are
+    ported since: tests/test_torch_simota.py."""
     maps, targets = _loss_cases()["random"]
     args = ([torch.from_numpy(m) for m in maps], torch.from_numpy(targets),
             torch.from_numpy(ANCHORS), STRIDES, 3)
-    if what == "variant":
-        spec = [(-1, "C", (8, 3, 1)), (-1, "GHOST", (8, 3, 1))]
+    if what in ("variant", "aux"):
+        spec = ([(-1, "C", (8, 3, 1)), (-1, "GHOST", (8, 3, 1))] if what == "variant" else
+                [(-1, "C", (8, 3, 2)), (-1, "C", (16, 3, 2)), ((0, 1), "BIN", ())])
         with pytest.raises(ValueError, match="no training form"):
             TY.init_yolov7(torch.Generator().manual_seed(0), configs()[1], spec, deploy=False)
         return
-    kw = {"simota": {"assigner": "simota"}, "aux": {"aux_maps": args[0]},
-          "bin": {"head": "bin"}}[what]
-    with pytest.raises(NotImplementedError, match="not ported"):
+    kw = {"simota": {"assigner": "hungarian"}, "bin": {"head": "bin"}}[what]
+    with pytest.raises(ValueError, match="assigner" if what == "simota" else "OTA"):
         tlosses.yolo_loss(*args, **kw)
 
 
