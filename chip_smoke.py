@@ -101,6 +101,15 @@ ResNet-34 RootNet at 256; seeded random weights, synthetic MANO, numpy-made
   YOLO at 64 px, KPFusion at --tiny), the loss and each gradient held at
   the stated limits; a train state reloaded bit-equal; K2 refusing a token
   tensor that requires grad;
+- RGB-D training on data and the point-cloud zoo ("RGB-D training on data
+  and the point-cloud zoo"): tools/train_kpfusion_rgbd --data --augment at
+  the default KPFusionConfig, B = 4, on 16 numpy-made 1920x1080 samples in
+  the fixture layout and on 8 in STB's (--data-format stb), with the
+  loader's host ms against the step's; one disk batch's loss and gradients,
+  card against CPU; the nine forwards of KeypointFusion's pointNet zoo at
+  the published widths, B = 8, card against CPU with the index sets that
+  differ counted; the geometry helpers card against CPU. No kernel may
+  launch (none lies on this slice);
 - YOLO training on data ("YOLO training on data"): tools/train_yolo at full
   width (YOLOv7 at 640, nc 3, B = 16, the default recipe's mosaic, mixup,
   HSV and perspective, SimOTA) on a labelled folder of 32 numpy-made 720p
@@ -600,6 +609,7 @@ def main() -> int:
     int8_sar_overlay_phase(params, sparams, qcfg, mano, cfg, dev, depth, smi)
     training_phase(dev, smi)
     eval_k1 = yolo_data_phase(dev, smi)
+    rgbd_data_zoo_phase(dev, smi)
     # "launches" stays the bf16 path's own count; detector_map's K1 launches,
     # from a run of their own, go beside it
     launches_by_path = {"K1": {"infer (bf16 path)": launches["K1"], "detector_map": eval_k1}}
@@ -966,9 +976,10 @@ def http_phase(params, mano, cfg, dev, frames, depth, pools):
 
 def cv2_stand_in():
     """A module to stand in for cv2 on a machine without it: every file
-    holds .npy data whatever its name (an image one frame, a video a stack
-    of frames; imwrite writes one), an encoded image is .npy bytes, and
-    line and circle draw nothing."""
+    holds .npy data whatever its name (an image one frame, a 16-bit or
+    3-channel depth png its array, a video a stack of frames; imwrite
+    writes one), imread's flags change nothing, an encoded image is .npy
+    bytes, and line and circle draw nothing."""
     import io
     import types
 
@@ -987,8 +998,8 @@ def cv2_stand_in():
             self.frames = []
 
     cv2 = types.ModuleType("cv2")
-    cv2.IMREAD_COLOR = 1
-    cv2.imread = lambda path: np.load(path)
+    cv2.IMREAD_COLOR, cv2.IMREAD_ANYDEPTH, cv2.IMREAD_ANYCOLOR = 1, 2, 4
+    cv2.imread = lambda path, flags=None: np.load(path)  # the data as saved, whatever the flags
     cv2.imdecode = lambda buf, flag: np.load(io.BytesIO(np.asarray(buf).tobytes()))
 
     def imwrite(path, img):
@@ -3968,6 +3979,391 @@ def yolo_data_phase(dev, smi):
     torch.cuda.empty_cache()
     print(f"phase YOLO training on data: {time.perf_counter() - t0:.1f} s")
     return eval_k1
+
+
+# -- RGB-D training on data and the point-cloud zoo --------------------------
+
+RGBD_DATA_FRAMES = 16   # numpy-made 1920x1080 RGB-D samples in the fixture layout
+STB_FRAMES = 8          # numpy-made 640x480 samples in STB's layout
+RGBD_DATA_STEPS = 4
+ZOO_B = 8
+# the zoo's cases at the published widths: (the forward, its keywords, the
+# inputs' shapes (B = ZOO_B); a (B, J, 3) second input is joints at scale 0.4)
+ZOO_CASES = {
+    "cls_ssg": ("ref_cls_ssg_forward", {}, [(1024, 6)]),
+    "part_seg": ("ref_part_seg_forward", {}, [(2048, 3), (21, 3)]),
+    "sem_seg": ("ref_sem_seg_forward", {}, [(4096, 9)]),
+    "dgcnn_semseg": ("ref_dgcnn_semseg_forward", {"k": 20}, [(4096, 9)]),
+    "dgcnn_partseg": ("ref_dgcnn_partseg_forward", {"k": 40}, [(2048, 3)]),
+    "pointnet": ("ref_pointnet_cls_forward", {}, [(1024, 3)]),
+    "msg_large": ("ref_msg_large_forward", {}, [(1024, 3)]),
+    "pointmlp": ("ref_pointmlp_forward", {"points": 1024}, [(1024, 3)]),
+    "pointmlp_refine": ("ref_pointmlp_refine_forward", {"points": 1024}, [(1024, 3), (1024, 64)]),
+}
+
+
+def rgbd_sample(rng, cam, hw, center_xyz):
+    """(BGR uint8 frame, u16 depth mm, (21, 3) joints mm): a depth blob at
+    about 420-580 mm on a disk around the joints' projection."""
+    H, W = hw
+    joints = np.asarray(center_xyz, np.float32) + rng.uniform(-60, 60, (21, 3)).astype(np.float32)
+    u = joints[:, 0] * cam[0] / joints[:, 2] + cam[2]
+    v = joints[:, 1] * cam[1] / joints[:, 2] + cam[3]
+    r = max(np.ptp(u), np.ptp(v)) / 2 + 8
+    y0, y1 = int(max(v.mean() - r, 0)), int(min(v.mean() + r + 1, H))
+    x0, x1 = int(max(u.mean() - r, 0)), int(min(u.mean() + r + 1, W))
+    yy, xx = np.mgrid[y0:y1, x0:x1]
+    blob = center_xyz[2] + 80.0 * np.sin(xx / 9.0) * np.cos(yy / 7.0)
+    depth = np.zeros((H, W), np.uint16)
+    depth[y0:y1, x0:x1] = np.where((xx - u.mean()) ** 2 + (yy - v.mean()) ** 2 < r ** 2, blob, 0)
+    return rng.integers(0, 256, (H, W, 3), dtype=np.uint8), depth, joints
+
+
+def write_rgbd_dirs(root, seed):
+    """The fixture layout ({stem}.png, {stem}_d.png, {stem}.txt; the images as
+    .npy data under png names, for the cv2 stand-in) and STB's layout
+    (SK_color_i.png, SK_depth_i.png as R + 256 G, labels/{seq}_SK.mat by
+    scipy.io.savemat). Returns their paths."""
+    import scipy.io as sio
+
+    from hamer_yolo_tpu_torch.io.rgbd_datasets import RGBDDatasetConfig, STB_CAM
+
+    rng = np.random.default_rng(seed)
+    fixture, stb = os.path.join(root, "fixture"), os.path.join(root, "stb")
+    os.makedirs(fixture)
+    cam = RGBDDatasetConfig().cam_para
+    for i in range(RGBD_DATA_FRAMES):
+        rgb, depth, joints = rgbd_sample(rng, cam, (1080, 1920),
+                                         (rng.uniform(-150, 150), rng.uniform(-80, 80),
+                                          rng.uniform(450, 600)))
+        stem = os.path.join(fixture, f"f{i:03d}")
+        for path, a in ((stem + ".png", rgb), (stem + "_d.png", depth)):
+            with open(path, "wb") as fh:
+                np.save(fh, a)
+        np.savetxt(stem + ".txt", joints)
+    seq = os.path.join(stb, "B1Counting")
+    os.makedirs(seq)
+    os.makedirs(os.path.join(stb, "labels"))
+    hand_para = np.zeros((3, 21, STB_FRAMES))
+    for i in range(STB_FRAMES):
+        rgb, depth, joints = rgbd_sample(rng, STB_CAM, (480, 640),
+                                         (rng.uniform(-40, 40), rng.uniform(-40, 40), 500.0))
+        hand_para[:, :, i] = joints.T
+        enc = np.zeros(depth.shape + (3,), np.uint8)
+        enc[..., 2], enc[..., 1] = depth % 256, depth // 256
+        for name, a in (("SK_color", rgb), ("SK_depth", enc)):
+            with open(os.path.join(seq, f"{name}_{i}.png"), "wb") as fh:
+                np.save(fh, a)
+    sio.savemat(os.path.join(stb, "labels", "B1Counting_SK.mat"), {"handPara": hand_para})
+    return fixture, stb
+
+
+@contextlib.contextmanager
+def chosen_indices(replay=None, inputs=()):
+    """The index sets ops/pointnet chooses inside the block (furthest points,
+    ball queries, the nearest-k sorts of kNN and three-nn), logged in order
+    as (kind, indices on the host); DGCNN's kNN (models/pointnet2._knn_ref)
+    on anything but a view of one of the forward's ``inputs`` (learned
+    features, partseg's cloud after its learned transform) is the kind "knn
+    features", every other nearest-k "knn". With ``replay`` (such a log of
+    the same forward on another device) each call still makes its own
+    choice, logs it, and returns the replayed one instead (a nearest-k's
+    values gathered at it): a forward held on another device's choices."""
+    import torch
+
+    from hamer_yolo_tpu_torch.models import pointnet2 as P2
+    from hamer_yolo_tpu_torch.ops import pointnet as pn
+
+    log = []
+    plain = {k: getattr(pn, k) for k in ("furthest_point_sampling", "ball_query", "smallest_k")}
+    plain_knn_ref = P2._knn_ref
+    knn_kind = ["knn"]
+
+    def chosen(kind, idx):
+        log.append((kind, idx.cpu()))
+        if replay is None:
+            return idx
+        want_kind, want = replay[len(log) - 1]
+        if want_kind != kind or want.shape != idx.shape:
+            raise RuntimeError(f"replayed index sets: {want_kind} {tuple(want.shape)} where the "
+                               f"forward chose {kind} {tuple(idx.shape)}")
+        return want.to(idx.device)
+
+    def fps(*a, **kw):
+        return chosen("fps", plain["furthest_point_sampling"](*a, **kw))
+
+    def ball(*a, **kw):
+        return chosen("ball", plain["ball_query"](*a, **kw))
+
+    def knn(d, k):
+        idx = chosen(knn_kind[0], plain["smallest_k"](d, k)[1])
+        return torch.gather(d, -1, idx), idx
+
+    def knn_ref(x, k):
+        own = {t.untyped_storage().data_ptr() for t in inputs}
+        knn_kind[0] = "knn" if x.untyped_storage().data_ptr() in own else "knn features"
+        try:
+            return plain_knn_ref(x, k)
+        finally:
+            knn_kind[0] = "knn"
+
+    pn.furthest_point_sampling, pn.ball_query, pn.smallest_k = fps, ball, knn
+    P2._knn_ref = knn_ref
+    try:
+        yield log
+    finally:
+        for k, f in plain.items():
+            setattr(pn, k, f)
+        P2._knn_ref = plain_knn_ref
+
+
+# the share of rows of each kind whose index set the CPU may choose otherwise
+# than the card: furthest points, ball queries and kNN over xyz take f64
+# fma-chain distances that are the same on both (F19); a kNN over learned
+# features follows features that each device rounds its own way
+INDEX_SET_LIMITS = {"fps": 0.0, "ball": 0.0, "knn": 0.0, "knn features": 1e-4}
+
+
+def differing_sets(a, b):
+    """{kind: (rows whose index set differs, rows)} of two chosen_indices
+    logs of one forward; a furthest-point row is one chosen point."""
+    import torch
+
+    out = {}
+    if [k for k, _ in a] != [k for k, _ in b]:
+        raise RuntimeError("the card and the CPU chose index sets in another order")
+    for (kind, x), (_, y) in zip(a, b):
+        if kind == "fps":
+            d, n = int((x != y).sum()), x.numel()
+        else:
+            x, y = torch.sort(x, dim=-1).values, torch.sort(y, dim=-1).values
+            d, n = int((x != y).any(-1).sum()), x[..., 0].numel()
+        got = out.get(kind, (0, 0))
+        out[kind] = (got[0] + d, got[1] + n)
+    return out
+
+
+def rgbd_data_zoo_phase(dev, smi):
+    """The phase "RGB-D training on data and the point-cloud zoo".
+
+    Training on data: a fixture-layout directory of 16 numpy-made 1920x1080
+    RGB-D samples and an STB-layout directory of 8 (.npy data under png
+    names for the cv2 stand-in, STB's labels by scipy.io.savemat);
+    tools/train_kpfusion_rgbd --data --augment at the default KPFusionConfig
+    (21 joints, dim 128, 128 x 128 crops, 1,024 points), B = 4, 4 steps, and
+    again with --data-format stb: the loader's host ms a batch against the
+    step's ms (CUDA events), the peak memory and the tool's seconds; no
+    kernel may launch. One disk batch (augmented) through the loss and its
+    gradients on the card against the CPU, the same seeded weights with
+    each BN's variance calibrated on that batch, at tests/
+    test_torch_train_pairs.py's KPFusion limits (loss terms 1e-3, each
+    gradient's relative norm error 1e-2).
+
+    The zoo at the published widths (tests/test_torch_state_dicts.ZOO's
+    state dicts, div 1, converted by core/convert on each device), B = 8:
+    each of the nine forwards on the card against the CPU at its oracle
+    tolerance (test_torch_state_dicts.ZOO_TOL, rtol 1e-4), the CPU held on
+    the card's index sets
+    (chosen_indices: a kNN over learned features is an argsort, which a
+    rounding upstream can move, as the int8 ToMe check holds the CPU on
+    the card's merges), the sets the CPU would have chosen otherwise
+    counted and held to INDEX_SET_LIMITS (none for furthest points, ball
+    queries and kNN over xyz, 1e-4 of the rows for kNN over learned
+    features); the card's ms (CUDA events). Geometry: warp_affine,
+    crop_resize_normalize, letterbox_image and the Euler round trips, card
+    against CPU. TF32 stays off."""
+    import torch
+
+    from hamer_yolo_tpu_torch.geometry import affine as GA
+    from hamer_yolo_tpu_torch.geometry import rotations as GR
+    from hamer_yolo_tpu_torch.io.rgbd_datasets import RGBDDatasetConfig, RGBDDiskDataset
+    from hamer_yolo_tpu_torch.models import pointnet2 as P2
+    from hamer_yolo_tpu_torch.models.kpfusion_rgbd.model import KPFusionConfig
+    from hamer_yolo_tpu_torch.tools import train_kpfusion_rgbd as tool
+    from hamer_yolo_tpu_torch.training import train_kpfusion_rgbd as TK
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_train_pairs as PAIRS
+    from test_torch_state_dicts import ZOO, ZOO_TOL, calibrating_batch_norm
+
+    t0 = time.perf_counter()
+    no_kernels = dict.fromkeys(KERNELS, 0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the CPU halves of the checks on every core (test_torch_state_dicts, once
+    # imported, leaves torch one thread)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = cv2_stand_in()
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            fixture, stb = write_rgbd_dirs(root, SEED + 16)
+            for fmt, data in (("fixture", fixture), ("stb", stb)):
+                out = os.path.join(root, f"run_{fmt}")
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                held = torch.cuda.memory_allocated(dev)
+                t1 = time.perf_counter()
+                (rc, times), n = run_counted(lambda: tool.run(
+                    ["--data", data, "--data-format", fmt, "--augment", "--device", str(dev),
+                     "--batch", str(KPF_TRAIN_B), "--steps", str(RGBD_DATA_STEPS),
+                     "--log-every", "1", "--out", out]))
+                tool_s = time.perf_counter() - t1
+                peak = torch.cuda.max_memory_allocated(dev) - held
+                expect_launches(f"train_kpfusion_rgbd --data-format {fmt}", n, no_kernels)
+                with open(os.path.join(out, "metrics.jsonl")) as fh:
+                    recs = [json.loads(line) for line in fh]
+                if rc or [r["step"] for r in recs] != list(range(RGBD_DATA_STEPS)) or \
+                        not os.path.exists(os.path.join(out, "ckpt_final.npz")):
+                    raise RuntimeError(f"train_kpfusion_rgbd --data-format {fmt}: rc {rc}, "
+                                       f"steps {[r['step'] for r in recs]}")
+                for r in recs:
+                    _finite(r, f"train_kpfusion_rgbd --data-format {fmt}")
+                what = (f"{RGBD_DATA_FRAMES} 1920x1080" if fmt == "fixture"
+                        else f"{STB_FRAMES} 640x480")
+                losses = ", ".join(f"{r['loss']:.4f}" for r in recs)
+                print(f"RGB-D training on data ({fmt}, {what} samples, --augment): "
+                      f"train_kpfusion_rgbd at the default config, "
+                      f"B={KPF_TRAIN_B}, {RGBD_DATA_STEPS} steps in {tool_s:.1f} s; loader "
+                      f"{', '.join(f'{t:.0f}' for t in times['load_ms'])} ms a batch (host) "
+                      f"against the step {', '.join(f'{t:.1f}' for t in times['step_ms'])} ms "
+                      f"(CUDA events); peak memory {_gib(peak):.2f} GiB above what the phase "
+                      f"held; losses {losses}; no kernel launched; on {smi}", flush=True)
+
+            # one disk batch: the loss and its gradients, card against CPU
+            cfg = KPFusionConfig()
+            ds = RGBDDiskDataset(fixture, RGBDDatasetConfig(),
+                                 pcl_rng=np.random.RandomState(SEED))
+            np_batch = next(ds.batches(KPF_TRAIN_B, seed=1, augment=True))
+            batch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
+            cpu = TK.init_train_state(torch.Generator().manual_seed(6), cfg)
+            with torch.no_grad(), calibrating_batch_norm():
+                TK.kpfusion_rgbd_loss(cpu.params, batch, cfg)
+            card = TK.make_train_state(_to(cpu.params, dev))
+            dev_batch = {k: v.to(dev) for k, v in batch.items()}
+            t1 = time.perf_counter()
+
+            def card_grads():
+                loss, terms = TK.kpfusion_rgbd_loss(card.params, dev_batch, cfg)
+                return terms, PAIRS.gradients(loss, card)
+
+            (terms_card, g_card), n = run_counted(card_grads)
+            expect_launches("KPFusion loss and gradients on a disk batch", n, no_kernels)
+            loss_cpu, terms_cpu = TK.kpfusion_rgbd_loss(cpu.params, batch, cfg)
+            g_cpu = PAIRS.gradients(loss_cpu, cpu)
+            hold_s = time.perf_counter() - t1
+            for k, v in terms_cpu.items():
+                a, b = float(terms_card[k].detach()), float(v.detach())
+                if abs(a - b) > PAIRS.LOSS_REL["kpfusion"] * max(abs(b), 1e-6):
+                    raise RuntimeError(f"KPFusion on a disk batch, card against CPU: {k} {a} "
+                                       f"against {b}")
+            skip = PAIRS.SOFTMAX_CANCELLED["kpfusion"]
+            worst = max((PAIRS.rel(g_card[k], c), k) for k, c in g_cpu.items()
+                        if not k.endswith(skip))
+            if worst[0] > PAIRS.GRAD_REL["kpfusion"]:
+                raise RuntimeError(f"KPFusion on a disk batch, card against CPU: gradient of "
+                                   f"{worst[1]} off by {worst[0]}")
+            print(f"RGB-D training on data: one augmented disk batch (B={KPF_TRAIN_B}) through "
+                  f"the default config's loss and gradients, card against CPU: loss "
+                  f"{float(terms_card['loss'].detach()):.6f} against "
+                  f"{float(terms_cpu['loss'].detach()):.6f} "
+                  f"(limit {PAIRS.LOSS_REL['kpfusion']} relative, every term); worst gradient "
+                  f"{worst[0]:.2e} ({worst[1]}; limit {PAIRS.GRAD_REL['kpfusion']}) over "
+                  f"{len(g_cpu)} leaves; {hold_s:.1f} s", flush=True)
+            del card, cpu, dev_batch, g_card, g_cpu
+            torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            sys.modules.pop("cv2", None)
+        else:
+            sys.modules["cv2"] = saved
+    t_data = time.perf_counter() - t0
+
+    # the zoo at the published widths, card against CPU
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 17)
+    parts = []
+    for i, (name, (fwd, kw, shapes)) in enumerate(ZOO_CASES.items()):
+        build, convert = ZOO[name]
+        sd = build(np.random.default_rng(SEED + 100 + i))
+        n_params = sum(v.size for k, v in sd.items() if not k.endswith("num_batches_tracked"))
+        inputs = [(rng.normal(scale=0.4 if s == (21, 3) else 0.5, size=(ZOO_B,) + s)
+                   .astype(np.float32)) for s in shapes]
+        fn = getattr(P2, fwd)
+        p_dev, p_cpu = convert(sd, device=dev), convert(sd)
+        x_dev = [torch.from_numpy(a).to(dev) for a in inputs]
+        x_cpu = [torch.from_numpy(a) for a in inputs]
+        with torch.inference_mode():
+            with chosen_indices(inputs=x_dev) as log_dev:
+                got, n = run_counted(lambda: fn(p_dev, *x_dev, **kw))
+            expect_launches(f"zoo {name}", n, no_kernels)
+            t2 = time.perf_counter()
+            with chosen_indices(replay=log_dev, inputs=x_cpu) as log_cpu:
+                ref = fn(p_cpu, *x_cpu, **kw)
+            cpu_s = time.perf_counter() - t2
+            ms = cuda_time_ms(lambda: fn(p_dev, *x_dev, **kw), iters=3, warmup=1)
+        got = got.cpu()
+        if not torch.isfinite(got).all() or got.shape != ref.shape:
+            raise RuntimeError(f"zoo {name}: {tuple(got.shape)} not finite or not "
+                               f"{tuple(ref.shape)}")
+        err = float((got - ref).abs().max())
+        diff = differing_sets(log_dev, log_cpu)
+        part = (f"{name} {tuple(ref.shape)} ({n_params:,} parameters): {ms:.2f} ms, max abs diff "
+                f"{err:.2e} at |ref| <= {float(ref.abs().max()):.3g}; index sets the CPU would "
+                f"have chosen otherwise " + ", ".join(f"{k} {d} of {m}" for k, (d, m) in
+                                                      diff.items()) + f"; CPU {cpu_s:.1f} s")
+        print(f"zoo {part}", flush=True)
+        for kind, (d, m) in diff.items():
+            if d > INDEX_SET_LIMITS[kind] * m:
+                raise RuntimeError(f"zoo {name}: the CPU would have chosen {d} of {m} {kind} "
+                                   f"index sets otherwise (limit {INDEX_SET_LIMITS[kind]} "
+                                   f"of the rows)")
+        torch.testing.assert_close(got, ref, atol=ZOO_TOL[name], rtol=1e-4)
+        parts.append(part)
+        del p_dev, x_dev, got
+    torch.cuda.empty_cache()
+    print(f"point-cloud zoo at the published widths, B={ZOO_B}, card against CPU on the "
+          f"card's index sets (atol ZOO_TOL, rtol 1e-4; ms by CUDA events, 1 warm-up, 3 timed, "
+          f"on {smi}): "
+          + "; ".join(parts), flush=True)
+    t_zoo = time.perf_counter() - t1
+
+    # geometry, card against CPU
+    g = torch.Generator().manual_seed(SEED + 18)
+    img = torch.randint(0, 256, (720, 1280, 3), generator=g).float()
+    trans = GA.gen_trans_from_patch(torch.tensor(640.0), torch.tensor(360.0), torch.tensor(300.0),
+                                    torch.tensor(300.0), 256.0, 256.0)
+    mean, std = torch.tensor([0.485, 0.456, 0.406]), torch.tensor([0.229, 0.224, 0.225])
+    _, new_unpad, _, pads = GA.letterbox_params((720, 1280), 640)
+    euler = (torch.rand(64, 3, generator=g) * 2.4 - 1.2)
+    cases = {
+        "warp_affine": lambda d: GA.warp_affine(img.to(d), trans.to(d), (256, 256)),
+        "crop_resize_normalize": lambda d: GA.crop_resize_normalize(
+            img.to(d), torch.tensor([640.0, 360.0], device=d), torch.tensor(300.0, device=d),
+            (256, 192), mean.to(d), std.to(d), torch.tensor(1.0, device=d)),
+        "letterbox_image": lambda d: GA.letterbox_image(img.to(d), new_unpad, pads, 640),
+        "euler xyz round trip": lambda d: GR.rotmat_to_ee(GR.ee_to_rotmat(euler.to(d), "xyz"),
+                                                          "xyz"),
+        "euler zyx via axis-angle": lambda d: GR.aa_to_ee(GR.ee_to_aa(euler.to(d), "zyx"),
+                                                          "zyx"),
+    }
+    tol = {"warp_affine": 1e-3, "crop_resize_normalize": 1e-4, "letterbox_image": 1e-3,
+           "euler xyz round trip": 1e-5, "euler zyx via axis-angle": 1e-5}
+    errs = []
+    for name, f in cases.items():
+        got, n = run_counted(lambda: f(dev))
+        expect_launches(f"geometry {name}", n, no_kernels)
+        ref = f(torch.device("cpu"))
+        err = float((got.cpu() - ref).abs().max())
+        if not err <= tol[name]:
+            raise RuntimeError(f"geometry {name}: card against CPU {err} > {tol[name]}")
+        errs.append(f"{name} {tuple(ref.shape)} {err:.2e} (limit {tol[name]})")
+    print("geometry, card against CPU, max abs diff: " + "; ".join(errs))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.set_num_threads(threads)
+    print(f"phase RGB-D training on data and the point-cloud zoo: {time.perf_counter() - t0:.1f} s "
+          f"(training on data {t_data:.1f} s, zoo {t_zoo:.1f} s)", flush=True)
 
 
 if __name__ == "__main__":

@@ -24,33 +24,43 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-# (key, rank) -> transform of the numpy leaf
+def _same(a: np.ndarray) -> np.ndarray:
+    return a
+
+
+# (key, rank) -> transform of the numpy leaf; a 4-D leaf whose rule is
+# _same keeps its layout in both directions, every other one is a conv weight
 _RULES = {
     ("w", 4): lambda a: a.transpose(3, 2, 0, 1),  # HWIO -> OIHW
-    ("w", 2): lambda a: a,                        # (in, out) linear
-    ("b", 1): lambda a: a,
-    ("scale", 1): lambda a: a,
-    ("bias", 1): lambda a: a,
-    ("pos_embed", 3): lambda a: a,
-    ("init_hand_pose", 2): lambda a: a,
-    ("init_betas", 2): lambda a: a,
-    ("init_cam", 2): lambda a: a,
-    ("sx", 0): lambda a: a,                       # static activation scale
-    ("mean", 1): lambda a: a,                     # batch-norm running stats
-    ("var", 1): lambda a: a,
-    ("adj", 2): lambda a: a,                      # SAR graph conv's (V, V) adjacency
-    ("template", 2): lambda a: a,                 # SAR's MANO template (V, 3)
-    ("beta", 1): lambda a: a,                     # SAR soft-heatmap weights
-    ("rpb", 2): lambda a: a,                      # Swin's relative position bias table
+    ("w", 2): _same,                              # (in, out) linear
+    ("b", 1): _same,
+    ("scale", 1): _same,
+    ("bias", 1): _same,
+    ("pos_embed", 3): _same,
+    ("init_hand_pose", 2): _same,
+    ("init_betas", 2): _same,
+    ("init_cam", 2): _same,
+    ("sx", 0): _same,                             # static activation scale
+    ("mean", 1): _same,                           # batch-norm running stats
+    ("var", 1): _same,
+    ("adj", 2): _same,                            # SAR graph conv's (V, V) adjacency
+    ("template", 2): _same,                       # SAR's MANO template (V, 3)
+    ("beta", 1): _same,                           # SAR soft-heatmap weights
+    ("rpb", 2): _same,                            # Swin's relative position bias table
     # KPFusion (models/kpfusion_rgbd): the decoders' fused in_proj (in, 3 out)
     # and learned per-joint embeddings, BERT's position table, the GAM gate
-    ("in_proj_w", 2): lambda a: a,
-    ("in_proj_b", 1): lambda a: a,
-    ("self_posembed", 2): lambda a: a,
-    ("cross_posembed", 2): lambda a: a,
-    ("pos_embed", 2): lambda a: a,
-    ("weight_dis", 1): lambda a: a,
-    ("gamma", 1): lambda a: a,                    # ConvNeXt's layer scale
+    ("in_proj_w", 2): _same,
+    ("in_proj_b", 1): _same,
+    ("self_posembed", 2): _same,
+    ("cross_posembed", 2): _same,
+    ("pos_embed", 2): _same,
+    ("weight_dis", 1): _same,
+    ("gamma", 1): _same,                          # ConvNeXt's layer scale
+    # pointMLP's geometric affine: (C,) in the classifier, (1, 1, 1, C) in the
+    # zoo's LocalGrouper (its torch parameter's shape)
+    ("alpha", 1): _same,
+    ("alpha", 4): _same,
+    ("beta", 4): _same,
 }
 # int8 leaves: (parent key, key, rank) -> the rule: the int8 linears of
 # quantize_vit_params ({"wq": {"q", "scale"}}) and the int8 convs of
@@ -92,17 +102,19 @@ def from_jax_params(tree: Any, device="cpu") -> Any:
     return _convert(tree, (), device)
 
 
-def to_jax_layout(tree: Any) -> Any:
+def to_jax_layout(tree: Any, key: str = "") -> Any:
     """The inverse of ``from_jax_params``: the port's tensors (any device) ->
-    numpy leaves in JAX layout, OIHW conv weights back to HWIO; numpy and
-    Python leaves are taken as they are."""
+    numpy leaves in JAX layout, 4-D conv weights (OIHW) back to HWIO and the
+    4-D leaves that _RULES keeps as they are (pointMLP's "alpha", "beta")
+    unchanged; numpy and Python leaves are taken as they are."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: to_jax_layout(v) for k, v in tree.items()}
+        return {k: to_jax_layout(v, str(k)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [to_jax_layout(v) for v in tree]
     if not isinstance(tree, torch.Tensor):
         return np.asarray(tree)
     a = tree.detach().cpu().numpy()
-    return np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if a.ndim == 4 else a
+    conv = a.ndim == 4 and _RULES.get((key, 4)) is not _same
+    return np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if conv else a

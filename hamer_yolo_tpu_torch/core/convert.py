@@ -1,5 +1,6 @@
 """The reference's torch checkpoints -> parameter trees in JAX layout (port of
-hamer_yolo_tpu/core/convert.py, the YOLOv7, HaMeR, SAR and KPFusion converters).
+hamer_yolo_tpu/core/convert.py: the YOLOv7, HaMeR, SAR and KPFusion
+converters, and the eight of KeypointFusion's pointNet zoo).
 
 Converters for the reference's model files, ``yolov7_best.pt``,
 ``hamer.ckpt``, ``SAR-resnet34-Root.pth`` and KPFusion's ``.pth``
@@ -7,7 +8,8 @@ Converters for the reference's model files, ``yolov7_best.pt``,
 in float32, the same steps in the same order as the JAX package's, so the
 trees come out leaf for leaf equal to JAX's; torch only deserializes. The
 trees are what ``core/bridge.from_jax_params`` reads and what
-``core/checkpoint.save_checkpoint`` writes.
+``core/checkpoint.save_checkpoint`` writes; the zoo's converters hand that
+tree through the bridge themselves and return the port's tensors.
 
 Layouts: torch conv OIHW -> HWIO; torch linear (out, in) -> (in, out); BN
 folded into the conv before it; YOLO's RepConv and OREPA branches fused into
@@ -20,6 +22,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from hamer_yolo_tpu_torch.core.bridge import from_jax_params
+from hamer_yolo_tpu_torch.geometry.affine import resize_weights
 from hamer_yolo_tpu_torch.models.yolov7 import model as M
 
 
@@ -293,32 +297,6 @@ def convert_yolov7_state_dict(sd: Dict[str, np.ndarray], spec=None) -> Dict[str,
 # HaMeR (ViT-H + MANO head)
 # ---------------------------------------------------------------------------
 
-def _keys_cubic(x: np.ndarray) -> np.ndarray:
-    """Keys' cubic kernel, a = -0.5, of |x|, in float32."""
-    f = np.float32
-    out = ((f(1.5) * x - f(2.5)) * x) * x + f(1.0)
-    out = np.where(x >= 1.0, ((f(-0.5) * x + f(2.5)) * x - f(4.0)) * x + f(2.0), out)
-    return np.where(x >= 2.0, f(0.0), out).astype(np.float32)
-
-
-def _bicubic_weights(n_in: int, n_out: int) -> np.ndarray:
-    """(n_in, n_out) weights of ``jax.image.resize(..., "bicubic")`` along one
-    axis, antialiased as its default is: half-pixel centres, on a downscale
-    the kernel widened by n_in / n_out, every column renormalised to sum 1,
-    and columns whose sample falls outside the input zeroed. float32 steps
-    in jax.image's order."""
-    inv_scale = np.float32(1.0 / (n_out / n_in))
-    kernel_scale = np.maximum(inv_scale, np.float32(1.0))
-    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
-    w = _keys_cubic(x)
-    total = np.sum(w, axis=0, keepdims=True, dtype=np.float32)
-    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                 w / np.where(total != 0, total, np.float32(1.0)), np.float32(0.0))
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32)
-
-
 def resize_pos_embed(pos: np.ndarray, grid_hw: Tuple[int, int]) -> np.ndarray:
     """A (1, 1 + HW, D) learned position embedding resized bicubically onto
     the token grid ``grid_hw`` (the cls slot passes through), as the JAX
@@ -335,9 +313,9 @@ def resize_pos_embed(pos: np.ndarray, grid_hw: Tuple[int, int]) -> np.ndarray:
         raise ValueError(f"cannot infer source grid from {n} tokens")
     grid = np.asarray(pos[:, 1:], np.float32).reshape(side, side, -1)
     if h != side:
-        grid = np.einsum("hwd,hH->Hwd", grid, _bicubic_weights(side, h))
+        grid = np.einsum("hwd,hH->Hwd", grid, resize_weights(side, h, "cubic"))
     if w != side:
-        grid = np.einsum("hwd,wW->hWd", grid, _bicubic_weights(side, w))
+        grid = np.einsum("hwd,wW->hWd", grid, resize_weights(side, w, "cubic"))
     return np.concatenate([np.asarray(pos[:, :1], np.float32),
                            grid.astype(np.float32).reshape(1, h * w, -1)], axis=1)
 
@@ -735,3 +713,347 @@ def convert_kpfusion_checkpoint(path: str, num_stages: int = 2) -> Dict[str, Any
     sd = load_torch_state_dict(path, key="model")
     sd = {(k[7:] if k.startswith("module.") else k): v for k, v in sd.items()}
     return convert_kpfusion_state_dict(sd, num_stages=num_stages)
+
+
+# ---------------------------------------------------------------------------
+# KeypointFusion's pointNet zoo: BN folded into the linears, for the zoo's
+# forwards in models/pointnet2.py. These return the port's tree itself
+# (bridge.from_jax_params of the numpy tree: every leaf a linear's (in, out)
+# weight, a bias or pointMLP's affine, so the layout is JAX's).
+# ---------------------------------------------------------------------------
+
+def _fold_bn_into_linear(w, bn_g, bn_b, bn_m, bn_v,
+                         eps: float = 1e-5) -> Dict[str, np.ndarray]:
+    """torch 1x1-conv/linear weight (out, in[, 1[, 1]]) + eval-mode BN ->
+    our {"w" (in, out), "b"}: y = gamma*(Wx - mean)/sqrt(var+eps) + beta
+    is an affine of Wx, foldable per output channel."""
+    w = np.asarray(w, np.float32).reshape(np.asarray(w).shape[0], -1)
+    scale = np.asarray(bn_g, np.float32) / np.sqrt(
+        np.asarray(bn_v, np.float32) + eps)
+    return {"w": np.ascontiguousarray((w * scale[:, None]).T),
+            "b": (np.asarray(bn_b, np.float32)
+                  - np.asarray(bn_m, np.float32) * scale)}
+
+
+def _fold_bn_seq(sd: Dict[str, np.ndarray], prefix: str,
+                 conv_idx, bn_idx) -> Dict[str, np.ndarray]:
+    return _fold_bn_into_linear(
+        sd[f"{prefix}.{conv_idx}.weight"], sd[f"{prefix}.{bn_idx}.weight"],
+        sd[f"{prefix}.{bn_idx}.bias"], sd[f"{prefix}.{bn_idx}.running_mean"],
+        sd[f"{prefix}.{bn_idx}.running_var"])
+
+
+def _shared_mlp_from_sd(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, Any]:
+    """build_shared_mlp Sequential (Conv2d@3j, BN@3j+1, ReLU) -> mlp stack."""
+    layers = []
+    j = 0
+    while f"{prefix}.{3 * j}.weight" in sd:
+        layers.append(_fold_bn_seq(sd, prefix, 3 * j, 3 * j + 1))
+        j += 1
+    if not layers:
+        raise KeyError(f"no shared-mlp layers under {prefix}")
+    return {"layers": layers}
+
+
+def _plain_linear(sd: Dict[str, np.ndarray], key: str) -> Dict[str, np.ndarray]:
+    w = np.asarray(sd[f"{key}.weight"], np.float32)
+    p = {"w": np.ascontiguousarray(w.reshape(w.shape[0], -1).T)}
+    if f"{key}.bias" in sd:
+        p["b"] = np.asarray(sd[f"{key}.bias"], np.float32)
+    return p
+
+
+def _pointnet2_cls_ssg_tree(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """PointNet2ClassificationSSG -> ref_cls_ssg_forward's tree."""
+    sas = [_shared_mlp_from_sd(sd, f"SA_modules.{i}.mlps.0")
+           for i in range(3)]
+    fc = [
+        _fold_bn_seq(sd, "fc_layer", 0, 1),
+        _fold_bn_seq(sd, "fc_layer", 3, 4),
+        _plain_linear(sd, "fc_layer.7"),
+    ]
+    return {"sa": sas, "fc": fc}
+
+
+def _pointnet2_sem_seg_tree(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """PointNet2SemSegSSG state dict (point2_ssg_sem.py:8-60) -> params
+    for models/pointnet2.ref_sem_seg_forward."""
+    sas = [_shared_mlp_from_sd(sd, f"SA_modules.{i}.mlps.0")
+           for i in range(4)]
+    fps = []
+    # C1 = skip (unknow_feats) channels per FP level: input feats 6,
+    # then the SA output dims
+    dense_dims = (6, 64, 128, 256)
+    for i in range(4):
+        mlp = _shared_mlp_from_sd(sd, f"FP_modules.{i}.mlp")
+        # reference FP concatenates [interpolated(C2), skip(C1)]
+        # (pointnet2_modules.py:200-203); our feature_propagation uses
+        # [skip(C1), interpolated(C2)] — rotate the first layer's input
+        # rows so the folded weights see our order
+        w = mlp["layers"][0]["w"]
+        c1 = dense_dims[i]
+        c2 = w.shape[0] - c1
+        mlp["layers"][0]["w"] = np.ascontiguousarray(
+            np.concatenate([w[c2:], w[:c2]], axis=0))
+        fps.append(mlp)
+    head = [_fold_bn_seq(sd, "fc_lyaer", 0, 1), _plain_linear(sd, "fc_lyaer.4")]
+    return {"sa": sas, "fp": fps, "head": head}
+
+
+def _dgcnn_semseg_tree(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """DGCNN_semseg state dict (DGCNN.py:231-270) -> params for
+    models/pointnet2.ref_dgcnn_semseg_forward."""
+    def seq(names):
+        return {"layers": [_fold_bn_seq(sd, n, 0, 1) for n in names]}
+
+    return {
+        "conv12": seq(["conv1", "conv2"]),
+        "conv34": seq(["conv3", "conv4"]),
+        "conv5": seq(["conv5"]),
+        "conv6": seq(["conv6"]),
+        "conv7": seq(["conv7"]),
+        "conv8": seq(["conv8"]),
+        "conv9": _plain_linear(sd, "conv9"),
+        "finals": [_plain_linear(sd, f"finals.{j}") for j in range(3)],
+    }
+
+
+def _fold_bn_biased(w, conv_b, bn_g, bn_b, bn_m, bn_v,
+                    eps: float = 1e-5) -> Dict[str, np.ndarray]:
+    """Conv-with-bias + eval BN fold: b' = beta + (b - mean)*scale."""
+    w = np.asarray(w, np.float32).reshape(np.asarray(w).shape[0], -1)
+    scale = np.asarray(bn_g, np.float32) / np.sqrt(
+        np.asarray(bn_v, np.float32) + eps)
+    b = np.zeros(w.shape[0], np.float32) if conv_b is None \
+        else np.asarray(conv_b, np.float32)
+    return {"w": np.ascontiguousarray((w * scale[:, None]).T),
+            "b": (np.asarray(bn_b, np.float32)
+                  + (b - np.asarray(bn_m, np.float32)) * scale)}
+
+
+def _yanx_mlp(sd: Dict[str, np.ndarray], conv_prefix: str,
+              bn_prefix: str) -> Dict[str, Any]:
+    """mlp_convs.{j} (biased Conv) + mlp_bns.{j} ModuleList pair ->
+    folded mlp stack (pointNet/pointnet2_utils.py flavor)."""
+    layers = []
+    j = 0
+    while f"{conv_prefix}.{j}.weight" in sd:
+        layers.append(_fold_bn_biased(
+            sd[f"{conv_prefix}.{j}.weight"],
+            sd.get(f"{conv_prefix}.{j}.bias"),
+            sd[f"{bn_prefix}.{j}.weight"], sd[f"{bn_prefix}.{j}.bias"],
+            sd[f"{bn_prefix}.{j}.running_mean"],
+            sd[f"{bn_prefix}.{j}.running_var"]))
+        j += 1
+    if not layers:
+        raise KeyError(f"no layers under {conv_prefix}")
+    return {"layers": layers}
+
+
+def _pointnet2_part_seg_ref_tree(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """PointNet2 part-seg state dict (pointnet2_part_seg_ssg.py:7-21) ->
+    params for models/pointnet2.ref_part_seg_forward."""
+    out = {}
+    for name in ("sa1", "sa2", "sa3"):
+        out[name] = _yanx_mlp(sd, f"{name}.mlp_convs", f"{name}.mlp_bns")
+    for name in ("fp1", "fp2", "fp3"):
+        out[name] = _yanx_mlp(sd, f"{name}.mlp_convs", f"{name}.mlp_bns")
+    out["fc"] = _fold_bn_biased(
+        sd["conv1.weight"], sd.get("conv1.bias"), sd["bn1.weight"],
+        sd["bn1.bias"], sd["bn1.running_mean"], sd["bn1.running_var"])
+    out["head"] = _plain_linear(sd, "conv2")
+    return out
+
+
+def _pointnet2_msg_large_tree(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """PointNet2_MSG_large state dict (pointnet2_part_seg_ssg.py:81-106)
+    -> params for models/pointnet2.ref_msg_large_forward."""
+    sas = []
+    for i in range(1, 5):
+        scales = []
+        s = 0
+        while f"sa{i}.conv_blocks.{s}.0.weight" in sd:
+            scales.append(_yanx_mlp(sd, f"sa{i}.conv_blocks.{s}",
+                                    f"sa{i}.bn_blocks.{s}"))
+            s += 1
+        sas.append({"scales": scales})
+    fps = [_yanx_mlp(sd, f"fp{i}.mlp_convs", f"fp{i}.mlp_bns")
+           for i in range(1, 5)]
+    fc = _fold_bn_biased(
+        sd["conv1.weight"], sd.get("conv1.bias"), sd["bn1.weight"],
+        sd["bn1.bias"], sd["bn1.running_mean"], sd["bn1.running_var"])
+    finals = [_plain_linear(sd, f"finals.{j}") for j in range(3)]
+    return {"sa": sas, "fp": fps, "fc": fc, "finals": finals}
+
+
+def _cbr(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
+    """pointMLP ConvBNReLU1D `net` Sequential (conv@0 biased, BN@1)."""
+    return _fold_bn_biased(
+        sd[f"{prefix}.net.0.weight"], sd.get(f"{prefix}.net.0.bias"),
+        sd[f"{prefix}.net.1.weight"], sd[f"{prefix}.net.1.bias"],
+        sd[f"{prefix}.net.1.running_mean"], sd[f"{prefix}.net.1.running_var"])
+
+
+def _res1d(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, Any]:
+    """ConvBNReLURes1D, groups=1 (net1 conv+BN+act, net2 conv+BN)."""
+    return {
+        "net1": _fold_bn_biased(
+            sd[f"{prefix}.net1.0.weight"], sd.get(f"{prefix}.net1.0.bias"),
+            sd[f"{prefix}.net1.1.weight"], sd[f"{prefix}.net1.1.bias"],
+            sd[f"{prefix}.net1.1.running_mean"],
+            sd[f"{prefix}.net1.1.running_var"]),
+        "net2": _fold_bn_biased(
+            sd[f"{prefix}.net2.0.weight"], sd.get(f"{prefix}.net2.0.bias"),
+            sd[f"{prefix}.net2.1.weight"], sd[f"{prefix}.net2.1.bias"],
+            sd[f"{prefix}.net2.1.running_mean"],
+            sd[f"{prefix}.net2.1.running_var"]),
+    }
+
+
+def _res_seq(sd: Dict[str, np.ndarray], prefix: str):
+    blocks = []
+    j = 0
+    while f"{prefix}.{j}.net1.0.weight" in sd:
+        blocks.append(_res1d(sd, f"{prefix}.{j}"))
+        j += 1
+    return blocks
+
+
+def _pointmlp_tree(sd: Dict[str, np.ndarray],
+                     n_stages: int = 4) -> Dict[str, Any]:
+    """PointMLP state dict (pointMLP.py:334-410) -> params for
+    models/pointnet2.ref_pointmlp_forward (BN folded, groups=1)."""
+    out = {
+        "groupers": [
+            {"alpha": np.asarray(sd[f"local_grouper_list.{i}.affine_alpha"],
+                                 np.float32),
+             "beta": np.asarray(sd[f"local_grouper_list.{i}.affine_beta"],
+                                np.float32)}
+            for i in range(n_stages)
+        ],
+        "pre": [
+            {"transfer": _cbr(sd, f"pre_blocks_list.{i}.transfer"),
+             "blocks": _res_seq(sd, f"pre_blocks_list.{i}.operation")}
+            for i in range(n_stages)
+        ],
+        "pos": [_res_seq(sd, f"pos_blocks_list.{i}.operation")
+                for i in range(n_stages)],
+        "decode": [
+            {"fuse": _cbr(sd, f"decode_list.{i}.fuse"),
+             "extraction": _res_seq(sd, f"decode_list.{i}.extraction.operation")}
+            for i in range(n_stages)
+        ],
+        "gmp_map": [_cbr(sd, f"gmp_map_list.{i}")
+                    for i in range(n_stages + 1)],
+        "gmp_end": _cbr(sd, "gmp_map_end"),
+        "conv": _fold_bn_biased(
+            sd["conv.0.weight"], sd.get("conv.0.bias"), sd["conv.1.weight"],
+            sd["conv.1.bias"], sd["conv.1.running_mean"],
+            sd["conv.1.running_var"]),
+        "finals": [_plain_linear(sd, f"finals.{j}") for j in range(3)],
+    }
+    if "embedding.net.0.weight" in sd:  # absent in PointMLP_refine
+        out["embedding"] = _cbr(sd, "embedding")
+    return out
+
+
+def _dgcnn_pointnet_tree(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """PointNet state dict (DGCNN.py:58-77) -> params for
+    models/pointnet2.ref_pointnet_cls_forward (plain convs + separate
+    bn{i} registrations, BN folded)."""
+    convs = [
+        _fold_bn_into_linear(
+            sd[f"conv{i}.weight"], sd[f"bn{i}.weight"], sd[f"bn{i}.bias"],
+            sd[f"bn{i}.running_mean"], sd[f"bn{i}.running_var"])
+        for i in range(1, 6)
+    ]
+    fc1 = _fold_bn_into_linear(
+        sd["linear1.weight"], sd["bn6.weight"], sd["bn6.bias"],
+        sd["bn6.running_mean"], sd["bn6.running_var"])
+    return {"convs": {"layers": convs}, "fc1": fc1,
+            "fc2": _plain_linear(sd, "linear2")}
+
+
+def _dgcnn_partseg_tree(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """DGCNN_partseg state dict (DGCNN.py:137-185) -> params for
+    models/pointnet2.ref_dgcnn_partseg_forward."""
+    def seq(names):
+        return {"layers": [_fold_bn_seq(sd, n, 0, 1) for n in names]}
+
+    tnet_prefix = "transform_net"
+    tnet = {
+        "conv12": seq([f"{tnet_prefix}.conv1", f"{tnet_prefix}.conv2"]),
+        "conv3": seq([f"{tnet_prefix}.conv3"]),
+        # linear1/linear2 are bias-free; their BNs are the REASSIGNED
+        # bn3 (512) and bn4 (256) module attributes (DGCNN.py:110-112 —
+        # the 1024 BN lives inside the conv3 Sequential)
+        "fc1": _fold_bn_into_linear(
+            sd[f"{tnet_prefix}.linear1.weight"], sd[f"{tnet_prefix}.bn3.weight"],
+            sd[f"{tnet_prefix}.bn3.bias"], sd[f"{tnet_prefix}.bn3.running_mean"],
+            sd[f"{tnet_prefix}.bn3.running_var"]),
+        "fc2": _fold_bn_into_linear(
+            sd[f"{tnet_prefix}.linear2.weight"], sd[f"{tnet_prefix}.bn4.weight"],
+            sd[f"{tnet_prefix}.bn4.bias"], sd[f"{tnet_prefix}.bn4.running_mean"],
+            sd[f"{tnet_prefix}.bn4.running_var"]),
+        "transform": _plain_linear(sd, f"{tnet_prefix}.transform"),
+    }
+    return {
+        "tnet": tnet,
+        "conv12": seq(["conv1", "conv2"]),
+        "conv34": seq(["conv3", "conv4"]),
+        "conv5": seq(["conv5"]),
+        "conv6": seq(["conv6"]),
+        "conv8": seq(["conv8"]),
+        "conv9": seq(["conv9"]),
+        "conv10": seq(["conv10"]),
+        "conv11": _plain_linear(sd, "conv11"),
+    }
+
+
+
+def convert_pointnet2_cls_ssg(sd: Dict[str, np.ndarray], device="cpu") -> Dict[str, Any]:
+    """PointNet2ClassificationSSG (point2_ssg_cls.py) ->
+    models/pointnet2.ref_cls_ssg_forward (the port's tree on ``device``)."""
+    return from_jax_params(_pointnet2_cls_ssg_tree(sd), device)
+
+
+def convert_pointnet2_sem_seg(sd: Dict[str, np.ndarray], device="cpu") -> Dict[str, Any]:
+    """PointNet2SemSegSSG (point2_ssg_sem.py) -> models/pointnet2.ref_sem_seg_forward (the
+    port's tree on ``device``)."""
+    return from_jax_params(_pointnet2_sem_seg_tree(sd), device)
+
+
+def convert_dgcnn_semseg(sd: Dict[str, np.ndarray], device="cpu") -> Dict[str, Any]:
+    """DGCNN_semseg (DGCNN.py) -> models/pointnet2.ref_dgcnn_semseg_forward (the port's
+    tree on ``device``)."""
+    return from_jax_params(_dgcnn_semseg_tree(sd), device)
+
+
+def convert_pointnet2_part_seg_ref(sd: Dict[str, np.ndarray], device="cpu") -> Dict[str, Any]:
+    """PointNet2 part segmentation (pointnet2_part_seg_ssg.py) ->
+    models/pointnet2.ref_part_seg_forward (the port's tree on ``device``)."""
+    return from_jax_params(_pointnet2_part_seg_ref_tree(sd), device)
+
+
+def convert_pointnet2_msg_large(sd: Dict[str, np.ndarray], device="cpu") -> Dict[str, Any]:
+    """PointNet2_MSG_large (pointnet2_part_seg_ssg.py) ->
+    models/pointnet2.ref_msg_large_forward (the port's tree on ``device``)."""
+    return from_jax_params(_pointnet2_msg_large_tree(sd), device)
+
+
+def convert_pointmlp(sd: Dict[str, np.ndarray], n_stages: int = 4, device="cpu") -> Dict[str, Any]:
+    """PointMLP or PointMLP_refine (pointMLP.py) -> models/pointnet2.ref_pointmlp_forward
+    / ref_pointmlp_refine_forward (the port's tree on ``device``)."""
+    return from_jax_params(_pointmlp_tree(sd, n_stages), device)
+
+
+def convert_dgcnn_pointnet(sd: Dict[str, np.ndarray], device="cpu") -> Dict[str, Any]:
+    """PointNet (DGCNN.py) -> models/pointnet2.ref_pointnet_cls_forward (the port's tree
+    on ``device``)."""
+    return from_jax_params(_dgcnn_pointnet_tree(sd), device)
+
+
+def convert_dgcnn_partseg(sd: Dict[str, np.ndarray], device="cpu") -> Dict[str, Any]:
+    """DGCNN_partseg (DGCNN.py) -> models/pointnet2.ref_dgcnn_partseg_forward (the port's
+    tree on ``device``)."""
+    return from_jax_params(_dgcnn_partseg_tree(sd), device)

@@ -1,14 +1,21 @@
 """Affine crop geometry on tensors, f32 (port of
 hamer_yolo_tpu/geometry/affine.py): the letterbox geometry, the patch
 affine from a box (``gen_trans_from_patch``, the reference's 3-point
-construction in closed form), its inverse, and the bilinear sample with a
-constant border (cv2.INTER_LINEAR + BORDER_CONSTANT). Every function takes
-leading batch dimensions where JAX's is mapped over them."""
+construction in closed form), its inverse, the bilinear sample with a
+constant border (cv2.INTER_LINEAR + BORDER_CONSTANT), the warp and HaMeR's
+crop built on it, and the letterbox resize (``jax.image.resize``'s
+antialiased linear weights, then the pad). Every function takes leading
+batch dimensions where JAX's is mapped over them. ``letterbox_params`` and
+``letterbox_numpy`` are the host's (io/images.py)."""
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
+import numpy as np
 import torch
+
+from hamer_yolo_tpu_torch.io.images import letterbox_numpy, letterbox_params  # noqa: F401
 
 
 def letterbox_geometry_traced(h: torch.Tensor, w: torch.Tensor, out_size: int,
@@ -108,3 +115,81 @@ def bilinear_sample(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
     top = tap(y0i, x0i) * (1 - wx) + tap(y0i, x0i + 1) * wx
     bottom = tap(y0i + 1, x0i) * (1 - wx) + tap(y0i + 1, x0i + 1) * wx
     return top * (1 - wy) + bottom * wy
+
+
+def warp_affine(img: torch.Tensor, trans: torch.Tensor, out_hw: Tuple[int, int],
+                border_value: float = 0.0) -> torch.Tensor:
+    """cv2.warpAffine(INTER_LINEAR, BORDER_CONSTANT) of an (H, W, C) image
+    under the forward (2, 3) map ``trans`` -> (out_h, out_w, C)."""
+    out_h, out_w = out_hw
+    inv = invert_affine(trans)
+    ys, xs = torch.meshgrid(torch.arange(out_h, dtype=torch.float32, device=img.device),
+                            torch.arange(out_w, dtype=torch.float32, device=img.device),
+                            indexing="ij")
+    src_x = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
+    src_y = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
+    return bilinear_sample(img, src_x, src_y, border_value)
+
+
+def crop_resize_normalize(img: torch.Tensor, center: torch.Tensor, size: torch.Tensor,
+                          out_hw: Tuple[int, int], mean: torch.Tensor, std: torch.Tensor,
+                          do_flip: torch.Tensor, border_value: float = 0.0) -> torch.Tensor:
+    """HaMeR's input for one box of one (H, W, 3) BGR image: the size x size
+    square about ``center`` warped to out_hw, BGR -> RGB, mirrored where
+    ``do_flip`` > 0.5, and normalised (x - 255 mean) / (255 std)."""
+    out_h, out_w = out_hw
+    trans = gen_trans_from_patch(center[0], center[1], size, size, float(out_w), float(out_h))
+    patch = warp_affine(img, trans, out_hw, border_value).flip(-1)
+    patch = torch.where(do_flip > 0.5, patch.flip(1), patch)
+    return (patch - 255.0 * mean) / (255.0 * std)
+
+
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x)).astype(np.float32)
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic kernel, a = -0.5, of |x|, in float32."""
+    f = np.float32
+    out = ((f(1.5) * x - f(2.5)) * x) * x + f(1.0)
+    out = np.where(x >= 1.0, ((f(-0.5) * x + f(2.5)) * x - f(4.0)) * x + f(2.0), out)
+    return np.where(x >= 2.0, f(0.0), out).astype(np.float32)
+
+
+RESIZE_KERNELS = {"linear": _triangle, "cubic": _keys_cubic}
+
+
+def resize_weights(n_in: int, n_out: int, kernel: str = "linear") -> np.ndarray:
+    """(n_in, n_out) float32 weights of ``jax.image.resize`` along one axis
+    (method "linear" or "cubic"), antialiased as its default is: half-pixel
+    centres, on a downscale the kernel widened by n_in / n_out, every column
+    renormalised to sum 1, columns whose sample falls outside the input
+    zeroed; float32 steps in jax.image's order."""
+    inv_scale = np.float32(1.0 / (n_out / n_in))
+    kernel_scale = np.maximum(inv_scale, np.float32(1.0))
+    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    w = RESIZE_KERNELS[kernel](x)
+    total = np.sum(w, axis=0, keepdims=True, dtype=np.float32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, np.float32(1.0)), np.float32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32)
+
+
+def letterbox_image(img: torch.Tensor, new_unpad_wh: Tuple[int, int],
+                    pads: Tuple[int, int, int, int], out_size: int = 640,
+                    pad_value: float = 114.0) -> torch.Tensor:
+    """An (H, W, 3) float image resized to new_unpad_wh as
+    ``jax.image.resize(..., "linear")`` resizes it, then padded with
+    ``pad_value`` by pads (top, bottom, left, right) -> (out_size, out_size,
+    3). Only an axis whose length changes is resampled."""
+    new_w, new_h = new_unpad_wh
+    top, bottom, left, right = pads
+    x = img
+    for axis, n in ((0, new_h), (1, new_w)):
+        if x.shape[axis] != n:
+            w = torch.from_numpy(resize_weights(x.shape[axis], n)).to(x.device)
+            x = torch.tensordot(x.movedim(axis, -1), w, dims=1).movedim(-1, axis)
+    return torch.nn.functional.pad(x.permute(2, 0, 1), (left, right, top, bottom),
+                                   value=pad_value).permute(1, 2, 0)

@@ -10,6 +10,12 @@ from typing import Tuple
 import torch
 
 
+def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
+    """(..., 4) corner boxes -> (cx, cy, w, h)."""
+    return torch.stack([(x[..., 0] + x[..., 2]) / 2, (x[..., 1] + x[..., 3]) / 2,
+                        x[..., 2] - x[..., 0], x[..., 3] - x[..., 1]], dim=-1)
+
+
 def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     """(..., 4) center boxes -> (x1, y1, x2, y2)."""
     x1 = x[..., 0] - x[..., 2] / 2

@@ -35,6 +35,18 @@ def cam_to_translation(pred_cam: torch.Tensor, focal_length: float,
     return torch.stack([tx, ty, tz], dim=-1)
 
 
+def cam_crop_to_full(cam_bbox: torch.Tensor, box_center: torch.Tensor, box_size: torch.Tensor,
+                     img_size: torch.Tensor, focal_length: float = 5000.0) -> torch.Tensor:
+    """Crop camera -> full-image translation (B, 3) under default intrinsics
+    (the focal length, the image's center); img_size (B, 2) is (w, h)."""
+    b = box_size.reshape(-1)
+    bs = b * cam_bbox[:, 0] + 1e-9
+    tz = 2.0 * focal_length / bs
+    tx = (2.0 * (box_center[:, 0] - img_size[:, 0] / 2.0) / bs) + cam_bbox[:, 1]
+    ty = (2.0 * (box_center[:, 1] - img_size[:, 1] / 2.0) / bs) + cam_bbox[:, 2]
+    return torch.stack([tx, ty, tz], dim=-1)
+
+
 def custom_cam_crop_to_full(cam_bbox: torch.Tensor, box_center: torch.Tensor,
                             box_size: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
                             cx: torch.Tensor, cy: torch.Tensor,

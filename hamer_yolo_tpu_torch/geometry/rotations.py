@@ -1,8 +1,11 @@
 """Rotation conversions on tensors (port of hamer_yolo_tpu/geometry/rotations.py).
 
 ``aa_to_rotmat`` (via quaternion, with the reference's +1e-8 pre-norm
-regulariser), ``rot6d_to_rotmat`` (Gram-Schmidt, column-stacked) and
-``rotmat_to_aa`` (branchless max-pivot quaternion, then Rodrigues inverse).
+regulariser), ``rot6d_to_rotmat`` (Gram-Schmidt, column-stacked),
+``rotmat_to_aa`` (branchless max-pivot quaternion, then Rodrigues inverse),
+``rotmat_orthonormalize`` (the nearest rotation by SVD) and the Euler
+conversions of KeypointFusion's convention library (pytorch3d's intrinsic
+semantics: a 3-letter convention c0 c1 c2 is R = R_c0(a0) R_c1(a1) R_c2(a2)).
 All accept arbitrary leading batch dims.
 """
 from __future__ import annotations
@@ -77,3 +80,70 @@ def rotmat_to_aa(rot: torch.Tensor) -> torch.Tensor:
     angle = 2.0 * torch.atan2(sin_half[..., 0], w)[..., None]
     axis = xyz / torch.clamp(sin_half, min=1e-12)
     return torch.where(sin_half < 1e-8, xyz * 2.0, axis * angle)
+
+
+def rotmat_orthonormalize(rot: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) near-rotations projected onto SO(3) by SVD, det +1."""
+    u, _, vt = torch.linalg.svd(rot)
+    det = torch.linalg.det(u @ vt)
+    d = torch.cat([torch.ones(rot.shape[:-2] + (2,), dtype=rot.dtype, device=rot.device),
+                   det[..., None]], dim=-1)
+    return (u * d[..., None, :]) @ vt
+
+
+def _axis_rotmat(axis: str, angle: torch.Tensor) -> torch.Tensor:
+    c, s = torch.cos(angle), torch.sin(angle)
+    one, zero = torch.ones_like(angle), torch.zeros_like(angle)
+    if axis == "x":
+        rows = ((one, zero, zero), (zero, c, -s), (zero, s, c))
+    elif axis == "y":
+        rows = ((c, zero, s), (zero, one, zero), (-s, zero, c))
+    elif axis == "z":
+        rows = ((c, -s, zero), (s, c, zero), (zero, zero, one))
+    else:
+        raise ValueError(f"bad axis {axis!r}")
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def _check_convention(convention: str) -> str:
+    """Three axes of xyz, no axis twice in a row (Tait-Bryan xyz... and
+    proper Euler zxz...)."""
+    convention = convention.lower()
+    if (len(convention) != 3 or any(a not in "xyz" for a in convention)
+            or convention[0] == convention[1] or convention[1] == convention[2]):
+        raise ValueError(f"bad euler convention {convention!r}")
+    return convention
+
+
+def ee_to_rotmat(euler: torch.Tensor, convention: str = "xyz") -> torch.Tensor:
+    """(..., 3) Euler angles (radians) -> (..., 3, 3) rotations."""
+    convention = _check_convention(convention)
+    mats = [_axis_rotmat(a, euler[..., i]) for i, a in enumerate(convention)]
+    return mats[0] @ mats[1] @ mats[2]
+
+
+def rotmat_to_ee(rot: torch.Tensor, convention: str = "xyz") -> torch.Tensor:
+    """(..., 3, 3) rotations -> (..., 3) Euler angles (radians), the
+    principal branch of a Tait-Bryan convention (c0, c1, c2) with
+    permutation sign s: b = asin(s R[i0, i2]), a = atan2(-s R[i1, i2],
+    R[i2, i2]), c = atan2(-s R[i0, i1], R[i0, i0])."""
+    convention = _check_convention(convention)
+    if convention[0] == convention[2]:
+        raise NotImplementedError("proper Euler (repeated-axis) extraction "
+                                  "not needed by the reference")
+    i0, i1, i2 = ("xyz".index(a) for a in convention)
+    sign = 1.0 if convention in ("xyz", "yzx", "zxy") else -1.0
+    central = torch.asin(torch.clamp(sign * rot[..., i0, i2], -1.0, 1.0))
+    first = torch.atan2(-sign * rot[..., i1, i2], rot[..., i2, i2])
+    third = torch.atan2(-sign * rot[..., i0, i1], rot[..., i0, i0])
+    return torch.stack([first, central, third], dim=-1)
+
+
+def aa_to_ee(theta: torch.Tensor, convention: str = "xyz") -> torch.Tensor:
+    """Axis-angle -> Euler angles."""
+    return rotmat_to_ee(aa_to_rotmat(theta), convention)
+
+
+def ee_to_aa(euler: torch.Tensor, convention: str = "xyz") -> torch.Tensor:
+    """Euler angles -> axis-angle."""
+    return rotmat_to_aa(ee_to_rotmat(euler, convention))

@@ -295,20 +295,105 @@ def hsv_to_bgr(img: np.ndarray) -> np.ndarray:
     return np.clip(np.where(body, np.trunc(scaled), np.rint(scaled)), 0, 255).astype(np.uint8)
 
 
-def letterbox_numpy(img: np.ndarray, new_shape: int = 640):
-    """The JAX package's host letterbox to a square (geometry/affine.
-    letterbox_numpy, auto=False): cv2's resize by min(S / h, S / w) to
-    int(round()) sides, then a constant 114 border, the reference's
-    int(round(pad -+ 0.1)) split; (padded uint8 image, ratio, (dw, dh))."""
-    h, w = img.shape[:2]
+def letterbox_params(shape_hw: Tuple[int, int], new_shape: int = 640, stride: int = 32,
+                     auto: bool = False, scaleup: bool = True):
+    """The letterbox's geometry on the host: (ratio, (new_w, new_h) unpadded,
+    (dw, dh) half-pads, (top, bottom, left, right) pads), the reference's
+    int(round(d -+ 0.1)) split; ``auto`` pads to a multiple of ``stride``."""
+    h, w = shape_hw
     r = min(new_shape / h, new_shape / w)
+    if not scaleup:
+        r = min(r, 1.0)
     new_unpad = (int(round(w * r)), int(round(h * r)))
-    dw, dh = (new_shape - new_unpad[0]) / 2, (new_shape - new_unpad[1]) / 2
+    dw, dh = new_shape - new_unpad[0], new_shape - new_unpad[1]
+    if auto:
+        dw, dh = dw % stride, dh % stride
+    dw /= 2
+    dh /= 2
     top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
     left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
+    return r, new_unpad, (dw, dh), (top, bottom, left, right)
+
+
+def letterbox_numpy(img: np.ndarray, new_shape: int = 640, stride: int = 32, auto: bool = False):
+    """The JAX package's host letterbox (geometry/affine.letterbox_numpy):
+    cv2's resize by min(S / h, S / w) to int(round()) sides, then a constant
+    114 border split as ``letterbox_params`` splits it; (padded uint8 image,
+    ratio, (dw, dh))."""
+    r, new_unpad, (dw, dh), (top, bottom, left, right) = letterbox_params(
+        img.shape[:2], new_shape, stride, auto)
     if (img.shape[1], img.shape[0]) != new_unpad:
         img = resize_linear(img, new_unpad)
     out = np.full((img.shape[0] + top + bottom, img.shape[1] + left + right, img.shape[2]), 114,
                   np.uint8)
     out[top:top + img.shape[0], left:left + img.shape[1]] = img
     return out, r, (dw, dh)
+
+
+
+# ---------------------------------------------------------------------------
+# The nearest warps and Rodrigues of the RGB-D loaders
+# ---------------------------------------------------------------------------
+#
+# cv2 5.0's INTER_NEAREST warps take the source coordinates of its linear
+# warps (``_source``, float32, the same SIMD body and scalar tail) and round
+# each half to even (cvRound); the value is copied as it is, whatever the
+# dtype. A scalar borderValue is cv::Scalar(v, 0, 0, 0): a pixel outside the
+# image gets v in its first channel and 0 in the others.
+
+def _sample_nearest(img: np.ndarray, sx: np.ndarray, sy: np.ndarray,
+                    border: float) -> np.ndarray:
+    h, w = img.shape[:2]
+    big = _F32(2 ** 30)  # cvRound saturates; anything this far is outside
+    ix = np.rint(np.clip(np.nan_to_num(sx, nan=-big), -big, big)).astype(np.int64)
+    iy = np.rint(np.clip(np.nan_to_num(sy, nan=-big), -big, big)).astype(np.int64)
+    inside = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+    out = img[np.clip(iy, 0, h - 1), np.clip(ix, 0, w - 1)]
+    fill = np.zeros(img.shape[2:], img.dtype)
+    fill.reshape(-1)[:1] = border
+    if img.ndim == 2:
+        return np.where(inside, out, fill)
+    return np.where(inside[..., None], out, fill)
+
+
+def warp_affine_nearest(img: np.ndarray, m: np.ndarray, size_wh: Tuple[int, int],
+                        border_value: float = 0.0) -> np.ndarray:
+    """cv2.warpAffine(img, m, size_wh, flags=INTER_NEAREST,
+    borderMode=BORDER_CONSTANT, borderValue=border_value) on an (H, W) or
+    (H, W, C) image of any dtype."""
+    mi = _invert_affine(m).astype(_F32)
+    xs, ys, tail = _grid(size_wh)
+    return _sample_nearest(img, _source(mi[0], mi[1], mi[2], xs, ys, tail),
+                           _source(mi[3], mi[4], mi[5], xs, ys, tail), border_value)
+
+
+def warp_perspective_nearest(img: np.ndarray, m: np.ndarray, size_wh: Tuple[int, int],
+                             border_value: float = 0.0) -> np.ndarray:
+    """cv2.warpPerspective(img, m, size_wh, flags=INTER_NEAREST,
+    borderMode=BORDER_CONSTANT, borderValue=border_value) on an (H, W) or
+    (H, W, C) image of any dtype: x' / w' and y' / w' as
+    ``warp_perspective_linear`` takes them."""
+    mi = _invert_3x3(m).astype(_F32)
+    xs, ys, tail = _grid(size_wh)
+    w = _source(mi[6], mi[7], mi[8], xs, ys, tail)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sx = (_source(mi[0], mi[1], mi[2], xs, ys, tail) / w).astype(_F32)
+        sy = (_source(mi[3], mi[4], mi[5], xs, ys, tail) / w).astype(_F32)
+    return _sample_nearest(img, sx, sy, border_value)
+
+
+def rodrigues(rvec) -> np.ndarray:
+    """cv2.Rodrigues(rvec)[0]: the (3, 3) float64 rotation of an axis-angle
+    vector, cos(t) I + (1 - cos(t)) r r^T + sin(t) [r]x with r the unit axis,
+    in cv2's order of operations."""
+    x, y, z = (float(v) for v in np.asarray(rvec, np.float64).reshape(3))
+    theta = np.sqrt(x * x + y * y + z * z)
+    if theta < np.finfo(np.float64).eps:
+        return np.eye(3)
+    c, s = np.cos(theta), np.sin(theta)
+    c1 = 1.0 - c
+    it = 1.0 / theta
+    x, y, z = x * it, y * it, z * it
+    rrt = np.array([[x * x, x * y, x * z], [x * y, y * y, y * z], [x * z, y * z, z * z]])
+    r_x = np.array([[0.0, -z, y], [z, 0.0, -x], [-y, x, 0.0]])
+    return c * np.eye(3) + c1 * rrt + s * r_x

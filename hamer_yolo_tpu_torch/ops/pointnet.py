@@ -36,21 +36,25 @@ import torch
 
 def sqsum3(d: torch.Tensor) -> torch.Tensor:
     """(..., 3) f32 -> (...,) fma(d2, d2, fma(d1, d1, d0 * d0)), each step
-    rounded to f32 once."""
+    rounded to f32 once; (..., C) features take the same chain over their C
+    components in order."""
     x = d.double()
     acc = (x[..., 0] * x[..., 0]).float()
-    acc = (x[..., 1] * x[..., 1] + acc.double()).float()
-    return (x[..., 2] * x[..., 2] + acc.double()).float()
+    for i in range(1, d.shape[-1]):
+        acc = (x[..., i] * x[..., i] + acc.double()).float()
+    return acc
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(..., N, 3) x (..., M, 3) -> (..., N, M) squared distances."""
+    """(..., N, C) x (..., M, C) -> (..., N, M) squared distances."""
     return sqsum3(a[..., :, None, :] - b[..., None, :, :])
 
 
 def smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values, indices) of the ``k`` smallest entries along the last axis,
-    ascending, ties to the lower index (``lax.top_k(-d, k)``'s order)."""
+    ascending, ties to the lower index (``lax.top_k(-d, k)``'s order), -0
+    and +0 tied too where lax.top_k takes -0 first (squared distances from
+    sqsum3 are never -0)."""
     vals, idx = torch.sort(d, dim=-1, stable=True)
     return vals[..., :k], idx[..., :k]
 

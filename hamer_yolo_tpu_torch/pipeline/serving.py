@@ -17,7 +17,7 @@ Two departures from JAX's loop (ROADMAP.md, F2, closed for the port):
 ``process_batch`` raises when it is given more frames than ``batch_size``
 (JAX drops the frames past it), and a float frame with values outside 0..255
 raises (JAX's uint8 upload wraps them modulo 256). The data mesh (JAX's
-``mesh``) is not ported (ROADMAP.md, Queue 1 item 12).
+``mesh``) is not ported (ROADMAP.md, Queue 1 item 8).
 """
 from __future__ import annotations
 

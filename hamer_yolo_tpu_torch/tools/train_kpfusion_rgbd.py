@@ -1,26 +1,32 @@
 """KPFusion RGB-D training (port of tools/train_kpfusion_rgbd.py).
 
   python -m hamer_yolo_tpu_torch.tools.train_kpfusion_rgbd --steps 200 [--batch 4]
-      [--lr 8e-4] [--tiny] [--out runs/kpfusion_rgbd] [--resume PATH|auto]
-      [--ckpt-every 100] [--log-every 10] [--device cuda]
+      [--lr 8e-4] [--tiny] [--data DIR [--depth-fmt auto|u16|nyu|ho3d|npy]
+      [--data-format fixture|stb] [--augment]] [--out runs/kpfusion_rgbd]
+      [--resume PATH|auto] [--ckpt-every 100] [--log-every 10] [--device cuda]
 
 The train step of training/train_kpfusion_rgbd.py on seeded random weights
-(the default KPFusionConfig; ``--tiny`` the JAX tool's small one) and
-synthetic batches (plausibly scaled random samples), on the card unless
-``--device`` names another. The spatial-weight gate takes step * batch //
+(the default KPFusionConfig; ``--tiny`` the JAX tool's small one), on the
+card unless ``--device`` names another. ``--data`` reads a directory of
+samples (io/rgbd_datasets.py): the fixture layout ({stem}.png,
+{stem}_d.png, {stem}.txt joints in mm; ``--depth-fmt`` its depth encoding)
+or, with ``--data-format stb``, STB's; batches come from an endless loop of
+epochs, each shuffled with its own number as the seed, ``--augment`` one
+rot / com / sc / none augmentation a sample, the points sampled from a
+RandomState(0). Without ``--data`` the batches are synthetic (plausibly
+scaled random samples) and the spatial-weight gate takes step * batch //
 1000 as the epoch. Every ``--log-every`` steps the losses go to
 ``<out>/metrics.jsonl``; every ``--ckpt-every`` steps and at the end the
 train state to ``<out>/ckpt_<step>.npz`` / ``ckpt_final.npz``, from which
-``--resume auto`` goes on. Not ported yet: ``--data`` with ``--depth-fmt``,
-``--data-format`` and ``--augment`` (the RGB-D datasets, ROADMAP.md Queue 1
-item 6), and ``--devices`` above 1 (Queue 1 item 8).
+``--resume auto`` goes on. ``--devices`` above 1 (data parallelism) is not
+ported (ROADMAP.md, Queue 1 item 8).
 """
 from __future__ import annotations
 
 import argparse
 import os
 import time
-from typing import Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,21 +40,20 @@ def tiny_config() -> KPFusionConfig:
                           heads=2)
 
 
-def main(argv: Optional[list] = None) -> int:
-    from hamer_yolo_tpu_torch.core.checkpoint import latest_checkpoint
-    from hamer_yolo_tpu_torch.training.train_kpfusion_rgbd import (
-        init_train_state, load_train_state, save_train_state, synthetic_rgbd_batch, train_step)
-    from hamer_yolo_tpu_torch.utils.logging import MetricLogger
-
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="train_kpfusion_rgbd")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--lr", type=float, default=8e-4)   # config.py:60
     p.add_argument("--tiny", action="store_true", help="scaled-down net (smoke)")
-    p.add_argument("--data", default=None, help="RGB-D sample dir (not ported yet)")
-    p.add_argument("--depth-fmt", default=None, help="with --data (not ported yet)")
-    p.add_argument("--data-format", default=None, help="with --data (not ported yet)")
-    p.add_argument("--augment", action="store_true", help="with --data (not ported yet)")
+    p.add_argument("--data", default=None, help="RGB-D sample dir; default synthetic batches")
+    p.add_argument("--depth-fmt", default="auto", choices=["auto", "u16", "nyu", "ho3d", "npy"])
+    p.add_argument("--data-format", default="fixture", choices=["fixture", "stb"],
+                   help="fixture: {stem}.png + {stem}_d.png + {stem}.txt; stb: "
+                        "{seq}/SK_color_i.png + SK_depth_i.png + labels/{seq}_SK.mat")
+    p.add_argument("--augment", action="store_true",
+                   help="rot / com / sc / none augmentation of --data samples "
+                        "(aug_para 10 mm, 0.2, 180 degrees)")
     p.add_argument("--devices", type=int, default=0)
     p.add_argument("--out", default="runs/kpfusion_rgbd")
     p.add_argument("--resume", default=None, help="a checkpoint, or auto: the run's latest")
@@ -56,10 +61,39 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--device", default="cuda",
                    help="torch device (default: the card; cpu for a machine without one)")
+    return p
+
+
+def data_batches(args, cfg: KPFusionConfig) -> Iterator[Tuple[int, dict]]:
+    """(epoch, numpy batch) from --data, epoch after epoch."""
+    from hamer_yolo_tpu_torch.io import rgbd_datasets as R
+
+    pcl_rng = np.random.RandomState(0)
+    if args.data_format == "stb":
+        ds = R.STBDataset(args.data, img_size=cfg.img_size, sample_num=cfg.sample_num,
+                          pcl_rng=pcl_rng)
+    else:
+        ds = R.RGBDDiskDataset(args.data, R.RGBDDatasetConfig(
+            img_size=cfg.img_size, sample_num=cfg.sample_num, depth_fmt=args.depth_fmt),
+            pcl_rng=pcl_rng)
+    print(f"data: {len(ds)} labeled sample(s) from {args.data} ({args.data_format})")
+    epoch = 0
+    while True:
+        for b in ds.batches(args.batch, shuffle=True, seed=epoch, augment=args.augment):
+            yield epoch, b
+        epoch += 1
+
+
+def run(argv: Optional[list] = None) -> Tuple[int, dict]:
+    """The tool on ``argv``: (exit code, {"load_ms": host ms a batch, "step_ms":
+    ms a step, by CUDA events on the card})."""
+    from hamer_yolo_tpu_torch.core.checkpoint import latest_checkpoint
+    from hamer_yolo_tpu_torch.training.train_kpfusion_rgbd import (
+        init_train_state, load_train_state, save_train_state, synthetic_rgbd_batch, train_step)
+    from hamer_yolo_tpu_torch.utils.logging import MetricLogger, StepTimer, step_summary
+
+    p = build_parser()
     args = p.parse_args(argv)
-    if args.data or args.depth_fmt or args.data_format or args.augment:
-        p.error("--data, --depth-fmt, --data-format and --augment: the RGB-D datasets are not "
-                "ported (ROADMAP.md, Queue 1 item 6); training runs on synthetic batches")
     if args.devices > 1:
         p.error("--devices above 1: data parallelism is not ported (ROADMAP.md, Queue 1 item 8)")
 
@@ -75,13 +109,20 @@ def main(argv: Optional[list] = None) -> int:
 
     os.makedirs(args.out, exist_ok=True)
     rng = np.random.default_rng(0)
+    batches = data_batches(args, cfg) if args.data else None
+    timer = StepTimer(device)
     t0 = time.time()
     with MetricLogger(args.out) as logger:
         for step in range(state.step, args.steps):
-            batch = {k: torch.from_numpy(v).to(device)
-                     for k, v in synthetic_rgbd_batch(rng, args.batch, cfg).items()}
-            # the epoch of the spatial-weight gate (train.py:250)
-            metrics = train_step(state, batch, cfg, epoch=step * args.batch // 1000)
+            with timer.load():
+                if batches is not None:
+                    epoch, np_batch = next(batches)
+                else:
+                    np_batch = synthetic_rgbd_batch(rng, args.batch, cfg)
+                    epoch = step * args.batch // 1000  # the spatial-weight gate's epoch (train.py:250)
+                batch = {k: torch.from_numpy(v).to(device) for k, v in np_batch.items()}
+            with timer.step():
+                metrics = train_step(state, batch, cfg, epoch=epoch)
             if step % args.log_every == 0:
                 logger.log(step, {k: float(v) for k, v in metrics.items()})
                 print(f"step {step}: loss={float(metrics['loss']):.4f} "
@@ -90,8 +131,15 @@ def main(argv: Optional[list] = None) -> int:
             if step and step % args.ckpt_every == 0:
                 save_train_state(os.path.join(args.out, f"ckpt_{step}.npz"), state)
         save_train_state(os.path.join(args.out, "ckpt_final.npz"), state)
+    times = timer.times()
+    if times["load_ms"]:
+        print(step_summary(times))
     print(f"done: {args.steps} steps in {time.time() - t0:.0f}s -> {args.out}")
-    return 0
+    return 0, times
+
+
+def main(argv: Optional[list] = None) -> int:
+    return run(argv)[0]
 
 
 if __name__ == "__main__":

@@ -25,9 +25,11 @@ evolution (training/evolve.py): each trains a fresh model for ``--steps``
 steps under a mutated hyp, without checkpoints, takes the EMA's mAP over
 ``--data`` (utils/detect_eval.detector_map, conf 0.001, iou 0.65) and
 appends to ``<out>/evolve.txt``; the best hyp goes to
-``<out>/hyp_evolved.yaml``. One device: ``--devices`` above 1 (data
-parallelism) is not ported (ROADMAP.md, Queue 1 item 8), and ``--plots``
-waits for utils/plots.py (ROADMAP.md, Queue 1 item 6).
+``<out>/hyp_evolved.yaml``. ``--plots`` (utils/plots.py, which needs cv2
+and matplotlib) saves the first batch's mosaic ``train_batch0.jpg`` and
+the label statistics ``labels.png`` at the start, and the curves
+``results.png`` at the end. One device: ``--devices`` above 1 (data
+parallelism) is not ported (ROADMAP.md, Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ import argparse
 import dataclasses
 import os
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +45,8 @@ import torch
 
 def train_loop(args, spec, cfg, opt_kwargs, loss_kwargs, data_kwargs, assigner: str,
                ota_topk: int, out: str, device: torch.device, save_ckpts: bool = True,
-               resume: Optional[str] = None, quiet: bool = False, seed: int = 0):
+               resume: Optional[str] = None, quiet: bool = False, seed: int = 0,
+               plots: bool = False):
     """One training run: (the final state, the last logged metrics,
     {"load_ms": host ms per batch, "step_ms": ms per step, by CUDA events
     on the card, "start": the step it began at})."""
@@ -53,7 +56,7 @@ def train_loop(args, spec, cfg, opt_kwargs, loss_kwargs, data_kwargs, assigner: 
                                                           load_train_state,
                                                           make_yolo_train_step,
                                                           save_train_state)
-    from hamer_yolo_tpu_torch.utils.logging import MetricLogger
+    from hamer_yolo_tpu_torch.utils.logging import MetricLogger, StepTimer
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -68,27 +71,18 @@ def train_loop(args, spec, cfg, opt_kwargs, loss_kwargs, data_kwargs, assigner: 
                                label_dir=args.labels)
     os.makedirs(out, exist_ok=True)
     logger = None if quiet else MetricLogger(out)
-    cuda = device.type == "cuda"
-    load_ms: List[float] = []
-    events = []
-    host_ms: List[float] = []
+    timer = StepTimer(device)
     t0 = time.time()
     start = state.step
     metrics: Dict[str, float] = {}
     for step in range(start, args.steps):
-        t = time.perf_counter()
-        batch = {k: torch.from_numpy(v).to(device) for k, v in next(data).items()}
-        load_ms.append((time.perf_counter() - t) * 1e3)
-        t = time.perf_counter()
-        if cuda:
-            events.append((torch.cuda.Event(enable_timing=True),
-                           torch.cuda.Event(enable_timing=True)))
-            events[-1][0].record()
-        out_metrics = step_fn(state, batch)
-        if cuda:
-            events[-1][1].record()
-        else:
-            host_ms.append((time.perf_counter() - t) * 1e3)
+        with timer.load():
+            np_batch = next(data)
+            batch = {k: torch.from_numpy(v).to(device) for k, v in np_batch.items()}
+        if plots and step == start:
+            plot_first_batch(np_batch, out)
+        with timer.step():
+            out_metrics = step_fn(state, batch)
         if step % args.log_every == 0 or step == args.steps - 1:
             metrics = {k: float(v) for k, v in out_metrics.items()}
             rate = (step - start + 1) * args.batch / (time.time() - t0)
@@ -103,10 +97,30 @@ def train_loop(args, spec, cfg, opt_kwargs, loss_kwargs, data_kwargs, assigner: 
         save_train_state(os.path.join(out, "ckpt_final.npz"), state)
     if logger is not None:
         logger.close()
-    if cuda:
-        torch.cuda.synchronize(device)
-        host_ms = [a.elapsed_time(b) for a, b in events]
-    return state, metrics, {"load_ms": load_ms, "step_ms": host_ms, "start": start}
+    return state, metrics, dict(timer.times(), start=start)
+
+
+def plot_first_batch(batch: Dict[str, np.ndarray], out: str) -> None:
+    """train_batch0.jpg (the batch's mosaic with its label boxes) and
+    labels.png (the label statistics) in ``out``."""
+    from hamer_yolo_tpu_torch.utils.plots import plot_images, plot_labels
+
+    tgt = batch["targets"]  # (B, T, 5) [cls, xywh in 0..1], padded rows with w == 0
+    live = tgt[..., 3] > 0
+    rows = [np.concatenate([[b], tgt[b, t]]) for b, t in zip(*np.nonzero(live))]
+    plot_images(batch["img"], np.asarray(rows).reshape(-1, 6),
+                fname=os.path.join(out, "train_batch0.jpg"))
+    plot_labels(tgt[live], os.path.join(out, "labels.png"))
+
+
+def require_plot_libraries() -> None:
+    """--plots draws with cv2 and matplotlib: an ImportError that says so
+    where either is missing, before any training."""
+    try:
+        import cv2  # noqa: F401
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        raise ImportError(f"--plots needs cv2 and matplotlib: {e}") from e
 
 
 def eval_map(args, cfg, spec, params, conf: float = 0.001, iou: float = 0.65):
@@ -144,7 +158,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reference hyp yaml: lr / momentum / wd, the loss gains, the "
                         "augmentation, loss_ota -> simota")
     p.add_argument("--plots", action="store_true",
-                   help="train_batch0.jpg, labels.png and results.png (not ported)")
+                   help="train_batch0.jpg and labels.png at the start, results.png at the end "
+                        "(needs cv2 and matplotlib)")
     p.add_argument("--evolve", type=int, default=0, metavar="N",
                    help="N generations of hyperparameter evolution; writes <out>/evolve.txt "
                         "and hyp_evolved.yaml")
@@ -165,8 +180,7 @@ def run(argv: Optional[list] = None) -> Tuple[int, Optional[dict]]:
     if args.devices > 1:
         p.error("--devices above 1: data parallelism is not ported (ROADMAP.md, Queue 1 item 8)")
     if args.plots:
-        p.error("--plots: utils/plots.py is not ported; it comes with utils/vis_tool.py "
-                "(ROADMAP.md, Queue 1 item 6)")
+        require_plot_libraries()
     device = torch.device(args.device)
 
     spec = None
@@ -213,10 +227,15 @@ def run(argv: Optional[list] = None) -> Tuple[int, Optional[dict]]:
 
     t0 = time.time()
     _, _, times = train_loop(args, spec, cfg, opt_kwargs, loss_kwargs, data_kwargs, assigner,
-                             ota_topk, args.out, device, resume=args.resume)
+                             ota_topk, args.out, device, resume=args.resume, plots=args.plots)
+    if args.plots:
+        from hamer_yolo_tpu_torch.utils.plots import plot_results
+
+        print(f"curves -> {plot_results(args.out)}")
     if times["load_ms"]:
-        print(f"loader {np.median(times['load_ms']):.1f} ms a batch, step "
-              f"{np.median(times['step_ms']):.1f} ms (medians over {len(times['load_ms'])})")
+        from hamer_yolo_tpu_torch.utils.logging import step_summary
+
+        print(step_summary(times))
     print(f"done: {args.steps} steps in {time.time() - t0:.0f}s -> {args.out}")
     return 0, times
 

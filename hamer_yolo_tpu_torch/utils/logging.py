@@ -7,12 +7,14 @@ Weights & Biases mirrors are not ported.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
+import torch
 
 
 class MetricLogger:
@@ -51,3 +53,49 @@ class MetricLogger:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+class StepTimer:
+    """A training loop's timings: the loader's host ms a batch (``load``) and
+    the step's ms (``step``), by CUDA events on the card and by the host's
+    clock elsewhere."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.load_ms: List[float] = []
+        self._events: list = []
+        self._host_ms: List[float] = []
+
+    @contextlib.contextmanager
+    def load(self):
+        t = time.perf_counter()
+        yield
+        self.load_ms.append((time.perf_counter() - t) * 1e3)
+
+    @contextlib.contextmanager
+    def step(self):
+        if self.device.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            self._events.append((start, end))
+        else:
+            t = time.perf_counter()
+            yield
+            self._host_ms.append((time.perf_counter() - t) * 1e3)
+
+    def times(self) -> Dict[str, List[float]]:
+        """{"load_ms", "step_ms"}; waits for the card's last step."""
+        if self._events:
+            torch.cuda.synchronize(self.device)
+            step_ms = [a.elapsed_time(b) for a, b in self._events]
+        else:
+            step_ms = list(self._host_ms)
+        return {"load_ms": list(self.load_ms), "step_ms": step_ms}
+
+
+def step_summary(times: Dict[str, List[float]]) -> str:
+    """A StepTimer's times as one line of medians."""
+    return (f"loader {np.median(times['load_ms']):.1f} ms a batch, step "
+            f"{np.median(times['step_ms']):.1f} ms (medians over {len(times['load_ms'])})")

@@ -26,6 +26,7 @@ from hamer_yolo_tpu_torch.ops.int8_matmul import (check_against_plain, fused_int
                                                   fused_int8_mlp_block1_ref,
                                                   fused_int8_mlp_block_ref)
 from hamer_yolo_tpu_torch.ops.mano_lbs import mano_lbs_fused, mano_lbs_fused_ref
+from hamer_yolo_tpu_torch.ops.pointnet import smallest_k
 from hamer_yolo_tpu_torch.ops.nms import (MAX_K, greedy_nms_keep, greedy_nms_keep_mask,
                                           greedy_nms_keep_ref, non_max_suppression)
 from hamer_yolo_tpu_torch.ops.short_attention import (fused_qkv_attention,
@@ -1544,3 +1545,24 @@ def test_kernels_refuse_inputs_that_require_grad(dev):
         with torch.no_grad():
             out = call(x.clone().requires_grad_(True))
         assert torch.isfinite(out.float()).all()
+
+
+def tie_rows(seed, rows, n, zeros=(0.0,)):
+    """(rows, n) f32 of few distinct values, about a third of them from
+    ``zeros``: ties everywhere."""
+    rng = np.random.default_rng(seed)
+    vals = np.float32(list(zeros) + [0.25, 0.5, 1.0, 3.0])
+    p = [0.3 / len(zeros)] * len(zeros) + [0.2, 0.2, 0.2, 0.1]
+    return rng.choice(vals, size=(rows, n), p=p).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,k", [(7, 7), (64, 16), (1024, 40), (4096, 40)])
+def test_smallest_k_on_card_matches_cpu(dev, n, k):
+    """ops/pointnet.smallest_k's stable sort on the card gives the CPU's
+    indices and values on rows of ties and of -0 beside +0."""
+    for d in (tie_rows(5, 64, n), tie_rows(6, 64, n, zeros=(0.0, -0.0))):
+        vals, idx = smallest_k(torch.from_numpy(d), k)
+        got_vals, got_idx = smallest_k(torch.from_numpy(d).to(dev), k)
+        assert torch.equal(got_idx.cpu(), idx)
+        assert torch.equal(got_vals.cpu(), vals)
+        assert torch.equal(torch.signbit(got_vals.cpu()), torch.signbit(vals))

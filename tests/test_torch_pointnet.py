@@ -2,6 +2,7 @@
 the JAX package's (hamer_yolo_tpu/ops/pointnet.py) on the same numpy-made
 clouds: FPS, ball-query and three_nn indices exactly equal, distances and
 grouped or interpolated values within 1e-6."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,6 +10,7 @@ import torch
 
 from hamer_yolo_tpu.ops import pointnet as J
 from hamer_yolo_tpu_torch.ops import pointnet as T
+from test_torch_cuda import tie_rows
 
 torch.set_num_threads(1)
 
@@ -89,6 +91,27 @@ def test_three_nn_exact_with_ties():
     rd2, ri2 = J.three_nn_sq(jnp.asarray(unknown), jnp.asarray(known))
     np.testing.assert_array_equal(i2.numpy(), np.asarray(ri2))
     np.testing.assert_allclose(d2.numpy(), np.asarray(rd2), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("n,k", [(7, 7), (64, 16), (1024, 40)])
+def test_smallest_k_ties_and_signed_zeros(n, k):
+    """Ties go to the lower index, as lax.top_k(-d, k) orders them; -0 and
+    +0 tie as well (a stable sort's order, where lax.top_k takes -0 first),
+    and squared distances are never -0."""
+    d = tie_rows(5, 64, n)
+    vals, idx = T.smallest_k(torch.from_numpy(d), k)
+    rv, ri = jax.lax.top_k(-jnp.asarray(d), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
+    np.testing.assert_array_equal(vals.numpy(), -np.asarray(rv))
+    signed = tie_rows(6, 64, n, zeros=(0.0, -0.0))
+    assert np.signbit(signed).any()
+    vals, idx = T.smallest_k(torch.from_numpy(signed), k)
+    want = np.argsort(signed, axis=-1, kind="stable")[:, :k]
+    np.testing.assert_array_equal(idx.numpy(), want)
+    np.testing.assert_array_equal(vals.numpy(), np.take_along_axis(signed, want, -1))
+    xyz = np.where(tie_rows(7, 2, 96).reshape(2, 32, 3) == 0.25, -0.0, 0.0).astype(np.float32)
+    d2 = T.pairwise_sqdist(torch.from_numpy(xyz), torch.from_numpy(xyz)).numpy()
+    assert (d2 == 0).all() and not np.signbit(d2).any()
 
 
 def test_three_interpolate_and_weights():

@@ -465,6 +465,250 @@ def assert_leaf_equal(got, ref):
 
 
 # ---------------------------------------------------------------------------
+# KeypointFusion's pointNet zoo: numpy-made state dicts with the reference's
+# key names, at the published widths (div 1) or each hidden width divided by
+# ``div`` (the CPU tests); a layer's input widths follow its producers'.
+# Weights He-scaled, BN statistics away from the identity, so that folding
+# them is not trivial.
+# ---------------------------------------------------------------------------
+
+def _zoo_conv(sd, key, c_in, c_out, rng, kdims=1, bias=False, scale=None):
+    scale = np.sqrt(2.0 / max(c_in, 1)) if scale is None else scale
+    sd[f"{key}.weight"] = (rng.normal(size=(c_out, c_in) + (1,) * kdims) * scale).astype(
+        np.float32)
+    if bias:
+        sd[f"{key}.bias"] = rng.normal(0.0, 0.1, c_out).astype(np.float32)
+
+
+def _zoo_bn(sd, key, c, rng):
+    sd[f"{key}.weight"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    sd[f"{key}.bias"] = rng.normal(0.0, 0.1, c).astype(np.float32)
+    sd[f"{key}.running_mean"] = rng.normal(0.0, 0.1, c).astype(np.float32)
+    sd[f"{key}.running_var"] = rng.uniform(0.5, 2.0, c).astype(np.float32)
+    sd[f"{key}.num_batches_tracked"] = np.array(0, np.int64)
+
+
+def _conv_bn(sd, conv, bn, c_in, c_out, rng, kdims=1, bias=False):
+    _zoo_conv(sd, conv, c_in, c_out, rng, kdims, bias)
+    _zoo_bn(sd, bn, c_out, rng)
+
+
+def _shared_mlp(sd, prefix, dims, rng):
+    """build_shared_mlp: Conv2d 1x1 (no bias) at 3j, BN2d at 3j + 1."""
+    for j in range(len(dims) - 1):
+        _conv_bn(sd, f"{prefix}.{3 * j}", f"{prefix}.{3 * j + 1}", dims[j], dims[j + 1], rng, 2)
+
+
+def _yanx_mlp(sd, conv, bn, dims, rng, kdims):
+    """mlp_convs.{j} (biased) + mlp_bns.{j}."""
+    for j in range(len(dims) - 1):
+        _conv_bn(sd, f"{conv}.{j}", f"{bn}.{j}", dims[j], dims[j + 1], rng, kdims, bias=True)
+
+
+def zoo_cls_ssg(rng, div=1, nc=40):
+    """PointNet2ClassificationSSG: the cloud is xyz + 3 features."""
+    d = lambda c: max(c // div, 4)  # noqa: E731
+    sd = {}
+    outs = [d(128), d(256), d(1024)]
+    _shared_mlp(sd, "SA_modules.0.mlps.0", [6, d(64), d(64), outs[0]], rng)
+    _shared_mlp(sd, "SA_modules.1.mlps.0", [outs[0] + 3, d(128), d(128), outs[1]], rng)
+    _shared_mlp(sd, "SA_modules.2.mlps.0", [outs[1] + 3, d(256), d(512), outs[2]], rng)
+    _conv_bn(sd, "fc_layer.0", "fc_layer.1", outs[2], d(512), rng, 0)
+    _conv_bn(sd, "fc_layer.3", "fc_layer.4", d(512), d(256), rng, 0)
+    _zoo_conv(sd, "fc_layer.7", d(256), nc, rng, 0, bias=True)
+    return sd
+
+
+def zoo_sem_seg(rng, div=1, nc=13):
+    """PointNet2SemSegSSG on xyz + 6 features. The converter orders its FP
+    inputs by the published skip widths (6, 64, 128, 256), so the first
+    three SA levels keep their outputs at any ``div``."""
+    d = lambda c: max(c // div, 4)  # noqa: E731
+    sd = {}
+    sa = [[9, d(32), d(32), 64], [67, d(64), d(64), 128], [131, d(128), d(128), 256],
+          [259, d(256), d(256), d(512)]]
+    for i, dims in enumerate(sa):
+        _shared_mlp(sd, f"SA_modules.{i}.mlps.0", dims, rng)
+    fp = {3: [d(512) + 256, d(256), d(256)], 2: [d(256) + 128, d(256), d(256)],
+          1: [d(256) + 64, d(256), d(128)], 0: [d(128) + 6, d(128), d(128), d(128)]}
+    for i, dims in fp.items():
+        _shared_mlp(sd, f"FP_modules.{i}.mlp", dims, rng)
+    _conv_bn(sd, "fc_lyaer.0", "fc_lyaer.1", d(128), d(128), rng)
+    _zoo_conv(sd, "fc_lyaer.4", d(128), nc, rng, bias=True)
+    return sd
+
+
+def _dgcnn_trunk(sd, rng, d, c_in, emb):
+    for name, (i, o) in (("conv1", (2 * c_in, d(64))), ("conv2", (d(64), d(64))),
+                         ("conv3", (2 * d(64), d(64))), ("conv4", (d(64), d(64))),
+                         ("conv5", (2 * d(64), d(64)))):
+        _conv_bn(sd, f"{name}.0", f"{name}.1", i, o, rng, 2)
+    _conv_bn(sd, "conv6.0", "conv6.1", 3 * d(64), emb, rng)
+    return emb + 3 * d(64)
+
+
+def zoo_dgcnn_semseg(rng, div=1, joints=21, channels=9):
+    """DGCNN_semseg (emb_dims 1024) with the three per-point heads [3 J, J, J]
+    after conv9 (256 -> 128)."""
+    d = lambda c: max(c // div, 4)  # noqa: E731
+    sd = {}
+    cat = _dgcnn_trunk(sd, rng, d, channels, d(1024))
+    _conv_bn(sd, "conv7.0", "conv7.1", cat, d(512), rng)
+    _conv_bn(sd, "conv8.0", "conv8.1", d(512), d(256), rng)
+    _zoo_conv(sd, "conv9", d(256), d(128), rng)
+    for j, o in enumerate((3 * joints, joints, joints)):
+        _zoo_conv(sd, f"finals.{j}", d(128), o, rng, bias=True)
+    return sd
+
+
+def zoo_dgcnn_partseg(rng, div=1, seg=50):
+    """DGCNN_partseg (emb_dims 1024, no label input) with its Transform_Net."""
+    d = lambda c: max(c // div, 4)  # noqa: E731
+    sd = {}
+    t = "transform_net"
+    _conv_bn(sd, f"{t}.conv1.0", f"{t}.conv1.1", 6, d(64), rng, 2)
+    _conv_bn(sd, f"{t}.conv2.0", f"{t}.conv2.1", d(64), d(128), rng, 2)
+    _conv_bn(sd, f"{t}.conv3.0", f"{t}.conv3.1", d(128), d(1024), rng)
+    _conv_bn(sd, f"{t}.linear1", f"{t}.bn3", d(1024), d(512), rng, 0)
+    _conv_bn(sd, f"{t}.linear2", f"{t}.bn4", d(512), d(256), rng, 0)
+    _zoo_conv(sd, f"{t}.transform", d(256), 9, rng, 0, bias=True, scale=0.01)
+    sd[f"{t}.transform.bias"] = np.eye(3, dtype=np.float32).ravel()  # its init: the identity
+    cat = _dgcnn_trunk(sd, rng, d, 3, d(1024))
+    _conv_bn(sd, "conv8.0", "conv8.1", cat, d(256), rng)
+    _conv_bn(sd, "conv9.0", "conv9.1", d(256), d(256), rng)
+    _conv_bn(sd, "conv10.0", "conv10.1", d(256), d(128), rng)
+    _zoo_conv(sd, "conv11", d(128), seg, rng)
+    return sd
+
+
+def zoo_pointnet(rng, div=1, nc=40):
+    """DGCNN.py's PointNet (emb_dims 1024)."""
+    d = lambda c: max(c // div, 4)  # noqa: E731
+    sd = {}
+    dims = [3, d(64), d(64), d(64), d(128), d(1024)]
+    for i in range(1, 6):
+        _conv_bn(sd, f"conv{i}", f"bn{i}", dims[i - 1], dims[i], rng)
+    _conv_bn(sd, "linear1", "bn6", dims[-1], d(512), rng, 0)
+    _zoo_conv(sd, "linear2", d(512), nc, rng, 0, bias=True)
+    return sd
+
+
+def zoo_part_seg(rng, div=1, joints=21):
+    """The hand PointNet2 part segmenter: l0 = [xyz, 4 J joint offsets and
+    closenesses], num_classes J."""
+    d = lambda c: max(c // div, 4)  # noqa: E731
+    sd = {}
+    l0 = 3 + 4 * joints
+    outs = (d(128), d(256), d(1024))
+    _yanx_mlp(sd, "sa1.mlp_convs", "sa1.mlp_bns", [l0 + 3, d(64), d(64), outs[0]], rng, 2)
+    _yanx_mlp(sd, "sa2.mlp_convs", "sa2.mlp_bns", [outs[0] + 3, d(128), d(128), outs[1]], rng, 2)
+    _yanx_mlp(sd, "sa3.mlp_convs", "sa3.mlp_bns", [outs[1] + 3, d(256), d(512), outs[2]], rng, 2)
+    _yanx_mlp(sd, "fp3.mlp_convs", "fp3.mlp_bns", [outs[1] + outs[2], d(256), d(256)], rng, 1)
+    _yanx_mlp(sd, "fp2.mlp_convs", "fp2.mlp_bns", [outs[0] + d(256), d(256), d(128)], rng, 1)
+    _yanx_mlp(sd, "fp1.mlp_convs", "fp1.mlp_bns", [3 + l0 + d(128), d(128), d(128), d(128)],
+              rng, 1)
+    _conv_bn(sd, "conv1", "bn1", d(128), d(128), rng, bias=True)
+    _zoo_conv(sd, "conv2", d(128), joints, rng, bias=True)
+    return sd
+
+
+def zoo_msg_large(rng, div=1, joints=21):
+    """PointNet2_MSG_large (the MSG levels of models/pointnet2.MSG_LARGE_LEVELS)
+    with the heads [3 J, J, J]."""
+    d = lambda c: max(c // div, 4)  # noqa: E731
+    sd = {}
+    mlps = (((16, 16, 32), (32, 32, 64)), ((64, 64, 128), (64, 96, 128)),
+            ((128, 196, 256), (128, 196, 256)), ((256, 256, 512), (256, 384, 512)))
+    c, outs = 3, []
+    for i, scales in enumerate(mlps, 1):
+        for s, mlp in enumerate(scales):
+            _yanx_mlp(sd, f"sa{i}.conv_blocks.{s}", f"sa{i}.bn_blocks.{s}",
+                      [c + 3] + [d(m) for m in mlp], rng, 2)
+        c = sum(d(m[-1]) for m in scales)
+        outs.append(c)
+    fp = {4: [outs[3] + outs[2], d(256), d(256)], 3: [d(256) + outs[1], d(256), d(256)],
+          2: [d(256) + outs[0], d(256), d(128)], 1: [d(128), d(128), d(128), d(128)]}
+    for i, dims in fp.items():
+        _yanx_mlp(sd, f"fp{i}.mlp_convs", f"fp{i}.mlp_bns", dims, rng, 1)
+    _conv_bn(sd, "conv1", "bn1", d(128), d(128), rng, bias=True)
+    for j, o in enumerate((3 * joints, joints, joints)):
+        _zoo_conv(sd, f"finals.{j}", d(128), o, rng, bias=True)
+    return sd
+
+
+def _cbr1d(sd, prefix, c_in, c_out, rng):
+    _conv_bn(sd, f"{prefix}.net.0", f"{prefix}.net.1", c_in, c_out, rng, bias=True)
+
+
+def _res1d(sd, prefix, c, rng):
+    """ConvBNReLURes1D; net2's weights a third of He's, so that the residual
+    stacks (34 blocks) keep activations O(1-100), not O(1e6)."""
+    _conv_bn(sd, f"{prefix}.net1.0", f"{prefix}.net1.1", c, c, rng, bias=True)
+    _zoo_conv(sd, f"{prefix}.net2.0", c, c, rng, bias=True, scale=np.sqrt(2.0 / c) / 3)
+    _zoo_bn(sd, f"{prefix}.net2.1", c, rng)
+
+
+def zoo_pointmlp(rng, div=1, joints=21, refine=False, blocks=(2, 2, 4)):
+    """pointMLP's joint regressor (PointMLP; ``refine``: PointMLP_refine, no
+    embedding): embed 64, the stages doubling to 1024, k 16, pre and pos
+    blocks ``blocks[:2]`` a stage, decoders de_dims 512, 256, 128, 128 with
+    ``blocks[2]`` blocks each, gmp 64, the conv head 192 -> 128, the heads
+    [3 J, J, J]."""
+    d = lambda c: max(c // div, 4)  # noqa: E731
+    sd = {}
+    embed = d(64)
+    if not refine:
+        _cbr1d(sd, "embedding", 3, embed, rng)
+    en = [embed]
+    for i in range(4):
+        c = en[-1]
+        sd[f"local_grouper_list.{i}.affine_alpha"] = rng.uniform(
+            0.5, 1.5, (1, 1, 1, c + 3)).astype(np.float32)
+        sd[f"local_grouper_list.{i}.affine_beta"] = rng.normal(
+            0.0, 0.1, (1, 1, 1, c + 3)).astype(np.float32)
+        _cbr1d(sd, f"pre_blocks_list.{i}.transfer", 2 * c + 3, 2 * c, rng)
+        for b in range(blocks[0]):
+            _res1d(sd, f"pre_blocks_list.{i}.operation.{b}", 2 * c, rng)
+        for b in range(blocks[1]):
+            _res1d(sd, f"pos_blocks_list.{i}.operation.{b}", 2 * c, rng)
+        en.append(2 * c)
+    en_rev = en[::-1]
+    de = [en_rev[0], d(512), d(256), d(128), d(128)]
+    for i in range(4):
+        _cbr1d(sd, f"decode_list.{i}.fuse", de[i] + en_rev[i + 1], de[i + 1], rng)
+        for b in range(blocks[2]):
+            _res1d(sd, f"decode_list.{i}.extraction.operation.{b}", de[i + 1], rng)
+    gmp = d(64)
+    for i, c in enumerate(en_rev):
+        _cbr1d(sd, f"gmp_map_list.{i}", c, gmp, rng)
+    _cbr1d(sd, "gmp_map_end", gmp * len(en_rev), gmp, rng)
+    _conv_bn(sd, "conv.0", "conv.1", de[-1] + gmp, d(128), rng, bias=True)
+    for j, o in enumerate((3 * joints, joints, joints)):
+        _zoo_conv(sd, f"finals.{j}", d(128), o, rng, bias=True)
+    return sd
+
+
+# tests/test_pointnet2_models.py's oracle tolerances of the zoo's forwards
+# (atol; rtol 1e-4): the CPU tests against JAX and chip_smoke's card against CPU
+ZOO_TOL = {"cls_ssg": 2e-4, "sem_seg": 5e-4, "dgcnn_semseg": 5e-4, "part_seg": 5e-4,
+           "msg_large": 5e-4, "pointmlp": 1e-3, "pointmlp_refine": 1e-3, "pointnet": 5e-4,
+           "dgcnn_partseg": 1e-3}
+# name -> (state dict builder, the port's converter)
+ZOO = {
+    "cls_ssg": (zoo_cls_ssg, convert.convert_pointnet2_cls_ssg),
+    "sem_seg": (zoo_sem_seg, convert.convert_pointnet2_sem_seg),
+    "dgcnn_semseg": (zoo_dgcnn_semseg, convert.convert_dgcnn_semseg),
+    "part_seg": (zoo_part_seg, convert.convert_pointnet2_part_seg_ref),
+    "msg_large": (zoo_msg_large, convert.convert_pointnet2_msg_large),
+    "pointmlp": (zoo_pointmlp, convert.convert_pointmlp),
+    "pointmlp_refine": (lambda rng, div=1: zoo_pointmlp(rng, div, refine=True),
+                        convert.convert_pointmlp),
+    "pointnet": (zoo_pointnet, convert.convert_dgcnn_pointnet),
+    "dgcnn_partseg": (zoo_dgcnn_partseg, convert.convert_dgcnn_partseg),
+}
+
+
+# ---------------------------------------------------------------------------
 # the port's converters undo the builders (no JAX)
 # ---------------------------------------------------------------------------
 

@@ -268,11 +268,14 @@ def test_tool_runs_checkpoints_and_resumes(setup, tmp_path, capsys):
         assert all(np.isfinite(v) for v in r.values())
 
 
-@pytest.mark.parametrize("flags", [["--data", "d"], ["--augment"], ["--devices", "2"]],
-                         ids=["data", "augment", "devices"])
-def test_tool_refuses_what_is_not_ported(flags):
-    with pytest.raises(SystemExit):
-        tool.main(["--tiny", "--device", "cpu"] + flags)
+@pytest.mark.parametrize("flags,error", [
+    (["--data", "d"], FileNotFoundError), (["--augment", "--data", "d"], FileNotFoundError),
+    (["--devices", "2"], SystemExit)], ids=["data", "augment", "devices"])
+def test_tool_refuses_what_is_not_ported(flags, error, tmp_path):
+    """--data (with or without --augment) on a folder without samples raises
+    naming it; --devices above 1 (data parallelism) exits."""
+    with pytest.raises(error):
+        tool.main(["--tiny", "--device", "cpu", "--out", str(tmp_path)] + flags)
 
 
 def test_f32_gradient_sits_within_half_the_limit_of_f64(setup):

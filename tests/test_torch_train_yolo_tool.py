@@ -13,6 +13,7 @@ picks SimOTA and its gains reach the step; what is not ported raises.
 """
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -147,13 +148,20 @@ def test_hyp_loss_ota_picks_simota(run_dir, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["devices", "plots", "aux_without_cfg"])
-def test_what_the_tool_does_not_do_raises(run_dir, flag):
-    """--devices 2 (data parallelism) and --plots (utils/plots.py) exit
-    naming what they wait for; --aux without --cfg returns 2, as JAX's."""
+def test_what_the_tool_does_not_do_raises(run_dir, flag, monkeypatch):
+    """--devices 2 (data parallelism) exits naming what it waits for;
+    --plots where cv2 is missing (the machine with the card) raises an
+    ImportError before training; --aux without --cfg returns 2, as JAX's."""
     root, images = run_dir
     base = ["--data", images, "--device", "cpu", "--steps", "1"]
     if flag == "aux_without_cfg":
         assert tool.main(base + ["--aux"]) == 2
         return
+    if flag == "plots":
+        monkeypatch.setitem(sys.modules, "cv2", None)
+        with pytest.raises(ImportError, match="--plots"):
+            tool.main(base + ["--plots", "--out", str(root / "no_plots")])
+        assert not os.path.exists(root / "no_plots" / "metrics.jsonl")
+        return
     with pytest.raises(SystemExit):
-        tool.main(base + (["--devices", "2"] if flag == "devices" else ["--plots"]))
+        tool.main(base + ["--devices", "2"])
