@@ -610,9 +610,12 @@ def main() -> int:
     training_phase(dev, smi)
     eval_k1 = yolo_data_phase(dev, smi)
     rgbd_data_zoo_phase(dev, smi)
-    # "launches" stays the bf16 path's own count; detector_map's K1 launches,
-    # from a run of their own, go beside it
+    library = library_phase(dev, smi, params, mano, cfg, frames, K, depth)
+    # "launches" stays the bf16 path's own count; detector_map's K1 launches and
+    # the library phase's paths, each from a run of its own, go beside it
     launches_by_path = {"K1": {"infer (bf16 path)": launches["K1"], "detector_map": eval_k1}}
+    for k, paths in library.items():
+        launches_by_path.setdefault(k, {}).update(paths)
 
     # -- reference checks on a small input: the card against the CPU path ----
     check_reference(dev)
@@ -4364,6 +4367,391 @@ def rgbd_data_zoo_phase(dev, smi):
     torch.set_num_threads(threads)
     print(f"phase RGB-D training on data and the point-cloud zoo: {time.perf_counter() - t0:.1f} s "
           f"(training on data {t_data:.1f} s, zoo {t_zoo:.1f} s)", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The phase "library, mesh and tools": train form to deploy form, load_pipeline,
+# eval_fastpaths, a 1-rank NCCL mesh, parity_check, compiled_flops and StageTimer
+# ---------------------------------------------------------------------------
+# The folded detector's largest f32 error from the f64 training form, at most
+# this times the f32 training form's own: folding moves rounding, not math.
+FOLD_F64_FACTOR = 4.0
+# NMS keep sets of the two forms, matched by box (ROADMAP F3): a kept box
+# matches one of the other form within this many pixels (each coordinate), and
+# at most this share of the kept boxes may go unmatched (near-tied scores).
+FOLD_BOX_PX = 0.05
+FOLD_UNMATCHED_SHARE = 0.02
+FASTPATH_ITERS = 5      # utils/profiling.benchmark iterations an eval_fastpaths arm
+MESH_YOLO_B = 4         # the 1-rank mesh's YOLOv7 step at 640
+
+
+def fold_yolo_tree(tree):
+    """The deploy form of a training-form YOLOv7 tree, block by block:
+    every conv + BN through core/nn.fold_bn_into_conv, every RepConv through
+    models/yolov7/blocks.repconv_fuse (the JAX package has no tree-level
+    function either)."""
+    from hamer_yolo_tpu_torch.core import nn
+    from hamer_yolo_tpu_torch.models.yolov7.blocks import repconv_fuse
+
+    if isinstance(tree, dict):
+        if "dense" in tree:
+            return repconv_fuse(tree)
+        if "conv" in tree and "bn" in tree:
+            rest = {k: fold_yolo_tree(v) for k, v in tree.items() if k not in ("conv", "bn")}
+            return {**rest, "conv": nn.fold_bn_into_conv(tree["conv"], tree["bn"])}
+        return {k: fold_yolo_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(fold_yolo_tree(v) for v in tree)
+    return tree
+
+
+def seed_bn_stats(tree, gen):
+    """Every BN of a tree redrawn in place from ``gen``: scale U(0.5, 1.5),
+    bias N(0, 0.1), running mean N(0, 0.1), running var U(0.5, 2) (the
+    init's 1, 0, 0, 1 would make the folds trivial)."""
+    import torch
+
+    if isinstance(tree, dict):
+        if set(tree) == {"scale", "bias", "mean", "var"}:
+            for k, (a, b, normal) in {"scale": (0.5, 1.5, False), "bias": (0.0, 0.1, True),
+                                      "mean": (0.0, 0.1, True), "var": (0.5, 2.0, False)}.items():
+                t = tree[k]
+                with torch.no_grad():
+                    t.normal_(a, b, generator=gen) if normal else t.uniform_(a, b, generator=gen)
+            return
+        for v in tree.values():
+            seed_bn_stats(v, gen)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            seed_bn_stats(v, gen)
+
+
+def _keep_sets_match(a, b, what):
+    """(kept boxes, unmatched) of two NmsOutputs matched by box, image by image."""
+    kept = unmatched = 0
+    for i in range(a.valid.shape[0]):
+        ba = a.boxes[i][a.valid[i]].double()
+        bb = b.boxes[i][b.valid[i]].double()
+        kept += len(ba) + len(bb)
+        for x, y in ((ba, bb), (bb, ba)):
+            if len(x) and not len(y):
+                unmatched += len(x)
+            elif len(x):
+                d = (x[:, None, :] - y[None, :, :]).abs().amax(-1).amin(1)
+                unmatched += int((d > FOLD_BOX_PX).sum())
+    if unmatched > FOLD_UNMATCHED_SHARE * kept:
+        raise RuntimeError(f"{what}: {unmatched} of {kept} kept boxes unmatched "
+                           f"(limit {FOLD_UNMATCHED_SHARE:.0%} within {FOLD_BOX_PX} px)")
+    return kept, unmatched
+
+
+def fold_phase(dev, frames, smi):
+    """Train form -> deploy form at full width: YOLOv7 (deploy=False) with
+    seeded BN stats, folded, both trees through the detector and K1 on four
+    720p frames."""
+    import torch
+
+    from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig, init_yolov7, yolov7_forward
+    from hamer_yolo_tpu_torch.ops.nms import non_max_suppression
+    from hamer_yolo_tpu_torch.pipeline.frame import PipelineConfig, detect_hands_batched
+    from hamer_yolo_tpu_torch.pipeline.preprocess import device_letterbox
+
+    gen = torch.Generator(dev).manual_seed(SEED)
+    train = init_yolov7(gen, YoloConfig(), deploy=False)
+    seed_bn_stats(train, gen)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        deploy = fold_yolo_tree(train)
+    torch.cuda.synchronize()
+    t_fold = time.perf_counter() - t0
+    n_rep = sum(1 for _ in _tree_leaves(deploy, "reparam"))
+    imgs = torch.from_numpy(np.stack(frames[:BATCH])).to(dev).to(torch.float32)
+    hws = torch.tensor([[720.0, 1280.0]] * BATCH, device=dev)
+    with torch.inference_mode():
+        lb, _, _ = device_letterbox(imgs, hws, 640)
+        x = lb.flip(-1) / 255.0
+        ref = yolov7_forward(train, x.double(), YoloConfig(compute_dtype="float64"))
+        cfg32 = YoloConfig(compute_dtype="float32")
+        t32, d32 = yolov7_forward(train, x, cfg32), yolov7_forward(deploy, x, cfg32)
+    e_train = float((t32.double() - ref).abs().max())
+    e_fold = float((d32.double() - ref).abs().max())
+    if not (torch.isfinite(d32).all() and e_fold <= FOLD_F64_FACTOR * e_train):
+        raise RuntimeError(f"folded YOLOv7: max |f32 deploy - f64 train| {e_fold:.3g} against "
+                           f"{e_train:.3g} for the f32 train form (limit x{FOLD_F64_FACTOR})")
+    with torch.inference_mode():
+        (nt, nd), n = run_counted(lambda: (
+            non_max_suppression(t32, 0.001, 0.65, max_det=300),
+            non_max_suppression(d32, 0.001, 0.65, max_det=300)))
+    expect_launches("the two forms' NMS", n, {"K1": 2})
+    kept, unmatched = _keep_sets_match(nt, nd, "folded YOLOv7 NMS (f32)")
+    pcfg = PipelineConfig()
+    with torch.inference_mode():
+        (bt, bd), n2 = run_counted(lambda: (detect_hands_batched(train, imgs, hws, pcfg),
+                                            detect_hands_batched(deploy, imgs, hws, pcfg)))
+    expect_launches("the two forms through detect_hands_batched (bf16)", n2, {"K1": 2})
+    same = int((bt["valid"] == bd["valid"]).all(-1).sum())
+    print(f"fold: a training-form YOLOv7 at 640 with seeded BN stats folded block by block in "
+          f"{t_fold:.2f} s ({n_rep} RepConvs -> reparam); decoded outputs (B={BATCH}, 720p "
+          f"letterboxed) in f32 against the f64 training form: deploy max |d| {e_fold:.3g}, "
+          f"training form {e_train:.3g} (limit x{FOLD_F64_FACTOR}); NMS keep sets (conf 0.001, "
+          f"iou 0.65, 300 a frame, K1): {kept} kept, {unmatched} unmatched within "
+          f"{FOLD_BOX_PX} px; bf16 detect_hands_batched: the same valid slots in {same} of "
+          f"{BATCH} frames, {int(bd['valid'].sum())} valid; K1 {n['K1'] + n2['K1']} launches "
+          f"on {smi}")
+    return n["K1"] + n2["K1"]
+
+
+def load_pipeline_phase(dev, frames, K, depth):
+    import torch
+
+    import hamer_yolo_tpu_torch
+
+    t0 = time.perf_counter()
+    program, params, mano, cfg = hamer_yolo_tpu_torch.load_pipeline(device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    got, n = run_counted(lambda: program(frames[0], K))
+    expect_launches("load_pipeline's program, first call (warm-up and capture)", n,
+                    {"K1": CAPTURE_RUNS, "K2": CAPTURE_RUNS * depth,
+                     **dict.fromkeys(INT8_KERNELS + ("K9",), 0)})
+    eager = eager_frame(params, mano, cfg, dev, frames[0], K)
+    hold_to_eager(got, eager, eager_frame(params, mano, cfg, dev, frames[0], K),
+                  "load_pipeline's FrameProgram")
+    print(f"load_pipeline(device=\"cuda\"): {t_load:.1f} s (no checkpoint: the seeded init), "
+          f"one 720p frame through its captured program: {int(got['valid'].sum())} valid "
+          f"slots; launches {n}")
+    del program, params
+    return {"K1": n["K1"] // CAPTURE_RUNS, "K2": n["K2"] // CAPTURE_RUNS}
+
+
+def eval_fastpaths_phase(dev, smi, depth):
+    """tools/eval_fastpaths at full width (ViT-H, 8 crops of 256): every
+    arm finite and on its kernels; the deltas and each arm's p50."""
+    import torch
+
+    from hamer_yolo_tpu_torch.cli.main import load_mano
+    from hamer_yolo_tpu_torch.models.hamer import HamerConfig, init_hamer
+    from hamer_yolo_tpu_torch.ops.int8_matmul import gelu_prologue
+    from hamer_yolo_tpu_torch.tools import eval_fastpaths as E
+    from hamer_yolo_tpu_torch.utils.profiling import benchmark
+
+    cfg = HamerConfig()
+    mano = load_mano(None, dev)
+    params = init_hamer(torch.Generator(dev).manual_seed(SEED), cfg)
+    crops, calib = E.inputs(dev)
+    trees = E.arm_weights(params, cfg, calib)
+    base, n = run_counted(lambda: E.run_arm(None, trees, mano, cfg, crops))
+    expect_launches("eval_fastpaths baseline (plain bf16)", n, {k: 0 for k in n})
+    per_forward = {"K2": depth, "K3": depth, "K4": depth, "K5": 4 * depth, "K6": depth,
+                   "K7": depth, "K10": depth}
+    results, p50, launches = {}, {}, {}
+    for arm, (label, _, _, _, kernels) in E.ARMS.items():
+        out, n = run_counted(lambda: E.run_arm(arm, trees, mano, cfg, crops))
+        if not all(np.isfinite(v).all() for v in out.values()):
+            raise RuntimeError(f"eval_fastpaths {arm}: outputs not finite")
+        expect_launches(f"eval_fastpaths {arm}", n,
+                        {k: per_forward[k] if k in kernels else 0 for k in n})
+        launches[arm] = {k: n[k] for k in kernels}
+        results[arm] = E.delta(base, out)
+        fn, env = E.arm_forward(arm, trees, mano, cfg)
+        with E.switches(env):
+            p50[arm] = round(benchmark(fn, crops, iters=FASTPATH_ITERS)["p50_ms"], 3)
+        print(f"eval_fastpaths {label:<14s} {results[arm]}, p50 {p50[arm]} ms, launches "
+              f"{launches[arm]}")
+    print(f"eval_fastpaths (ViT-H, 8 crops of 256, seed 0; the int8 MLP's GELU "
+          f"{gelu_prologue(dev)}; p50 by utils/profiling.benchmark, {FASTPATH_ITERS} calls, host "
+          f"clock, on {smi}):")
+    print(json.dumps({"eval_fastpaths": results, "p50_ms": p50}))
+    del params, trees
+    return launches
+
+
+def _state_leaves(tree):
+    return [t.detach() for t in _tree_leaves(tree)]
+
+
+# Where two plain steps differ (KPFusion's backward accumulates with atomics on
+# the card), the mesh step is held to this times their largest difference over
+# all parameters: a maximum over millions of run-to-run differences, which
+# moves little from one pair of runs to the next.
+NONDETERMINISTIC_SPREAD_FACTOR = 4.0
+
+
+def _hold_bitwise(what, got, plain, again):
+    """``got`` equal to ``plain`` bit for bit where two plain steps are; where
+    they are not, within NONDETERMINISTIC_SPREAD_FACTOR x their largest
+    difference. Returns (largest difference from plain, the plain spread)."""
+    def maxdiff(a, b):
+        return max((float((x.double() - y.double()).abs().max()) for x, y in
+                    zip(a, b, strict=True) if x.numel()), default=0.0)
+
+    d, spread = maxdiff(got, plain), maxdiff(again, plain)
+    if d > NONDETERMINISTIC_SPREAD_FACTOR * spread:
+        raise RuntimeError(f"{what}: departs from the plain step by {d:.3g} (two plain steps "
+                           f"differ by {spread:.3g})")
+    return d, spread
+
+
+def mesh_phase(dev, params, mano, cfg, frames, K, depth):
+    """A 1-rank NCCL mesh (localhost rendezvous): one step of each train step
+    through the data-parallel path against the plain step from the same
+    seed, and BatchedPipeline(mesh=) against the pipeline without one."""
+    import torch
+
+    from hamer_yolo_tpu_torch.models.hamer import HamerConfig
+    from hamer_yolo_tpu_torch.models.kpfusion_rgbd.model import KPFusionConfig
+    from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig
+    from hamer_yolo_tpu_torch.parallel import mesh as M
+    from hamer_yolo_tpu_torch.pipeline.serving import BatchedPipeline
+    from hamer_yolo_tpu_torch.training import train_hamer as TH
+    from hamer_yolo_tpu_torch.training import train_kpfusion_rgbd as TK
+    from hamer_yolo_tpu_torch.training import train_yolo as TY
+
+    M.init_distributed("cuda")
+    import torch.distributed as dist
+
+    if dist.get_backend() != "nccl":
+        raise RuntimeError(f"the mesh's backend is {dist.get_backend()}, not NCCL")
+    mesh = M.make_mesh(1, 1, devices="cuda")
+    report = []
+    try:
+        hcfg = HamerConfig()
+        batch = TH.synthetic_batch(torch.Generator(dev).manual_seed(1), HAMER_TRAIN_B, hcfg)
+        states = [TH.init_train_state(torch.Generator(dev).manual_seed(0), hcfg)
+                  for _ in range(3)]
+        metrics = [TH.train_step(s, batch, mano, hcfg, mesh=m)
+                   for s, m in zip(states, (mesh, None, None))]
+        d, spread = _hold_bitwise("HaMeR step on the mesh",
+                                  *[_state_leaves((s.params, s.disc_params)) for s in states])
+        report.append(f"HaMeR (ViT-H, B={HAMER_TRAIN_B}) total "
+                      f"{float(metrics[0]['total']):.6f} / {float(metrics[1]['total']):.6f}, "
+                      f"max |d| {d:.3g} (two plain steps {spread:.3g})")
+        del states
+        ycfg = YoloConfig()
+        ybatch = TY.synthetic_yolo_batch(torch.Generator(dev).manual_seed(1), MESH_YOLO_B,
+                                         ycfg.img_size)
+        ys = [TY.init_yolo_train_state(torch.Generator(dev).manual_seed(0), ycfg)
+              for _ in range(3)]
+        ym = [TY.make_yolo_train_step(ycfg, mesh=m)(s, ybatch)
+              for s, m in zip(ys, (mesh, None, None))]
+        d, spread = _hold_bitwise("YOLOv7 step on the mesh (BN stats and EMA included)",
+                                  *[_state_leaves((s.params, s.ema.params)) for s in ys])
+        report.append(f"YOLOv7 (640, B={MESH_YOLO_B}) loss {float(ym[0]['loss']):.6f} / "
+                      f"{float(ym[1]['loss']):.6f}, max |d| {d:.3g} (plain {spread:.3g})")
+        del ys
+        kcfg = KPFusionConfig()
+        kb = {k: torch.from_numpy(v).to(dev) for k, v in
+              TK.synthetic_rgbd_batch(np.random.default_rng(1), KPF_TRAIN_B, kcfg).items()}
+        ks = [TK.init_train_state(torch.Generator(dev).manual_seed(0), kcfg) for _ in range(3)]
+        km = [TK.train_step(s, kb, kcfg, mesh=m) for s, m in zip(ks, (mesh, None, None))]
+        d, spread = _hold_bitwise("KPFusion step on the mesh",
+                                  *[_state_leaves(s.params) for s in ks])
+        report.append(f"KPFusion (B={KPF_TRAIN_B}) loss {float(km[0]['loss']):.6f} / "
+                      f"{float(km[1]['loss']):.6f}, max |d| {d:.3g} (plain {spread:.3g})")
+        del ks
+        torch.cuda.empty_cache()
+        with torch.inference_mode():
+            plain = BatchedPipeline(params, mano, cfg, batch_size=BATCH, device=dev)
+            ref = plain.process_batch(frames[:BATCH], K)
+            meshed = BatchedPipeline(params, mano, cfg, batch_size=BATCH, device=dev, mesh=mesh)
+            got, n = run_counted(lambda: meshed.process_batch(frames[:BATCH], K))
+            again = meshed.process_batch(frames[:BATCH], K)
+        expect_launches("BatchedPipeline(mesh=) first batch (warm-up and capture)", n,
+                        {"K1": CAPTURE_RUNS, "K2": CAPTURE_RUNS * depth})
+        bad = [k for k in ref if not (np.array_equal(got[k], ref[k])
+                                      and np.array_equal(again[k], ref[k]))]
+        if bad or len(meshed.programs["detect"].pool_bytes) != 1:
+            raise RuntimeError(f"BatchedPipeline(mesh=): outputs {bad} differ from the pipeline "
+                               f"without a mesh, or it did not capture one graph")
+        report.append(f"BatchedPipeline(mesh=) batch {BATCH}: captured, replayed, every output "
+                      "equal to the pipeline without a mesh")
+    finally:
+        M.leave_distributed()
+    print("1-rank NCCL mesh (make_mesh(1, 1), localhost rendezvous): each train step through "
+          "the data-parallel path (local rows, BN moments and gradients all-reduced over the "
+          "data axis) bit-equal to the plain step where two plain steps are (else within "
+          f"{NONDETERMINISTIC_SPREAD_FACTOR}x their spread): " + "; ".join(report))
+
+
+def parity_phase():
+    from hamer_yolo_tpu_torch.tools import parity_check
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "tiny.npz")
+        rc = parity_check.main(["capture", path, "--tiny", "--device", "cpu", "--batch", "2"])
+        rc2 = parity_check.main(["compare", path, "--tiny", "--device", "cuda"])
+    if rc or rc2:
+        raise RuntimeError(f"parity_check: capture rc {rc}, compare on the card rc {rc2}")
+    print("parity_check: capture --tiny --device cpu, compare --device cuda: every output "
+          "within atol / rtol 1e-3")
+
+
+def flops_phase(dev, smi):
+    """utils/profiling's compiled_flops and StageTimer on the full-width
+    HaMeR forward (8 crops of 256): flops and bytes of the plain bf16 path
+    (the kernels' twins: a kernel's own library is not seen), then the
+    stages' times on the card's path (K2)."""
+    import torch
+
+    from hamer_yolo_tpu_torch.cli.main import load_mano
+    from hamer_yolo_tpu_torch.models.hamer import HamerConfig, hamer_forward, init_hamer
+    from hamer_yolo_tpu_torch.models.mano import mano_forward_rotmat
+    from hamer_yolo_tpu_torch.models.mano_head import mano_head_forward
+    from hamer_yolo_tpu_torch.models.vit import vit_forward
+    from hamer_yolo_tpu_torch.tools.eval_fastpaths import base_config, inputs
+    from hamer_yolo_tpu_torch.utils.profiling import StageTimer, compiled_flops
+
+    cfg = HamerConfig()
+    mano = load_mano(None, dev)
+    params = init_hamer(torch.Generator(dev).manual_seed(SEED), cfg)
+    crops, _ = inputs(dev)
+    t0 = time.perf_counter()
+    cost = compiled_flops(lambda x: hamer_forward(params, mano, x, base_config(cfg)), crops)
+    t_count = time.perf_counter() - t0
+    m = cfg.crop_margin
+    timer = StageTimer()
+    with torch.inference_mode():
+        for _ in range(2):  # the first pass builds the weight caches
+            timer = StageTimer()
+            timer.start("ViT-H (K2)")
+            ctx = vit_forward(params["backbone"], crops[:, :, m:-m, :], cfg.vit)
+            timer.stop(ctx)
+            timer.start("MANO head")
+            pm, _ = mano_head_forward(params["mano_head"], ctx, cfg.head)
+            timer.stop(pm["betas"])
+            timer.start("MANO")
+            out = mano_forward_rotmat(mano, pm["global_orient"], pm["hand_pose"], pm["betas"])
+            timer.stop(out.vertices)
+    print(f"compiled_flops of the full-width HaMeR forward (plain bf16, 8 crops of 256): "
+          f"{cost['flops']:.6g} flops, {cost['bytes_accessed']:.6g} bytes (counted in "
+          f"{t_count:.1f} s); StageTimer on the card's path, on {smi}:\n{timer.report()}")
+    return cost
+
+
+def library_phase(dev, smi, params, mano, cfg, frames, K, depth):
+    """The phase "library, mesh and tools" (train-to-deploy fusion,
+    load_pipeline, eval_fastpaths, the 1-rank NCCL mesh, parity_check,
+    compiled_flops and StageTimer); returns the kernels' launches on its
+    paths. Alone: ``chip_smoke.library_phase(...)`` after main's set-up."""
+    import torch
+
+    t0 = time.perf_counter()
+    fold_k1 = fold_phase(dev, frames, smi)
+    lp = load_pipeline_phase(dev, frames, K, depth)
+    arms = eval_fastpaths_phase(dev, smi, depth)
+    torch.cuda.empty_cache()
+    mesh_phase(dev, params, mano, cfg, frames, K, depth)
+    torch.cuda.empty_cache()
+    parity_phase()
+    flops_phase(dev, smi)
+    torch.cuda.empty_cache()
+    by_path = {"K1": {"load_pipeline (a forward)": lp["K1"], "folded detector": fold_k1},
+               "K2": {"load_pipeline (a forward)": lp["K2"]}}
+    for arm, counts in arms.items():
+        for k, v in counts.items():
+            by_path.setdefault(k, {})[f"eval_fastpaths {arm}"] = v
+    print(f"phase library, mesh and tools: {time.perf_counter() - t0:.1f} s", flush=True)
+    return by_path
 
 
 if __name__ == "__main__":

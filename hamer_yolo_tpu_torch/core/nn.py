@@ -17,7 +17,7 @@ from __future__ import annotations
 import functools
 import math
 import weakref
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -235,7 +235,8 @@ def batch_norm(p: Params, x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
             + cast_weight(p["bias"], x.dtype))
 
 
-def batch_norm_train(p: Params, x: torch.Tensor, eps: float = 1e-3, momentum: float = 0.03
+def batch_norm_train(p: Params, x: torch.Tensor, eps: float = 1e-3, momentum: float = 0.03,
+                     sync: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                      ) -> Tuple[torch.Tensor, Params]:
     """Training-mode BN over the batch statistics of x (B, ..., C), and the
     updated running stats (torch's semantics: momentum 0.03, YOLOv7's
@@ -243,20 +244,39 @@ def batch_norm_train(p: Params, x: torch.Tensor, eps: float = 1e-3, momentum: fl
     operations: the moments are taken in f32 (jnp.mean and jnp.var upcast a
     bf16 input) and rounded to x's dtype before they normalise x; the stats
     update is made without gradient. Returns (y, a copy of p whose "mean"
-    and "var" are the new stats)."""
+    and "var" are the new stats). ``sync`` (parallel/mesh.DataMean) takes
+    each f32 moment of this rank's block to the global batch's, the same
+    on every rank; its ``shards`` blocks count in the unbiased variance."""
     axes = tuple(range(x.ndim - 1))
     xf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
     mean32 = xf.mean(dim=axes)
+    if sync is not None:
+        mean32 = sync(mean32)
     mean = mean32.to(x.dtype)
-    var = torch.square(xf - mean32).mean(dim=axes).to(x.dtype)
+    var32 = torch.square(xf - mean32).mean(dim=axes)
+    var = (var32 if sync is None else sync(var32)).to(x.dtype)
     inv = rsqrt(var + weak_scalar(eps, x.dtype))
     y = (x - mean) * inv * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
-    n = math.prod(x.shape[:-1])
+    n = math.prod(x.shape[:-1]) * (1 if sync is None else sync.shards)
     with torch.no_grad():
         unbiased = var * weak_scalar(n / max(n - 1, 1), x.dtype)
         stats = {"mean": (1 - momentum) * p["mean"] + momentum * mean.to(p["mean"].dtype),
                  "var": (1 - momentum) * p["var"] + momentum * unbiased.to(p["var"].dtype)}
     return y, dict(p, **stats)
+
+
+def fold_bn_into_conv(conv_p: Params, bn_p: Params, eps: float = 1e-3) -> Params:
+    """Conv (no bias, or a bias) + inference BN -> one conv with a bias, the
+    deploy form (the reference's fuse_conv_and_bn), made once at conversion.
+    The weight is OIHW, so the per-output-channel scale goes on dim 0 (JAX
+    scales HWIO's last axis). The square root is f32's correctly rounded one
+    (taken in f64), as XLA's."""
+    inv = 1.0 / torch.sqrt((bn_p["var"] + eps).double()).to(bn_p["var"].dtype)
+    scale = bn_p["scale"] * inv
+    b = bn_p["bias"] - bn_p["mean"] * scale
+    if "b" in conv_p:
+        b = b + conv_p["b"] * scale
+    return {"w": conv_p["w"] * scale[:, None, None, None], "b": b}
 
 
 def max_pool(x: torch.Tensor, k: int, stride: int, padding: int = 0) -> torch.Tensor:
@@ -296,8 +316,19 @@ def _softmax_attention(q, k, v):
     return out.reshape(q.shape[0], q.shape[1], -1)
 
 
+# The split of the next three layers over a model group while
+# parallel/mesh.tensor_parallel is on (a parallel.mesh.TensorParallel), else None.
+TENSOR_PARALLEL = None
+
+
 def mha_self_attention(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Fused-qkv softmax self-attention, x (B, N, D) -> (B, N, D)."""
+    if TENSOR_PARALLEL is not None:
+        return TENSOR_PARALLEL.self_attention(p, x, num_heads)
+    return plain_mha_self_attention(p, x, num_heads)
+
+
+def plain_mha_self_attention(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
     B, N, _ = x.shape
     hd = p["qkv"]["w"].shape[1] // 3 // num_heads
     qkv = linear(p["qkv"], x).reshape(B, N, 3, num_heads, hd)
@@ -308,6 +339,13 @@ def mha_self_attention(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tens
 def cross_attention(p: Params, x: torch.Tensor, context: torch.Tensor,
                     num_heads: int) -> torch.Tensor:
     """x (B, N, D) queries over context (B, M, Dc)."""
+    if TENSOR_PARALLEL is not None:
+        return TENSOR_PARALLEL.cross_attention(p, x, context, num_heads)
+    return plain_cross_attention(p, x, context, num_heads)
+
+
+def plain_cross_attention(p: Params, x: torch.Tensor, context: torch.Tensor,
+                          num_heads: int) -> torch.Tensor:
     B, N, _ = x.shape
     M = context.shape[1]
     hd = p["to_q"]["w"].shape[1] // num_heads
@@ -318,4 +356,54 @@ def cross_attention(p: Params, x: torch.Tensor, context: torch.Tensor,
 
 def mlp_gelu(p: Params, x: torch.Tensor) -> torch.Tensor:
     """fc1 -> exact erf GELU -> fc2."""
+    if TENSOR_PARALLEL is not None:
+        return TENSOR_PARALLEL.mlp_gelu(p, x)
+    return plain_mlp_gelu(p, x)
+
+
+def plain_mlp_gelu(p: Params, x: torch.Tensor) -> torch.Tensor:
     return linear(p["fc2"], gelu(linear(p["fc1"], x)))
+
+
+def frequency_embed(x: torch.Tensor, num_freqs: int, max_freq_exp: Optional[int] = None
+                    ) -> torch.Tensor:
+    """NeRF-style frequency embedding (the reference's t_cond_mlp
+    FrequencyEmbedder): (..., d) -> (..., d (2 num_freqs + 1)), per input
+    channel [x, sin(2^k pi x) for k, cos(2^k pi x) for k]."""
+    max_freq_exp = num_freqs - 1 if max_freq_exp is None else max_freq_exp
+    exps = torch.linspace(0.0, max_freq_exp, num_freqs, dtype=x.dtype, device=x.device)
+    freqs = torch.pow(2.0, exps) * weak_scalar(math.pi, x.dtype)
+    scaled = x[..., None] * freqs
+    out = torch.cat([x[..., None], torch.sin(scaled), torch.cos(scaled)], dim=-1)
+    return out.reshape(*x.shape[:-1], -1)
+
+
+def adaptive_layer_norm_init(gen: torch.Generator, dim: int, cond_dim: int) -> Params:
+    """AdaptiveLayerNorm1D (the reference's t_cond_mlp): a LN whose scale and
+    shift are regressed from a conditioning vector (FiLM)."""
+    return {"to_scale_shift": linear_init(gen, cond_dim, 2 * dim)}
+
+
+def adaptive_layer_norm(p: Params, x: torch.Tensor, cond: torch.Tensor,
+                        eps: float = 1e-6) -> torch.Tensor:
+    """x (B, N, D), cond (B, C) -> (B, N, D)."""
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * rsqrt(var + weak_scalar(eps, x.dtype))
+    ss = linear(p["to_scale_shift"], cond)
+    D = x.shape[-1]
+    return y * (1.0 + ss[:, None, :D]) + ss[:, None, D:]
+
+
+def num_params(tree: Any) -> int:
+    """The elements of every array leaf of a parameter tree (tensors and
+    numpy arrays; None layers and Python scalars count nothing). Values
+    derived from the weights (``derived``: casts, rsqrt, K-major int8
+    copies) live outside the tree and are not counted."""
+    if isinstance(tree, dict):
+        return sum(num_params(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(num_params(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel()
+    return int(getattr(tree, "size", 0)) if hasattr(tree, "shape") else 0

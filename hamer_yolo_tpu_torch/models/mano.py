@@ -144,6 +144,23 @@ def mano_forward_manopth(model: ManoModel, pose_coeffs: torch.Tensor,
     return ManoOutput(vertices=verts * 1000.0, joints=joints * 1000.0)
 
 
+def sar_joint_regressor(model: ManoModel) -> torch.Tensor:
+    """(21, 778) regressor from vertices to OpenPose-ordered joints (the
+    reference's rootnet/mano.py:20-26): the 16-joint J_regressor and the
+    fingertip one-hots [745, 317, 445, 556, 673], reordered. The reference
+    takes 445 for the middle tip even for the right hand, and so does this."""
+    V = model.J_regressor.shape[1]
+    tips = torch.zeros((5, V), dtype=model.J_regressor.dtype, device=model.J_regressor.device)
+    for i, vid in enumerate((745, 317, 445, 556, 673)):
+        tips[i, vid] = 1.0
+    return torch.cat([model.J_regressor, tips], dim=0)[list(MANO_TO_OPENPOSE)]
+
+
+def mano_template(model: ManoModel) -> torch.Tensor:
+    """(778, 3) template vertices (SAIGB's per-vertex positional feature)."""
+    return model.v_template
+
+
 def watertight_closure_faces() -> np.ndarray:
     """The 14 hand-authored triangles sealing the MANO wrist for OBJ export."""
     return np.array([

@@ -102,3 +102,25 @@ def repconv(p: nn.Params, x: torch.Tensor, s: int = 1, bn=None) -> torch.Tensor:
     if "id_bn" in p:
         y = y + bn(p["id_bn"], x)
     return silu(y)
+
+
+def repconv_fuse(p: nn.Params) -> nn.Params:
+    """Training-form RepConv -> the deploy form, one 3x3 conv (RepConv's
+    fusion): the 3x3 and 1x1 branches with their BNs folded in, the 1x1
+    padded to the centre tap, and the identity BN as eye(c) at the centre
+    tap (OIHW: w[:, :, 1, 1]). A tree that has ``reparam`` already is
+    returned unchanged."""
+    if "reparam" in p:
+        return p
+    dense = nn.fold_bn_into_conv({"w": p["dense"]["w"]}, p["dense_bn"])
+    one = nn.fold_bn_into_conv({"w": p["1x1"]["w"]}, p["1x1_bn"])
+    w = dense["w"] + torch.nn.functional.pad(one["w"], (1, 1, 1, 1))
+    b = dense["b"] + one["b"]
+    if "id_bn" in p:
+        c = p["dense"]["w"].shape[0]
+        ident = torch.zeros((c, c, 3, 3), dtype=w.dtype, device=w.device)
+        ident[:, :, 1, 1] = torch.eye(c, dtype=w.dtype, device=w.device)
+        idf = nn.fold_bn_into_conv({"w": ident}, p["id_bn"])
+        w = w + idf["w"]
+        b = b + idf["b"]
+    return {"reparam": {"w": w, "b": b}}

@@ -238,13 +238,14 @@ TRAIN_OPS = (C, MP_, CAT, ADD, SPP, UP, REORG, SP_, DOWNC, REP, DET, AUXDET)
 
 
 def yolov7_train_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig = YoloConfig(),
-                         spec: Spec = None):
+                         spec: Spec = None, bn_sync=None):
     """The training forward, BN over batch statistics (torch's semantics) in
     one pass: x (B, H, W, 3) -> (the nl raw head maps, an AUXDET head's nl
     auxiliary maps after them, a copy of params
     whose BN leaves hold the updated running stats, made without gradient).
     training/train_yolo sets the stats into the train state after the
-    optimizer's step, as JAX's step does."""
+    optimizer's step, as JAX's step does. ``bn_sync``: the data-parallel
+    step's parallel/mesh.DataMean, the batch statistics of the global batch."""
     spec = spec if spec is not None else yolov7_spec()
     for _, op, _ in spec:
         if op not in TRAIN_OPS:
@@ -252,7 +253,7 @@ def yolov7_train_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig = Y
     new_stats: Dict[int, nn.Params] = {}
 
     def bn(p, y):
-        y, new_stats[id(p)] = nn.batch_norm_train(p, y)
+        y, new_stats[id(p)] = nn.batch_norm_train(p, y, sync=bn_sync)
         return y
 
     det_maps = yolov7_backbone_forward(params, x, cfg, spec, bn=bn, aux=True)

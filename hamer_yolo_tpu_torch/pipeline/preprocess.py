@@ -28,6 +28,16 @@ def normalize_imagenet(patch_rgb01: torch.Tensor) -> torch.Tensor:
                                                                                 dtype, dev)
 
 
+def crop_square_patch(img: torch.Tensor, center: torch.Tensor, size_wh: torch.Tensor,
+                      out_hw: Tuple[int, int]) -> torch.Tensor:
+    """One frame's crop of a (w, h) box centred at ``center``: img (H, W, 3),
+    center (2,), size_wh (2,) -> (out_h, out_w, 3), gen_trans_from_patch +
+    warpAffine's geometry (scale 1, no rotation) and uint8 rounding, through
+    the banded-matmul warp as JAX's default ``WARP_IMPL = "matmul"``."""
+    return warp_matmul.crop_square_matmul(img[None], center[None, None], size_wh[None, None],
+                                          out_hw)[0, 0]
+
+
 def hamer_crop(img_bgr: torch.Tensor, center: torch.Tensor, size: torch.Tensor,
                do_flip: torch.Tensor, out_size: int = 256) -> torch.Tensor:
     """HaMeR inputs for every slot of every frame: img_bgr (B, H, W, 3),

@@ -1,5 +1,4 @@
-"""Batched serving (port of hamer_yolo_tpu/pipeline/serving.py, without the
-data mesh): frames are grouped into fixed-size batches, each padded to one
+"""Batched serving (port of hamer_yolo_tpu/pipeline/serving.py): frames are grouped into fixed-size batches, each padded to one
 bucket shape and run as one program, a captured CUDA graph per bucket on the
 card (pipeline/captured.py), so that the host's per-batch work is one
 upload, one replay and one fetch.
@@ -16,8 +15,12 @@ upload, one replay and one fetch.
 Two departures from JAX's loop (ROADMAP.md, F2, closed for the port):
 ``process_batch`` raises when it is given more frames than ``batch_size``
 (JAX drops the frames past it), and a float frame with values outside 0..255
-raises (JAX's uint8 upload wraps them modulo 256). The data mesh (JAX's
-``mesh``) is not ported (ROADMAP.md, Queue 1 item 8).
+raises (JAX's uint8 upload wraps them modulo 256).
+
+With a ``mesh`` (parallel/mesh.py, make_mesh) the batch is split over its data
+axes: each rank runs its rows of the padded batch through its own captured
+programs (no collective inside a capture), and the outputs are gathered
+after the replay, so that every rank returns the whole batch's.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 
 from hamer_yolo_tpu_torch.core import nn
 from hamer_yolo_tpu_torch.models.mano import ManoModel
+from hamer_yolo_tpu_torch.parallel.mesh import data_shards, gather_rows, local_rows
 from hamer_yolo_tpu_torch.pipeline.captured import CapturedProgram
 from hamer_yolo_tpu_torch.pipeline.frame import (PipelineConfig, infer_frames,
                                                  infer_frames_tracked)
@@ -54,12 +58,14 @@ class BatchedPipeline:
     bucket of each batch's largest frame); ``upload_dtype`` pins the upload
     dtype (default: uint8 when every frame of the batch is uint8, else f32),
     so that a stray float frame does not capture a second program;
-    ``detect_every`` and ``track_expand`` drive ``stream_multi``'s tracking."""
+    ``detect_every`` and ``track_expand`` drive ``stream_multi``'s tracking;
+    ``mesh``: the batch split over its data axes (``batch_size`` a multiple
+    of their size), each rank on its own ``device``."""
 
     def __init__(self, params: nn.Params, mano_model: ManoModel,
                  cfg: Optional[PipelineConfig] = None, batch_size: int = 16,
                  bucket_hw: Optional[Tuple[int, int]] = None, detect_every: int = 1,
-                 track_expand: float = 1.3, upload_dtype=None, device="cuda"):
+                 track_expand: float = 1.3, upload_dtype=None, device="cuda", mesh=None):
         self.params = params
         self.mano_model = mano_model
         self.cfg = cfg or PipelineConfig()
@@ -69,6 +75,10 @@ class BatchedPipeline:
         self.detect_every = max(1, int(detect_every))
         self.track_expand = float(track_expand)
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None and batch_size % data_shards(mesh):
+            raise ValueError(f"batch {batch_size} does not split over the mesh's "
+                             f"{data_shards(mesh)} data ranks")
         self.last_stats = ServingStats()
         self.programs = {"detect": CapturedProgram("BatchedPipeline detect program",
                                                    self._detect_fn, self.device),
@@ -123,7 +133,14 @@ class BatchedPipeline:
         """Pad, upload and queue one batch on the detect program; returns
         (device outputs, n). The work is queued on the card and this returns
         at once, so the host can prepare the next batch meanwhile."""
-        return self.programs["detect"](*self._pad_frames(frames, K)), len(frames)
+        return self._run("detect", *self._pad_frames(frames, K)), len(frames)
+
+    def _run(self, name: str, *arrays: np.ndarray) -> Dict[str, torch.Tensor]:
+        """The program on the padded batch: with a mesh, this rank's rows,
+        the outputs gathered from every rank after the replay."""
+        if self.mesh is None:
+            return self.programs[name](*arrays)
+        return gather_rows(self.programs[name](*local_rows(arrays, self.mesh)), self.mesh)
 
     def _dispatch_tracked(self, frames: List[np.ndarray], states: List[dict], K: np.ndarray):
         """Queue a detector-skip batch: each frame's boxes come from its
@@ -138,7 +155,7 @@ class BatchedPipeline:
             kp2d[i] = st["kp2d"]
             is_right[i] = st["is_right"]
             valid[i] = st["valid"]
-        return self.programs["tracked"](images, kp2d, is_right, valid, hws, Ks), len(frames)
+        return self._run("tracked", images, kp2d, is_right, valid, hws, Ks), len(frames)
 
     @staticmethod
     def _fetch(out: Dict[str, torch.Tensor], n: int) -> Dict[str, np.ndarray]:

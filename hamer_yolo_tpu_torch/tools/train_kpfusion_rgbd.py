@@ -4,6 +4,7 @@
       [--lr 8e-4] [--tiny] [--data DIR [--depth-fmt auto|u16|nyu|ho3d|npy]
       [--data-format fixture|stb] [--augment]] [--out runs/kpfusion_rgbd]
       [--resume PATH|auto] [--ckpt-every 100] [--log-every 10] [--device cuda]
+  torchrun --nproc-per-node N -m hamer_yolo_tpu_torch.tools.train_kpfusion_rgbd --devices N ...
 
 The train step of training/train_kpfusion_rgbd.py on seeded random weights
 (the default KPFusionConfig; ``--tiny`` the JAX tool's small one), on the
@@ -18,12 +19,16 @@ scaled random samples) and the spatial-weight gate takes step * batch //
 1000 as the epoch. Every ``--log-every`` steps the losses go to
 ``<out>/metrics.jsonl``; every ``--ckpt-every`` steps and at the end the
 train state to ``<out>/ckpt_<step>.npz`` / ``ckpt_final.npz``, from which
-``--resume auto`` goes on. ``--devices`` above 1 (data parallelism) is not
-ported (ROADMAP.md, Queue 1 item 8).
+``--resume auto`` goes on. ``--devices N`` (0: every process torchrun
+started, one a device) trains data parallel over N ranks (parallel/mesh.py;
+the JAX tool's mesh); a batch that N does not divide runs on one device, as
+JAX's does. Every rank reads the same global batch; only rank 0 logs and
+saves.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 from typing import Iterator, Optional, Tuple
@@ -54,7 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--augment", action="store_true",
                    help="rot / com / sc / none augmentation of --data samples "
                         "(aug_para 10 mm, 0.2, 180 degrees)")
-    p.add_argument("--devices", type=int, default=0)
+    p.add_argument("--devices", type=int, default=0,
+                   help="devices, one process each under torchrun; 0: all of them")
     p.add_argument("--out", default="runs/kpfusion_rgbd")
     p.add_argument("--resume", default=None, help="a checkpoint, or auto: the run's latest")
     p.add_argument("--ckpt-every", type=int, default=100)
@@ -64,7 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def data_batches(args, cfg: KPFusionConfig) -> Iterator[Tuple[int, dict]]:
+def data_batches(args, cfg: KPFusionConfig, say=print) -> Iterator[Tuple[int, dict]]:
     """(epoch, numpy batch) from --data, epoch after epoch."""
     from hamer_yolo_tpu_torch.io import rgbd_datasets as R
 
@@ -76,7 +82,7 @@ def data_batches(args, cfg: KPFusionConfig) -> Iterator[Tuple[int, dict]]:
         ds = R.RGBDDiskDataset(args.data, R.RGBDDatasetConfig(
             img_size=cfg.img_size, sample_num=cfg.sample_num, depth_fmt=args.depth_fmt),
             pcl_rng=pcl_rng)
-    print(f"data: {len(ds)} labeled sample(s) from {args.data} ({args.data_format})")
+    say(f"data: {len(ds)} labeled sample(s) from {args.data} ({args.data_format})")
     epoch = 0
     while True:
         for b in ds.batches(args.batch, shuffle=True, seed=epoch, augment=args.augment):
@@ -87,17 +93,27 @@ def data_batches(args, cfg: KPFusionConfig) -> Iterator[Tuple[int, dict]]:
 def run(argv: Optional[list] = None) -> Tuple[int, dict]:
     """The tool on ``argv``: (exit code, {"load_ms": host ms a batch, "step_ms":
     ms a step, by CUDA events on the card})."""
+    from hamer_yolo_tpu_torch.parallel.mesh import leave_distributed, tool_mesh
+
+    p = build_parser()
+    args = p.parse_args(argv)
+    try:
+        mesh, device, rank = tool_mesh(args.devices, args.batch, args.device)
+    except ValueError as e:
+        p.error(str(e))
+    try:
+        return (0, {}) if mesh is None and rank else train(args, mesh, device, rank == 0)
+    finally:
+        leave_distributed()
+
+
+def train(args, mesh, device: torch.device, lead: bool) -> Tuple[int, dict]:
     from hamer_yolo_tpu_torch.core.checkpoint import latest_checkpoint
     from hamer_yolo_tpu_torch.training.train_kpfusion_rgbd import (
         init_train_state, load_train_state, save_train_state, synthetic_rgbd_batch, train_step)
     from hamer_yolo_tpu_torch.utils.logging import MetricLogger, StepTimer, step_summary
 
-    p = build_parser()
-    args = p.parse_args(argv)
-    if args.devices > 1:
-        p.error("--devices above 1: data parallelism is not ported (ROADMAP.md, Queue 1 item 8)")
-
-    device = torch.device(args.device)
+    say = print if lead else (lambda *a, **k: None)
     cfg = tiny_config() if args.tiny else KPFusionConfig()
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -105,14 +121,14 @@ def run(argv: Optional[list] = None) -> Tuple[int, dict]:
     resume = latest_checkpoint(args.out) if args.resume == "auto" else args.resume
     if resume and os.path.exists(resume):
         load_train_state(resume, state)
-        print(f"resumed from {resume} at step {state.step}")
+        say(f"resumed from {resume} at step {state.step}")
 
     os.makedirs(args.out, exist_ok=True)
     rng = np.random.default_rng(0)
-    batches = data_batches(args, cfg) if args.data else None
+    batches = data_batches(args, cfg, say) if args.data else None
     timer = StepTimer(device)
     t0 = time.time()
-    with MetricLogger(args.out) as logger:
+    with MetricLogger(args.out) if lead else contextlib.nullcontext() as logger:
         for step in range(state.step, args.steps):
             with timer.load():
                 if batches is not None:
@@ -122,19 +138,20 @@ def run(argv: Optional[list] = None) -> Tuple[int, dict]:
                     epoch = step * args.batch // 1000  # the spatial-weight gate's epoch (train.py:250)
                 batch = {k: torch.from_numpy(v).to(device) for k, v in np_batch.items()}
             with timer.step():
-                metrics = train_step(state, batch, cfg, epoch=epoch)
-            if step % args.log_every == 0:
+                metrics = train_step(state, batch, cfg, epoch=epoch, mesh=mesh)
+            if step % args.log_every == 0 and lead:
                 logger.log(step, {k: float(v) for k, v in metrics.items()})
                 print(f"step {step}: loss={float(metrics['loss']):.4f} "
                       f"coord_d={float(metrics['coord_d']):.4f} "
                       f"kfam0={float(metrics['coord_kfam_0']):.4f}")
-            if step and step % args.ckpt_every == 0:
+            if step and step % args.ckpt_every == 0 and lead:
                 save_train_state(os.path.join(args.out, f"ckpt_{step}.npz"), state)
-        save_train_state(os.path.join(args.out, "ckpt_final.npz"), state)
+        if lead:
+            save_train_state(os.path.join(args.out, "ckpt_final.npz"), state)
     times = timer.times()
     if times["load_ms"]:
-        print(step_summary(times))
-    print(f"done: {args.steps} steps in {time.time() - t0:.0f}s -> {args.out}")
+        say(step_summary(times))
+    say(f"done: {args.steps} steps in {time.time() - t0:.0f}s -> {args.out}")
     return 0, times
 
 

@@ -5,6 +5,7 @@
       [--resume PATH|auto] [--ckpt-every 200] [--log-every 10] [--cfg YAML [--aux]]
       [--assigner neighbor|simota] [--hyp YAML] [--evolve N] [--evolve-seed 0]
       [--device cuda]
+  torchrun --nproc-per-node N -m hamer_yolo_tpu_torch.tools.train_yolo --devices N ...
 
 The train step of training/train_yolo.py over batches of io/datasets'
 yolo_batch_iterator (mosaic, mixup, HSV, random perspective, flips: the
@@ -28,8 +29,12 @@ appends to ``<out>/evolve.txt``; the best hyp goes to
 ``<out>/hyp_evolved.yaml``. ``--plots`` (utils/plots.py, which needs cv2
 and matplotlib) saves the first batch's mosaic ``train_batch0.jpg`` and
 the label statistics ``labels.png`` at the start, and the curves
-``results.png`` at the end. One device: ``--devices`` above 1 (data
-parallelism) is not ported (ROADMAP.md, Queue 1 item 8).
+``results.png`` at the end. ``--devices N`` (0: every process torchrun
+started, one a device) trains data parallel over N ranks (parallel/mesh.py;
+the JAX tool's mesh; BN over the global batch's statistics); a batch that N
+does not divide runs on one device, as JAX's does. Every rank reads the same
+global batch; only rank 0 logs, plots and saves. ``--evolve`` runs on one
+device.
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ import torch
 def train_loop(args, spec, cfg, opt_kwargs, loss_kwargs, data_kwargs, assigner: str,
                ota_topk: int, out: str, device: torch.device, save_ckpts: bool = True,
                resume: Optional[str] = None, quiet: bool = False, seed: int = 0,
-               plots: bool = False):
+               plots: bool = False, mesh=None):
     """One training run: (the final state, the last logged metrics,
     {"load_ms": host ms per batch, "step_ms": ms per step, by CUDA events
     on the card, "start": the step it began at})."""
@@ -65,7 +70,7 @@ def train_loop(args, spec, cfg, opt_kwargs, loss_kwargs, data_kwargs, assigner: 
     if resume and os.path.exists(resume):
         load_train_state(resume, state)
         print(f"resumed from {resume} at step {state.step}")
-    step_fn = make_yolo_train_step(cfg, spec, assigner, ota_topk, loss_kwargs)
+    step_fn = make_yolo_train_step(cfg, spec, assigner, ota_topk, loss_kwargs, mesh=mesh)
     data = yolo_batch_iterator(args.data, args.batch,
                                YoloDataConfig(img_size=args.img_size, **data_kwargs),
                                label_dir=args.labels)
@@ -141,7 +146,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", type=int, default=16)
     p.add_argument("--img-size", type=int, default=640)
     p.add_argument("--nc", type=int, default=3)
-    p.add_argument("--devices", type=int, default=0, help="0 or 1: this device")
+    p.add_argument("--devices", type=int, default=0,
+                   help="devices, one process each under torchrun; 0: all of them")
     p.add_argument("--out", default="runs/yolo")
     p.add_argument("--resume", default=None, help="a checkpoint, or auto: the run's latest")
     p.add_argument("--ckpt-every", type=int, default=200)
@@ -172,16 +178,28 @@ def build_parser() -> argparse.ArgumentParser:
 def run(argv: Optional[list] = None) -> Tuple[int, Optional[dict]]:
     """The tool on ``argv``: (exit code, the training run's train_loop
     timings, or None under --evolve or when it stops early)."""
-    from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig
-    from hamer_yolo_tpu_torch.training.hyp import map_hyp
+    from hamer_yolo_tpu_torch.parallel.mesh import leave_distributed, tool_mesh
 
     p = build_parser()
     args = p.parse_args(argv)
-    if args.devices > 1:
-        p.error("--devices above 1: data parallelism is not ported (ROADMAP.md, Queue 1 item 8)")
-    if args.plots:
+    try:
+        mesh, device, rank = tool_mesh(args.devices, args.batch, args.device)
+    except ValueError as e:
+        p.error(str(e))
+    if mesh is not None and args.evolve:
+        p.error("--evolve runs on one device: drop --devices")
+    try:
+        return (0, None) if mesh is None and rank else train(args, mesh, device, rank == 0)
+    finally:
+        leave_distributed()
+
+
+def train(args, mesh, device: torch.device, lead: bool) -> Tuple[int, Optional[dict]]:
+    from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig
+    from hamer_yolo_tpu_torch.training.hyp import map_hyp
+
+    if args.plots and lead:
         require_plot_libraries()
-    device = torch.device(args.device)
 
     spec = None
     if args.cfg:
@@ -227,7 +245,10 @@ def run(argv: Optional[list] = None) -> Tuple[int, Optional[dict]]:
 
     t0 = time.time()
     _, _, times = train_loop(args, spec, cfg, opt_kwargs, loss_kwargs, data_kwargs, assigner,
-                             ota_topk, args.out, device, resume=args.resume, plots=args.plots)
+                             ota_topk, args.out, device, save_ckpts=lead, resume=args.resume,
+                             quiet=not lead, plots=args.plots and lead, mesh=mesh)
+    if not lead:
+        return 0, times
     if args.plots:
         from hamer_yolo_tpu_torch.utils.plots import plot_results
 

@@ -19,6 +19,13 @@ default). The step runs the plain layers, never a kernel: ``train_config``
 turns off the ViT's fused attention (K2) and the fused MANO (K9), whose
 kernels have no backward (every wrapper refuses an input that requires
 grad). A forward under torch.no_grad(), such as the tools' viz, may use them.
+
+With a ``mesh`` (parallel/mesh.py) the step is data parallel over its data
+axes and, where its "model" axis has more than one rank, tensor parallel over
+that axis: each rank runs the generator and the discriminator on its rows of
+the batch, the losses are the global batch's on every rank, and the
+gradients are summed over the mesh (parallel/mesh.reduce_grads), so that
+every rank takes the same optimizer step as JAX's sharded step.
 """
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ from hamer_yolo_tpu_torch.models.discriminator import (discriminator_forward,
                                                        init_discriminator)
 from hamer_yolo_tpu_torch.models.hamer import HamerConfig, hamer_forward, init_hamer
 from hamer_yolo_tpu_torch.models.mano import ManoModel
+from hamer_yolo_tpu_torch.parallel.mesh import (gather_rows, local_rows, reduce_grads,
+                                                tensor_parallel)
 from hamer_yolo_tpu_torch.training import state as S
 from hamer_yolo_tpu_torch.training.losses import (HAMER_LOSS_WEIGHTS, adversarial_disc_loss,
                                                   adversarial_gen_loss, keypoint_2d_loss,
@@ -79,11 +88,15 @@ def train_config(cfg: HamerConfig) -> HamerConfig:
 
 def hamer_loss_fn(params: Params, disc_params: Params, mano_model: ManoModel,
                   batch: Dict[str, torch.Tensor], cfg: HamerConfig,
-                  weights: Dict[str, float] = HAMER_LOSS_WEIGHTS
+                  weights: Dict[str, float] = HAMER_LOSS_WEIGHTS, mesh=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(the weighted total, {each term, "total", the predicted hand pose and
-    betas}) of the generator."""
-    out = hamer_forward(params, mano_model, batch["img"], cfg)
+    betas}) of the generator; with a ``mesh``, the forwards on this rank's
+    rows and the losses over the global batch (parallel/mesh.gather_rows)."""
+    out = hamer_forward(params, mano_model, local_rows(batch["img"], mesh), cfg)
+    judged = discriminator_forward(disc_params, out["pred_mano_params"]["hand_pose"],
+                                   out["pred_mano_params"]["betas"])
+    out, judged = gather_rows((out, judged), mesh)
     mano = out["pred_mano_params"]
     has = batch["has_mano_params"]
     losses = {
@@ -93,31 +106,38 @@ def hamer_loss_fn(params: Params, disc_params: Params, mano_model: ManoModel,
         "hand_pose": parameter_loss(mano["hand_pose"], batch["mano_hand_pose"], has),
         "betas": parameter_loss(mano["betas"], batch["mano_betas"], has),
     }
-    losses["adversarial"] = adversarial_gen_loss(
-        discriminator_forward(disc_params, mano["hand_pose"], mano["betas"]))
+    losses["adversarial"] = adversarial_gen_loss(judged)
     total = sum(weights[k] * v for k, v in losses.items())
     return total, dict(losses, total=total, pred_hand_pose=mano["hand_pose"],
                        pred_betas=mano["betas"])
 
 
 def train_step(state: HamerTrainState, batch: Dict[str, torch.Tensor], mano_model: ManoModel,
-               cfg: HamerConfig) -> Dict[str, torch.Tensor]:
+               cfg: HamerConfig, mesh=None) -> Dict[str, torch.Tensor]:
     """One generator step, then one discriminator step, in place; returns
-    the metrics (detached 0-d tensors: the loss terms, "total", "disc_loss")."""
+    the metrics (detached 0-d tensors: the loss terms, "total", "disc_loss").
+    ``mesh``: data (and tensor) parallel over a parallel/mesh.make_mesh mesh;
+    every rank passes the same global batch."""
     cfg = train_config(cfg)
     gen_leaves = [t for _, t in named_leaves(state.params)]
     disc_leaves = [t for _, t in named_leaves(state.disc_params)]
 
-    total, aux = hamer_loss_fn(state.params, state.disc_params, mano_model, batch, cfg)
+    with tensor_parallel(mesh) as tp:
+        total, aux = hamer_loss_fn(state.params, state.disc_params, mano_model, batch, cfg,
+                                   mesh=mesh)
     set_grads(total, gen_leaves)
+    reduce_grads(gen_leaves, mesh, tp)
     state.opt.step()
 
-    real = discriminator_forward(state.disc_params, batch["mocap_hand_pose"],
-                                 batch["mocap_betas"])
-    fake = discriminator_forward(state.disc_params, aux["pred_hand_pose"].detach(),
-                                 aux["pred_betas"].detach())
+    mine = local_rows({k: batch[k] for k in ("mocap_hand_pose", "mocap_betas")}
+                      | {k: aux[k].detach() for k in ("pred_hand_pose", "pred_betas")}, mesh)
+    real, fake = gather_rows(
+        (discriminator_forward(state.disc_params, mine["mocap_hand_pose"], mine["mocap_betas"]),
+         discriminator_forward(state.disc_params, mine["pred_hand_pose"], mine["pred_betas"])),
+        mesh)
     d_loss = adversarial_disc_loss(real, fake)
     set_grads(d_loss, disc_leaves)
+    reduce_grads(disc_leaves, mesh)
     state.disc_opt.step()
     state.step += 1
 

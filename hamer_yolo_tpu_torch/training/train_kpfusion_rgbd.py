@@ -19,6 +19,11 @@ knee, not torch.nn.SmoothL1Loss):
 The forward is the eager ``kpfusion_forward`` with BN in inference form, as
 JAX's step runs it; JAX's gradient reaches every leaf, the BN running stats
 included, and the optimizer steps them all, so this step does the same.
+
+With a ``mesh`` (parallel/mesh.py) the step is data parallel: each rank runs
+the forward on its rows, the loss is the global batch's (the heatmaps'
+max-normalisation spans the batch) and the gradients are summed over the
+data axes. BN is in inference form, so no batch statistics cross ranks.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from hamer_yolo_tpu_torch.core.checkpoint import load_checkpoint
 from hamer_yolo_tpu_torch.models.kpfusion_rgbd import geometry as G
 from hamer_yolo_tpu_torch.models.kpfusion_rgbd.model import (KPFusionConfig, init_kpfusion,
                                                              kpfusion_forward)
+from hamer_yolo_tpu_torch.parallel.mesh import gather_rows, local_rows, reduce_grads
 from hamer_yolo_tpu_torch.training import state as S
 from hamer_yolo_tpu_torch.training.losses import abs_
 from hamer_yolo_tpu_torch.training.optim import (AdamW, named_leaves, scheduler_at, set_grads,
@@ -58,13 +64,17 @@ def smooth_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def kpfusion_rgbd_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: KPFusionConfig,
-                       epoch: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                       epoch: int = 0, mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(the loss, its terms and "loss") of one batch, whose keys follow the
     reference loader's tuple: img_rgb (B, 3, S, S), img (B, 1, S, S) depth,
-    pcl (B, N, 3), xyz_gt and uvd_gt (B, J, 3), center, M, cube, cam_para."""
-    out = kpfusion_forward(params, batch["img_rgb"], batch["img"], batch["pcl"],
-                           batch["center"], batch["M"], batch["cube"], batch["cam_para"], cfg)
-    return loss_terms(out, batch, cfg, epoch)
+    pcl (B, N, 3), xyz_gt and uvd_gt (B, J, 3), center, M, cube, cam_para.
+    With a ``mesh``: the forward on this rank's rows, the loss over the
+    global batch."""
+    mine = local_rows({k: batch[k] for k in ("img_rgb", "img", "pcl", "center", "M", "cube",
+                                             "cam_para")}, mesh)
+    out = kpfusion_forward(params, mine["img_rgb"], mine["img"], mine["pcl"], mine["center"],
+                           mine["M"], mine["cube"], mine["cam_para"], cfg)
+    return loss_terms(gather_rows(out, mesh), batch, cfg, epoch)
 
 
 def loss_terms(out: Dict[str, Any], batch: Dict[str, torch.Tensor], cfg: KPFusionConfig,
@@ -148,10 +158,13 @@ def init_train_state(gen: torch.Generator, cfg: KPFusionConfig, lr: float = 8e-4
 
 
 def train_step(state: KPFusionTrainState, batch: Dict[str, torch.Tensor], cfg: KPFusionConfig,
-               epoch: int = 0) -> Dict[str, torch.Tensor]:
-    """One AdamW step in place; returns the metrics (detached)."""
-    loss, metrics = kpfusion_rgbd_loss(state.params, batch, cfg, epoch)
-    set_grads(loss, [t for _, t in named_leaves(state.params)])
+               epoch: int = 0, mesh=None) -> Dict[str, torch.Tensor]:
+    """One AdamW step in place; returns the metrics (detached). ``mesh``:
+    data parallel over its data axes; every rank passes the same global batch."""
+    loss, metrics = kpfusion_rgbd_loss(state.params, batch, cfg, epoch, mesh)
+    leaves = [t for _, t in named_leaves(state.params)]
+    set_grads(loss, leaves)
+    reduce_grads(leaves, mesh)
     state.opt.step()
     state.sched.step()
     state.step += 1

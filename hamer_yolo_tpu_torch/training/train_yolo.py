@@ -13,6 +13,12 @@ AUXDET (IAuxDetect's training form, the reference's train_aux.py) the lead
 and auxiliary maps go to it apart, ComputeLossAuxOTA's form (simota, top k
 20 for the reference's parity). Spec entries without a training form raise
 (models/yolov7/model.TRAIN_OPS).
+
+With a ``mesh`` (parallel/mesh.py) the step is data parallel: each rank runs
+the forward on its rows, BN normalises by the global batch's statistics
+(parallel/mesh.DataMean: the same running stats on every rank, as the
+sharded JAX step), the loss is the global batch's, and the gradients are
+summed over the data axes.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from hamer_yolo_tpu_torch.core import nn
 from hamer_yolo_tpu_torch.core.checkpoint import load_checkpoint
 from hamer_yolo_tpu_torch.models.yolov7.model import (YoloConfig, init_yolov7, split_aux_maps,
                                                       yolov7_spec, yolov7_train_forward)
+from hamer_yolo_tpu_torch.parallel.mesh import DataMean, gather_rows, local_rows, reduce_grads
 from hamer_yolo_tpu_torch.training import state as S
 from hamer_yolo_tpu_torch.training.losses import yolo_loss
 from hamer_yolo_tpu_torch.training.optim import (EmaState, ema_init, ema_update, is_bn_stat,
@@ -64,11 +71,14 @@ def init_yolo_train_state(gen: torch.Generator, cfg: YoloConfig, total_steps: in
 
 def yolo_loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: YoloConfig, spec=None,
                  loss_kwargs: Optional[Dict[str, float]] = None, assigner: str = "neighbor",
-                 ota_topk: int = 10):
+                 ota_topk: int = 10, mesh=None):
     """(yolo_loss's {"loss", "box", "obj", "cls"} of the training forward's
     maps, taken in f32, an AUXDET spec's auxiliary maps as ``aux_maps``;
-    the params with the forward's new BN stats)."""
-    maps, with_stats = yolov7_train_forward(params, batch["img"], cfg, spec)
+    the params with the forward's new BN stats). With a ``mesh``: the
+    forward on this rank's rows, BN and the loss over the global batch."""
+    maps, with_stats = yolov7_train_forward(params, local_rows(batch["img"], mesh), cfg, spec,
+                                            bn_sync=DataMean(mesh) if mesh is not None else None)
+    maps = gather_rows(maps, mesh)
     lead, aux = split_aux_maps(maps, spec if spec is not None else yolov7_spec())
     anchors = nn.constant(cfg.anchors, torch.float32, maps[0].device).reshape(cfg.nl, cfg.na, 2)
     out = yolo_loss([m.float() for m in lead], batch["targets"], anchors, cfg.strides, cfg.nc,
@@ -78,16 +88,20 @@ def yolo_loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: YoloConfig
 
 
 def make_yolo_train_step(cfg: YoloConfig, spec=None, assigner: str = "neighbor",
-                         ota_topk: int = 10, loss_kwargs: Optional[Dict[str, float]] = None):
+                         ota_topk: int = 10, loss_kwargs: Optional[Dict[str, float]] = None,
+                         mesh=None):
     """(state, batch) -> metrics {"loss", "box", "obj", "cls"} (detached),
     one step in place. ``assigner`` "neighbor" or "simota" (``ota_topk``
-    IoUs to dynamic k); ``loss_kwargs``: box_w / obj_w / cls_w / anchor_t."""
+    IoUs to dynamic k); ``loss_kwargs``: box_w / obj_w / cls_w / anchor_t.
+    ``mesh``: data parallel over its data axes; every rank passes the same
+    global batch."""
 
     def train_step(state: YoloTrainState, batch: Dict[str, torch.Tensor]):
         out, with_stats = yolo_loss_fn(state.params, batch, cfg, spec, loss_kwargs, assigner,
-                                       ota_topk)
+                                       ota_topk, mesh)
         leaves = [t for _, t in named_leaves(state.params) if t.requires_grad]
         set_grads(out["loss"], leaves)
+        reduce_grads(leaves, mesh)
         state.opt.step()
         state.sched.step()
         with torch.no_grad():

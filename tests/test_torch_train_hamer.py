@@ -420,6 +420,8 @@ def test_tool_runs_checkpoints_and_resumes(setup, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", ["--devices", "--tp"])
 def test_tool_refuses_parallelism(flag):
+    """A parallelism the process group cannot hold exits: --devices 2 or
+    --tp 2 in a group of one process (torchrun starts one a device)."""
     with pytest.raises(SystemExit):
         tool.main(["--tiny", flag, "2", "--device", "cpu"])
 

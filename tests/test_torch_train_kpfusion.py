@@ -273,7 +273,7 @@ def test_tool_runs_checkpoints_and_resumes(setup, tmp_path, capsys):
     (["--devices", "2"], SystemExit)], ids=["data", "augment", "devices"])
 def test_tool_refuses_what_is_not_ported(flags, error, tmp_path):
     """--data (with or without --augment) on a folder without samples raises
-    naming it; --devices above 1 (data parallelism) exits."""
+    naming it; --devices 2 in a process group of one exits."""
     with pytest.raises(error):
         tool.main(["--tiny", "--device", "cpu", "--out", str(tmp_path)] + flags)
 

@@ -129,9 +129,9 @@ def test_hyp_loss_ota_picks_simota(run_dir, monkeypatch):
     seen = []
     real = ttrain.make_yolo_train_step
 
-    def spy(cfg, spec=None, assigner="neighbor", ota_topk=10, loss_kwargs=None):
+    def spy(cfg, spec=None, assigner="neighbor", ota_topk=10, loss_kwargs=None, mesh=None):
         seen.append((assigner, ota_topk, dict(loss_kwargs or {})))
-        return real(cfg, spec, assigner, ota_topk, loss_kwargs)
+        return real(cfg, spec, assigner, ota_topk, loss_kwargs, mesh=mesh)
 
     monkeypatch.setattr(ttrain, "make_yolo_train_step", spy)
     hyp = {"lr0": 0.01, "box": 0.05, "cls": 0.3, "obj": 0.7, "anchor_t": 4.0, "mosaic": 1.0,
@@ -149,7 +149,7 @@ def test_hyp_loss_ota_picks_simota(run_dir, monkeypatch):
 
 @pytest.mark.parametrize("flag", ["devices", "plots", "aux_without_cfg"])
 def test_what_the_tool_does_not_do_raises(run_dir, flag, monkeypatch):
-    """--devices 2 (data parallelism) exits naming what it waits for;
+    """--devices 2 in a process group of one exits (torchrun starts one a device);
     --plots where cv2 is missing (the machine with the card) raises an
     ImportError before training; --aux without --cfg returns 2, as JAX's."""
     root, images = run_dir
