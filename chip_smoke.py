@@ -121,6 +121,25 @@ ResNet-34 RootNet at 256; seeded random weights, synthetic MANO, numpy-made
   against the step's, the peak memory, SimOTA's step against the neighbor
   assigner's in turns, the eval's images/s.
 
+- deploy ("deploy"): the export tool's ``frame`` (720p, 4 slots, ViT-H with
+  32 blocks, YOLOv7 at 640, RootNet) and ``yolo`` programs on the seeded
+  weights, traced by torch.export (K1 and K2 the dispatcher's operators of
+  ops/torch_ops.py, each against its ctypes wrapper bit for bit; the
+  exported graph against eager bit for bit) and compiled by AOTInductor
+  (the yolo package in a process of its own beside the frame's); each
+  package loaded from Python and held to eager on 720p frames (the same
+  number of kept slots, the keep sets matched by box as the folded
+  detector's (F3); the fields within check_reference's limits or, as bf16
+  forms, as accurate as eager bf16 against an f32 ViT, a hold that must
+  report its control, the ViT blocks' weights at 4 significant bits, wrong);
+  its device kernels counted by name in a process of its own (K1 once and
+  each of K2's kernels 32 times a frame run, no ctypes library loaded);
+  the C++ runner built and run one-shot on the yolo package and --serve
+  over three 720p PPMs on the frame package, its checksums against
+  Python's. It prints the seconds of export, compile, runner build and
+  package load, the package bytes, and the p50 of 20 runs of each package
+  against eager (the frame also against FrameProgram's graph).
+
 A phase "ToMe shapes" holds K3, K4, K5 and K7 against their plain versions
 at the token counts ToMe gives them (N = 124 and 68 a crop, 16 crops), and
 the RootNet stage's time is printed beside the card's name and power limit.
@@ -166,6 +185,8 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -366,7 +387,7 @@ def main() -> int:
     from hamer_yolo_tpu_torch.models.mano import ManoModel
     from hamer_yolo_tpu_torch.models.vit import embed_tokens
     from hamer_yolo_tpu_torch.io.writers import frame_outputs_to_hand_dicts
-    from hamer_yolo_tpu_torch.ops import cuda_build
+    from hamer_yolo_tpu_torch.ops import cuda_build, torch_ops
     from hamer_yolo_tpu_torch.ops.int8_matmul import kmajor_weight
     from hamer_yolo_tpu_torch.pipeline.frame import (detect_hands_batched, estimate_depths,
                                                      infer_frames)
@@ -386,9 +407,12 @@ def main() -> int:
 
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    libs = cuda_build.build_all()
+    with ThreadPoolExecutor(2) as pool:  # the operator library (g++) beside the kernels (nvcc)
+        ops_lib = pool.submit(torch_ops.build)
+        libs = cuda_build.build_all() + [ops_lib.result()]
+    torch_ops.register()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {', '.join(p.name for p in libs)}; "
-          "nvcc per source, all at once: "
+          "nvcc per source and g++ for the operator library, all at once: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in cuda_build.BUILD_SECONDS.items()), flush=True)
 
     # -- full-width setup ----------------------------------------------------
@@ -565,7 +589,10 @@ def main() -> int:
                                       record["K3"]["ms"], record["K4"]["ms"], record["K7"]["ms"]))
     check_tome_shapes(sblk, cfg.hamer.vit.num_heads, dev)
     int8_gemm_alone(dev)
-    wrapper_host_us(dev)
+    blk0 = params["hamer"]["backbone"]["blocks"][0]
+    wrapper_host_us(dev, k1=(cands[BATCH].shifted, cands[BATCH].active, cfg.iou_thres),
+                    k2=(tok0, blk0["attn"]["qkv"]["w"], blk0["attn"]["qkv"]["b"],
+                        blk0["norm1"]["scale"], blk0["norm1"]["bias"], cfg.hamer.vit.num_heads))
     k2_alone(dev)
     k10_alone(dev)
 
@@ -611,11 +638,13 @@ def main() -> int:
     eval_k1 = yolo_data_phase(dev, smi)
     rgbd_data_zoo_phase(dev, smi)
     library = library_phase(dev, smi, params, mano, cfg, frames, K, depth)
+    deploy = deploy_phase(dev, smi, params, mano, cfg, program, tok0[:cfg.max_hands], depth)
     # "launches" stays the bf16 path's own count; detector_map's K1 launches and
     # the library phase's paths, each from a run of its own, go beside it
     launches_by_path = {"K1": {"infer (bf16 path)": launches["K1"], "detector_map": eval_k1}}
-    for k, paths in library.items():
-        launches_by_path.setdefault(k, {}).update(paths)
+    for part in (library, deploy):
+        for k, paths in part.items():
+            launches_by_path.setdefault(k, {}).update(paths)
 
     # -- reference checks on a small input: the card against the CPU path ----
     check_reference(dev)
@@ -1905,17 +1934,23 @@ def int8_gemm_alone(dev, check=True):
     return out
 
 
-def wrapper_host_us(dev, calls=200, rounds=7):
+def wrapper_host_us(dev, calls=200, rounds=7, k1=None, k2=None):
     """Host time of one call of the int8 GEMM's two wrappers,
     ops/int8_matmul.quantize_rows (LN prologue, static scale) and int8_gemm
     (K3's proj epilogue), at ViT-H's proj shape with 64 rows, where a
     launch's device time (printed beside, by CUDA graph replay) is below the
     wrapper's host time: the median over ``rounds`` of ``calls`` calls back
     to back on the host clock, the launches queueing on the card (a sync
-    only between rounds). Returns {wrapper: microseconds}."""
+    only between rounds). With ``k1`` (boxes, active, threshold) and ``k2``
+    (tokens and K2's other arguments), also K1's and K2's two routes on
+    them: the ctypes wrapper of the eager path and the dispatcher's operator
+    of a traced program (ops/torch_ops.py). Returns {wrapper: microseconds}."""
     import torch
 
     from hamer_yolo_tpu_torch.ops import int8_matmul as im
+    from hamer_yolo_tpu_torch.ops import torch_ops
+    from hamer_yolo_tpu_torch.ops.attn_block import bf16_weight, fused_bf16_attn_block
+    from hamer_yolo_tpu_torch.ops.nms import greedy_nms_keep_mask
 
     rng = np.random.default_rng(SEED + 7)
     M, (K, N) = 64, VITH_GEMMS["proj"]
@@ -1933,13 +1968,32 @@ def wrapper_host_us(dev, calls=200, rounds=7):
     s = torch.tensor([0.02], device=dev)
     fns = {"quantize_rows": lambda: im.quantize_rows(x, "ln", g, b, s, "quantize_rows"),
            "int8_gemm": lambda: im.int8_gemm(a, w, im.EPI_PROJ, out, ws, bias, s=s, res=res)}
+    shapes = dict.fromkeys(fns, f"M {M} K {K} N {N}")
+    # K1's and K2's routes are timed under inference mode, as a package runs;
+    # the int8 GEMM's wrappers outside it, as PRs 9-17 timed them
+    inference = set()
+    if k1 is not None:
+        fns.update({"greedy_nms_keep_mask (ctypes)": lambda: greedy_nms_keep_mask(*k1),
+                    "hyt_port::greedy_nms_keep_mask": lambda: torch_ops.greedy_nms_keep_mask(*k1)})
+        shapes.update(dict.fromkeys(list(fns)[-2:], f"boxes {tuple(k1[0].shape)}"))
+        inference.update(list(fns)[-2:])
+    if k2 is not None:
+        # the operator takes the bf16 weight, as an exported program holds it
+        k2_op = (k2[0], bf16_weight(k2[1]), *k2[2:])
+        fns.update({"fused_bf16_attn_block (ctypes)": lambda: fused_bf16_attn_block(*k2),
+                    "hyt_port::fused_bf16_attn_block":
+                        lambda: torch_ops.fused_bf16_attn_block(*k2_op)})
+        shapes.update(dict.fromkeys(list(fns)[-2:], f"tokens {tuple(k2[0].shape)}"))
+        inference.update(list(fns)[-2:])
     us = {}
     for name, fn in fns.items():
-        times = host_times_us(fn, calls, rounds)
-        us[name] = float(np.median(times))
-        print(f"host time a call of {name} at M {M} K {K} N {N}: {us[name]:.2f} us (median of "
-              f"{rounds} x {calls} calls; spread {min(times):.2f}-{max(times):.2f}); device "
-              f"time a launch {graph_time_ms(fn) * 1e3:.2f} us", flush=True)
+        with torch.inference_mode(name in inference):
+            times = host_times_us(fn, calls, rounds)
+            us[name] = float(np.median(times))
+            print(f"host time a call of {name} at {shapes[name]}: {us[name]:.2f} us (median of "
+                  f"{rounds} x {calls} calls; spread {min(times):.2f}-{max(times):.2f}"
+                  f"{'; inference mode' if name in inference else ''}); device time a launch "
+                  f"{graph_time_ms(fn) * 1e3:.2f} us", flush=True)
     return us
 
 
@@ -4426,8 +4480,10 @@ def seed_bn_stats(tree, gen):
             seed_bn_stats(v, gen)
 
 
-def _keep_sets_match(a, b, what):
-    """(kept boxes, unmatched) of two NmsOutputs matched by box, image by image."""
+def _keep_set_counts(a, b):
+    """(kept boxes, unmatched) of two NmsOutputs matched by box, image by
+    image: a kept box is unmatched where no box the other side keeps in its
+    image lies within FOLD_BOX_PX."""
     kept = unmatched = 0
     for i in range(a.valid.shape[0]):
         ba = a.boxes[i][a.valid[i]].double()
@@ -4439,6 +4495,13 @@ def _keep_sets_match(a, b, what):
             elif len(x):
                 d = (x[:, None, :] - y[None, :, :]).abs().amax(-1).amin(1)
                 unmatched += int((d > FOLD_BOX_PX).sum())
+    return kept, unmatched
+
+
+def _keep_sets_match(a, b, what):
+    """_keep_set_counts, raising where more than FOLD_UNMATCHED_SHARE of the
+    kept boxes are unmatched."""
+    kept, unmatched = _keep_set_counts(a, b)
     if unmatched > FOLD_UNMATCHED_SHARE * kept:
         raise RuntimeError(f"{what}: {unmatched} of {kept} kept boxes unmatched "
                            f"(limit {FOLD_UNMATCHED_SHARE:.0%} within {FOLD_BOX_PX} px)")
@@ -4751,6 +4814,535 @@ def library_phase(dev, smi, params, mano, cfg, frames, K, depth):
         for k, v in counts.items():
             by_path.setdefault(k, {})[f"eval_fastpaths {arm}"] = v
     print(f"phase library, mesh and tools: {time.perf_counter() - t0:.1f} s", flush=True)
+    return by_path
+
+
+# -- deploy: AOTInductor packages, the operators, the C++ runner ---------------
+
+DEPLOY_ROUNDS = 10      # interleaved_p50 rounds: 20 timed runs of each program
+DEPLOY_FRAMES = 3       # frames through the runner's --serve loop
+RUNNER_TIMEOUT_S = 300
+# A package against eager on the card: check_reference's card-against-CPU
+# limits (the JAX package's composed-oracle tolerances), axis-angle fields
+# compared as rotations.
+DEPLOY_TOL = 2e-3
+DEPLOY_AA_TOL = 5e-3
+
+
+# The field hold's control, a run it must report as wrong: eager with every
+# weight of the ViT's blocks rounded to fp8 e4m3's 4 significant bits (the
+# exponent kept), as a package stored at too low a precision would run.
+CONTROL_BITS = 4
+
+
+def coarse_blocks(params, bits=CONTROL_BITS):
+    """``params`` with every floating leaf of the ViT's blocks rounded to
+    ``bits`` significant bits, the exponent kept; the other leaves shared."""
+    import torch
+
+    def rnd(tree):
+        if isinstance(tree, dict):
+            return {k: rnd(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(rnd(v) for v in tree)
+        if torch.is_tensor(tree) and tree.is_floating_point():
+            m, e = torch.frexp(tree)
+            return torch.ldexp(torch.round(m * 2 ** bits) / 2 ** bits, e).to(tree.dtype)
+        return tree
+
+    vit = params["hamer"]["backbone"]
+    return {**params, "hamer": {**params["hamer"],
+                                "backbone": {**vit, "blocks": rnd(vit["blocks"])}}}
+
+
+def write_ppm(path, frame_bgr):
+    """A binary P6 PPM (RGB) of a BGR uint8 frame."""
+    h, w = frame_bgr.shape[:2]
+    with open(path, "wb") as f:
+        f.write(f"P6\n{w} {h}\n255\n".encode())
+        f.write(np.ascontiguousarray(frame_bgr[..., ::-1]).tobytes())
+
+
+def deploy_profile_child(root):
+    """Run in a process of its own (chip_smoke's profiles come late in a long
+    process): load the operator library and both packages under ``root``,
+    run each once warm and once under torch.profiler, and print one JSON
+    line: the device kernels by name a run, and the ctypes kernel libraries
+    this process loaded (none: the packages reach the kernels through the
+    operators only)."""
+    import torch
+
+    from hamer_yolo_tpu_torch.ops import cuda_build, torch_ops
+
+    torch_ops.register()
+    inputs = torch.load(os.path.join(root, "inputs.pt"))
+    out = {}
+    for model in ("frame", "yolo"):
+        pkg = torch._inductor.aoti_load_package(os.path.join(root, f"{model}.pt2"))
+        args = [t.cuda() for t in inputs[model]]
+        with torch.inference_mode():
+            pkg(*args)
+            torch.cuda.synchronize()
+            out[model] = kernels_by_name(lambda: pkg(*args), again=lambda: pkg(*args))[1]
+    out["ctypes_libraries"] = sorted(cuda_build._LOADED)
+    out["nms_wrapper_imported"] = "hamer_yolo_tpu_torch.ops.nms" in sys.modules
+    print(json.dumps(out))
+
+
+def _match_slots(got, ref, what):
+    """Each eager slot of a frame paired one to one with the package's
+    nearest kept slot within FOLD_BOX_PX, for the field hold (F3: near-tied
+    scores may put the same boxes in other slots). Returns (pairs, faults):
+    a fault where the numbers kept differ or eager keeps none."""
+    gv, rv = got["valid"].bool().cpu().numpy(), ref["valid"].bool().cpu().numpy()
+    if gv.sum() != rv.sum() or not rv.any():
+        return [], [f"{what}: {int(gv.sum())} kept, eager {int(rv.sum())}"]
+    gb, rb = got["boxes"].double().cpu().numpy(), ref["boxes"].double().cpu().numpy()
+    pairs, used = [], set()
+    for s in np.flatnonzero(rv):
+        d = np.abs(gb - rb[s]).max(-1)
+        hit = [j for j in np.argsort(d, kind="stable") if gv[j] and j not in used
+               and d[j] <= FOLD_BOX_PX]
+        if hit:
+            used.add(hit[0])
+            pairs.append((s, hit[0]))
+    return pairs, []
+
+
+def torch_allclose(a, b, tol):
+    import torch
+
+    return bool(torch.allclose(a, b, rtol=tol, atol=tol))
+
+
+def _hold_fields(matched, keys, what):
+    """Each field over the ``matched`` slots, [(package, eager, eager with an
+    f32 ViT or None)] each a dict of one slot's fields: within DEPLOY_TOL of
+    eager (theta as rotations within DEPLOY_AA_TOL), or, where the f32
+    reference is given, as accurate as eager bf16: the RMS of package - f32
+    at most BF16_ACCURACY_FACTOR x the RMS of eager - f32 (F12: a bf16 form
+    of the program is held to bf16's own noise; the RMS, because random
+    weights make the MANO head's Gram-Schmidt step ill-conditioned, so one
+    bf16 flip moves a single element of a slot by far more than the rest).
+    cam_t's error is taken relative to the f32 cam_t, slot by slot: its
+    depth is 2 f / (s size), so the same error of the head's s moves a far
+    slot's cam_t by the square of its depth more. Returns (faults, readings
+    by field)."""
+    import torch
+
+    from hamer_yolo_tpu_torch.geometry.rotations import aa_to_rotmat
+
+    faults, readings = [], {}
+    for k in keys:
+        def stack(i):
+            v = torch.stack([m[i][k] for m in matched]).double()
+            return aa_to_rotmat(v.reshape(-1, 3)) if k == "theta" else v
+
+        g, r = stack(0), stack(1)
+        tol = DEPLOY_AA_TOL if k == "theta" else DEPLOY_TOL
+        ok = bool(torch.allclose(g, r, rtol=tol, atol=tol))
+        reading = {"max_diff": float((g - r).abs().max())}
+        if matched[0][2] is not None:
+            r32 = stack(2)
+
+            def err(x):
+                if k == "cam_t":  # its depth is 2 f / (s size): an error of s is relative
+                    return (x - r32).norm(dim=-1) / r32.norm(dim=-1)
+                return x - r32
+
+            acc, floor = (float(err(x).square().mean().sqrt()) for x in (g, r))
+            reading.update(package_rms_vs_f32=acc, eager_rms_vs_f32=floor,
+                           ratio=acc / floor if floor else float("inf"))
+            ok = ok or acc <= BF16_ACCURACY_FACTOR * floor
+        readings[k] = reading
+        if not ok:
+            faults.append(f"{what}: {k} {reading} beyond the limits")
+    return faults, readings
+
+
+def _hold_package(model, runs, what):
+    """The package's outputs against eager's over ``runs``, [(package,
+    eager, eager with an f32 ViT or None)] a frame: in each frame the same
+    number kept, the keep sets over all frames matched by box as the folded
+    detector's are (_keep_sets_match: at most FOLD_UNMATCHED_SHARE of the
+    kept boxes further than FOLD_BOX_PX from all the other side's; the yolo
+    program's classes equal on the pairs), then the fields over the pairs
+    (_match_slots, _hold_fields)."""
+    import torch
+
+    if model == "yolo":
+        runs = [tuple(None if t is None else {k: v[0] for k, v in t.items()} for t in run)
+                for run in runs]
+    faults, matched, exact = [], [], 0
+    for got, ref, ref32 in runs:
+        pairs, f = _match_slots(got, ref, what)
+        faults += f
+        if model == "yolo" and any(int(got["classes"][j]) != int(ref["classes"][i])
+                                   for i, j in pairs):
+            faults.append(f"{what}: a kept detection's class departs from eager")
+        exact += sum(bool((got["boxes"][j] == ref["boxes"][i]).all()) for i, j in pairs)
+        matched += [({k: v[j] for k, v in got.items()}, {k: v[i] for k, v in ref.items()},
+                     None if ref32 is None else {k: v[i] for k, v in ref32.items()})
+                    for i, j in pairs]
+    kept, unmatched = _keep_set_counts(*(SimpleNamespace(
+        boxes=torch.stack([run[i]["boxes"] for run in runs]).cpu(),
+        valid=torch.stack([run[i]["valid"] for run in runs]).bool().cpu()) for i in (0, 1)))
+    if unmatched > FOLD_UNMATCHED_SHARE * kept:
+        faults.append(f"{what}: {unmatched} of {kept} kept boxes unmatched (limit "
+                      f"{FOLD_UNMATCHED_SHARE:.0%} within {FOLD_BOX_PX} px)")
+    summary = (f"{len(runs)} frame(s): keep sets {kept} kept boxes (both sides), {unmatched} "
+               f"unmatched within {FOLD_BOX_PX} px (limit {FOLD_UNMATCHED_SHARE:.0%}); "
+               f"{len(matched)} slot pairs, {exact} the same box")
+    if not matched:
+        return faults + [f"{what}: no slot pair to hold the fields on"], {}, summary
+    keys = ("boxes", "scores") if model == "yolo" else (
+        "boxes", "scores", "theta", "betas", "cam_t", "vertices")
+    f, readings = _hold_fields(matched, keys, what)
+    return faults + f, readings, summary
+
+
+def routes_bitwise(params, cfg, tok, heads):
+    """K1 and K2 through their operators against the ctypes wrappers on the
+    deploy path's own inputs (the detector's candidates on one 720p frame
+    and on the main path's four; block 0's tokens of four crops, bf16 and
+    f32): equal bit for bit."""
+    import torch
+
+    from hamer_yolo_tpu_torch.ops import torch_ops
+    from hamer_yolo_tpu_torch.ops.attn_block import fused_bf16_attn_block
+    from hamer_yolo_tpu_torch.ops.nms import greedy_nms_keep_mask
+
+    blk = params["hamer"]["backbone"]["blocks"][0]
+    args = (blk["attn"]["qkv"]["w"], blk["attn"]["qkv"]["b"], blk["norm1"]["scale"],
+            blk["norm1"]["bias"], heads)
+    faults = []
+    with torch.inference_mode():
+        for B in (1, BATCH):
+            c = detector_candidates(params["yolo"], cfg, tok.device, B)
+            a = greedy_nms_keep_mask(c.shifted, c.active, cfg.iou_thres)
+            b = torch_ops.greedy_nms_keep_mask(c.shifted, c.active, cfg.iou_thres)
+            if not torch.equal(a, b):
+                faults.append(f"K1 at B = {B}: the operator's keep set departs from the wrapper's")
+        for t in (tok, tok.float()):
+            a = fused_bf16_attn_block(t, *args)
+            b = torch_ops.fused_bf16_attn_block(t, *args)
+            if not torch.equal(a, b):
+                faults.append(f"K2 on {t.dtype} tokens {tuple(t.shape)}: the operator departs "
+                              f"from the wrapper by {float((a.float() - b.float()).abs().max())}")
+    print(f"deploy: operators against the ctypes wrappers: K1 at B = 1 and {BATCH}, K2 on "
+          f"{tuple(tok.shape)} bf16 and f32 tokens: "
+          f"{'bit for bit' if not faults else faults}", flush=True)
+    return faults
+
+
+def run_runner(runner, root, smi):
+    """The C++ runner: one-shot on the yolo package with a 720p PPM
+    (detections JSON), then --serve on the frame package over DEPLOY_FRAMES
+    PPMs and ``quit``; every JSON line parsed. Returns (faults, the serve
+    loop's JSON lines)."""
+    faults = []
+    ppms = []
+    for i, f in enumerate(frames_720p(DEPLOY_FRAMES, SEED + 9)):
+        ppms.append(os.path.join(root, f"frame{i}.ppm"))
+        write_ppm(ppms[-1], f)
+    t0 = time.perf_counter()
+    one = subprocess.run([str(runner), os.path.join(root, "yolo.pt2"),
+                          os.path.join(root, "yolo.meta"), ppms[0]], capture_output=True,
+                         text=True, timeout=RUNNER_TIMEOUT_S)
+    t_one = time.perf_counter() - t0
+    lines = one.stdout.splitlines()
+    dets = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    if one.returncode != 0 or not lines or lines[-1] != "OK" or len(dets) != 1:
+        faults.append(f"runner one-shot: rc {one.returncode}, stdout {one.stdout[-2000:]!r}, "
+                      f"stderr {one.stderr[-2000:]!r}")
+    else:
+        iters = [ln for ln in lines if ln.startswith("iter ")]
+        print(f"deploy: runner one-shot on the yolo package and a 720p PPM in {t_one:.1f} s "
+              f"(process start, package load, 3 runs): {'; '.join(iters)}; "
+              f"{len(dets[0]['detections'])} detections, first "
+              f"{dets[0]['detections'][:2]}", flush=True)
+    t0 = time.perf_counter()
+    serve = subprocess.run([str(runner), os.path.join(root, "frame.pt2"),
+                            os.path.join(root, "frame.meta"), "--serve"],
+                           input="\n".join(ppms + ["quit"]) + "\n", capture_output=True,
+                           text=True, timeout=RUNNER_TIMEOUT_S)
+    t_serve = time.perf_counter() - t0
+    lines = serve.stdout.splitlines()
+    rows = []
+    try:
+        rows = [json.loads(ln) for ln in lines[1:]]
+    except json.JSONDecodeError as e:
+        faults.append(f"runner --serve: a line is not JSON ({e}): {serve.stdout[-2000:]!r}")
+    if (serve.returncode != 0 or not lines or lines[0] != "ready" or len(rows) != DEPLOY_FRAMES
+            or any("outputs" not in r or not all(np.isfinite(r["outputs"])) for r in rows)):
+        faults.append(f"runner --serve: rc {serve.returncode}, stdout {serve.stdout[-2000:]!r}, "
+                      f"stderr {serve.stderr[-2000:]!r}")
+    else:
+        print(f"deploy: runner --serve on the frame package over {DEPLOY_FRAMES} 720p PPMs in "
+              f"{t_serve:.1f} s (process start, package load, a warm-up run): ms a frame "
+              f"{[r['ms'] for r in rows]}, p50 {np.median([r['ms'] for r in rows]):.2f} ms "
+              f"(host clock, upload to copy back) on {smi}", flush=True)
+    return faults, rows
+
+
+def deploy_inputs(dev, cfg):
+    """The deploy phase's first 720p frame, its intrinsics, and each
+    program's inputs on it: the frame program's (image, (h, w), K) and the
+    detector's letterboxed RGB input in [0, 1]."""
+    import torch
+
+    from hamer_yolo_tpu_torch.pipeline.preprocess import device_letterbox
+    from hamer_yolo_tpu_torch.pipeline.runner import default_intrinsics
+
+    frame = frames_720p(1, SEED + 9)[0]
+    K = default_intrinsics(frame.shape)
+    hw = torch.tensor([720.0, 1280.0], device=dev)
+    img = torch.from_numpy(frame).to(dev).to(torch.float32)
+    with torch.inference_mode():
+        lb, _, _ = device_letterbox(img[None], hw[None], cfg.det_size)
+    return frame, K, {"frame": (img, hw, torch.from_numpy(K).to(dev)),
+                      "yolo": ((lb.flip(-1) / 255.0).contiguous(),)}
+
+
+def _weights_sum(tree):
+    return sum(float(t.double().sum()) for t in _tree_leaves(tree))
+
+
+def build_package(model, cfg, tree, mano, args, root, dev):
+    """Export ``model`` over the weights ``tree``, hold the exported graph,
+    run op by op on the card (K1 and K2 through the operators), to eager
+    through the wrappers on ``args`` bit for bit, and compile it into
+    ``root``/<model>.pt2 beside its .meta. Returns (seconds by step, the
+    constants' bytes, faults)."""
+    import torch
+
+    from hamer_yolo_tpu_torch.tools import export_executable as ee
+
+    prog = ee.program(model, cfg, (720, 1280), dev)
+    t0 = time.perf_counter()
+    ep, module = ee.export_program(prog, tree, mano)
+    t_export = time.perf_counter() - t0
+    nbytes = ee.constant_bytes(module)
+    del module
+    with torch.inference_mode():
+        traced = ep.module()(*args)
+        eager = prog.fn(tree, mano, *args)
+    differ = [n for n, a, b in zip(prog.outputs, traced, eager) if not torch.equal(a, b)]
+    print(f"deploy {model}: the exported graph run on the card against eager: "
+          f"{'bit for bit' if not differ else f'{differ} differ'}", flush=True)
+    faults = [f"deploy {model}: the exported graph departs from eager in {differ}"] if differ \
+        else []
+    del traced, eager
+    t0 = time.perf_counter()
+    ee.compile_package(ep, os.path.join(root, f"{model}.pt2"))
+    t_compile = time.perf_counter() - t0
+    with open(os.path.join(root, f"{model}.meta"), "w") as f:
+        f.write("\n".join(ee.meta_lines(prog.inputs)) + "\n")
+    del ep
+    torch.cuda.empty_cache()
+    return {"export": t_export, "AOTInductor compile": t_compile}, nbytes, faults
+
+
+def deploy_build_child(root):
+    """The yolo package built by ``build_package`` in a process of its own,
+    beside the frame's in the deploy phase: main's seeded detector weights
+    (init_pipeline_params draws the detector first from the seed), the
+    phase's first frame. Prints one JSON line."""
+    import torch
+
+    from hamer_yolo_tpu_torch.cli.main import pipeline_config
+    from hamer_yolo_tpu_torch.core.mano_assets import synthetic_mano_model
+    from hamer_yolo_tpu_torch.models.mano import ManoModel
+    from hamer_yolo_tpu_torch.models.yolov7.model import init_yolov7
+    from hamer_yolo_tpu_torch.ops import torch_ops
+
+    torch_ops.register()
+    dev = torch.device("cuda:0")
+    cfg = pipeline_config()
+    mano = ManoModel.from_arrays(synthetic_mano_model(SEED), dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    tree = {"yolo": init_yolov7(gen, cfg.yolo)}
+    secs, nbytes, faults = build_package("yolo", cfg, tree, mano, deploy_inputs(dev, cfg)[2]["yolo"],
+                                         root, dev)
+    print(json.dumps({"secs": secs, "constant_bytes": nbytes, "faults": faults,
+                      "weights_sum": _weights_sum(tree)}))
+
+
+def deploy_phase(dev, smi, params, mano, cfg, program, tok, depth):
+    """The phase "deploy" (the module's docstring says what it holds).
+    Returns the kernels' launches a run of each package. Alone:
+    ``chip_smoke.deploy_phase(dev, smi, params, mano, cfg, program, tok0[:4],
+    depth)`` after main's set-up."""
+    import torch
+
+    from hamer_yolo_tpu_torch import cpp
+    from hamer_yolo_tpu_torch.ops import torch_ops
+    from hamer_yolo_tpu_torch.tools import export_executable as ee
+
+    t_phase = time.perf_counter()
+    torch_ops.register()
+    pool = ThreadPoolExecutor(1)  # the runner's g++ beside the exports and compiles
+    runner_job = pool.submit(lambda t0: (cpp.build_runner(), time.perf_counter() - t0),
+                                time.perf_counter())
+    frame, K, inputs = deploy_inputs(dev, cfg)
+    hw = inputs["frame"][1]
+    trees = {"frame": params, "yolo": {"yolo": params["yolo"]}}
+    faults = routes_bitwise(params, cfg, tok, cfg.hamer.vit.num_heads)
+    print(f"deploy: the packages' C++ compiler {ee.openmp_compiler()}", flush=True)
+    by_path = {"K1": {}, "K2": {}}
+    with tempfile.TemporaryDirectory() as root:
+        # the yolo package is built in a process of its own beside the frame's
+        here = os.path.dirname(os.path.abspath(__file__))
+        yolo_child = subprocess.Popen(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); import "
+             "chip_smoke; chip_smoke.deploy_build_child(sys.argv[2])", here, root],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        secs, nbytes, f = build_package("frame", cfg, params, mano, inputs["frame"], root, dev)
+        faults += f
+        out, err = yolo_child.communicate(timeout=900)
+        if yolo_child.returncode != 0:
+            raise RuntimeError(f"deploy: building the yolo package: {err[-3000:]}")
+        child = json.loads(out.strip().splitlines()[-1])
+        faults += child["faults"]
+        if child["weights_sum"] != _weights_sum(trees["yolo"]):
+            faults.append("deploy yolo: the child's detector weights are not main's")
+        secs, nbytes = {"frame": secs, "yolo": child["secs"]}, {"frame": nbytes,
+                                                                "yolo": child["constant_bytes"]}
+        progs, pkgs = {}, {}
+        for model in ("frame", "yolo"):
+            progs[model] = ee.program(model, cfg, (720, 1280), dev)
+            path = os.path.join(root, f"{model}.pt2")
+            t0 = time.perf_counter()
+            pkgs[model] = torch._inductor.aoti_load_package(path)
+            secs[model]["package load"] = time.perf_counter() - t0
+            print(f"deploy {model}: package {os.path.getsize(path)} bytes ({nbytes[model]} bytes "
+                  "of constants); " + ", ".join(f"{k} {v:.1f} s" for k, v in secs[model].items())
+                  + (" (in a process of its own, beside the frame's)" if model == "yolo" else ""),
+                  flush=True)
+
+        # the packages against eager (the frame on DEPLOY_FRAMES frames), and no
+        # wrapper launch on their runs; the frame's fields also against eager
+        # with an f32 ViT (plain layers), and eager's other bf16 form (the
+        # plain layers for K2) against eager, printed beside; the hold's
+        # control (coarse_blocks) must be reported as wrong
+        vit32 = dataclasses.replace(cfg.hamer.vit, compute_dtype="float32", fused_attn=False)
+        cfg32 = dataclasses.replace(cfg, hamer=dataclasses.replace(cfg.hamer, vit=vit32))
+        cfg_plain = dataclasses.replace(cfg, hamer=dataclasses.replace(
+            cfg.hamer, vit=dataclasses.replace(cfg.hamer.vit, fused_attn=False)))
+        runs = {"frame": [(torch.from_numpy(f).to(dev).to(torch.float32), hw, inputs["frame"][2])
+                          for f in frames_720p(DEPLOY_FRAMES, SEED + 9)],
+                "yolo": [inputs["yolo"]]}
+        with torch.inference_mode():
+            coarse = coarse_blocks(params)
+            for model in ("frame", "yolo"):
+                names, held, spread, controls = progs[model].outputs, [], [], []
+                for args in runs[model]:
+                    got, n = run_counted(lambda: pkgs[model](*args))
+                    if any(n.values()):
+                        faults.append(f"deploy {model}: the package ran a wrapper: launches {n}")
+                    ref = dict(zip(names, progs[model].fn(trees[model], mano, *args)))
+                    ref32 = None
+                    if model == "frame":
+                        ref32 = dict(zip(names, ee.program(model, cfg32, (720, 1280), dev).fn(
+                            params, mano, *args)))
+                        plain = dict(zip(names, ee.program(model, cfg_plain, (720, 1280),
+                                                           dev).fn(params, mano, *args)))
+                        spread.append((plain, ref, ref32))
+                        controls.append((dict(zip(names, progs[model].fn(coarse, mano, *args))),
+                                         ref, ref32))
+                        if not held:
+                            frame_sums = [float(v.double().sum()) for v in got]
+                    held.append((dict(zip(names, got)), ref, ref32))
+                f, readings, slots = _hold_package(model, held, f"deploy {model} package "
+                                                                "against eager")
+                faults += f
+                print(f"deploy {model}: the package against eager on the same weights and "
+                      f"720p frames: {slots}; {readings} (limits {DEPLOY_TOL}, rotations "
+                      f"{DEPLOY_AA_TOL}, or an RMS from the f32 ViT's at most "
+                      f"{BF16_ACCURACY_FACTOR} x eager bf16's); {'held' if not f else f}",
+                      flush=True)
+                if spread:
+                    print(f"deploy {model}: eager with the plain layers for K2 against eager "
+                          f"with K2, the same measures: {_hold_package(model, spread, '')[1]}",
+                          flush=True)
+                    f, readings, _ = _hold_package(model, controls, "control")
+                    print(f"deploy {model}: the hold's control, eager with the ViT blocks' "
+                          f"weights at {CONTROL_BITS} significant bits, in its place: "
+                          f"{'reported wrong' if f else 'passed'}: {readings}", flush=True)
+                    if not f:
+                        faults.append(f"deploy {model}: the field hold passed its control")
+            del coarse, controls
+
+        # the device kernels of a run, by name, in a process of its own
+        torch.save({k: [t.cpu() for t in v] for k, v in inputs.items()},
+                   os.path.join(root, "inputs.pt"))
+        child = subprocess.run([sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+                                " import chip_smoke; chip_smoke.deploy_profile_child(sys.argv[2])",
+                                here, root], capture_output=True, text=True, timeout=600)
+        if child.returncode != 0:
+            raise RuntimeError(f"deploy profile: {child.stderr[-3000:]}")
+        prof = json.loads(child.stdout.strip().splitlines()[-1])
+        for model, k2 in (("frame", depth), ("yolo", 0)):
+            counts = prof[model]
+            try:
+                expect_replay(f"deploy {model} package", counts, 1, k2)
+            except RuntimeError as e:
+                faults.append(str(e))
+            by_path["K1"][f"deploy {model}"] = named(counts, K1_KERNEL)
+            if k2:
+                by_path["K2"][f"deploy {model}"] = named(counts, K2_KERNELS[1])
+        if prof["ctypes_libraries"] or prof["nms_wrapper_imported"]:
+            faults.append(f"deploy: the packages' process reached a ctypes path: {prof}")
+        print(f"deploy: the packages' process loaded no ctypes kernel library "
+              f"({prof['ctypes_libraries']}); kernels a run {by_path}", flush=True)
+
+        # p50 of 20 runs each, numpy frame in and numpy out, in turns
+        def package_frame():
+            with torch.inference_mode():
+                out = pkgs["frame"](torch.from_numpy(frame).to(dev).to(torch.float32), hw,
+                                    inputs["frame"][2])
+                return [o.cpu() for o in out]
+
+        def yolo_run(fn):
+            with torch.inference_mode():
+                return [o.cpu() for o in fn()]
+
+        p50 = interleaved_p50({
+            "package": package_frame,
+            "eager": lambda: eager_frame(params, mano, cfg, dev, frame, K),
+            "graph": lambda: program(frame, K)}, rounds=DEPLOY_ROUNDS)
+        y50 = interleaved_p50({
+            "package": lambda: yolo_run(lambda: pkgs["yolo"](*inputs["yolo"])),
+            "eager": lambda: yolo_run(lambda: progs["yolo"].fn(trees["yolo"], mano,
+                                                               *inputs["yolo"]))},
+            rounds=DEPLOY_ROUNDS)
+        print(f"deploy frame 720p, upload to copy back: p50 {p50['package']:.2f} ms the "
+              f"package, {p50['eager']:.2f} ms eager infer_frame, {p50['graph']:.2f} ms "
+              f"FrameProgram's captured graph; deploy yolo at 640 (letterboxed input on the "
+              f"card to outputs on the host): p50 {y50['package']:.2f} ms the package, "
+              f"{y50['eager']:.2f} ms eager yolov7_forward + NMS (host clock, 20 runs each "
+              f"in turns) on {smi}", flush=True)
+        del pkgs
+        torch.cuda.empty_cache()
+
+        # the C++ runner
+        runner, t_runner = runner_job.result()
+        pool.shutdown()
+        print(f"deploy: runner built in {t_runner:.1f} s beside the compiles -> {runner.name}",
+              flush=True)
+        f, rows = run_runner(runner, root, smi)
+        faults += f
+        if rows:
+            d = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(rows[0]["outputs"], frame_sums))
+            print(f"deploy: the runner's checksums of frame 0 against the package run from "
+                  f"Python on the same frame: largest relative difference {d:.3g}", flush=True)
+            if d > 1e-4:
+                faults.append(f"runner checksums {rows[0]['outputs']} against Python's "
+                              f"{frame_sums}")
+    if faults:
+        raise RuntimeError("phase deploy: " + "; ".join(faults))
+    print(f"phase deploy: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return by_path
 
 

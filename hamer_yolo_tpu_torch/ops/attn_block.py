@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 
 from hamer_yolo_tpu_torch.core import nn
-from hamer_yolo_tpu_torch.ops import cuda_build
+from hamer_yolo_tpu_torch.ops import cuda_build, torch_ops
 from hamer_yolo_tpu_torch.ops.short_attention import launch_attention
 
 TOKEN_DTYPES = (torch.bfloat16, torch.float32)  # what the kernel reads and writes
@@ -82,8 +82,12 @@ def fused_bf16_attn_block(tok: torch.Tensor, w: torch.Tensor, bias: Optional[tor
     ``csrc/attn_block.cu`` and ``csrc/short_attention.cu``: bf16 or f32
     tokens (the output has their dtype, as in JAX), any B and N, K and the
     head width multiples of 8, heads up to 128 wide; anything else raises.
+    Traced (torch.export), it is the operator ``hyt_port::fused_bf16_attn_block``
+    (ops/torch_ops.py), on any device.
     """
     cuda_build.refuse_grad("fused_bf16_attn_block", tok, w, bias, ln_scale, ln_bias)
+    if torch.compiler.is_compiling():
+        return torch_ops.fused_bf16_attn_block(tok, w, bias, ln_scale, ln_bias, num_heads)
     if tok.device.type == "cpu":
         return fused_bf16_attn_block_ref(tok, w, bias, ln_scale, ln_bias, num_heads)
     if tok.device.type != "cuda":

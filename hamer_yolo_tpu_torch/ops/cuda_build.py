@@ -7,7 +7,9 @@ call that launches a kernel builds it, into ``_build/`` beside this package
 shared headers ``csrc/*.cuh`` and the flags. A file lock keeps
 concurrent processes from building the same library twice. ``set_flags``
 adds nvcc flags to one source for the rest of the process (the diagnostic
-builds of chip_gemm.py: ``-D`` macros, ``-Xptxas -v``).
+builds of chip_gemm.py: ``-D`` macros, ``-Xptxas -v``). ``gxx_build`` builds
+host code the same way with ``g++`` (the operator library of
+ops/torch_ops.py, the host library and the runner of cpp/).
 """
 from __future__ import annotations
 
@@ -64,7 +66,7 @@ _SIGNATURES = {
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _ADDED_FLAGS: Dict[str, List[str]] = {}  # set_flags
-BUILD_SECONDS: Dict[str, float] = {}  # wall time of each nvcc this process ran
+BUILD_SECONDS: Dict[str, float] = {}  # wall time of each nvcc or g++ this process ran
 BUILD_LOG: Dict[str, str] = {}  # and its stderr
 
 
@@ -96,22 +98,59 @@ def library_path(source: str) -> Path:
 
 
 def _build(source: str, out: Path) -> None:
+    _locked_build(source, Path(source).stem, out,
+                  lambda tmp: [_nvcc(), *_flags(source), "-o", tmp, str(CSRC_DIR / source)])
+
+
+def _locked_build(name: str, stem: str, out: Path, command) -> None:
+    """Run ``command(tmp)`` under the file lock of ``stem`` unless ``out``
+    exists (another process built it meanwhile), then move tmp to ``out``;
+    raise with the compiler's stderr if it fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / f".{Path(source).stem}.lock", "w") as lock:
+    with open(BUILD_DIR / f".{stem}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if out.exists():
                 return
-            tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-            cmd = [_nvcc(), *_flags(source), "-o", str(tmp), str(CSRC_DIR / source)]
+            tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}{out.suffix}")
+            cmd = command(str(tmp))
             t0 = time.perf_counter()
             res = subprocess.run(cmd, capture_output=True, text=True)
-            BUILD_SECONDS[source], BUILD_LOG[source] = time.perf_counter() - t0, res.stderr
+            BUILD_SECONDS[name], BUILD_LOG[name] = time.perf_counter() - t0, res.stderr
             if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {source}:\n{res.stderr}")
+                raise RuntimeError(f"{Path(cmd[0]).name} failed for {name}:\n{res.stderr}")
             os.replace(tmp, out)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def gxx_path(stem: str, args: List[str], inputs: List[Path], suffix: str = ".so",
+             extra: str = "") -> Path:
+    """Where ``gxx_build`` puts what it builds from these arguments."""
+    text = b"".join(Path(p).read_bytes() for p in inputs)
+    digest = hashlib.sha256(text + " ".join([*args, extra]).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{stem}-{digest}{suffix}"
+
+
+def gxx_build(stem: str, args: List[str], inputs: List[Path], suffix: str = ".so",
+              extra: str = "") -> Path:
+    """``g++ <args> -o BUILD_DIR/<stem>-<hash><suffix>``, unless built
+    already: the hash covers the bytes of ``inputs`` (sources and headers),
+    the arguments and ``extra``, and a file lock keeps concurrent processes
+    from building it twice. A failed build raises with g++'s stderr."""
+    out = gxx_path(stem, args, inputs, suffix, extra)
+    if not out.exists():
+        _locked_build(stem, stem, out, lambda tmp: ["g++", *args, "-o", tmp])
+    return out
+
+
+def ensure_built(source: str) -> Path:
+    """The path of ``csrc/<source>``'s library, built first if needed (not
+    loaded: the operator library of ops/torch_ops.py links it)."""
+    path = library_path(source)
+    if not path.exists():
+        _build(source, path)
+    return path
 
 
 def load(source: str) -> ctypes.CDLL:
@@ -119,10 +158,7 @@ def load(source: str) -> ctypes.CDLL:
     lib = _LOADED.get(source)
     if lib is not None:
         return lib
-    path = library_path(source)
-    if not path.exists():
-        _build(source, path)
-    lib = ctypes.CDLL(str(path))
+    lib = ctypes.CDLL(str(ensure_built(source)))
     for name, argtypes in _SIGNATURES[source].items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -18,7 +18,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from hamer_yolo_tpu_torch.geometry.boxes import box_iou, xywh2xyxy
-from hamer_yolo_tpu_torch.ops import cuda_build
+from hamer_yolo_tpu_torch.ops import cuda_build, torch_ops
 
 MAX_WH = 4096.0  # class-offset multiplier
 MAX_K = 2048     # csrc/nms.cu: at most 16 CTAs of an image's cluster, 2 mask words a lane
@@ -68,8 +68,11 @@ def greedy_nms_keep_mask(boxes: torch.Tensor, active: torch.Tensor,
                          iou_thres: float) -> torch.Tensor:
     """K1 on bool masks, non_max_suppression's entry: active (B, K) bool ->
     keep (B, K) bool, with no cast around the launch. Counted in
-    ``greedy_nms_keep.launches``."""
+    ``greedy_nms_keep.launches``. Traced (torch.export), it is the operator
+    ``hyt_port::greedy_nms_keep_mask`` (ops/torch_ops.py), on any device."""
     cuda_build.refuse_grad("greedy_nms_keep", boxes, active)
+    if torch.compiler.is_compiling():
+        return torch_ops.greedy_nms_keep_mask(boxes, active, iou_thres)
     if boxes.device.type == "cpu":
         return greedy_nms_keep_ref(boxes, active, iou_thres) > 0.5
     return _launch_keep(boxes, active, iou_thres, torch.bool)

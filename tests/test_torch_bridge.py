@@ -294,4 +294,5 @@ def test_port_imports_without_jax():
     assert {f"hamer_yolo_tpu_torch.{m}" for m in (
         "models.resnet", "models.sar", "models.tome", "pipeline.serving", "pipeline.sar_mesh",
         "utils.profiling", "parallel.mesh", "utils.downloads", "tools.eval_fastpaths",
-        "tools.eval_hamer", "tools.eval_detector", "tools.parity_check")} <= mods
+        "tools.eval_hamer", "tools.eval_detector", "tools.parity_check", "ops.torch_ops",
+        "tools.export_executable", "cpp")} <= mods

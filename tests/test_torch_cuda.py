@@ -1566,3 +1566,24 @@ def test_smallest_k_on_card_matches_cpu(dev, n, k):
         assert torch.equal(got_idx.cpu(), idx)
         assert torch.equal(got_vals.cpu(), vals)
         assert torch.equal(torch.signbit(got_vals.cpu()), torch.signbit(vals))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_operators_equal_the_wrappers_on_card(dev, dtype):
+    """K1 and K2 through the dispatcher's operators (ops/torch_ops.py, the
+    route of an exported program) equal the ctypes wrappers bit for bit."""
+    from hamer_yolo_tpu_torch.ops import torch_ops
+
+    rng = np.random.default_rng(11)
+    boxes = torch.from_numpy(_boxes(rng, 4, 512)).to(dev)
+    active = torch.from_numpy(rng.uniform(size=(4, 512)) > 0.3).to(dev)
+    assert torch.equal(torch_ops.greedy_nms_keep_mask(boxes, active, 0.35),
+                       greedy_nms_keep_mask(boxes, active, 0.35))
+    tok = torch.from_numpy(rng.normal(size=(4, 192, 256)).astype(np.float32)).to(dev, dtype)
+    w, b = (torch.from_numpy(rng.normal(size=s).astype(np.float32) * 0.05).to(dev)
+            for s in ((256, 768), (768,)))
+    g, bb = torch.ones(256, device=dev), torch.zeros(256, device=dev)
+    with torch.no_grad():
+        for bias in (b, None):
+            assert torch.equal(torch_ops.fused_bf16_attn_block(tok, w, bias, g, bb, 4),
+                               fused_bf16_attn_block(tok, w, bias, g, bb, 4))
