@@ -140,6 +140,16 @@ ResNet-34 RootNet at 256; seeded random weights, synthetic MANO, numpy-made
   package load, the package bytes, and the p50 of 20 runs of each package
   against eager (the frame also against FrameProgram's graph).
 
+A phase "switches and chain" drives JAX's switches of the kernels at full
+width: K3 under HYT_SOFTMAX=exp2 and exp2p, HYT_ATTN_MATH=int8 and int8 with
+exp2 through infer_frames (their launches: the kernels line's rows "K3 exp2"
+and so on) and alone against each form's plain version, timed; K5's chain
+form (JAX's XLA chain above FUSED_GEMM_MAX_M rows) at 12,288 rows for
+ViT-H's four GEMMs under both HYT_INT8_EP values against its plain version,
+timed beside K5's kernel form; the int8 dynamic infer_frames at 16 frames,
+where every K5 call takes the chain (rows "K5 chain", "K5 chain bf16");
+HYT_ATTN=auto launching K7 at 64 crops and not at 16.
+
 A phase "ToMe shapes" holds K3, K4, K5 and K7 against their plain versions
 at the token counts ToMe gives them (N = 124 and 68 a crop, 16 crops), and
 the RootNet stage's time is printed beside the card's name and power limit.
@@ -225,6 +235,22 @@ KERNELS = {
             "source": "hamer_yolo_tpu_torch/csrc/int8_gemm.cu",
             "replaces": "hamer_yolo_tpu/ops/int8_matmul.py:408"},
 }
+# The switched forms of K3 and K5 (phase "switches and chain"), each a row of
+# the kernels line beside the default form's.
+for _form, _env in (("exp2", "HYT_SOFTMAX=exp2"), ("exp2p", "HYT_SOFTMAX=exp2p"),
+                    ("int8", "HYT_ATTN_MATH=int8"),
+                    ("int8 exp2", "HYT_ATTN_MATH=int8 HYT_SOFTMAX=exp2")):
+    KERNELS[f"K3 {_form}"] = {
+        "name": f"fused_int8_attn_proj_block ({_env})", "route": "cuda",
+        "source": "hamer_yolo_tpu_torch/csrc/int8_gemm.cu, "
+                  "hamer_yolo_tpu_torch/csrc/attention_flavours.cu",
+        "replaces": "hamer_yolo_tpu/ops/attention_pallas.py:543"}
+for _form, _env in (("chain", "chain form, above 8192 rows"),
+                    ("chain bf16", "chain form, above 8192 rows, HYT_INT8_EP=bf16")):
+    KERNELS[f"K5 {_form}"] = {
+        "name": f"fused_int8_matmul ({_env})", "route": "cuda",
+        "source": "hamer_yolo_tpu_torch/csrc/int8_gemm.cu",
+        "replaces": "hamer_yolo_tpu/ops/int8_matmul.py:589"}
 # The switches of the two opt-in paths (core/quant.py reads them per call).
 PATH_A_ENV = {"HYT_ATTN": "megakernel", "HYT_INT8_MLP": "megakernel1"}
 PATH_B_ENV = {"HYT_ATTN": "pallas_fusedqkv"}
@@ -355,19 +381,25 @@ def launch_counters():
 
 
 def run_counted(fn):
-    """fn() with every launch count set to 0 just before and read just after."""
+    """fn() with every launch count set to 0 just before and read just after;
+    a wrapper's switched forms that launched (its ``variant_launches``) under
+    "K3 exp2" and the like."""
     import torch
 
     counters = launch_counters()
     for f in counters.values():
         f.launches = 0
+        getattr(f, "variant_launches", {}).clear()
     out = fn()
     torch.cuda.synchronize()
-    return out, {k: f.launches for k, f in counters.items()}
+    n = {k: f.launches for k, f in counters.items()}
+    for k, f in counters.items():
+        n.update({f"{k} {form}": c for form, c in getattr(f, "variant_launches", {}).items()})
+    return out, n
 
 
 def expect_launches(what, got, want):
-    if any(got[k] != n for k, n in want.items()):
+    if any(got.get(k, 0) != n for k, n in want.items()):
         raise RuntimeError(f"{what}: launches {got}, expected {want}")
 
 
@@ -595,6 +627,10 @@ def main() -> int:
                         blk0["norm1"]["scale"], blk0["norm1"]["bias"], cfg.hamer.vit.num_heads))
     k2_alone(dev)
     k10_alone(dev)
+    forms, form_launches = switches_chain_phase(dev, smi, sparams, qparams, qcfg, mano, cfg, imgs,
+                                                hws, Ks, tok0, int8_out["static"], depth)
+    record.update(forms)
+    launches.update(form_launches)
 
     # -- end to end timing ---------------------------------------------------
     with torch.inference_mode():
@@ -661,9 +697,9 @@ def main() -> int:
     return 0
 
 
-def check_batch(out, cfg, what):
-    """Finite outputs of the batch's shapes (every slot, masked ones too),
-    RootNet's root_depth among them, and a valid slot."""
+def check_batch(out, cfg, what, frames=BATCH):
+    """Finite outputs of the batch's shapes (``frames`` frames, every slot,
+    masked ones too), RootNet's root_depth among them, and a valid slot."""
     import torch
 
     if "root_depth" not in out:
@@ -671,7 +707,7 @@ def check_batch(out, cfg, what):
     for k, v in out.items():
         if v.is_floating_point() and not torch.isfinite(v).all():
             raise RuntimeError(f"{what}: output {k} is not finite")
-    if out["vertices"].shape != (BATCH, cfg.max_hands, 778, 3):
+    if out["vertices"].shape != (frames, cfg.max_hands, 778, 3):
         raise RuntimeError(f"{what}: vertices shape {tuple(out['vertices'].shape)}")
     if not out["valid"].any():
         raise RuntimeError(f"{what}: no valid hand slot")
@@ -1995,6 +2031,178 @@ def wrapper_host_us(dev, calls=200, rounds=7, k1=None, k2=None):
                   f"{'; inference mode' if name in inference else ''}); device time a launch "
                   f"{graph_time_ms(fn) * 1e3:.2f} us", flush=True)
     return us
+
+
+# K3's forms (the switches HYT_SOFTMAX and HYT_ATTN_MATH) and K5's chain form
+# (above FUSED_GEMM_MAX_M rows, with HYT_INT8_EP): their rows of the kernels
+# line, each checked and timed in the phase "switches and chain".
+K3_FORMS = {"K3 exp2": {"HYT_SOFTMAX": "exp2"}, "K3 exp2p": {"HYT_SOFTMAX": "exp2p"},
+            "K3 int8": {"HYT_ATTN_MATH": "int8"},
+            "K3 int8 exp2": {"HYT_ATTN_MATH": "int8", "HYT_SOFTMAX": "exp2"}}
+K5_CHAINS = {"K5 chain": {}, "K5 chain bf16": {"HYT_INT8_EP": "bf16"}}
+CHAIN_FRAMES = 16     # frames of the int8 dynamic batch that takes the chain: 16 x 4 x 192 rows
+CHAIN_ROWS = 12288    # K5's chain form alone: ViT-H's four GEMMs at 16 frames' rows
+AUTO_CROPS = (64, 16)  # HYT_ATTN=auto: K7 from MIN_PALLAS_CROPS crops on the card, not below
+
+
+def switches_chain_phase(dev, smi, sparams, qparams, qcfg, mano, cfg, imgs, hws, Ks, tok0,
+                         static_out, depth):
+    """The phase "switches and chain". K3 under each of its forms
+    (K3_FORMS) through infer_frames on the static path (their launches), then
+    at full width against each form's plain version
+    (attn_proj_block.check_against_plain) and timed; K5's chain form at
+    CHAIN_ROWS for ViT-H's four GEMMs under both HYT_INT8_EP values against
+    its plain version, timed beside K5's kernel form at the same rows; the
+    int8 dynamic infer_frames at CHAIN_FRAMES frames, where every K5 call
+    takes the chain (their launches); HYT_ATTN=auto launching K7 at 64
+    crops and not at 16. Returns (records, launches) for the kernels line."""
+    import torch
+
+    from hamer_yolo_tpu_torch.core import quant
+    from hamer_yolo_tpu_torch.ops import attn_proj_block as apb
+    from hamer_yolo_tpu_torch.ops import int8_matmul as im
+    from hamer_yolo_tpu_torch.ops.attn_proj_block import (fused_int8_attn_proj_block,
+                                                           fused_int8_attn_proj_block_ref,
+                                                           variant_name)
+    from hamer_yolo_tpu_torch.pipeline.frame import infer_frames
+
+    t_phase = time.perf_counter()
+    B, N, Kd = tok0.shape
+    M = B * N
+    heads = cfg.hamer.vit.num_heads
+    records, launches = {}, {}
+    rng = np.random.default_rng(SEED + 19)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    # -- K3's forms: the main path's launches, then full width alone --------
+    blk = sparams["hamer"]["backbone"]["blocks"][0]
+    a = blk["attn"]
+    args = (a["qkv"]["wq"]["q"], a["qkv"]["wq"]["scale"], a["qkv"]["b"], blk["norm1"]["scale"],
+            blk["norm1"]["bias"], a["qkv"]["sx"], a["proj"]["sx"], a["proj"]["wq"]["q"],
+            a["proj"]["wq"]["scale"], a["proj"]["b"], heads)
+    base_ms = cuda_time_ms(lambda: fused_int8_attn_proj_block(tok0, *args))
+    base_dev_ms = graph_time_ms(lambda: fused_int8_attn_proj_block(tok0, *args))
+    for key, env in K3_FORMS.items():
+        with torch.inference_mode(), switches(env):
+            out, n = run_counted(lambda: infer_frames(sparams, mano, imgs, hws, Ks, qcfg))
+        expect_launches(f"int8 static with {env}", n, {"K3": depth, "K4": depth, key: depth,
+                                                       **dict.fromkeys(("K5", "K6", "K7"), 0)})
+        check_batch(out, cfg, f"int8 static infer_frames with {env}")
+        both = out["valid"] & static_out["valid"]
+        dist = float((out["keypoints_3d"] - static_out["keypoints_3d"]).norm(dim=-1)[both].mean())
+        launches[key] = n.get(key, 0)
+        sm = env.get("HYT_SOFTMAX", "exp")
+        am = env.get("HYT_ATTN_MATH", "bf16")
+        assert variant_name(sm, am) == key[3:]
+        err = 0.0
+        for tname, tok in (("block0_tokens", tok0), ("random", randn(B, N, Kd).bfloat16())):
+            steps = apb.fused_int8_attn_proj_block_steps(tok, *args, softmax=sm, attn_math=am)
+            torch.cuda.synchronize()
+            r = apb.check_against_plain(steps, tok, *args, softmax=sm, attn_math=am)
+            err = max(err, r["max_abs_err"])
+            print(f"{key} {tname} {tuple(tok.shape)}: " + _fmt(r))
+        ms = cuda_time_ms(lambda: fused_int8_attn_proj_block(tok0, *args, softmax=sm,
+                                                             attn_math=am))
+        dev_ms = graph_time_ms(lambda: fused_int8_attn_proj_block(tok0, *args, softmax=sm,
+                                                                  attn_math=am))
+        plain_ms = cuda_time_ms(lambda: fused_int8_attn_proj_block_ref(tok0, *args, sm, am),
+                                iters=3)
+        attn_ops = {"int8" if am == "int8" else "bf16": 4 * B * N * N * Kd}
+        ops = {"int8": 2 * M * Kd * 4 * Kd}
+        for kind, v in attn_ops.items():
+            ops[kind] = ops.get(kind, 0) + v
+        bound_ms, by = bound(2 * M * Kd * 2 + 3 * Kd * Kd + Kd * Kd + 8 * 4 * Kd, ops)
+        print(f"{key} through infer_frames b{BATCH} {env}: launches {n}; mean joint distance to "
+              f"the default static path {dist * 1e3:.4f} mm; timing at {tuple(tok0.shape)}: "
+              f"kernel {ms:.4f} ms (default form {base_ms:.4f} ms), device time alone (CUDA "
+              f"graph of 20 launches) {dev_ms:.4f} ms (default form {base_dev_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms ({by}) on {smi}", flush=True)
+        records[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": by, "library_ms": None}
+
+    # -- K5's chain form alone at CHAIN_ROWS ---------------------------------
+    qblk = qparams["hamer"]["backbone"]["blocks"][0]
+    lin = {k: (p["wq"]["q"], p["wq"]["scale"], p["b"])
+           for k, p in (("qkv", qblk["attn"]["qkv"]), ("proj", qblk["attn"]["proj"]),
+                        ("fc1", qblk["mlp"]["fc1"]), ("fc2", qblk["mlp"]["fc2"]))}
+    ln = {"qkv": (qblk["norm1"]["scale"], qblk["norm1"]["bias"]),
+          "fc1": (qblk["norm2"]["scale"], qblk["norm2"]["bias"])}
+    pros = {"qkv": "ln", "proj": "id", "fc1": "ln", "fc2": "gelu_poly"}
+    xs = {name: randn(CHAIN_ROWS, VITH_GEMMS[name][0]).bfloat16() for name in pros}
+    for key, env in K5_CHAINS.items():
+        err, ms, dev_ms, form_ms, plain_ms, bound_ms = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
+        with switches(env):
+            for name, pro in pros.items():
+                x, (q, s, b) = xs[name], lin[name]
+                g, bt = ln.get(name, (None, None))
+                for static in (None, torch.tensor(0.031, device=dev)):
+                    got = im.fused_int8_matmul(x, q, s, b, g, bt, prologue=pro,
+                                               static_scale=static)
+                    torch.cuda.synchronize()
+                    ref = im.fused_int8_matmul_ref(x, q, s, b, g, bt, prologue=pro,
+                                                   static_scale=static)
+                    r = im.check_against_plain(got, ref, key)
+                    err = max(err, r["max_abs_err"])
+                    print(f"{key} {name} {pro} {'static' if static is not None else 'dynamic'} "
+                          f"({CHAIN_ROWS}, {x.shape[1]}) x {tuple(q.shape)}: " + _fmt(r)
+                          + f"; bit-equal {bool(torch.equal(got, ref))}")
+                call = (lambda force: lambda: im.fused_int8_matmul(x, q, s, b, g, bt, prologue=pro,
+                                                                   force=force))
+                t_chain, t_form = cuda_time_ms(call(None)), cuda_time_ms(call("pallas"))
+                g_chain, g_form = graph_time_ms(call(None)), graph_time_ms(call("pallas"))
+                ms += t_chain
+                dev_ms += g_chain
+                form_ms += g_form
+                plain_ms += cuda_time_ms(lambda: im.fused_int8_matmul_ref(
+                    x, q, s, b, g, bt, prologue=pro), iters=3)
+                Kx, Nx = q.shape
+                bound_ms += bound(CHAIN_ROWS * Kx * 2 + Kx * Nx + CHAIN_ROWS * Nx * 2 + 8 * Nx,
+                                  {"int8": 2 * CHAIN_ROWS * Kx * Nx})[0]
+                print(f"{key} {name} timing: chain {t_chain:.4f} ms (CUDA graph {g_chain:.4f}), "
+                      f"kernel form {t_form:.4f} ms (CUDA graph {g_form:.4f})", flush=True)
+        print(f"{key} over ViT-H's four GEMMs at M = {CHAIN_ROWS} (dynamic): kernel {ms:.4f} ms, "
+              f"device time alone (CUDA graph of 20 launches) {dev_ms:.4f} ms against K5's "
+              f"kernel form {form_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+              f"(operations) on {smi}", flush=True)
+        records[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": "operations", "library_ms": None}
+
+    # -- the int8 dynamic infer_frames at CHAIN_FRAMES frames: the chain -----
+    frames16 = frames_720p(CHAIN_FRAMES, SEED + 16)
+    imgs16 = torch.from_numpy(np.stack(frames16)).to(dev).to(torch.float32)
+    hws16 = torch.tensor([[720.0, 1280.0]] * CHAIN_FRAMES, device=dev)
+    Ks16 = Ks[:1].expand(CHAIN_FRAMES, 3, 3).contiguous()
+    rows = CHAIN_FRAMES * cfg.max_hands * cfg.hamer.vit.num_tokens
+    if rows <= im.FUSED_GEMM_MAX_M:
+        raise RuntimeError(f"{rows} rows do not cross FUSED_GEMM_MAX_M = {im.FUSED_GEMM_MAX_M}")
+    for key, env in K5_CHAINS.items():
+        with torch.inference_mode(), switches(env):
+            out, n = run_counted(lambda: infer_frames(qparams, mano, imgs16, hws16, Ks16, qcfg))
+            e2e = cuda_time_ms(lambda: infer_frames(qparams, mano, imgs16, hws16, Ks16, qcfg),
+                               iters=3, warmup=1)
+        expect_launches(f"int8 dynamic b{CHAIN_FRAMES} {env}", n,
+                        {"K5": 4 * depth, key: 4 * depth, "K7": depth,
+                         **dict.fromkeys(("K3", "K4", "K6", "K8", "K10"), 0)})
+        check_batch(out, cfg, f"int8 dynamic infer_frames b{CHAIN_FRAMES} {env}", CHAIN_FRAMES)
+        launches[key] = n.get(key, 0)
+        print(f"int8 dynamic infer_frames b{CHAIN_FRAMES} 720p {env} (M = {rows} rows a GEMM, "
+              f"every K5 call in the chain form): {int(out['valid'].sum())} valid slots, "
+              f"launches {n}; e2e p50 {e2e:.2f} ms (CUDA events, 1 warm-up, 3 timed) on {smi}",
+              flush=True)
+
+    # -- HYT_ATTN=auto: K7 from MIN_PALLAS_CROPS crops on the card -----------
+    with torch.inference_mode(), switches({"HYT_ATTN": "auto"}):
+        for crops in AUTO_CROPS:
+            tok = randn(crops, N, Kd).bfloat16()
+            _, n = run_counted(lambda: quant.int8_block_attn_fused(qblk, tok, heads))
+            want = 1 if crops >= 64 else 0
+            expect_launches(f"HYT_ATTN=auto at {crops} crops", n, {"K7": want, "K5": 2})
+            print(f"HYT_ATTN=auto at {crops} crops: launches {n} (K7 {want})")
+    print(f"phase \"switches and chain\": {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return records, launches
 
 
 def check_optin_kernels(blk, tok0, heads, mano, pred_mano, k3_ms, k4_ms, k7_ms):

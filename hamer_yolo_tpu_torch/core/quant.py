@@ -32,15 +32,26 @@ forced):
 
 - ``HYT_ATTN``: unset or ``megaproj`` gives K3 with both static scales;
   ``megakernel`` K6 + the pre-quantized proj product; ``pallas_fusedqkv`` K8
-  and ``pallas_direct`` K7 for the attention between two K5; ``xla`` (and any
-  other value) the einsum attention there. ``pallas`` and ``auto`` raise: they
-  need JAX's custom_vmap crop collapse, which is not ported (ROADMAP.md,
-  Queue 2).
+  and ``pallas_direct`` K7 for the attention between two K5; ``pallas`` K7 on
+  the crop batch as given, ``auto`` K7 where qkv is on the card with at least
+  short_attention.MIN_PALLAS_CROPS crops (JAX: on a TPU, or in interpret
+  mode), the einsum otherwise (the port has no vmap: its crop batch is the
+  collapsed one JAX's custom_vmap rule builds); ``xla`` (and any other value)
+  the einsum attention there.
+- ``HYT_SOFTMAX=exp2|exp2p`` and ``HYT_ATTN_MATH=int8``: K3's softmax flavour
+  and attention products (ops/attn_proj_block.py); no other kernel reads them.
 - ``HYT_ATTN_PREQUANT=0`` turns off K3, K6 and the int8 epilogue of K7 / K8:
   the proj GEMM then quantizes its own input (K5 with the static scale).
 - ``HYT_INT8_MLP``: unset or ``megakernel`` gives K4 with both static scales,
   ``megakernel1`` K10 (``HYT_INT8_MLP_HC``: the chunk of its plain version),
   ``off`` (and any other value) K5 twice.
+- ``HYT_INT8_FUSED=0`` keeps the unfused composition where ``fused`` and
+  ``cfg.fused_attn`` leave the choice to the device.
+- ``HYT_INT8_EP=bf16``: K5's chain form dequantizes in bf16
+  (ops/int8_matmul.py), read by the kernel's wrapper.
+- The TPU's group and tile knobs (``HYT_ATTN_MEGA_G``, ``HYT_ATTN_MEGAPROJ_G``,
+  ``HYT_ATTN_BF16_G``, ``HYT_INT8_MLP_TM``) are bit-identical across their
+  values in JAX and have no counterpart on this card: the port ignores them.
 
 One place where JAX's tree surprises, kept as it is: under
 ``HYT_ATTN=megakernel`` with a static proj scale but no static qkv scale, K6
@@ -64,7 +75,9 @@ from hamer_yolo_tpu_torch.ops.int8_matmul import (RECIP_127, fused_int8_matmul,
                                                   fused_int8_mlp_block, fused_int8_mlp_block1,
                                                   gelu_prologue, int8_dot_prequant, int_dot,
                                                   kmajor_weight)
-from hamer_yolo_tpu_torch.ops.short_attention import softmax_attention_qkv
+from hamer_yolo_tpu_torch.ops.short_attention import FORCES as ATTN_FORCES
+from hamer_yolo_tpu_torch.ops.short_attention import (attn_math_flavor, softmax_attention_qkv,
+                                                       softmax_flavor)
 
 Params = Dict[str, Any]
 STAT_KEYS = ("qkv", "proj", "fc1", "fc2")
@@ -135,30 +148,27 @@ def quantize_vit_params(vit_params: Params) -> Params:
             "blocks": qblocks, "last_norm": vit_params["last_norm"]}
 
 
-_ATTN_FORCES = ("xla", "pallas_direct", "pallas_fusedqkv")
-
-
-def _attn_env() -> Optional[str]:
-    """HYT_ATTN, refusing the values whose path is not ported."""
-    env = os.environ.get("HYT_ATTN")
-    if env in ("pallas", "auto"):
-        raise NotImplementedError(
-            f"HYT_ATTN={env}: the custom_vmap crop collapse behind it is not ported "
-            "(ROADMAP.md, Queue 2); use pallas_direct or pallas_fusedqkv")
-    return env
+def default_fused(tok: torch.Tensor, cfg) -> bool:
+    """Whether the int8 blocks take the kernels when neither the caller nor
+    ``cfg.fused_attn`` says: where the tokens are on CUDA (JAX: on a TPU),
+    unless HYT_INT8_FUSED is "0"."""
+    if cfg.fused_attn is not None:
+        return cfg.fused_attn
+    return tok.is_cuda and os.environ.get("HYT_INT8_FUSED", "1") != "0"
 
 
 def _attn_math(qkv: torch.Tensor, num_heads: int, kernels: Optional[bool] = None) -> torch.Tensor:
     """(B, N, 3D) -> (B, N, D) pre-proj attention. HYT_ATTN unset: K7 where
     ``kernels`` (None: qkv is on the card; JAX's accelerator default,
     "pallas_direct"), the einsum elsewhere. HYT_ATTN set: that form where
-    softmax_attention_qkv has it, else the einsum."""
-    env = _attn_env()
+    softmax_attention_qkv has it ("pallas" and "auto" included), else the
+    einsum."""
+    env = os.environ.get("HYT_ATTN")
     if env is None:
         kernels = qkv.is_cuda if kernels is None else kernels
         force = "pallas_direct" if kernels else "xla"
     else:
-        force = env if env in _ATTN_FORCES else "xla"
+        force = env if env in ATTN_FORCES else "xla"
     return softmax_attention_qkv(qkv, num_heads, force=force)
 
 
@@ -256,7 +266,7 @@ def int8_block_attn_fused(blk: Params, tok: torch.Tensor, num_heads: int) -> tor
     or the einsum, then K5)."""
     p = blk["attn"]
     sx_qkv, sx_proj = p["qkv"].get("sx"), p["proj"].get("sx")
-    env = _attn_env()
+    env = os.environ.get("HYT_ATTN")
     if env in ("pallas_direct", "pallas_fusedqkv", "megakernel"):
         kern = env
     elif env is None:
@@ -284,16 +294,18 @@ def int8_block_attn_fused(blk: Params, tok: torch.Tensor, num_heads: int) -> tor
 
 def int8_block_attn_residual(blk: Params, tok: torch.Tensor, num_heads: int) -> torch.Tensor:
     """tok + attention block: K3 with both static scales under HYT_ATTN unset
-    or "megaproj" (and HYT_ATTN_PREQUANT not 0), else
+    or "megaproj" (and HYT_ATTN_PREQUANT not 0), its softmax flavour and
+    attention products from HYT_SOFTMAX and HYT_ATTN_MATH; else
     tok + int8_block_attn_fused."""
     p = blk["attn"]
     sx_qkv, sx_proj = p["qkv"].get("sx"), p["proj"].get("sx")
-    if (_attn_env() in (None, "megaproj") and sx_qkv is not None and sx_proj is not None
-            and os.environ.get("HYT_ATTN_PREQUANT") != "0"):
+    if (os.environ.get("HYT_ATTN") in (None, "megaproj") and sx_qkv is not None
+            and sx_proj is not None and os.environ.get("HYT_ATTN_PREQUANT") != "0"):
         return fused_int8_attn_proj_block(
             tok, p["qkv"]["wq"]["q"], p["qkv"]["wq"]["scale"], p["qkv"].get("b"),
             blk["norm1"]["scale"], blk["norm1"]["bias"], sx_qkv, sx_proj,
-            p["proj"]["wq"]["q"], p["proj"]["wq"]["scale"], p["proj"].get("b"), num_heads)
+            p["proj"]["wq"]["q"], p["proj"]["wq"]["scale"], p["proj"].get("b"), num_heads,
+            softmax=softmax_flavor(), attn_math=attn_math_flavor())
     return tok + int8_block_attn_fused(blk, tok, num_heads)
 
 
@@ -329,8 +341,8 @@ def vit_forward_int8(params_q: Params, x: torch.Tensor, cfg, fused: Optional[boo
                      gelu: Optional[str] = None) -> torch.Tensor:
     """models/vit.vit_forward over quantize_vit_params output.
 
-    ``fused``: the kernels (None: ``cfg.fused_attn``, and where that is None
-    too, wherever the tokens are on CUDA) or the unfused composition.
+    ``fused``: the kernels (None: ``default_fused``) or the unfused
+    composition.
     ``gelu``: the MLP kernels' GELU, "gelu" or "gelu_poly"; None takes the
     polynomial on the card and the exact form elsewhere, as JAX's
     gelu_prologue picks on and off the TPU.
@@ -345,7 +357,7 @@ def vit_blocks_int8(params_q: Params, tok: torch.Tensor, cfg, fused: Optional[bo
     """The blocks and the last LayerNorm of vit_forward_int8, from the
     embedded tokens (B, N, D)."""
     if fused is None:
-        fused = tok.is_cuda if cfg.fused_attn is None else cfg.fused_attn
+        fused = default_fused(tok, cfg)
     gelu = gelu or gelu_prologue(tok.device)
     for blk in params_q["blocks"]:
         if fused:

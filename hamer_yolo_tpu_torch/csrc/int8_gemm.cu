@@ -4,7 +4,9 @@
 // Replaces the int8 GEMMs of the TPU kernels
 //   hamer_yolo_tpu/ops/int8_matmul.py:fused_int8_matmul (K5; _kernel: an
 //     [ln | gelu | gelu_poly | id] prologue in f32, per-row dynamic or static
-//     int8 quantize, int8 GEMM, (acc * sx) * sw + b),
+//     int8 quantize, int8 GEMM, (acc * sx) * sw + b; above FUSED_GEMM_MAX_M
+//     rows its XLA chain, _xla_chain: the quantize launch's CHAIN form and
+//     the EPI_CHAIN_F32 / EPI_CHAIN_BF16 epilogues below),
 //   hamer_yolo_tpu/ops/int8_matmul.py:fused_int8_mlp_block (K4; _mlp1_kernel:
 //     LN, static quantize, fc1, acc * (s1 * sw) + b, GELU, quantize by s2;
 //     _mlp2_kernel: fc2, acc * (s2 * sw) + b, + f32 residual),
@@ -61,6 +63,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -73,6 +77,8 @@ enum Epilogue {
   EPI_GELU_Q = 2,    // K4 fc1: acc * (s * sw) + b -> GELU -> int8 by inv_out
   EPI_RESID = 3,     // K4 fc2: res + (acc * (s * sw) + b), added in f32
   EPI_PROJ = 4,      // K3 proj: res + to_out((acc * s) * sw + b), added in out dtype
+  EPI_CHAIN_F32 = 5,   // K5's chain form: fma(acc, sx * sw, b) in f32
+  EPI_CHAIN_BF16 = 6,  // the same under HYT_INT8_EP=bf16: each op rounded to bf16
 };
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
@@ -116,6 +122,56 @@ __device__ __forceinline__ float gelu_poly(float x) {
   return x < -4.0f ? 0.0f : (x > 4.0f ? x : y);
 }
 
+// --------------------------------------- K5's chain form in the tokens' dtype
+// JAX's _xla_chain (hamer_yolo_tpu/ops/int8_matmul.py) runs its prologue in
+// the tokens' dtype: for bf16 tokens every op is an f32 op rounded to bf16
+// (XLA's CPU code with excess precision off; the plain version,
+// int8_matmul.chain_prologue_ref, is torch's bf16 ops), its constants rounded
+// to bf16 first. rt<TokT> is that rounding (none for f32 tokens, whose
+// prologue is the kernel form's).
+template <typename TokT> __device__ __forceinline__ float rt(float v) { return v; }
+template <> __device__ __forceinline__ float rt<bf16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float rb(float v) { return rt<bf16>(v); }
+
+// The exact GELU of the chain on bf16 tokens, op by op as
+// int8_matmul.chain_prologue_ref("gelu"): x / sqrt 2 is a true division by
+// bf16(sqrt 2); expf is within 2 ulp of f32's exp, which the rounding to
+// bf16 hides but where an f32 result lands within that of a bf16 midpoint.
+__device__ __forceinline__ float gelu_chain_bf16(float x) {
+  const float z = rb(__fdiv_rn(x, rb(1.4142135623730951f)));
+  const float az = fabsf(z);
+  const float t = rb(__fdiv_rn(1.0f, rb(__fadd_rn(1.0f, rb(__fmul_rn(rb(0.3275911f), az))))));
+  float poly = rb(__fadd_rn(rb(__fmul_rn(rb(1.061405429f), t)), rb(-1.453152027f)));
+  poly = rb(__fadd_rn(rb(__fmul_rn(poly, t)), rb(1.421413741f)));
+  poly = rb(__fadd_rn(rb(__fmul_rn(poly, t)), rb(-0.284496736f)));
+  poly = rb(__fadd_rn(rb(__fmul_rn(poly, t)), rb(0.254829592f)));
+  poly = rb(__fmul_rn(poly, t));
+  const float ex = rb(expf(rb(__fmul_rn(-az, az))));
+  const float sg = z > 0.0f ? 1.0f : (z < 0.0f ? -1.0f : 0.0f);
+  const float erf = rb(__fmul_rn(sg, rb(__fsub_rn(1.0f, rb(__fmul_rn(poly, ex))))));
+  return rb(__fmul_rn(rb(__fmul_rn(0.5f, x)), rb(__fadd_rn(1.0f, erf))));
+}
+
+// The polynomial GELU of the chain: JAX's coefficients are strong f32, so
+// the polynomial runs in f32 with the multiply-adds that XLA's CPU code
+// contracts (fmaf), on u = min(x * x, 16) rounded to the tokens' dtype; the
+// result is f32 whatever the tokens.
+template <typename TokT>
+__device__ __forceinline__ float gelu_poly_chain(float x) {
+  const float c[9] = {3.138923846637831e-05f, 0.3985892442238482f, -0.0658308598919238f,
+                      0.009491168272223864f, -0.001005431695009259f, 7.497100545436031e-05f,
+                      -3.6818665106501106e-06f, 1.0570036565177172e-07f,
+                      -1.3327008826321846e-09f};
+  const float u = fminf(rt<TokT>(__fmul_rn(x, x)), 16.0f);
+  float e = c[8];
+#pragma unroll
+  for (int i = 7; i >= 0; --i) e = __fmaf_rn(e, u, c[i]);
+  const float y = __fadd_rn(__fmul_rn(0.5f, x), e);
+  return x < -4.0f ? 0.0f : (x > 4.0f ? x : y);
+}
+
 // ------------------------------------------------------- (a) quantize rows
 constexpr int QW = 8;  // rows (warps) per block
 
@@ -128,17 +184,54 @@ __device__ __forceinline__ float prologue(float x, float mu, float rstd, const f
   return x;
 }
 
+// The chain's prologue (CHAIN) on one value: for f32 tokens the kernel
+// form's, except the polynomial GELU; for bf16 tokens op by op in bf16 (LN's
+// mu and rstd already rounded to bf16).
+template <typename TokT, int PRO, bool CHAIN>
+__device__ __forceinline__ float prologue_of(float x, float mu, float rstd, const float* g,
+                                            const float* b, int k) {
+  if constexpr (CHAIN && PRO == PRO_GELU_POLY) return gelu_poly_chain<TokT>(x);
+  if constexpr (!CHAIN || !std::is_same<TokT, bf16>::value) {
+    return prologue<PRO>(x, mu, rstd, g, b, k);
+  } else if constexpr (PRO == PRO_LN) {
+    return rb(__fadd_rn(rb(__fmul_rn(rb(__fmul_rn(rb(__fsub_rn(x, mu)), rstd)), rb(g[k]))),
+                        rb(b[k])));
+  } else if constexpr (PRO == PRO_GELU) {
+    return gelu_chain_bf16(x);
+  } else {
+    return x;
+  }
+}
+
 // One warp quantizes one row xr (K values) into qr: the row's LN statistics
 // (two passes), its absmax after the prologue where DYN, then the int8 values.
-// Returns the row's scale.
-template <typename TokT, int PRO, bool DYN>
+// Returns the row's scale. CHAIN: K5's chain form (JAX's _xla_chain): the
+// prologue in the tokens' dtype (prologue_of), the bf16 LN's means rounded to
+// bf16 and divided by K as torch.mean does; where the prologue's result is
+// bf16, the scale max(f32(bf16(absmax / 127)), 1e-8) and the int8 value
+// rint(bf16(x / bf16(scale))); where it is f32 (f32 tokens, the polynomial
+// GELU), absmax times f32(1 / 127) and rint(x / scale), a true division.
+template <typename TokT, int PRO, bool DYN, bool CHAIN>
 __device__ __forceinline__ float quantize_row(const TokT* __restrict__ xr,
                                               const float* __restrict__ g,
                                               const float* __restrict__ b, int K,
                                               const float* __restrict__ s_static,
                                               int8_t* __restrict__ qr, int lane) {
+  constexpr bool BF16_LN = CHAIN && PRO == PRO_LN && std::is_same<TokT, bf16>::value;
+  constexpr bool BF16_OUT = CHAIN && std::is_same<TokT, bf16>::value && PRO != PRO_GELU_POLY;
   float mu = 0.0f, rstd = 0.0f;
-  if constexpr (PRO == PRO_LN) {
+  if constexpr (BF16_LN) {
+    float s = 0.0f;
+    for (int k = lane; k < K; k += 32) s = __fadd_rn(s, to_f32(xr[k]));
+    mu = rb(__fdiv_rn(warp_sum(s), (float)K));
+    float v = 0.0f;
+    for (int k = lane; k < K; k += 32) {
+      const float d = rb(__fsub_rn(to_f32(xr[k]), mu));
+      v = __fadd_rn(v, rb(__fmul_rn(d, d)));
+    }
+    const float var = rb(__fdiv_rn(warp_sum(v), (float)K));
+    rstd = rb(__frsqrt_rn(rb(__fadd_rn(var, rb(1e-6f)))));
+  } else if constexpr (PRO == PRO_LN) {
     const float inv_k = __fdiv_rn(1.0f, (float)K);  // means are sums times f32(1 / K)
     float s = 0.0f;
     for (int k = lane; k < K; k += 32) s = __fadd_rn(s, to_f32(xr[k]));
@@ -155,18 +248,28 @@ __device__ __forceinline__ float quantize_row(const TokT* __restrict__ xr,
   if constexpr (DYN) {
     float m = 0.0f;
     for (int k = lane; k < K; k += 32)
-      m = fmaxf(m, fabsf(prologue<PRO>(to_f32(xr[k]), mu, rstd, g, b, k)));
-    scale = fmaxf(__fmul_rn(warp_max(m), 1.0f / 127.0f), 1e-8f);
+      m = fmaxf(m, fabsf(prologue_of<TokT, PRO, CHAIN>(to_f32(xr[k]), mu, rstd, g, b, k)));
+    m = warp_max(m);
+    scale = fmaxf(BF16_OUT ? rb(__fdiv_rn(m, 127.0f)) : __fmul_rn(m, 1.0f / 127.0f), 1e-8f);
   } else {
     scale = *s_static;
   }
-  const float inv = __fdiv_rn(1.0f, scale);
-  for (int k = lane; k < K; k += 32)
-    qr[k] = quantize(prologue<PRO>(to_f32(xr[k]), mu, rstd, g, b, k), inv);
+  if constexpr (CHAIN) {
+    const float sq = BF16_OUT ? rb(scale) : scale;
+    for (int k = lane; k < K; k += 32) {
+      float r = __fdiv_rn(prologue_of<TokT, PRO, CHAIN>(to_f32(xr[k]), mu, rstd, g, b, k), sq);
+      r = rintf(BF16_OUT ? rb(r) : r);
+      qr[k] = (int8_t)(int)fminf(fmaxf(r, -127.0f), 127.0f);
+    }
+  } else {
+    const float inv = __fdiv_rn(1.0f, scale);
+    for (int k = lane; k < K; k += 32)
+      qr[k] = quantize(prologue<PRO>(to_f32(xr[k]), mu, rstd, g, b, k), inv);
+  }
   return scale;
 }
 
-template <typename TokT, int PRO, bool DYN>
+template <typename TokT, int PRO, bool DYN, bool CHAIN>
 __global__ void __launch_bounds__(QW * 32)
 quantize_rows_kernel(const TokT* __restrict__ x, const float* __restrict__ g,
                      const float* __restrict__ b, int M, int K,
@@ -175,35 +278,39 @@ quantize_rows_kernel(const TokT* __restrict__ x, const float* __restrict__ g,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * QW + (threadIdx.x >> 5);
   if (row >= M) return;
-  const float scale = quantize_row<TokT, PRO, DYN>(x + (size_t)row * K, g, b, K, s_static,
-                                                   xq + (size_t)row * K, lane);
+  const float scale = quantize_row<TokT, PRO, DYN, CHAIN>(x + (size_t)row * K, g, b, K,
+                                                          s_static, xq + (size_t)row * K, lane);
   if (DYN && lane == 0) row_scale[row] = scale;
 }
 
-template <typename TokT, int PRO>
+template <typename TokT, int PRO, bool CHAIN>
 int launch_quantize(const void* x, const float* g, const float* b, int M, int K, int dynamic,
                     const float* s, int8_t* xq, float* row_scale, cudaStream_t st) {
   const dim3 grid((M + QW - 1) / QW);
   if (dynamic)
-    quantize_rows_kernel<TokT, PRO, true><<<grid, QW * 32, 0, st>>>(
+    quantize_rows_kernel<TokT, PRO, true, CHAIN><<<grid, QW * 32, 0, st>>>(
         (const TokT*)x, g, b, M, K, s, xq, row_scale);
   else
-    quantize_rows_kernel<TokT, PRO, false><<<grid, QW * 32, 0, st>>>(
+    quantize_rows_kernel<TokT, PRO, false, CHAIN><<<grid, QW * 32, 0, st>>>(
         (const TokT*)x, g, b, M, K, s, xq, row_scale);
   return (int)cudaGetLastError();
 }
 
-template <typename TokT>
+template <typename TokT, bool CHAIN>
 int dispatch_quantize(const void* x, const float* g, const float* b, int prologue, int M, int K,
                       int dynamic, const float* s, int8_t* xq, float* row_scale,
                       cudaStream_t st) {
   switch (prologue) {
-    case PRO_ID: return launch_quantize<TokT, PRO_ID>(x, g, b, M, K, dynamic, s, xq, row_scale, st);
-    case PRO_LN: return launch_quantize<TokT, PRO_LN>(x, g, b, M, K, dynamic, s, xq, row_scale, st);
+    case PRO_ID:
+      return launch_quantize<TokT, PRO_ID, CHAIN>(x, g, b, M, K, dynamic, s, xq, row_scale, st);
+    case PRO_LN:
+      return launch_quantize<TokT, PRO_LN, CHAIN>(x, g, b, M, K, dynamic, s, xq, row_scale, st);
     case PRO_GELU:
-      return launch_quantize<TokT, PRO_GELU>(x, g, b, M, K, dynamic, s, xq, row_scale, st);
+      return launch_quantize<TokT, PRO_GELU, CHAIN>(x, g, b, M, K, dynamic, s, xq, row_scale,
+                                                    st);
     case PRO_GELU_POLY:
-      return launch_quantize<TokT, PRO_GELU_POLY>(x, g, b, M, K, dynamic, s, xq, row_scale, st);
+      return launch_quantize<TokT, PRO_GELU_POLY, CHAIN>(x, g, b, M, K, dynamic, s, xq,
+                                                         row_scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -236,9 +343,13 @@ __device__ __forceinline__ OutT epi_value(int acc, float s, float sw, float b, O
     return dequant_gelu_q(acc, s, sw, b, poly, inv_out);
   } else if constexpr (EPI == EPI_RESID) {
     return from_f32<OutT>(__fadd_rn(to_f32(res), dequant_fold(acc, s, sw, b)));
-  } else {  // EPI_PROJ
+  } else if constexpr (EPI == EPI_PROJ) {
     const float y = __fadd_rn(__fmul_rn(__fmul_rn(af, s), sw), b);
     return from_f32<OutT>(__fadd_rn(to_f32(res), to_f32(from_f32<OutT>(y))));
+  } else if constexpr (EPI == EPI_CHAIN_F32) {
+    return from_f32<OutT>(__fmaf_rn(af, __fmul_rn(s, sw), b));
+  } else {  // EPI_CHAIN_BF16
+    return from_f32<OutT>(rb(__fadd_rn(rb(__fmul_rn(rb(af), rb(__fmul_rn(s, sw)))), rb(b))));
   }
 }
 
@@ -551,6 +662,12 @@ int dispatch_gemm(int epi, int out_kind, const CUtensorMap& amap, const CUtensor
     case EPI_PROJ:
       return f32 ? launch_gemm<EPI_PROJ, float>(amap, wmap, p, st)
                  : launch_gemm<EPI_PROJ, bf16>(amap, wmap, p, st);
+    case EPI_CHAIN_F32:
+      return f32 ? launch_gemm<EPI_CHAIN_F32, float>(amap, wmap, p, st)
+                 : launch_gemm<EPI_CHAIN_F32, bf16>(amap, wmap, p, st);
+    case EPI_CHAIN_BF16:
+      return f32 ? launch_gemm<EPI_CHAIN_BF16, float>(amap, wmap, p, st)
+                 : launch_gemm<EPI_CHAIN_BF16, bf16>(amap, wmap, p, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1141,20 +1258,22 @@ int dispatch_mlp1(const CUtensorMap& w1map, const CUtensorMap& w2map, const Mlp1
 // x_f32: the rows are f32 (else bf16). prologue: 0 id, 1 ln (g, b: (K,) f32),
 // 2 exact GELU, 3 polynomial GELU. dynamic: per-row absmax scales written to
 // row_scale (M,), else the static scale at s, a (1,) f32 on the device.
-// xq: (M, K) int8.
+// chain: K5's chain form (quantize_row's CHAIN). xq: (M, K) int8.
 extern "C" int hyt_quantize_rows(const void* x, int x_f32, const void* g, const void* b,
                                  int prologue, int M, int K, int dynamic, const void* s,
-                                 void* xq, void* row_scale, void* stream) {
+                                 int chain, void* xq, void* row_scale, void* stream) {
   if (M <= 0 || K <= 0 || prologue < 0 || prologue > 3) return (int)cudaErrorInvalidValue;
   if (prologue == PRO_LN && (!g || !b)) return (int)cudaErrorInvalidValue;
   if (dynamic ? !row_scale : !s) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return x_f32 ? dispatch_quantize<float>(x, (const float*)g, (const float*)b, prologue, M, K,
-                                          dynamic, (const float*)s, (int8_t*)xq,
-                                          (float*)row_scale, st)
-               : dispatch_quantize<bf16>(x, (const float*)g, (const float*)b, prologue, M, K,
-                                         dynamic, (const float*)s, (int8_t*)xq,
-                                         (float*)row_scale, st);
+  const float *gf = (const float*)g, *bf = (const float*)b, *sf = (const float*)s;
+  int8_t* q = (int8_t*)xq;
+  float* rs = (float*)row_scale;
+  if (chain)
+    return x_f32 ? dispatch_quantize<float, true>(x, gf, bf, prologue, M, K, dynamic, sf, q, rs, st)
+                 : dispatch_quantize<bf16, true>(x, gf, bf, prologue, M, K, dynamic, sf, q, rs, st);
+  return x_f32 ? dispatch_quantize<float, false>(x, gf, bf, prologue, M, K, dynamic, sf, q, rs, st)
+               : dispatch_quantize<bf16, false>(x, gf, bf, prologue, M, K, dynamic, sf, q, rs, st);
 }
 
 // The TMA map of a K-major (N, K) int8 weight at wt, written to map (128

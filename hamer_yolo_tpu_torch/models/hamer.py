@@ -7,7 +7,7 @@ crop-space 2D projection with focal f / IMAGE_SIZE."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -42,17 +42,25 @@ def init_hamer(gen: torch.Generator, cfg: HamerConfig = HamerConfig()) -> nn.Par
 
 
 def hamer_forward(params: nn.Params, mano_model: ManoModel, img: torch.Tensor,
-                  cfg: HamerConfig = HamerConfig()) -> Dict[str, torch.Tensor]:
-    """img (B, S, S, 3) normalised RGB crops (NHWC) -> the reference's output dict."""
+                  cfg: HamerConfig = HamerConfig(),
+                  attn_impl: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+    """img (B, S, S, 3) normalised RGB crops (NHWC) -> the reference's output
+    dict. ``attn_impl`` replaces the bf16 / f32 ViT's attention (vit_forward,
+    vit_forward_tome); the int8 backbone picks its own (core/quant) and takes
+    none."""
     B = img.shape[0]
     m = cfg.crop_margin
+    if cfg.int8_backbone and cfg.tome_r <= 0 and attn_impl is not None:
+        raise ValueError("hamer_forward: the int8 backbone takes no attn_impl (core/quant "
+                         "picks its attention from HYT_ATTN)")
     if cfg.tome_r > 0:
         context = vit_forward_tome(params["backbone"], img[:, :, m:-m, :], cfg.vit,
-                                   r_per_layer=cfg.tome_r)
+                                   r_per_layer=cfg.tome_r, attn_impl=attn_impl)
     elif cfg.int8_backbone:
         context = vit_forward_int8(params["backbone"], img[:, :, m:-m, :], cfg.vit)
     else:
-        context = vit_forward(params["backbone"], img[:, :, m:-m, :], cfg.vit)
+        context = vit_forward(params["backbone"], img[:, :, m:-m, :], cfg.vit,
+                              attn_impl=attn_impl)
     pred_mano, pred_cam = mano_head_forward(params["mano_head"], context, cfg.head)
     pred_cam_t = cam_to_translation(pred_cam, cfg.focal_length, cfg.image_size)
     focal = torch.full((B, 2), cfg.focal_length, device=img.device)

@@ -12,7 +12,7 @@ sums in f32 and rounds once).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -82,32 +82,35 @@ def bipartite_soft_matching_merge(tokens: torch.Tensor, sizes: torch.Tensor, r: 
 
 
 def vit_forward_tome(params: nn.Params, x: torch.Tensor, cfg, r_per_layer: int = 4,
-                     fused: Optional[bool] = None) -> torch.Tensor:
+                     fused: Optional[bool] = None,
+                     attn_impl: Optional[Callable] = None) -> torch.Tensor:
     """models/vit.vit_forward with r_per_layer tokens merged after each
     block's attention: (B, H, W, 3) -> (B, N - depth * r, D).
 
     Over quantize_vit_params output the blocks run the int8 ops: with
-    ``fused`` (None: ``cfg.fused_attn``, and where that is None too, wherever
-    the tokens are on CUDA) JAX's accelerator dispatch of
+    ``fused`` (None: core/quant.default_fused, HYT_INT8_FUSED read there) JAX's
+    accelerator dispatch of
     core/quant.int8_block_attn_residual and int8_block_mlp_residual (K3 + K4
     with both static scales, else K5 + K7 + K5 and K5 twice) at the merged
     token counts, with the GELU quant.vit_forward_int8 takes on the tokens'
     device; else the unfused composition (quant.int8_mha_self_attention,
     int8_mlp_gelu).
 
-    Over bf16 / f32 params the attention is the plain
-    nn.mha_self_attention on every device, not K2: JAX's frame program hands
-    no attention override to the ToMe path on its accelerator either
-    (pipeline/frame._select_attn_impl returns None there), and tome.py then
-    takes nn.mha_self_attention.
+    Over bf16 / f32 params the attention is ``attn_impl`` or else the plain
+    nn.mha_self_attention on every device, never K2, as in JAX (its frame
+    program hands the ToMe path the attention HYT_ATTN names off its
+    accelerator, none on it: pipeline/frame._select_attn_impl). Over int8
+    params ``attn_impl`` is ignored, as JAX's quantized dispatch ignores it.
     """
     from hamer_yolo_tpu_torch.models.vit import embed_tokens
 
-    return vit_blocks_tome(params, embed_tokens(params, x, cfg), cfg, r_per_layer, fused)
+    return vit_blocks_tome(params, embed_tokens(params, x, cfg), cfg, r_per_layer, fused,
+                           attn_impl=attn_impl)
 
 
 def vit_blocks_tome(params: nn.Params, tok: torch.Tensor, cfg, r_per_layer: int = 4,
-                    fused: Optional[bool] = None, gelu: Optional[str] = None) -> torch.Tensor:
+                    fused: Optional[bool] = None, gelu: Optional[str] = None,
+                    attn_impl: Optional[Callable] = None) -> torch.Tensor:
     """The blocks, merges and last LayerNorm of vit_forward_tome, from the
     embedded tokens (B, N, D); ``gelu`` as in quant.vit_blocks_int8."""
     from hamer_yolo_tpu_torch.core import quant
@@ -115,12 +118,12 @@ def vit_blocks_tome(params: nn.Params, tok: torch.Tensor, cfg, r_per_layer: int 
     quantized = "wq" in params["blocks"][0]["attn"]["qkv"]
     if quantized:
         if fused is None:
-            fused = tok.is_cuda if cfg.fused_attn is None else cfg.fused_attn
+            fused = quant.default_fused(tok, cfg)
         attn, mlp = quant.int8_mha_self_attention, quant.int8_mlp_gelu
         gelu = gelu or quant.gelu_prologue(tok.device)
     else:
         fused = False
-        attn, mlp = nn.mha_self_attention, nn.mlp_gelu
+        attn, mlp = attn_impl or nn.mha_self_attention, nn.mlp_gelu
     sizes = torch.ones(tok.shape[:2], dtype=tok.dtype, device=tok.device)
     for blk in params["blocks"]:
         if fused:

@@ -10,7 +10,11 @@ On CUDA each block's LN + QKV GEMM + attention runs in kernel K2
 counterpart of the JAX package's accelerator default; the proj linear and
 the MLP stay plain matmuls and GELU, as JAX leaves them outside any
 kernel. On the CPU the plain nn.mha_self_attention path runs, as in JAX.
-``ViTConfig.fused_attn`` overrides the choice (JAX: ``HYT_ATTN_BF16``).
+``ViTConfig.fused_attn`` overrides the choice; where it is None, JAX's
+``HYT_ATTN_BF16`` switch (read at each call) does: "megakernel" takes K2 on
+any device, any other value takes the plain layers. ``attn_impl``, as in
+JAX, replaces the plain attention and turns K2 off: the frame program hands
+one in where HYT_ATTN names another form (pipeline/frame._select_attn_impl).
 
 Training's stochastic depth (the reference's drop_path_rate 0.55, ramped
 linearly over the blocks) runs where ``vit_forward`` gets a generator: each
@@ -20,8 +24,9 @@ never K2, as JAX leaves its kernel when it gets an rng.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -42,7 +47,8 @@ class ViTConfig:
     compute_dtype: str = "bfloat16"
     # The blocks' kernels (K2 on the bf16 path; K3, K4, K5, K7 on the int8
     # path, core/quant.vit_forward_int8): None picks them where the tokens
-    # are on a CUDA device; True / False force them on / off on any device.
+    # are on a CUDA device (JAX's switches HYT_ATTN_BF16 and HYT_INT8_FUSED
+    # consulted first); True / False force them on / off on any device.
     fused_attn: Optional[bool] = None
     # train-time stochastic depth, on only where vit_forward gets a generator
     drop_path_rate: float = 0.55
@@ -99,10 +105,23 @@ def keep_masks(gen: torch.Generator, batch: int, cfg: ViTConfig, depth: int
             for rate in drop_path_rates(cfg, depth) for _ in range(2)]
 
 
+def bf16_kernel_default(tok: torch.Tensor, cfg: ViTConfig) -> bool:
+    """Whether the bf16 blocks take K2: ``cfg.fused_attn`` where it is set,
+    else HYT_ATTN_BF16 ("megakernel" on, any other value off), else where the
+    tokens are on CUDA (JAX: on a TPU)."""
+    if cfg.fused_attn is not None:
+        return cfg.fused_attn
+    env = os.environ.get("HYT_ATTN_BF16")
+    return env == "megakernel" if env is not None else tok.is_cuda
+
+
 def vit_forward(params: nn.Params, x: torch.Tensor, cfg: ViTConfig = ViTConfig(),
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                attn_impl: Optional[Callable] = None) -> torch.Tensor:
     """x (B, H, W, 3) normalised crop -> (B, N_tokens, embed_dim).
-    ``generator`` turns on stochastic depth (``keep_masks`` drawn from it)."""
+    ``generator`` turns on stochastic depth (``keep_masks`` drawn from it).
+    ``attn_impl(attn_params, tokens, num_heads)`` replaces
+    nn.mha_self_attention and keeps K2 off, as JAX's does."""
     tok = embed_tokens(params, x, cfg)
     depth = len(params["blocks"])
     masks = None
@@ -116,14 +135,15 @@ def vit_forward(params: nn.Params, x: torch.Tensor, cfg: ViTConfig = ViTConfig()
         keep = 1.0 - rates[j // 2]
         return residual * masks[j].to(residual.dtype) / keep
 
-    fused = generator is None and (tok.is_cuda if cfg.fused_attn is None else cfg.fused_attn)
+    fused = generator is None and attn_impl is None and bf16_kernel_default(tok, cfg)
+    attention = attn_impl or nn.mha_self_attention
     for i, blk in enumerate(params["blocks"]):
         if fused:
             pre = fused_bf16_attn_block(tok, blk["attn"]["qkv"]["w"], blk["attn"]["qkv"].get("b"),
                                         blk["norm1"]["scale"], blk["norm1"]["bias"], cfg.num_heads)
             a = nn.linear(blk["attn"]["proj"], pre)
         else:
-            a = nn.mha_self_attention(blk["attn"], nn.layer_norm(blk["norm1"], tok), cfg.num_heads)
+            a = attention(blk["attn"], nn.layer_norm(blk["norm1"], tok), cfg.num_heads)
         tok = tok + drop_path(a, 2 * i)
         tok = tok + drop_path(nn.mlp_gelu(blk["mlp"], nn.layer_norm(blk["norm2"], tok)), 2 * i + 1)
     return nn.layer_norm(params["last_norm"], tok)

@@ -5,9 +5,11 @@ training form: conv without bias + BN, and RepConv's 3x3, 1x1 and identity
 branches each with its BN. Each forward takes the BN step ``bn(p, y) -> y``
 (nn.batch_norm, the running stats, by default; the training forward's
 normalises by the batch statistics and records the new running stats,
-models/yolov7/model.yolov7_train_forward). JAX's peephole that fuses ReOrg
-into the 3x3 conv after it (``HYT_FUSE_REORG``, on only on a TPU) is not
-ported: ReOrg runs unfused."""
+models/yolov7/model.yolov7_train_forward). ``reorg_conv_block`` is JAX's
+peephole that fuses a ReOrg into the 3x3 stride-1 conv after it (one 6x6
+stride-2 conv on the raw input), taken by the deploy walk under
+``HYT_FUSE_REORG=1`` (models/yolov7/model.py); its default, "auto", is on
+only on a TPU, so the port's default runs ReOrg unfused."""
 from __future__ import annotations
 
 import torch
@@ -57,6 +59,35 @@ def reorg(x: torch.Tensor) -> torch.Tensor:
     B, H, W, C = x.shape
     y = x.reshape(B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 4, 2, 5)
     return y.reshape(B, H // 2, W // 2, 4 * C)
+
+
+def reorg_conv_weight(w3: torch.Tensor) -> torch.Tensor:
+    """An (O, 4C, 3, 3) conv weight that consumes ReOrg's output as the
+    equivalent (O, C, 6, 6) stride-2 weight on the raw input:
+    ReOrg(x)[y, x', px 2C + py C + c] = x[2y + py, 2x' + px, c], so
+    W6[o, c, 2 dy + py, 2 dx + px] = W3[o, px 2C + py C + c, dy, dx], with
+    padding (2, 3) on each axis (hamer_yolo_tpu/models/yolov7/blocks.py
+    reorg_conv_weight, in the OIHW layout)."""
+    o, c4, kh, kw = w3.shape
+    if kh != 3 or kw != 3 or c4 % 4:
+        raise ValueError(f"reorg_conv_weight: a (O, 4C, 3, 3) weight, got {tuple(w3.shape)}")
+    w = w3.reshape(o, 2, 2, c4 // 4, 3, 3)  # (o, px, py, c, dy, dx)
+    return w.permute(0, 3, 4, 2, 5, 1).reshape(o, c4 // 4, 6, 6)  # (o, c, dy, py, dx, px)
+
+
+def reorg_conv_block(p: nn.Params, x: torch.Tensor, act=True) -> torch.Tensor:
+    """conv_block(p, reorg(x)) as one 6x6 stride-2 conv on x, for a deploy
+    Conv with a plain (O, 4C, 3, 3) weight (made once per weight,
+    core/nn.derived); BN, bias and the activation act per output channel and
+    apply unchanged."""
+    w3 = p["conv"]["w"]
+    conv = {**p["conv"], "w": nn.derived(w3, "reorg6", lambda: reorg_conv_weight(w3))}
+    y = nn.conv2d(conv, x, stride=2, padding=((2, 3), (2, 3)))
+    if "bn" in p:
+        y = nn.batch_norm(p["bn"], y)
+    if callable(act):
+        return act(y)
+    return silu(y) if act else y
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,7 @@ gives the training form (BN unfused, RepConv's branches), which
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
 
@@ -178,6 +179,23 @@ def _save_set(spec: Spec) -> set:
     return {s for i, (frm, _, _) in enumerate(spec) for s in _resolve(frm, i) if s != i - 1}
 
 
+def _reorg_conv_fusable(spec: Spec, params: nn.Params, i: int, saved: set) -> bool:
+    """JAX's peephole conditions (_reorg_conv_fusable): HYT_FUSE_REORG (read
+    at each call; "0" off, "auto", the default, on only on a TPU, so off
+    here, any other value on), spec[i] a REORG whose output only spec[i + 1]
+    reads, and that a Conv(k=3, s=1) with a plain weight."""
+    if os.environ.get("HYT_FUSE_REORG", "auto") in ("0", "auto"):
+        return False
+    if i + 1 >= len(spec) or i in saved:
+        return False
+    frm, op, args = spec[i + 1]
+    if op != C or frm != -1 or len(args) < 3 or args[1] != 3 or args[2] != 1:
+        return False
+    p = params["layers"][i + 1]
+    w = p.get("conv", {}).get("w") if isinstance(p, dict) else None
+    return isinstance(w, torch.Tensor) and w.shape[2] == 3
+
+
 def yolov7_backbone_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig = YoloConfig(),
                             spec: Spec = None, bn=None, aux: bool = False) -> List[torch.Tensor]:
     """x (B, H, W, 3) in [0, 1] -> nl raw head maps (B, Hl, Wl, na * no)
@@ -189,7 +207,12 @@ def yolov7_backbone_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig 
     y: Dict[int, torch.Tensor] = {}
     out = x.to(getattr(torch, cfg.compute_dtype))
     det_maps: List[torch.Tensor] = []
+    fused_skip = -1
     for i, (frm, op, args) in enumerate(spec):
+        if i == fused_skip:  # computed with the REORG before it
+            if i in saved:
+                y[i] = out
+            continue
         inputs = [out if s == i - 1 else y[s] for s in _resolve(frm, i)]
         p = params["layers"][i]
         if op == C:
@@ -205,6 +228,10 @@ def yolov7_backbone_forward(params: nn.Params, x: torch.Tensor, cfg: YoloConfig 
         elif op == UP:
             out = B.upsample2x(inputs[0])
         elif op == REORG:
+            if bn is None and _reorg_conv_fusable(spec, params, i, saved):
+                out = B.reorg_conv_block(params["layers"][i + 1], inputs[0])
+                fused_skip = i + 1
+                continue
             out = B.reorg(inputs[0])
         elif op == SP_:
             out = B.sp(inputs[0], args[0] if args else 3)

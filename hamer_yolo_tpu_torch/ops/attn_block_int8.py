@@ -24,7 +24,8 @@ import torch
 
 from hamer_yolo_tpu_torch.ops import cuda_build
 from hamer_yolo_tpu_torch.ops import int8_matmul as im
-from hamer_yolo_tpu_torch.ops.short_attention import fused_short_attention_ref, launch_attention
+from hamer_yolo_tpu_torch.ops.short_attention import (flavoured_attention_ref,
+                                                       fused_short_attention_ref, launch_attention)
 
 
 def qkv_ref(tok, wq, wscale, bias, ln_scale, ln_bias, sx_qkv) -> torch.Tensor:
@@ -35,13 +36,19 @@ def qkv_ref(tok, wq, wscale, bias, ln_scale, ln_bias, sx_qkv) -> torch.Tensor:
     return im.int8_gemm_ref(im.quantize_rows_ref(x, sq), wq, im.EPI_DEQ_FOLD, wscale, bias, s=sq)
 
 
-def attention_ref(qkv: torch.Tensor, B: int, num_heads: int, sx_proj) -> torch.Tensor:
+def attention_ref(qkv: torch.Tensor, B: int, num_heads: int, sx_proj, softmax: str = "exp",
+                  attn_math: str = "bf16") -> torch.Tensor:
     """(B*N, 3D) bf16 -> softmax attention per head -> * (1 / sx_proj), int8
-    (B*N, D): K7's plain version with its int8 epilogue."""
+    (B*N, D): K7's plain version with its int8 epilogue, or under another
+    softmax flavour or int8 attention products K3's
+    (short_attention.flavoured_attention_ref)."""
     hd = qkv.shape[1] // 3 // num_heads
     heads = qkv.reshape(B, -1, 3, num_heads, hd).permute(2, 0, 3, 1, 4)  # (3, B, h, N, hd)
-    aq = fused_short_attention_ref(heads[0], heads[1], heads[2],
-                                   out_scale=im._as_scale(sx_proj, qkv.device))
+    s = im._as_scale(sx_proj, qkv.device)
+    if softmax == "exp" and attn_math == "bf16":
+        aq = fused_short_attention_ref(heads[0], heads[1], heads[2], out_scale=s)
+    else:
+        aq = flavoured_attention_ref(heads[0], heads[1], heads[2], s, softmax, attn_math)
     return aq.transpose(1, 2).reshape(qkv.shape[0], num_heads * hd)
 
 
@@ -56,11 +63,13 @@ def fused_int8_attn_block_ref(tok: torch.Tensor, wq: torch.Tensor, wscale: torch
 
 
 def launch_ln_qkv_attention(tok, wq, wscale, bias, ln_scale, ln_bias, sx_qkv, sp, num_heads,
-                            what: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                            what: str, softmax: str = "exp", attn_math: str = "bf16"
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The three launches K6 and K3 share, on CUDA tokens (B, N, K): LN +
     static quantize, the int8 qkv GEMM with the folded dequant -> bf16, the
-    attention with the int8 epilogue by the device scale ``sp``. Returns the
-    aligned token rows (B*N, K), qkv (B*N, 3D) bf16 and aq (B*N, D) int8."""
+    attention with the int8 epilogue by the device scale ``sp`` (under K3's
+    ``softmax`` and ``attn_math``). Returns the aligned token rows (B*N, K),
+    qkv (B*N, 3D) bf16 and aq (B*N, D) int8."""
     if tok.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {tok.device}")
     B, N, K = tok.shape
@@ -77,7 +86,7 @@ def launch_ln_qkv_attention(tok, wq, wscale, bias, ln_scale, ln_bias, sx_qkv, sp
     heads = qkv.reshape(B, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)  # (3, B, h, N, hd)
     aq = torch.empty((B * N, D), dtype=torch.int8, device=dev)
     launch_attention(heads[0], heads[1], heads[2],
-                     aq.reshape(B, N, num_heads, hd).transpose(1, 2), sp, what)
+                     aq.reshape(B, N, num_heads, hd).transpose(1, 2), sp, what, softmax, attn_math)
     return x2, qkv, aq
 
 

@@ -37,7 +37,8 @@ _COMMON_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"
 # nor int8_gemm.cu its prologue and dequant arithmetic (the int8 roundings).
 _EXTRA_FLAGS: Dict[str, List[str]] = {"nms.cu": ["--fmad=false"], "attn_block.cu": [],
                                       "int8_gemm.cu": ["--fmad=false"],
-                                      "short_attention.cu": [], "mano_lbs.cu": []}
+                                      "short_attention.cu": [], "mano_lbs.cu": [],
+                                      "attention_flavours.cu": []}
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signatures of every exported function, per source.
@@ -49,7 +50,7 @@ _SIGNATURES = {
         "hyt_ln_qkv": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "int8_gemm.cu": {
-        "hyt_quantize_rows": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+        "hyt_quantize_rows": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
         "hyt_weight_map": [_P, _I, _I, _P],
         "hyt_int8_gemm": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
         "hyt_mlp_block1": [_P, _I] + [_P] * 10 + [_I] * 5 + [_P, _P],
@@ -61,6 +62,13 @@ _SIGNATURES = {
         "hyt_fused_qkv_attention": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _F, _P],
         "hyt_short_attn_smem_bytes": [_I, _I, _I],
         "hyt_short_attn_occupancy": [_I, _I, _I, _P, _P],
+    },
+    "attention_flavours.cu": {
+        "hyt_attention_flavour": [_P, _P, _P, _L, _L, _L, _P, _P, _L, _L, _L, _I, _I, _I, _I,
+                                  _F, _I, _P],
+        "hyt_attention_int8": [_P, _P, _P, _L, _L, _L, _P, _P, _L, _L, _L, _I, _I, _I, _I,
+                               _F, _I, _P],
+        "hyt_attention_int8_smem_bytes": [_I, _I],
     },
 }
 

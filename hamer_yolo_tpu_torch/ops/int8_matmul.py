@@ -22,12 +22,23 @@ per weight, with its TMA map, and counts the copies it makes;
 the card, any other int8 weight gets its copy at its first launch. Each
 ``*_ref`` function is the plain version, in the f32 op order of its TPU
 kernel, which the CPU takes and the card's checks compare against;
-``int8_gemm_ref`` is that of one GEMM launch. JAX's ``FUSED_GEMM_MAX_M``
-switch to an XLA chain is not carried over: K5 runs at every M on the card.
+``int8_gemm_ref`` is that of one GEMM launch.
+
+K5 has two forms, as JAX's ``fused_int8_matmul`` has. Up to
+``FUSED_GEMM_MAX_M`` rows (the flat M of a call: the port has no vmap, so its
+M is the collapsed one that JAX's custom_vmap rule decides on), or under
+``force="pallas"``, the TPU kernel's f32 arithmetic above. Above it, or under
+``force="xla"``, JAX's inline XLA chain (``_xla_chain``), whose arithmetic
+differs: the prologue, the absmax and the quantize division in the tokens'
+dtype, and the dequant ``acc * (sx * sw) + b`` in f32 or, under
+``HYT_INT8_EP=bf16`` (read at each call), in bf16 (``chain_*_ref``). On the
+card the chain runs on the same two launches: the quantize launch's
+token-dtype form and the GEMM's EPI_CHAIN_F32 / EPI_CHAIN_BF16 epilogue.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import numpy as np
@@ -40,7 +51,14 @@ PROLOGUES = ("id", "ln", "gelu", "gelu_poly")
 _TOKEN_DTYPES = (torch.bfloat16, torch.float32)
 _OUT_KIND = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 # Epilogues of csrc/int8_gemm.cu
-EPI_DEQ_ROW, EPI_DEQ_FOLD, EPI_GELU_Q, EPI_RESID, EPI_PROJ = range(5)
+(EPI_DEQ_ROW, EPI_DEQ_FOLD, EPI_GELU_Q, EPI_RESID, EPI_PROJ, EPI_CHAIN_F32,
+ EPI_CHAIN_BF16) = range(7)
+# Above this many rows JAX's fused_int8_matmul runs its XLA chain in place of
+# the Pallas kernel (hamer_yolo_tpu/ops/int8_matmul.py FUSED_GEMM_MAX_M); so
+# does the port, with the chain's arithmetic. A module constant, so that tests
+# can lower it in both packages.
+FUSED_GEMM_MAX_M = 8192
+FORCES = (None, "pallas", "xla")
 # K10's kernel: a cluster of at most 8 CTAs (the portable limit), each with
 # 160 of fc2's output columns in registers, so tokens at most 1280 wide.
 MLP1_COLS_PER_CTA = 160
@@ -169,13 +187,17 @@ def int8_gemm_ref(a: torch.Tensor, w: torch.Tensor, epi: int, wscale: torch.Tens
     """Plain version of one ``int8_gemm`` launch: the epilogue ``epi`` of the
     exact product int_dot(a, w), a (M, K) int8, w (K, N) int8, in the
     kernel's f32 op order. ``row_scale`` (M,) or the scalar ``s`` scales the
-    product; ``res`` (M, N) is the residual of EPI_RESID (added in f32) and
-    EPI_PROJ (added to the output rounded to ``out_dtype``); ``out_scale`` and
-    ``gelu`` ("gelu" or "gelu_poly") make EPI_GELU_Q's int8 output. Returns
-    (M, N) in ``out_dtype`` (int8 for EPI_GELU_Q)."""
+    product (EPI_CHAIN_*: chain_dequant_ref); ``res`` (M, N) is the residual
+    of EPI_RESID (added in f32) and EPI_PROJ (added to the output rounded to
+    ``out_dtype``); ``out_scale`` and ``gelu`` ("gelu" or "gelu_poly") make
+    EPI_GELU_Q's int8 output. Returns (M, N) in ``out_dtype`` (int8 for
+    EPI_GELU_Q)."""
     acc = int_dot(a, w)
     sc = (row_scale.float().reshape(-1, 1) if row_scale is not None
           else _as_scale(s, a.device))
+    if epi in (EPI_CHAIN_F32, EPI_CHAIN_BF16):
+        ep = torch.float32 if epi == EPI_CHAIN_F32 else torch.bfloat16
+        return chain_dequant_ref(acc, sc, wscale, bias, ep, out_dtype)
     y = acc * sc * wscale.float() if epi in _UNFOLDED else acc * (sc * wscale.float())
     if bias is not None:
         y = y + bias.float()
@@ -188,14 +210,128 @@ def int8_gemm_ref(a: torch.Tensor, w: torch.Tensor, epi: int, wscale: torch.Tens
     return y.to(out_dtype)
 
 
+# ------------------------------------------------------- K5's chain form
+def int8_ep_dtype() -> torch.dtype:
+    """The chain's dequant dtype: bf16 where HYT_INT8_EP is "bf16", else f32.
+    Read at each call (JAX reads it when it traces)."""
+    return torch.bfloat16 if os.environ.get("HYT_INT8_EP") == "bf16" else torch.float32
+
+
+def uses_chain(M: int, force=None) -> bool:
+    """Whether K5 takes its chain form for M flat rows: above
+    FUSED_GEMM_MAX_M unless ``force`` is "pallas", or always under "xla"."""
+    if force not in FORCES:
+        raise ValueError(f"fused_int8_matmul: force {force!r} (None, 'pallas' or 'xla')")
+    return force != "pallas" and (force == "xla" or M > FUSED_GEMM_MAX_M)
+
+
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """a * b + c rounded once to f32, as XLA's CPU code contracts an f32
+    multiply and add: the product is exact in f64, the sum rounds there and
+    then to f32 (a double rounding that parts from one rounding only where the
+    f64 sum lands on an f32 midpoint)."""
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    return (a.double() * b + c).float()
+
+
+def chain_prologue_ref(x: torch.Tensor, prologue: str, g=None, b=None) -> torch.Tensor:
+    """The chain's prologue (_xla_chain's _prologue_f32 call) in the tokens'
+    dtype: each op rounds to that dtype, its constants rounded to it first
+    (JAX's weak typing); LN's means sum in f32 and round once, LN's vectors
+    are cast to the dtype. The polynomial GELU's coefficients are strong f32,
+    so its polynomial runs in f32 whatever the tokens, with XLA's multiply-add
+    contractions, and its output is f32. An f32 multiply and add of the other
+    prologues is left uncontracted, as in the kernel form's plain version
+    (prologue_f32)."""
+    dt = x.dtype
+    if dt == torch.float32 and prologue != "gelu_poly":
+        return prologue_f32(x, prologue, g, b)
+
+    def w(v):
+        return nn.weak_scalar(v, dt)
+
+    if prologue == "ln":
+        mu = torch.mean(x, dim=-1, keepdim=True)
+        d = x - mu
+        var = torch.mean(torch.square(d), dim=-1, keepdim=True)
+        return d * nn.rsqrt(var + w(1e-6)) * g.to(dt) + b.to(dt)
+    if prologue == "gelu":
+        z = x / w(_SQRT2)
+        az = torch.abs(z)
+        t = 1.0 / (1.0 + w(_ERF_P) * az)
+        a1, a2, a3, a4, a5 = (w(a) for a in _ERF_A)
+        poly = ((((a5 * t + a4) * t + a3) * t + a2) * t + a1) * t
+        return 0.5 * x * (1.0 + torch.sign(z) * (1.0 - poly * torch.exp(-az * az)))
+    if prologue == "gelu_poly":
+        u = torch.clamp(x * x, max=16.0).float()
+        e = torch.full_like(u, GELU_POLY_U[-1])
+        for c in GELU_POLY_U[-2::-1]:
+            e = fma_f32(e, u, float(np.float32(c)))
+        y = (0.5 * x).float() + e
+        y = torch.where(x > 4.0, x.float(), y)
+        return torch.where(x < -4.0, torch.zeros_like(y), y)
+    if prologue != "id":
+        raise ValueError(f"unknown prologue {prologue!r}")
+    return x
+
+
+def chain_quantize_ref(x: torch.Tensor, static_scale=None):
+    """The chain's quantize in x's dtype: sx = max(f32(absmax / 127), 1e-8)
+    per row with the division in x's dtype (f32: times f32(1 / 127), as
+    compiled JAX divides by a constant), or the static scale; then
+    clip(round(x / sx), +-127) with sx cast to x's dtype and a true division
+    in it. Returns (int8 (M, K), sx (M, 1) or (1, 1) f32)."""
+    if static_scale is None:
+        absmax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+        q = absmax * RECIP_127 if x.dtype == torch.float32 else absmax / 127.0
+        sx = torch.clamp(q.float(), min=1e-8)
+    else:
+        sx = _as_scale(static_scale, x.device).reshape(1, 1)
+    xq = torch.clamp(torch.round(x / sx.to(x.dtype)), -127, 127).to(torch.int8)
+    return xq, sx
+
+
+def chain_dequant_ref(acc: torch.Tensor, sx: torch.Tensor, wscale: torch.Tensor,
+                      bias: Optional[torch.Tensor], ep: torch.dtype, out_dtype) -> torch.Tensor:
+    """The chain's epilogue on the exact int32 sums ``acc`` (as f32, from
+    int_dot): acc.astype(ep) * (sx * sw).astype(ep) + b.astype(ep), then the
+    output dtype. In f32 the multiply and add contract into one FMA (XLA's
+    CPU code; the kernel's __fmaf_rn); in bf16 each op rounds."""
+    sw = sx * wscale.float()
+    b = torch.zeros_like(wscale, dtype=torch.float32) if bias is None else bias.float()
+    if ep == torch.float32:
+        return fma_f32(acc, sw, b).to(out_dtype)
+    return (acc.to(ep) * sw.to(ep) + b.to(ep)).to(out_dtype)
+
+
+def fused_int8_chain_ref(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None,
+                         ln_scale: Optional[torch.Tensor] = None,
+                         ln_bias: Optional[torch.Tensor] = None, *, prologue: str = "id",
+                         out_dtype=None, static_scale=None) -> torch.Tensor:
+    """Plain version of K5's chain form (JAX's _xla_chain), the dequant in
+    int8_ep_dtype()."""
+    K, N = wq.shape
+    xp = chain_prologue_ref(x.reshape(-1, K), prologue, ln_scale, ln_bias)
+    xq, sx = chain_quantize_ref(xp, static_scale)
+    y = chain_dequant_ref(int_dot(xq, wq), sx, wscale, bias, int8_ep_dtype(),
+                          out_dtype or x.dtype)
+    return y.reshape(*x.shape[:-1], N)
+
+
 # --------------------------------------------------------------------- K5
 def fused_int8_matmul_ref(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           ln_scale: Optional[torch.Tensor] = None,
                           ln_bias: Optional[torch.Tensor] = None, *, prologue: str = "id",
-                          out_dtype=None, static_scale=None) -> torch.Tensor:
-    """Plain version of K5 (the TPU kernel's _kernel, f32 op order kept)."""
+                          out_dtype=None, static_scale=None, force=None) -> torch.Tensor:
+    """Plain version of K5: the chain form (fused_int8_chain_ref) where
+    uses_chain says so, else the TPU kernel's _kernel in its f32 op order."""
     K, N = wq.shape
+    if uses_chain(x.numel() // K, force):
+        return fused_int8_chain_ref(x, wq, wscale, bias, ln_scale, ln_bias, prologue=prologue,
+                                    out_dtype=out_dtype, static_scale=static_scale)
     x2 = prologue_f32(x.reshape(-1, K).float(), prologue, ln_scale, ln_bias)
     if static_scale is None:
         absmax = torch.amax(torch.abs(x2), dim=-1, keepdim=True)
@@ -213,21 +349,23 @@ def fused_int8_matmul(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
                       bias: Optional[torch.Tensor] = None,
                       ln_scale: Optional[torch.Tensor] = None,
                       ln_bias: Optional[torch.Tensor] = None, *, prologue: str = "id",
-                      out_dtype=None, static_scale=None) -> torch.Tensor:
+                      out_dtype=None, static_scale=None, force=None) -> torch.Tensor:
     """[LN | GELU | id](x) @ dequant-int8 wq + bias, quantizing x per row
     (or by ``static_scale``), with the JAX signature: x (..., K) bf16/f32,
     wq (K, N) int8 in the (in, out) layout, wscale (N,), bias (N,) or None,
     ln_scale/ln_bias (K,) for the "ln" prologue. Returns (..., N) in
-    out_dtype (default x.dtype).
+    out_dtype (default x.dtype). ``force``: None picks the form by the flat
+    row count (uses_chain), "pallas" the kernel form, "xla" the chain form.
 
     CPU tensors take the plain version. CUDA tensors launch
-    ``csrc/int8_gemm.cu``: K and N multiples of 16; anything else raises.
+    ``csrc/int8_gemm.cu`` (the quantize and the GEMM, each in the chosen
+    form): K and N multiples of 16; anything else raises.
     """
     cuda_build.refuse_grad("fused_int8_matmul", x, wq, wscale, bias, ln_scale, ln_bias,
                            static_scale)
     if x.device.type == "cpu":
         return fused_int8_matmul_ref(x, wq, wscale, bias, ln_scale, ln_bias, prologue=prologue,
-                                     out_dtype=out_dtype, static_scale=static_scale)
+                                     out_dtype=out_dtype, static_scale=static_scale, force=force)
     K, N = wq.shape
     out_dtype = out_dtype or x.dtype
     if prologue not in PROLOGUES:
@@ -235,16 +373,27 @@ def fused_int8_matmul(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
     if out_dtype not in _TOKEN_DTYPES:
         raise ValueError(f"fused_int8_matmul: out_dtype {out_dtype} (bf16 or f32)")
     x2 = x.reshape(-1, K)
+    chain = uses_chain(x2.shape[0], force)
+    epi = EPI_DEQ_ROW
+    if chain:
+        epi = EPI_CHAIN_BF16 if int8_ep_dtype() == torch.bfloat16 else EPI_CHAIN_F32
     xq, row_scale, s = quantize_rows(x2, prologue, ln_scale, ln_bias, static_scale,
-                                     "fused_int8_matmul")
+                                     "fused_int8_matmul", chain=chain)
     out = torch.empty((x2.shape[0], N), dtype=out_dtype, device=x.device)
-    int8_gemm(xq, wq, EPI_DEQ_ROW, out, wscale, bias, row_scale=row_scale, s=s,
+    int8_gemm(xq, wq, epi, out, wscale, bias, row_scale=row_scale, s=s,
               what="fused_int8_matmul")
     fused_int8_matmul.launches += 1
+    if chain:
+        key = "chain bf16" if epi == EPI_CHAIN_BF16 else "chain"
+        variants = fused_int8_matmul.variant_launches
+        variants[key] = variants.get(key, 0) + 1
     return out.reshape(*x.shape[:-1], N)
 
 
 fused_int8_matmul.launches = 0
+# the calls in the chain form, "chain" (f32 dequant) and "chain bf16" (counted
+# in ``launches`` too)
+fused_int8_matmul.variant_launches = {}
 
 
 # --------------------------------------------------------------------- K4
@@ -421,7 +570,8 @@ MAX_FRAC_INT8_FLIPPED = 0.01
 
 
 def check_against_plain(got: torch.Tensor, ref: torch.Tensor, what: str,
-                        max_frac_rows: float = MAX_FRAC_ROWS_FLIPPED) -> dict:
+                        max_frac_rows: float = MAX_FRAC_ROWS_FLIPPED,
+                        max_err_over_mean: float = MAX_ERR_OVER_MEAN) -> dict:
     """Raise unless an int8 kernel's output ``got`` agrees with its plain
     version's ``ref`` to the limits above; returns the readings."""
     if ref.dtype == torch.int8:
@@ -438,10 +588,10 @@ def check_against_plain(got: torch.Tensor, ref: torch.Tensor, what: str,
     beyond = err > ulp * torch.maximum(mag, torch.full_like(mag, mean))
     r = {"max_abs_err": float(err.max()), "err_over_mean": float(err.max()) / mean,
          "frac_rows_flipped": float(beyond.reshape(-1, ref.shape[-1]).any(-1).float().mean())}
-    if r["frac_rows_flipped"] > max_frac_rows or r["err_over_mean"] > MAX_ERR_OVER_MEAN:
+    if r["frac_rows_flipped"] > max_frac_rows or r["err_over_mean"] > max_err_over_mean:
         raise AssertionError(f"{what} disagrees with its plain version: {r} (limits: at most "
                              f"{max_frac_rows} of rows beyond one rounding, max error "
-                             f"{MAX_ERR_OVER_MEAN} of the mean magnitude)")
+                             f"{max_err_over_mean} of the mean magnitude)")
     return r
 
 
@@ -466,10 +616,11 @@ def _vec(v: Optional[torch.Tensor], n: int, device, what: str, name: str) -> tor
     return v.to(torch.float32).contiguous()
 
 
-def quantize_rows(x2: torch.Tensor, prologue: str, g, b, static_scale, what: str):
+def quantize_rows(x2: torch.Tensor, prologue: str, g, b, static_scale, what: str,
+                  chain: bool = False):
     """Launch the prologue + quantize of csrc/int8_gemm.cu on x2 (M, K) bf16
-    or f32: -> (int8 (M, K), per-row scales (M,) or None, static scale (1,)
-    or None)."""
+    or f32, in K5's chain form where ``chain``: -> (int8 (M, K), per-row
+    scales (M,) or None, static scale (1,) or None)."""
     M, K = x2.shape
     dev = x2.device
     if dev.type != "cuda":
@@ -494,7 +645,8 @@ def quantize_rows(x2: torch.Tensor, prologue: str, g, b, static_scale, what: str
         stream = torch.cuda.current_stream(idx).cuda_stream
         cuda_build.check(lib.hyt_quantize_rows(
             x2.data_ptr(), int(x2.dtype == torch.float32), _ptr(gb[0]), _ptr(gb[1]), pid, M, K,
-            int(static_scale is None), _ptr(s), xq.data_ptr(), _ptr(row_scale), stream),
+            int(static_scale is None), _ptr(s), int(chain), xq.data_ptr(), _ptr(row_scale),
+            stream),
             f"{what}: quantize_rows_kernel")
     return xq, row_scale, s
 

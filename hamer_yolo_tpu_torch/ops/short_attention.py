@@ -44,11 +44,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
+import numpy as np
 import torch
 
 from hamer_yolo_tpu_torch.core import nn
 from hamer_yolo_tpu_torch.ops import cuda_build
+from hamer_yolo_tpu_torch.ops.int8_matmul import RECIP_127
 
 _OUT_KIND = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}  # of hyt_short_attention
 _IN_DTYPES = (torch.bfloat16, torch.float32)
@@ -69,6 +72,85 @@ def fused_short_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return res.to(q.dtype)
     inv = 1.0 / torch.as_tensor(out_scale, dtype=torch.float32, device=q.device).reshape(())
     return torch.clamp(torch.round(res * inv), -127, 127).to(torch.int8)
+
+
+# K3's opt-in softmax flavours and attention products (JAX's HYT_SOFTMAX and
+# HYT_ATTN_MATH, read by core/quant.py; hamer_yolo_tpu/ops/attention_pallas.py
+# softmax_flavor, attn_math_flavor and _attn_proj_block_kernel).
+SOFTMAXES = ("exp", "exp2", "exp2p")
+ATTN_MATHS = ("bf16", "int8")
+LOG2E = 1.4426950408889634
+
+
+def softmax_flavor() -> str:
+    """HYT_SOFTMAX, read at each call: "exp2" or "exp2p" where it says so,
+    else "exp"."""
+    v = os.environ.get("HYT_SOFTMAX")
+    return v if v in ("exp2", "exp2p") else "exp"
+
+
+def attn_math_flavor() -> str:
+    """HYT_ATTN_MATH, read at each call: "int8" where it says so, else "bf16"."""
+    return "int8" if os.environ.get("HYT_ATTN_MATH") == "int8" else "bf16"
+
+
+def check_flavour(softmax: str, attn_math: str, what: str) -> None:
+    if softmax not in SOFTMAXES or attn_math not in ATTN_MATHS:
+        raise ValueError(f"{what}: softmax {softmax!r} (one of {SOFTMAXES}), attn_math "
+                         f"{attn_math!r} (one of {ATTN_MATHS})")
+
+
+def _head_scale(t: torch.Tensor) -> torch.Tensor:
+    """A head's dynamic int8 scale, max |t| * f32(1 / 127) + 1e-12 over its
+    (N, hd) tile, in f32: (B, h, 1, 1)."""
+    return torch.amax(torch.abs(t), dim=(-2, -1), keepdim=True) * RECIP_127 + 1e-12
+
+
+def _int_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer a @ b over the last two axes (f64, exact below 2^53),
+    rounded to f32 as the int32 -> f32 conversion rounds."""
+    return torch.matmul(a.double(), b.double()).float()
+
+
+def flavoured_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out_scale,
+                            softmax: str = "exp", attn_math: str = "bf16") -> torch.Tensor:
+    """Plain version of K3's attention step under a softmax flavour and an
+    attention-products dtype (the loop body of _attn_proj_block_kernel): q/k/v
+    (B, h, N, hd) bf16 -> int8 (B, h, N, hd), quantized by ``out_scale``.
+
+    "exp2" folds log2(e) into the q prescale and takes exp2 of the
+    max-shifted logits; "exp2p" besides leaves e unnormalised into the p.v
+    product, res = (e.bf16 @ v) * (inv_s * inv_p). "int8" products: q, k
+    and v quantized by their heads' dynamic scales (_head_scale), rounded
+    without a clip, logits = (qi . ki^T) * (qs * (sq * sk)), p quantized as
+    round((e * inv_s) * 127), res = (pi . vi) * ((sv * f32(1 / 127)) * inv_p);
+    under int8 products "exp2p" is "exp2", as in JAX."""
+    check_flavour(softmax, attn_math, "flavoured_attention_ref")
+    hd = q.shape[-1]
+    exp2 = softmax in ("exp2", "exp2p")
+    qs = hd ** -0.5 * LOG2E if exp2 else hd ** -0.5
+    inv_p = 1.0 / torch.as_tensor(out_scale, dtype=torch.float32, device=q.device).reshape(())
+    expf = torch.exp2 if exp2 else torch.exp
+    if attn_math == "int8":
+        qf, kf, vf = q.float(), k.float(), v.float()
+        sq, sk, sv = _head_scale(qf), _head_scale(kf), _head_scale(vf)
+        qi, ki, vi = (torch.round(t * (1.0 / st)) for t, st in ((qf, sq), (kf, sk), (vf, sv)))
+        logits = _int_products(qi, ki.transpose(-1, -2)) * (float(np.float32(qs)) * (sq * sk))
+        e = expf(logits - torch.amax(logits, dim=-1, keepdim=True))
+        pi = torch.round(e * (1.0 / torch.sum(e, dim=-1, keepdim=True)) * 127.0)
+        res = _int_products(pi, vi) * ((sv * RECIP_127) * inv_p)
+    else:
+        logits = torch.einsum("bhnd,bhmd->bhnm", (q * nn.weak_scalar(qs, q.dtype)).float(),
+                              k.float())
+        e = expf(logits - torch.amax(logits, dim=-1, keepdim=True))
+        inv_s = 1.0 / torch.sum(e, dim=-1, keepdim=True)
+        if softmax == "exp2p":
+            res = torch.einsum("bhnm,bhmd->bhnd", e.to(v.dtype).float(), v.float())
+            res = res * (inv_s * inv_p)
+        else:
+            p = e * inv_s
+            res = torch.einsum("bhnm,bhmd->bhnd", p.to(v.dtype).float(), v.float()) * inv_p
+    return torch.clamp(torch.round(res), -127, 127).to(torch.int8)
 
 
 def fused_short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -101,11 +183,14 @@ fused_short_attention.launches = 0
 
 
 def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-                     out_scale, what: str) -> None:
+                     out_scale, what: str, softmax: str = "exp",
+                     attn_math: str = "bf16") -> None:
     """Launch csrc/short_attention.cu on (B, h, N, hd) views q, k, v (bf16
     or f32) into ``out`` (strides multiples of 8, hd contiguous, 16-byte
     aligned): bf16 (bf16 inputs only) or f32, or int8 quantized by
-    ``out_scale``."""
+    ``out_scale``. Another ``softmax`` or ``attn_math`` (K3's) launches
+    csrc/attention_flavours.cu instead: bf16 inputs and an int8 output only,
+    N <= MAX_N_INT8 for the int8 products."""
     if not q.is_cuda:
         raise ValueError(f"{what}: unsupported device {q.device}")
     shape = q.shape
@@ -125,6 +210,9 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: tor
     if hd % 8 or any(x % 8 for x in st[:3] + ost[:3]) or any(x % 16 for x in ptrs):
         raise ValueError(f"{what}: hd = {hd} and the strides {st[:3]}, {ost[:3]} must be "
                          "multiples of 8, the tensors 16-byte aligned")
+    if softmax != "exp" or attn_math != "bf16":
+        _launch_flavour(q, k, v, out, out_scale, what, softmax, attn_math)
+        return
     lib = _library(N, hd, q.dtype, what)
     s = _scale_on(out_scale, q.device)
     with torch.cuda.device(idx):  # an index, not a device: a third of the host cost
@@ -133,6 +221,45 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: tor
             ptrs[0], ptrs[1], ptrs[2], int(q.dtype == torch.float32), st[0], st[1], st[2],
             ptrs[3], _OUT_KIND[out.dtype], None if s is None else s.data_ptr(), ost[0], ost[1],
             ost[2], B, H, N, hd, _scale(hd, q.dtype), stream), f"{what}: short_attention_kernel")
+
+
+MAX_N_INT8 = 256  # keys of a head the int8-products kernel holds in shared memory
+
+
+def _launch_flavour(q, k, v, out, out_scale, what, softmax, attn_math) -> None:
+    """launch_attention's K3 forms, on checked views: exp2 / exp2p on the
+    flavoured bf16 kernels, the int8 products on their own kernel."""
+    check_flavour(softmax, attn_math, what)
+    B, H, N, hd = q.shape
+    if q.dtype != torch.bfloat16 or out.dtype != torch.int8 or hd > MAX_HD:
+        raise ValueError(f"{what}: softmax {softmax!r} / attn_math {attn_math!r} take bf16 "
+                         f"q, k, v (hd <= {MAX_HD}) and an int8 output, got {q.dtype} -> "
+                         f"{out.dtype}, hd = {hd}")
+    if attn_math == "int8" and N > MAX_N_INT8:
+        raise ValueError(f"{what}: the int8 attention products take N <= {MAX_N_INT8}, got {N}")
+    lib = cuda_build.load("attention_flavours.cu")
+    st, ost = q.stride(), out.stride()
+    s = _scale_on(out_scale, q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), st[0], st[1], st[2], out.data_ptr(),
+            s.data_ptr(), ost[0], ost[1], ost[2], B, H, N, hd, _flavour_scale(hd, softmax,
+                                                                             attn_math))
+    idx = q.get_device()
+    with torch.cuda.device(idx):
+        stream = torch.cuda.current_stream(idx).cuda_stream
+        if attn_math == "int8":
+            rc = lib.hyt_attention_int8(*args, int(softmax != "exp"), stream)
+        else:
+            rc = lib.hyt_attention_flavour(*args, SOFTMAXES.index(softmax), stream)
+    cuda_build.check(rc, f"{what}: attention ({softmax}, {attn_math})")
+
+
+@functools.lru_cache(maxsize=None)
+def _flavour_scale(hd: int, softmax: str, attn_math: str) -> float:
+    """K3's q prescale under its form: hd^-0.5, times log2(e) under exp2 and
+    exp2p; rounded to bf16 with q (JAX's weak typing) for the bf16 products,
+    an f32 factor of the int32 logits for the int8 ones."""
+    qs = hd ** -0.5 * LOG2E if softmax != "exp" else hd ** -0.5
+    return float(np.float32(qs)) if attn_math == "int8" else nn.weak_scalar(qs, torch.bfloat16)
 
 
 def _check_in_out(in_dtype, other_dtypes, out_dtype, out_scale, what: str) -> None:
@@ -258,33 +385,56 @@ def fused_qkv_attention(qkv: torch.Tensor, num_heads: int, out_scale=None) -> to
 fused_qkv_attention.launches = 0
 
 
+# JAX's crossover for "auto" (hamer_yolo_tpu/ops/attention_pallas.py
+# MIN_PALLAS_CROPS, measured on a TPU): the kernel from this many crops up.
+MIN_PALLAS_CROPS = 64
+FORCES = ("xla", "pallas", "pallas_direct", "pallas_fusedqkv", "auto")
+
+
 def softmax_attention_qkv(qkv: torch.Tensor, num_heads: int, *, force: str = "xla",
                           out_scale=None) -> torch.Tensor:
     """(B, N, 3D) fused qkv -> (B, N, D) softmax attention, the JAX
-    function's "xla", "pallas_direct" and "pallas_fusedqkv" forms.
+    function's forms.
 
     "xla": the plain einsum softmax in qkv's dtype (core/nn's op sequence),
     quantized by dividing by ``out_scale`` when it is given. "pallas_direct":
     K7 (its plain version on the CPU) on views of qkv; with ``out_scale`` the
     int8 epilogue quantizes in the kernel. "pallas_fusedqkv": K8, the same
-    with the fused tensor handed over as it is. ``force`` is explicit: the
-    HYT_ATTN switch is read in core/quant.py.
+    with the fused tensor handed over as it is. "pallas": K7 on the crop
+    batch as given (JAX's custom_vmap rule collapses vmapped crops into one
+    batch first; the port's batch is that batch already). "auto": K7 where
+    qkv is on the card and holds at least MIN_PALLAS_CROPS crops, the
+    einsum otherwise. "pallas" and "auto" take no ``out_scale`` (a
+    ValueError, as in JAX). ``force`` is explicit: the HYT_ATTN switch is
+    read in core/quant.py.
     """
+    if force not in FORCES:
+        raise ValueError(f"softmax_attention_qkv: force {force!r} (one of {FORCES})")
+    if out_scale is not None and force in ("pallas", "auto"):
+        raise ValueError("out_scale requires force='xla'/'pallas_direct'/'pallas_fusedqkv'")
     if force == "pallas_fusedqkv":
         return fused_qkv_attention(qkv, num_heads, out_scale=out_scale)
     B, N, td = qkv.shape
     hd = td // 3 // num_heads
     x = qkv.reshape(B, N, 3, num_heads, hd)
     q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]  # (B, N, h, hd)
-    if force == "pallas_direct":
+    if force == "auto":
+        force = "pallas" if qkv.is_cuda and B >= MIN_PALLAS_CROPS else "xla"
+    if force in ("pallas_direct", "pallas"):
         out = fused_short_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                     out_scale=out_scale)
         return out.transpose(1, 2).reshape(B, N, num_heads * hd)
-    if force != "xla":
-        raise ValueError(f"softmax_attention_qkv: force {force!r} (xla, pallas_direct or "
-                         "pallas_fusedqkv)")
     out = nn._softmax_attention(nn._scaled(q, hd), k, v)
     if out_scale is None:
         return out
     s = torch.as_tensor(out_scale, dtype=torch.float32, device=qkv.device).reshape(())
     return torch.clamp(torch.round(out.float() / s), -127, 127).to(torch.int8)
+
+
+def fast_mha_self_attention(p: nn.Params, x: torch.Tensor, num_heads: int,
+                            force: str = "xla") -> torch.Tensor:
+    """nn.mha_self_attention with its softmax attention in the form ``force``
+    of softmax_attention_qkv (JAX: ops/attention_pallas.fast_mha_self_attention,
+    whose form HYT_ATTN names; pipeline/frame._select_attn_impl reads it)."""
+    qkv = nn.linear(p["qkv"], x)
+    return nn.linear(p["proj"], softmax_attention_qkv(qkv, num_heads, force=force))

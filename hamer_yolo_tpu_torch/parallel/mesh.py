@@ -73,6 +73,16 @@ def init_distributed(device="cuda", timeout_s: float = TIMEOUT_S) -> Tuple[int, 
     return dist.get_rank(), dist.get_world_size()
 
 
+def broadcast_object(obj: Any, device=None) -> Any:
+    """Rank 0's ``obj`` (any picklable value) on every rank; ``device`` is
+    this rank's, which NCCL needs for the bytes it moves."""
+    box = [obj]
+    dev = torch.device(device) if device is not None else None
+    dist.broadcast_object_list(box, src=0, device=dev if dev is not None and dev.type == "cuda"
+                               else None)
+    return box[0]
+
+
 def local_device(device="cuda") -> torch.device:
     """This rank's device: cuda:LOCAL_RANK for a CUDA ``device``, else ``device``."""
     dev = torch.device(device)

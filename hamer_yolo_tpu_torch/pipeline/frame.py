@@ -12,11 +12,16 @@ Every stage runs over a batch dimension: the detector over frames, the
 RootNet and HaMeR stages over all B*S slots at once (the flat formulation
 the JAX tests pin equal to the per-frame vmap), the epilogue over crops.
 RootNet runs whenever ``"sar"`` is in the params (or ``use_depth_refine``
-asks for it), as in JAX. ``infer_frames_tracked`` is the detector-skip
-form: boxes from the previous tick's keypoints, the same outputs after them.
+asks for it), as in JAX. JAX's ``HYT_STAGE_BATCH_HAMER=1`` (all B*S crops
+through one hamer_forward instead of a per-frame vmap) is therefore what
+this module always computes: the switch is accepted and changes nothing.
+``infer_frames_tracked`` is the detector-skip form: boxes from the previous
+tick's keypoints, the same outputs after them.
 """
 from __future__ import annotations
 
+import functools
+import os
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
@@ -32,9 +37,11 @@ from hamer_yolo_tpu_torch.geometry.rotations import rotmat_to_aa
 from hamer_yolo_tpu_torch.models.hamer import HamerConfig, hamer_forward
 from hamer_yolo_tpu_torch.models.mano import ManoModel
 from hamer_yolo_tpu_torch.models.sar import SarConfig, estimate_root_depth
+from hamer_yolo_tpu_torch.models.vit import bf16_kernel_default
 from hamer_yolo_tpu_torch.models.yolov7.model import YoloConfig, yolov7_forward
 from hamer_yolo_tpu_torch.models.yolov7.tta import yolov7_forward_tta
 from hamer_yolo_tpu_torch.ops.nms import non_max_suppression
+from hamer_yolo_tpu_torch.ops.short_attention import fast_mha_self_attention
 from hamer_yolo_tpu_torch.pipeline.preprocess import device_letterbox, hamer_crop, sar_patch
 
 Tensors = Dict[str, torch.Tensor]
@@ -84,18 +91,35 @@ def detect_hands(yolo_params: nn.Params, image_bgr: torch.Tensor, orig_hw: torch
     return {k: v[0] for k, v in dets.items()}
 
 
+def _select_attn_impl(cfg: PipelineConfig, crops: torch.Tensor, attn_impl=None):
+    """The attention the frame hands hamer_forward (JAX's
+    _select_attn_impl): ``attn_impl`` where the caller gives one; none for
+    the int8 backbone (core/quant picks its own) or where the bf16 ViT takes
+    K2 (models/vit.bf16_kernel_default: on the card, or HYT_ATTN_BF16 =
+    megakernel); else fast_mha_self_attention in the form HYT_ATTN names.
+    HYT_ATTN unset or "xla" is the einsum, which nn.mha_self_attention
+    computes: none is handed over then, and the ViT takes its own."""
+    if attn_impl is not None or cfg.hamer.int8_backbone:
+        return attn_impl
+    force = os.environ.get("HYT_ATTN", "xla")
+    if force == "xla" or bf16_kernel_default(crops, cfg.hamer.vit):
+        return None
+    return functools.partial(fast_mha_self_attention, force=force)
+
+
 def recover_hands(hamer_params: nn.Params, mano_model: ManoModel, images_bgr: torch.Tensor,
                   dets: Tensors, Ks: torch.Tensor, cfg: PipelineConfig,
-                  depth_refine: Optional[torch.Tensor] = None) -> Tensors:
+                  depth_refine: Optional[torch.Tensor] = None, attn_impl=None) -> Tensors:
     """HaMeR stage over all B*S hand slots in one batch: images_bgr
     (B, Hb, Wb, 3), dets (B, S, ...), Ks (B, 3, 3), depth_refine (B, S) or
-    None -> per-crop outputs flattened to (B*S, ...)."""
+    None -> per-crop outputs flattened to (B*S, ...). ``attn_impl`` as in
+    hamer_forward (None: _select_attn_impl's choice)."""
     B, S = dets["valid"].shape
     do_flip = 1.0 - dets["is_right"]  # left hands are flipped
     center, size = hamer_box_params(dets["boxes"])
     crops = hamer_crop(images_bgr, center, size, do_flip, cfg.crop_size)
     out = hamer_forward(hamer_params, mano_model, crops.reshape(B * S, *crops.shape[2:]),
-                        cfg.hamer)
+                        cfg.hamer, attn_impl=_select_attn_impl(cfg, crops, attn_impl))
     do_flip, center, size = do_flip.reshape(-1), center.reshape(-1, 2), size.reshape(-1)
     K = Ks.repeat_interleave(S, dim=0)
     fx, fy, cx, cy = K[:, 0, 0], K[:, 1, 1], K[:, 0, 2], K[:, 1, 2]

@@ -28,9 +28,11 @@ The int8 MLP's GELU is the one the port picks by device
 elsewhere); the tool prints which, so JAX's separate
 ``int8_static_mega_gelu_poly`` arm is the ``int8_static_mega`` arm on the
 card. Off the card the int8 arms run the unfused composition, as JAX's static
-arm does. Not run, because their switches were left unported on purpose: the
-``exp2`` softmaxes (HYT_SOFTMAX), the int8 attention products
-(HYT_ATTN_MATH=int8), HYT_INT8_EP=bf16 and HYT_ATTN=pallas|auto.
+arm does. JAX's tool has no arm for the other switches (the ``exp2``
+softmaxes, HYT_SOFTMAX; the int8 attention products, HYT_ATTN_MATH=int8;
+HYT_INT8_EP=bf16; HYT_ATTN=pallas|auto), and neither has this one: set them
+in the environment around a run and the int8 arms take them, as
+core/quant.py reads them at each call.
 
 Random weights: real-checkpoint deltas may differ; these pin each path's
 numeric distortion at production shapes. Each arm's line also gives its

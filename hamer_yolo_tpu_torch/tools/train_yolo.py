@@ -33,8 +33,10 @@ the label statistics ``labels.png`` at the start, and the curves
 started, one a device) trains data parallel over N ranks (parallel/mesh.py;
 the JAX tool's mesh; BN over the global batch's statistics); a batch that N
 does not divide runs on one device, as JAX's does. Every rank reads the same
-global batch; only rank 0 logs, plots and saves. ``--evolve`` runs on one
-device.
+global batch; only rank 0 logs, plots and saves. Under ``--evolve`` each
+generation trains data parallel the same way, as JAX's tool does: rank 0
+draws the mutated hyp and sends it to the other ranks, and it alone
+evaluates and writes evolve.txt.
 """
 from __future__ import annotations
 
@@ -186,8 +188,6 @@ def run(argv: Optional[list] = None) -> Tuple[int, Optional[dict]]:
         mesh, device, rank = tool_mesh(args.devices, args.batch, args.device)
     except ValueError as e:
         p.error(str(e))
-    if mesh is not None and args.evolve:
-        p.error("--evolve runs on one device: drop --devices")
     try:
         return (0, None) if mesh is None and rank else train(args, mesh, device, rank == 0)
     finally:
@@ -228,16 +228,25 @@ def train(args, mesh, device: torch.device, lead: bool) -> Tuple[int, Optional[d
     ota_topk = 20 if args.aux else 10
 
     if args.evolve:
+        from hamer_yolo_tpu_torch.parallel.mesh import broadcast_object
         from hamer_yolo_tpu_torch.training.evolve import evolve
 
         def train_and_eval(hyp, gen):
+            if mesh is not None:  # every rank trains rank 0's candidate
+                hyp = broadcast_object(hyp, device)
             okw, lkw, dkw, _ = map_hyp(hyp)
             state, m, _ = train_loop(args, spec, cfg, okw, lkw, dkw, assigner, ota_topk,
                                      os.path.join(args.out, f"gen_{gen}"), device,
-                                     save_ckpts=False, quiet=True, seed=gen)
+                                     save_ckpts=False, quiet=True, seed=gen, mesh=mesh)
+            if not lead:
+                return None
             mp, mr, map50, mmap = eval_map(args, cfg, spec, state.ema.params)
             return mp, mr, map50, mmap, m.get("box", 0.0), m.get("obj", 0.0), m.get("cls", 0.0)
 
+        if not lead:
+            for gen in range(args.evolve):
+                train_and_eval(None, gen)
+            return 0, None
         best = evolve(train_and_eval, args.evolve, args.out, hyp0=hyp0, seed=args.evolve_seed)
         print(f"best hyp -> {os.path.join(args.out, 'hyp_evolved.yaml')}")
         print({k: round(v, 5) for k, v in list(best.items())[:8]})

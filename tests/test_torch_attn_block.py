@@ -151,3 +151,53 @@ def _check_vit(got, ref, dtype):
         # two blocks carry on: the JAX package's own bf16-vs-reference
         # tolerance (tests/test_pallas_kernels.py:164-167).
         np.testing.assert_allclose(got, ref, rtol=0.05, atol=0.05)
+
+
+@pytest.mark.parametrize("env", ["megakernel", "off"])
+def test_vit_reads_hyt_attn_bf16_as_jax(env, monkeypatch):
+    """fused_attn None: HYT_ATTN_BF16 picks the path on any device, as JAX's
+    models/vit.py reads it: "megakernel" K2 (its twin on the CPU; JAX's
+    Pallas block in interpret mode), "off" the plain layers."""
+    import hamer_yolo_tpu_torch.models.vit as tvit
+
+    monkeypatch.setenv("HYT_ATTN_BF16", env)
+    monkeypatch.setattr(jax_attention_pallas, "fused_bf16_attn_block",
+                        partial(jax_attention_pallas.fused_bf16_attn_block, interpret=True))
+    calls = []
+    k2 = tvit.fused_bf16_attn_block
+    monkeypatch.setattr(tvit, "fused_bf16_attn_block", lambda *a: calls.append(1) or k2(*a))
+    jcfg, tcfg, params, x = _vit_setup("bfloat16")
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    ref = jax_exact(lambda i: jax_vit_forward(jp, i, jcfg), jnp.asarray(x))
+    got = vit_forward(to_port(params), torch.from_numpy(x), tcfg)
+    assert len(calls) == (jcfg.depth if env == "megakernel" else 0)
+    _check_vit(got, ref, "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vit_leaves_hyt_attn_to_the_frame(dtype, monkeypatch):
+    """HYT_ATTN is the frame program's switch (pipeline/frame._select_attn_impl),
+    not the ViT's: vit_forward without ``attn_impl`` keeps the plain
+    attention whatever it names, as JAX's does for every caller but the
+    frame, and matches JAX's there; handed fast_mha_self_attention, the ViT
+    runs it in every block and keeps K2 off."""
+    import hamer_yolo_tpu_torch.models.vit as tvit
+    from hamer_yolo_tpu_torch.ops import short_attention
+
+    monkeypatch.setenv("HYT_ATTN", "pallas_direct")
+    monkeypatch.delenv("HYT_ATTN_BF16", raising=False)
+    calls = []
+    k7 = short_attention.fused_short_attention
+    monkeypatch.setattr(short_attention, "fused_short_attention",
+                        lambda *a, **kw: calls.append(1) or k7(*a, **kw))
+    monkeypatch.setattr(tvit, "fused_bf16_attn_block", lambda *a: calls.append("K2"))
+    jcfg, tcfg, params, x = _vit_setup(dtype)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    ref = jax_exact(lambda i: jax_vit_forward(jp, i, jcfg), jnp.asarray(x))
+    got = vit_forward(to_port(params), torch.from_numpy(x), tcfg)
+    assert calls == []
+    _check_vit(got, ref, dtype)
+    mha = partial(short_attention.fast_mha_self_attention, force="pallas_direct")
+    vit_forward(to_port(params), torch.from_numpy(x), replace(tcfg, fused_attn=True),
+                attn_impl=mha)
+    assert calls == [1] * jcfg.depth

@@ -530,25 +530,63 @@ def test_attention_rejects_what_it_does_not_take(dev):
         launch_attention(q, q, q, out.reshape(1, 64, 2, 64).transpose(1, 2), None, "test")
 
 
+@pytest.mark.parametrize("prologue", ["ln", "gelu", "gelu_poly", "id"])
+@pytest.mark.parametrize("M,force", [(8448, None), (384, "xla")], ids=["above_limit", "forced"])
+def test_k5_chain_matches_plain(dev, monkeypatch, M, force, prologue):
+    """K5's chain form (above FUSED_GEMM_MAX_M rows, or forced): bf16 tokens
+    bit for bit with its plain version, both HYT_INT8_EP values, dynamic and
+    static; f32 tokens at check_against_plain's limits (the f32 LN's sums in
+    another order)."""
+    rng = np.random.default_rng(M)
+    q, s, b = _qlinear(rng, dev, 128, 96)
+    g, bt = _vec(rng, dev, 128, 1.0), _vec(rng, dev, 128)
+    x = torch.from_numpy((2.0 * rng.normal(size=(M, 128))).astype(np.float32)).to(dev)
+    for ep in (None, "bf16"):
+        if ep is None:
+            monkeypatch.delenv("HYT_INT8_EP", raising=False)
+        else:
+            monkeypatch.setenv("HYT_INT8_EP", ep)
+        for dtype in (torch.bfloat16, torch.float32):
+            for sx in (None, torch.tensor(0.031, device=dev)):
+                im.fused_int8_matmul.variant_launches.clear()
+                got = fused_int8_matmul(x.to(dtype), q, s, b, g, bt, prologue=prologue,
+                                        static_scale=sx, force=force)
+                torch.cuda.synchronize()
+                assert im.fused_int8_matmul.variant_launches == {
+                    "chain" if ep is None else "chain bf16": 1}
+                ref = fused_int8_matmul_ref(x.to(dtype), q, s, b, g, bt, prologue=prologue,
+                                            static_scale=sx, force=force)
+                if dtype == torch.bfloat16:
+                    assert torch.equal(got, ref), (ep, sx)
+                else:
+                    check_against_plain(got, ref, "K5 chain")
+
+
+K3_FORMS = [("exp", "bf16"), ("exp2", "bf16"), ("exp2p", "bf16"), ("exp", "int8"),
+            ("exp2", "int8")]
+
+
+@pytest.mark.parametrize("softmax,attn_math", K3_FORMS, ids=[f"{s}-{m}" for s, m in K3_FORMS])
 @pytest.mark.parametrize("B,N,K,h", [(16, 192, 1280, 16), (4, 12, 64, 4)], ids=["vith", "tiny"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_k3_matches_plain(dev, B, N, K, h, dtype):
+def test_k3_matches_plain(dev, B, N, K, h, dtype, softmax, attn_math):
     rng = np.random.default_rng(N + K)
     tok = torch.from_numpy(rng.normal(size=(B, N, K)).astype(np.float32)).to(dev).to(dtype)
     q, s, b = _qlinear(rng, dev, K, 3 * K)
     pq, ps, pb = _qlinear(rng, dev, K, K)
     args = (q, s, b, _vec(rng, dev, K, 1.0), _vec(rng, dev, K), torch.tensor(0.03, device=dev),
             torch.tensor(0.012, device=dev), pq, ps, pb, h)
+    form = {"softmax": softmax, "attn_math": attn_math}
     before = fused_int8_attn_proj_block.launches
-    got = fused_int8_attn_proj_block(tok, *args)
+    got = fused_int8_attn_proj_block(tok, *args, **form)
     torch.cuda.synchronize()
     assert fused_int8_attn_proj_block.launches == before + 1 and got.dtype == dtype
-    steps = attn_proj_block.fused_int8_attn_proj_block_steps(tok, *args)
+    steps = attn_proj_block.fused_int8_attn_proj_block_steps(tok, *args, **form)
     assert fused_int8_attn_proj_block.launches == before + 1  # the steps count no launch
     assert torch.equal(steps[2], got)
     # the end-to-end limit and each launch against its step's plain version
     # (ops/attn_proj_block.py)
-    attn_proj_block.check_against_plain(steps, tok, *args)
+    attn_proj_block.check_against_plain(steps, tok, *args, **form)
 
 
 def test_int8_kernels_reject_what_they_do_not_take(dev):
@@ -604,6 +642,36 @@ def test_int8_vit_on_cuda_runs_the_kernels(dev, img_size):
         # for int8 rounding flips (tests/test_int8_fused.py:330-334)
         assert torch.isclose(got, ref, rtol=0.02, atol=0.02).float().mean() > 0.99
         torch.testing.assert_close(got, ref, rtol=0.2, atol=0.1)
+
+
+def test_int8_vit_on_cuda_under_hyt_int8_fused_0(dev, monkeypatch):
+    """HYT_INT8_FUSED=0 on the card: the int8 ViT takes the unfused
+    composition (no K3, K4 or K5; the attention on K7, JAX's "pallas_direct"
+    on a TPU), and agrees with the same composition on the CPU (K7's plain
+    version there, by HYT_ATTN=pallas_direct) fed the card's embedded
+    tokens, at the fused test's limits."""
+    from hamer_yolo_tpu_torch.models.vit import embed_tokens
+
+    monkeypatch.setenv("HYT_INT8_FUSED", "0")
+    monkeypatch.delenv("HYT_ATTN", raising=False)
+    cfg = ViTConfig(img_size=(256, 192), embed_dim=64, depth=2, num_heads=4)
+    params = quant.quantize_vit_params(init_vit(torch.Generator().manual_seed(0), cfg))
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(3, 256, 192, 3)).astype(np.float32))
+    fns = {"K2": fused_bf16_attn_block, "K3": fused_int8_attn_proj_block,
+           "K4": fused_int8_mlp_block, "K5": fused_int8_matmul, "K7": fused_short_attention}
+    before = {k: f.launches for k, f in fns.items()}
+    got = quant.vit_forward_int8(_to(params, dev), x.to(dev), cfg)
+    torch.cuda.synchronize()
+    ran = {k: f.launches - before[k] for k, f in fns.items()}
+    assert ran == {"K2": 0, "K3": 0, "K4": 0, "K5": 0, "K7": cfg.depth}, ran
+    tok = embed_tokens(_to(params, dev), x.to(dev), cfg).cpu()
+    monkeypatch.setenv("HYT_ATTN", "pallas_direct")
+    ref = quant.vit_blocks_int8(params, tok, cfg, fused=False).float()
+    got = got.float().cpu()
+    assert torch.isfinite(got).all()
+    close = torch.isclose(got, ref, rtol=0.02, atol=0.02).float().mean()
+    assert close > 0.99, close
+    torch.testing.assert_close(got, ref, rtol=0.2, atol=0.1)
 
 
 # ------------------------------------------------- the opt-in kernel paths

@@ -89,3 +89,37 @@ def test_collect_act_stats_matches_jax():
     for blk, ref in zip(mine["blocks"], ps["blocks"]):
         np.testing.assert_allclose(float(blk["mlp"]["fc2"]["sx"]), float(ref["mlp"]["fc2"]["sx"]),
                                    rtol=1e-3)
+
+
+@pytest.mark.parametrize("env", [None, "0", "1"])
+def test_int8_fused_switch_matches_jax(env, monkeypatch):
+    """HYT_INT8_FUSED: where neither ``fused`` nor cfg.fused_attn decides,
+    the kernels run where the tokens are on the card (JAX: on a TPU) unless
+    the switch is "0". The decision against a stand-in for a card tensor,
+    then vit_forward_int8 (fused=None) against JAX's with the switch set and
+    JAX's quant._on_tpu given True (its "0" takes the unfused composition,
+    the CPU's path here; HYT_ATTN=xla keeps its on-TPU attention default
+    off the Pallas kernel), at the unfused test's bf16 limit. On the CPU the
+    port's tokens take the unfused composition whatever the switch says, so
+    the forward comparison holds the composition "0" selects, and only the
+    stand-in reads the switch; on the card
+    tests/test_torch_cuda.py::test_int8_vit_on_cuda_under_hyt_int8_fused_0
+    reads it."""
+    from types import SimpleNamespace
+
+    if env is None:
+        monkeypatch.delenv("HYT_INT8_FUSED", raising=False)
+    else:
+        monkeypatch.setenv("HYT_INT8_FUSED", env)
+    jcfg, tcfg, trees, x, _ = _setup("bfloat16")
+    on_card = SimpleNamespace(is_cuda=True)
+    assert quant.default_fused(on_card, tcfg) == (env != "0")
+    assert quant.default_fused(on_card, ViTConfig(**SHAPE, fused_attn=True))
+    assert not quant.default_fused(torch.zeros(1), tcfg)
+    if env == "0":
+        monkeypatch.setattr(jquant, "_on_tpu", lambda: True)
+        monkeypatch.setenv("HYT_ATTN", "xla")
+    ref = np.asarray(jax_exact(lambda p, xx: jquant.vit_forward_int8(p, xx, jcfg),
+                               trees["dynamic"], jnp.asarray(x)), np.float32)
+    got = quant.vit_forward_int8(to_port(trees["dynamic"]), torch.from_numpy(x), tcfg)
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0.05, atol=0.05)

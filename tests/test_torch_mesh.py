@@ -191,7 +191,23 @@ def _pair_ranks(rank, tmp):
         f.write(str(rc))
 
 
-SCENARIOS = {"hamer": _hamer_ranks, "pair": _pair_ranks}
+def evolve_args(tmp, out):
+    """train_yolo --evolve 1 --steps 1 on the labelled folder and tiny yaml
+    that the evolve_runs fixture writes under ``tmp``."""
+    return ["--data", os.path.join(tmp, "data", "images"), "--batch", "2", "--img-size", "64",
+            "--cfg", os.path.join(tmp, "tiny.yaml"), "--steps", "1", "--evolve", "1",
+            "--device", "cpu", "--out", os.path.join(tmp, out)]
+
+
+def _evolve_ranks(rank, tmp):
+    from hamer_yolo_tpu_torch.tools import train_yolo as tool
+
+    rc, _ = tool.run(evolve_args(tmp, "ranks") + ["--devices", "2"])
+    with open(os.path.join(tmp, f"evolve_rc{rank}"), "w") as f:
+        f.write(str(rc))
+
+
+SCENARIOS = {"hamer": _hamer_ranks, "pair": _pair_ranks, "evolve": _evolve_ranks}
 
 
 def _load(path):
@@ -371,3 +387,43 @@ def test_train_tool_with_two_devices(pair_runs):
     with open(out / "metrics.jsonl") as f:
         recs = [json.loads(line) for line in f]
     assert [r["step"] for r in recs] == [0, 1] and all(np.isfinite(r["loss"]) for r in recs)
+
+
+@pytest.fixture(scope="module")
+def evolve_runs(tmp_path_factory):
+    """train_yolo --evolve 1 on two gloo ranks (--devices 2), and the same
+    on one process."""
+    import yaml
+
+    from hamer_yolo_tpu_torch.tools import train_yolo as tool
+    from test_torch_datasets import write_labelled_folder
+    from test_torch_train_yolo_tool import TINY
+
+    tmp = tmp_path_factory.mktemp("evolve")
+    write_labelled_folder(tmp / "data", 4, [(96, 128), (120, 90)], 70)
+    (tmp / "tiny.yaml").write_text(yaml.safe_dump(TINY))
+    _spawn("evolve", 2, tmp)
+    assert tool.run(evolve_args(str(tmp), "single"))[0] == 0
+    return tmp
+
+
+def test_yolo_evolve_on_two_devices_matches_one(evolve_runs):
+    """--evolve with --devices 2 (JAX's tool trains each generation
+    sharded): both ranks exit 0, rank 0 alone writes evolve.txt and
+    hyp_evolved.yaml, and its row equals the one-process run's: the same
+    mutated hyp (rank 0 draws it and sends it to rank 1), the losses of the
+    two-rank step within the file's resolution (4 significant digits,
+    savetxt's %10.4g; the step itself is held at LOSS_RTOL above), the mAP
+    columns within 1e-3 (an EMA one step from the same init, evaluated on
+    rank 0)."""
+    from hamer_yolo_tpu_torch.training.evolve import N_RESULT_COLS
+
+    tmp = evolve_runs
+    assert [open(tmp / f"evolve_rc{r}").read() for r in (0, 1)] == ["0", "0"]
+    assert {"evolve.txt", "hyp_evolved.yaml"} <= set(os.listdir(tmp / "ranks"))
+    got = np.loadtxt(tmp / "ranks" / "evolve.txt", ndmin=2)
+    ref = np.loadtxt(tmp / "single" / "evolve.txt", ndmin=2)
+    assert got.shape == ref.shape == (1, ref.shape[1])
+    np.testing.assert_array_equal(got[0, N_RESULT_COLS:], ref[0, N_RESULT_COLS:])
+    np.testing.assert_allclose(got[0, :4], ref[0, :4], atol=1e-3)
+    np.testing.assert_allclose(got[0, 4:N_RESULT_COLS], ref[0, 4:N_RESULT_COLS], rtol=1e-3)

@@ -148,8 +148,13 @@ class TestK8:
         ref = jax_sa(jnp.asarray(qkv), 2, force="pallas_fusedqkv", interpret=True, out_scale=sx)
         _int8_close(softmax_attention_qkv(_t(qkv), 2, force="pallas_fusedqkv", out_scale=_t(sx)),
                     ref)
-        with pytest.raises(ValueError, match="force 'pallas'"):
-            softmax_attention_qkv(_t(qkv), 2, force="pallas")
+        # "pallas" (once refused here) is K7 on the crop batch, as JAX's
+        # custom_vmap form computes it; a force JAX does not know raises
+        ref = jax_sa(jnp.asarray(qkv), 2, force="pallas", interpret=True)
+        got = softmax_attention_qkv(_t(qkv), 2, force="pallas")
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+        with pytest.raises(ValueError, match="force 'megaproj'"):
+            softmax_attention_qkv(_t(qkv), 2, force="megaproj")
 
 
 def _k6_inputs(rng, B, N, K):
@@ -364,12 +369,59 @@ def test_attn_dispatch_matches_jax(block, spy, monkeypatch, env, prequant, scale
 
 
 @pytest.mark.parametrize("env", ["pallas", "auto"])
-def test_attn_dispatch_refuses_what_is_not_ported(block, monkeypatch, env):
+def test_attn_dispatch_refuses_what_is_not_ported(monkeypatch, env):
+    """What neither package computes under HYT_ATTN=pallas|auto: the int8
+    epilogue (out_scale) of the attention, a ValueError in both, where JAX's
+    softmax_attention_qkv reads the switch and the port's takes the form the
+    dispatch read from it. (The forms themselves, once refused here, run:
+    test_attn_dispatch_pallas_auto_matches_jax.)"""
+    monkeypatch.setenv("HYT_ATTN", env)
+    qkv = np.random.default_rng(13).normal(size=(4, 12, 3 * 2 * 16)).astype(np.float32)
+    with pytest.raises(ValueError, match="out_scale"):
+        jax_sa(jnp.asarray(qkv), 2, out_scale=jnp.float32(0.02))
+    with pytest.raises(ValueError, match="out_scale"):
+        softmax_attention_qkv(_t(qkv), 2, force=env, out_scale=_t(np.float32(0.02)))
+
+
+@pytest.mark.parametrize("env", ["pallas", "auto"])
+def test_attn_dispatch_pallas_auto_matches_jax(block, spy, monkeypatch, env):
+    """HYT_ATTN=pallas|auto run as JAX's do: K5, the attention, K5, with
+    "pallas" the attention on K7 and "auto" on the einsum (fewer than
+    MIN_PALLAS_CROPS crops, and on the CPU), static and dynamic scales
+    alike."""
+    from hamer_yolo_tpu.ops import attention_pallas as jap
+
     blocks, tok = block
     monkeypatch.setenv("HYT_ATTN", env)
+    # JAX's custom_vmap form hands ``interpret`` False to its kernel: give it
+    # interpret mode here
+    jax_k7_fn = jap.fused_short_attention
+    monkeypatch.setattr(jap, "fused_short_attention", lambda *a, interpret=False, **kw:
+                        jax_k7_fn(*a, interpret=True, **kw))
     for scales in ("static", "dynamic"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            quant.int8_block_attn_residual(to_port(blocks[scales]), _t(tok), 4)
+        spy.clear()
+        ref = jax_exact(lambda b, t: jquant.int8_block_attn_residual(b, t, 4, interpret=True),
+                        blocks[scales], jnp.asarray(tok))
+        got = quant.int8_block_attn_residual(to_port(blocks[scales]), _t(tok), 4)
+        assert spy == ({"K5": 2, "K7": 1} if env == "pallas" else {"K5": 2}), scales
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0.05, atol=0.05)
+
+
+def test_auto_and_pallas_forms_match_jax():
+    """softmax_attention_qkv's "auto": the einsum below MIN_PALLAS_CROPS
+    crops and off the card (JAX's off a TPU without interpret mode), so at
+    64 crops on the CPU too; "pallas" and "auto" take no out_scale, a
+    ValueError in both packages."""
+    qkv = np.random.default_rng(13).normal(size=(64, 12, 3 * 2 * 16)).astype(np.float32)
+    assert short_attention.MIN_PALLAS_CROPS == 64
+    ref = jax_sa(jnp.asarray(qkv), 2, force="auto")
+    got = softmax_attention_qkv(_t(qkv), 2, force="auto")
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+    for force in ("pallas", "auto"):
+        with pytest.raises(ValueError, match="out_scale"):
+            jax_sa(jnp.asarray(qkv), 2, force=force, out_scale=jnp.float32(0.02))
+        with pytest.raises(ValueError, match="out_scale"):
+            softmax_attention_qkv(_t(qkv), 2, force=force, out_scale=_t(np.float32(0.02)))
 
 
 MLP_CASES = [

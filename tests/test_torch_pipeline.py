@@ -75,6 +75,71 @@ def test_infer_frames_matches_jax(setup, dtype):
                      f"frame {b}")
 
 
+# JAX's switches around the HaMeR stage: HYT_STAGE_BATCH_HAMER=1 runs all B*S
+# crops through one hamer_forward (the port's flat form, which reads no
+# switch); HYT_ATTN_BF16=off hands the bf16 ViT JAX's fast_mha_self_attention,
+# whose attention HYT_ATTN picks (here K7, JAX's kernel in interpret mode).
+FRAME_SWITCHES = [{"HYT_STAGE_BATCH_HAMER": "1"},
+                  {"HYT_ATTN_BF16": "off", "HYT_ATTN": "pallas_direct"}]
+
+
+@pytest.mark.parametrize("env", FRAME_SWITCHES, ids=["stage_batch", "bf16_off_pallas_direct"])
+def test_infer_frames_switches_match_jax(setup, monkeypatch, env):
+    import hamer_yolo_tpu.ops.attention_pallas as jap
+
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    k7 = jap.fused_short_attention
+    monkeypatch.setattr(jap, "fused_short_attention",
+                        lambda *a, interpret=False, **kw: k7(*a, interpret=True, **kw))
+    jm, tm, (imgs, hws, Ks) = setup
+    jcfg, tcfg = tiny_configs("bfloat16")
+    params = pipeline_params(jcfg, seed=1)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    ref = np_tree(jax_exact(lambda i, h, k: jax_infer_frames(jp, jm, i, h, k, jcfg), imgs, hws, Ks))
+    got = np_tree(infer_frames(to_port(params), tm, torch.from_numpy(imgs), torch.from_numpy(hws),
+                               torch.from_numpy(Ks), tcfg))
+    assert ref["valid"].any(), "no valid slot: the comparison would be empty"
+    for b in range(B):
+        _check_frame({k: v[b] for k, v in got.items()}, {k: v[b] for k, v in ref.items()},
+                     "bfloat16", f"frame {b}")
+
+
+SELECT_ENVS = {"unset": {}, "xla": {"HYT_ATTN": "xla"},
+               "pallas_direct": {"HYT_ATTN": "pallas_direct"},
+               "auto_bf16_off": {"HYT_ATTN": "auto", "HYT_ATTN_BF16": "off"},
+               "pallas_megakernel": {"HYT_ATTN": "pallas", "HYT_ATTN_BF16": "megakernel"}}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("env", list(SELECT_ENVS.values()), ids=list(SELECT_ENVS))
+def test_select_attn_impl_as_jax(monkeypatch, env, int8):
+    """The frame's choice of the ViT's attention, as JAX's _select_attn_impl
+    makes it off a TPU: where JAX hands fast_mha_self_attention in a form
+    other than the einsum, the port hands its own in that form; where JAX
+    hands none, or the einsum (nn.mha_self_attention's arithmetic), the port
+    hands none. A caller's attn_impl passes through in both."""
+    from dataclasses import replace
+
+    from hamer_yolo_tpu.pipeline.frame import _select_attn_impl as jax_select
+    from hamer_yolo_tpu_torch.pipeline.frame import _select_attn_impl
+
+    for name in ("HYT_ATTN", "HYT_ATTN_BF16"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    jcfg, tcfg = tiny_configs("bfloat16")
+    jcfg = replace(jcfg, hamer=replace(jcfg.hamer, int8_backbone=int8))
+    tcfg = replace(tcfg, hamer=replace(tcfg.hamer, int8_backbone=int8))
+    crops = torch.zeros(2, 64, 64, 3)
+    ref, got = jax_select(jcfg, None), _select_attn_impl(tcfg, crops)
+    einsum = env.get("HYT_ATTN", "xla") == "xla"
+    assert (got is None) == (ref is None or einsum)
+    if got is not None:
+        assert got.keywords == {"force": env["HYT_ATTN"]}
+    assert jax_select(jcfg, len) is len and _select_attn_impl(tcfg, crops, len) is len
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_infer_frame_matches_jax(setup, dtype):
     jm, tm, (imgs, hws, Ks) = setup

@@ -305,3 +305,36 @@ def test_nms_kpt_matches_jax(nc):
     assert np.asarray(ref.valid).sum() > 4
     _same_keep(got, ref, 0.0)
     np.testing.assert_array_equal(got.kpts.numpy(), np.asarray(ref.kpts))
+
+
+# ReOrg then a 3x3 stride-1 conv, the peephole's pattern, then three stride-2
+# convs to the head's levels (strides 8, 16, 32 at 64 px)
+REORG_SPEC = [(-1, "REORG", ()), (-1, "C", (16, 3, 1)), (-1, "C", (16, 3, 2)),
+              (-1, "C", (24, 3, 2)), (-1, "C", (32, 3, 2)), (-1, "C", (32, 3, 2)),
+              ((3, 4, 5), "DET", ())]
+
+
+@pytest.mark.parametrize("knob", ["1", "0", "auto"])
+def test_reorg_fusion_matches_jax(knob, monkeypatch):
+    """HYT_FUSE_REORG: "1" fuses the ReOrg into the conv after it (one 6x6
+    stride-2 conv on the raw input) in both packages, "0" and "auto" (on a
+    TPU only) leave it apart; the decoded output at the f32 1e-4 of JAX's
+    own case (tests/test_yolo.py), and the fused weight equal to JAX's."""
+    from hamer_yolo_tpu.models.yolov7 import blocks as JB
+    from hamer_yolo_tpu_torch.models.yolov7 import blocks as TB
+
+    monkeypatch.setenv("HYT_FUSE_REORG", knob)
+    spec, jcfg, tcfg, params = _family_pair("DET", 5, "float32", spec=REORG_SPEC)
+    x = np.random.default_rng(6).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    ref = jax_exact(lambda i: JM.yolov7_forward(jp, i, jcfg, spec=spec), jnp.asarray(x))
+    fused = []
+    block = TB.reorg_conv_block
+    monkeypatch.setattr(TB, "reorg_conv_block", lambda *a: fused.append(1) or block(*a))
+    tp = to_port(params)
+    got = TM.yolov7_forward(tp, torch.from_numpy(x), tcfg, spec)
+    assert len(fused) == (knob == "1")
+    _close(got, ref, "float32", f"HYT_FUSE_REORG={knob}")
+    w6 = np.asarray(JB.reorg_conv_weight(jp["layers"][1]["conv"]["w"]))  # (6, 6, C, O)
+    np.testing.assert_array_equal(TB.reorg_conv_weight(tp["layers"][1]["conv"]["w"]).numpy(),
+                                  w6.transpose(3, 2, 0, 1))
