@@ -2042,7 +2042,45 @@ K3_FORMS = {"K3 exp2": {"HYT_SOFTMAX": "exp2"}, "K3 exp2p": {"HYT_SOFTMAX": "exp
 K5_CHAINS = {"K5 chain": {}, "K5 chain bf16": {"HYT_INT8_EP": "bf16"}}
 CHAIN_FRAMES = 16     # frames of the int8 dynamic batch that takes the chain: 16 x 4 x 192 rows
 CHAIN_ROWS = 12288    # K5's chain form alone: ViT-H's four GEMMs at 16 frames' rows
+LONG_N = 432         # tokens of a 384 x 288 crop at ViT-H's 16-pixel patches: past 256 keys
 AUTO_CROPS = (64, 16)  # HYT_ATTN=auto: K7 from MIN_PALLAS_CROPS crops on the card, not below
+
+
+def int8_products_beyond(dev, smi, args, randn, softmax, B, N, Kd, heads):
+    """K3 under the int8 products at LONG_N tokens (16 crops at 384 x 288,
+    ViT-H widths: three sweeps over 64-key blocks) against its plain version,
+    then the attention step alone (the quantize pre-pass + the attention
+    launch) timed at N and LONG_N beside K7's bf16 kernel with the int8
+    epilogue on the same heads and the step's bytes bound (bf16 q, k, v read
+    once, the int8 output written once). Returns the readings for the
+    kernels line."""
+    import torch
+
+    from hamer_yolo_tpu_torch.ops import attn_proj_block as apb
+    from hamer_yolo_tpu_torch.ops.short_attention import (fused_short_attention,
+                                                          int8_products_attention)
+
+    tok = randn(B, LONG_N, Kd).bfloat16()
+    steps = apb.fused_int8_attn_proj_block_steps(tok, *args, softmax=softmax, attn_math="int8")
+    torch.cuda.synchronize()
+    r = apb.check_against_plain(steps, tok, *args, softmax=softmax, attn_math="int8")
+    print(f"K3 int8 ({softmax}) random {tuple(tok.shape)}: " + _fmt(r), flush=True)
+    out = {"long_n_max_abs_err": r["max_abs_err"]}
+    sp = args[6]
+    for n, t in ((N, randn(B, N, Kd).bfloat16()), (LONG_N, tok)):
+        qkv = apb.fused_int8_attn_proj_block_steps(t, *args, softmax=softmax,
+                                                   attn_math="int8")[0]
+        hd = Kd // heads
+        x = qkv.reshape(B, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        step = graph_time_ms(lambda: int8_products_attention(x[0], x[1], x[2], sp, softmax))
+        k7 = graph_time_ms(lambda: fused_short_attention(x[0], x[1], x[2], out_scale=sp))
+        bound_ms = bound(3 * B * n * Kd * 2 + B * n * Kd, {"int8": 4 * B * n * n * Kd})[0]
+        print(f"K3 int8 ({softmax}) attention step alone at ({B}, {heads}, {n}, {hd}): device "
+              f"{step:.4f} ms (CUDA graph of 20 launches of the pre-pass + attention), K7's "
+              f"bf16 kernel with the int8 epilogue {k7:.4f} ms, bound {bound_ms:.6f} ms "
+              f"(bytes) on {smi}", flush=True)
+        out[f"step_ms_n{n}"], out[f"k7_ms_n{n}"], out[f"step_bound_ms_n{n}"] = step, k7, bound_ms
+    return out
 
 
 def switches_chain_phase(dev, smi, sparams, qparams, qcfg, mano, cfg, imgs, hws, Ks, tok0,
@@ -2050,7 +2088,9 @@ def switches_chain_phase(dev, smi, sparams, qparams, qcfg, mano, cfg, imgs, hws,
     """The phase "switches and chain". K3 under each of its forms
     (K3_FORMS) through infer_frames on the static path (their launches), then
     at full width against each form's plain version
-    (attn_proj_block.check_against_plain) and timed; K5's chain form at
+    (attn_proj_block.check_against_plain) and timed, the int8 products also
+    at LONG_N tokens and their attention step alone (int8_products_beyond);
+    K5's chain form at
     CHAIN_ROWS for ViT-H's four GEMMs under both HYT_INT8_EP values against
     its plain version, timed beside K5's kernel form at the same rows; the
     int8 dynamic infer_frames at CHAIN_FRAMES frames, where every K5 call
@@ -2122,6 +2162,8 @@ def switches_chain_phase(dev, smi, sparams, qparams, qcfg, mano, cfg, imgs, hws,
               f"{bound_ms:.6f} ms ({by}) on {smi}", flush=True)
         records[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": by, "library_ms": None}
+        if am == "int8":
+            records[key].update(int8_products_beyond(dev, smi, args, randn, sm, B, N, Kd, heads))
 
     # -- K5's chain form alone at CHAIN_ROWS ---------------------------------
     qblk = qparams["hamer"]["backbone"]["blocks"][0]

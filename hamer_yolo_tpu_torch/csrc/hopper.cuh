@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by attn_block.cu, int8_gemm.cu,
 // nms.cu and short_attention.cu: mbarriers, TMA tile loads and stores and
-// tensor maps, named barriers, the wgmma fences, the 128-byte-swizzle
+// tensor maps, contiguous bulk copies, named barriers, the wgmma fences, the 128-byte-swizzle
 // shared-memory descriptor, thread-block clusters (rank, cluster barrier,
 // another CTA's shared memory as a generic pointer, distributed shared
 // memory stores, asynchronous ones included, and mbarrier arrivals), and the
@@ -59,6 +59,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// ``bytes`` (a multiple of 16) from device memory at src to shared memory at
+// dst, both 16-byte aligned, by the TMA unit's bulk copy (no tensor map: the
+// range is contiguous); completes on bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -17,8 +17,10 @@ JAX's two switches of this kernel, off by default there and here, pick the
 attention launch's form (``softmax`` and ``attn_math``, read from
 HYT_SOFTMAX and HYT_ATTN_MATH by core/quant.py): "exp2" and "exp2p" run the
 attention kernel of ``csrc/short_attention.cu`` built with that flavour, the
-int8 products a kernel of their own; both in ``csrc/attention_flavours.cu``
-(plain version: ops/short_attention.flavoured_attention_ref).
+int8 products a quantize pre-pass and an attention kernel of their own
+(wgmma s8 on the pre-pass's int8 tiles); both in
+``csrc/attention_flavours.cu`` (plain version:
+ops/short_attention.flavoured_attention_ref).
 """
 from __future__ import annotations
 
@@ -84,9 +86,9 @@ def fused_int8_attn_proj_block(tok: torch.Tensor, wq: torch.Tensor, wscale: torc
     (short_attention.flavoured_attention_ref).
 
     CPU tensors take the plain version. CUDA tensors launch the four kernels
-    of the module docstring: K, 3D and the head width multiples of 16 and 8
-    (any N: the attention pads N in shared memory; the int8 products take N
-    up to short_attention.MAX_N_INT8); anything else raises.
+    of the module docstring (five under the int8 products, whose attention
+    step is a quantize pre-pass and the attention launch): K, 3D and the head
+    width multiples of 16 and 8, any N; anything else raises.
     """
     cuda_build.refuse_grad("fused_int8_attn_proj_block", tok, wq, wscale, bias, ln_scale,
                            ln_bias, sx_qkv, sx_proj, wp, pscale, pbias)

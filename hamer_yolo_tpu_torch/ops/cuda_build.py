@@ -67,8 +67,8 @@ _SIGNATURES = {
         "hyt_attention_flavour": [_P, _P, _P, _L, _L, _L, _P, _P, _L, _L, _L, _I, _I, _I, _I,
                                   _F, _I, _P],
         "hyt_attention_int8": [_P, _P, _P, _L, _L, _L, _P, _P, _L, _L, _L, _I, _I, _I, _I,
-                               _F, _I, _P],
-        "hyt_attention_int8_smem_bytes": [_I, _I],
+                               _F, _I, _P, _P, _P],
+        "hyt_quantize_heads": [_P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P, _P, _P],
     },
 }
 

@@ -112,6 +112,53 @@ def _int_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.double(), b.double()).float()
 
 
+# The int8 products' tiles (csrc/attention_flavours.cu): N pads to a multiple
+# of the key block, Qi and Ki rows to the k32 depth of 8-bit wgmma, Vt's rows
+# (the P V product's n) to 16.
+I8_KEY_BLOCK = 64
+
+
+def int8_tile_dims(N: int, hd: int):
+    """(Nk, Hk, Hv): the padded keys, the Qi / Ki row bytes, the Vt rows."""
+    return -(-N // I8_KEY_BLOCK) * I8_KEY_BLOCK, -(-hd // 32) * 32, -(-hd // 16) * 16
+
+
+def quantize_heads_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Plain version of the int8 products' pre-pass (quantize_heads_kernel):
+    q/k/v (B, h, N, hd) -> (scales (B, h, 3) f32: sq, sk, sv; qi, ki (B, h,
+    Nk, Hk) int8; vt (B, h, Hv, Nk) int8, v transposed, keys contiguous),
+    each head quantized by its dynamic scale (_head_scale) as rint(t * (1 /
+    s)) with no clip, zero padded to int8_tile_dims."""
+    N, hd = q.shape[-2:]
+    Nk, Hk, Hv = int8_tile_dims(N, hd)
+    ts = [t.float() for t in (q, k, v)]
+    scales = [_head_scale(t) for t in ts]
+    qi, ki, vi = (torch.round(t * (1.0 / s)).to(torch.int8) for t, s in zip(ts, scales))
+    pad = torch.nn.functional.pad
+    return (torch.cat(scales, dim=-1).squeeze(-2), pad(qi, (0, Hk - hd, 0, Nk - N)),
+            pad(ki, (0, Hk - hd, 0, Nk - N)), pad(vi.transpose(-1, -2), (0, Nk - N, 0, Hv - hd)))
+
+
+def int8_products_attention_ref(scales: torch.Tensor, qi: torch.Tensor, ki: torch.Tensor,
+                                vt: torch.Tensor, N: int, hd: int, out_scale,
+                                softmax: str = "exp") -> torch.Tensor:
+    """Plain version of the int8 products' attention launch
+    (attention_int8_kernel) on quantize_heads_ref's tiles: logits = (qi .
+    ki^T) * (qs * (sq * sk)) over the N keys (pad keys left out), the softmax
+    (exp, or exp2 under "exp2" / "exp2p"), pi = round((e * inv_s) * 127), res
+    = (pi . vi) * ((sv * f32(1 / 127)) * inv_p), clip(round(res), +-127):
+    (B, h, N, hd) int8."""
+    exp2 = softmax in ("exp2", "exp2p")
+    qs = float(np.float32(hd ** -0.5 * LOG2E if exp2 else hd ** -0.5))
+    inv_p = 1.0 / torch.as_tensor(out_scale, dtype=torch.float32, device=qi.device).reshape(())
+    sq, sk, sv = (scales[..., i, None, None] for i in range(3))
+    logits = _int_products(qi[..., :N, :], ki[..., :N, :].transpose(-1, -2)) * (qs * (sq * sk))
+    e = (torch.exp2 if exp2 else torch.exp)(logits - torch.amax(logits, dim=-1, keepdim=True))
+    pi = torch.round(e * (1.0 / torch.sum(e, dim=-1, keepdim=True)) * 127.0)
+    res = _int_products(pi, vt[..., :hd, :N].transpose(-1, -2)) * ((sv * RECIP_127) * inv_p)
+    return torch.clamp(torch.round(res), -127, 127).to(torch.int8)
+
+
 def flavoured_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out_scale,
                             softmax: str = "exp", attn_math: str = "bf16") -> torch.Tensor:
     """Plain version of K3's attention step under a softmax flavour and an
@@ -120,36 +167,28 @@ def flavoured_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o
 
     "exp2" folds log2(e) into the q prescale and takes exp2 of the
     max-shifted logits; "exp2p" besides leaves e unnormalised into the p.v
-    product, res = (e.bf16 @ v) * (inv_s * inv_p). "int8" products: q, k
-    and v quantized by their heads' dynamic scales (_head_scale), rounded
-    without a clip, logits = (qi . ki^T) * (qs * (sq * sk)), p quantized as
-    round((e * inv_s) * 127), res = (pi . vi) * ((sv * f32(1 / 127)) * inv_p);
-    under int8 products "exp2p" is "exp2", as in JAX."""
+    product, res = (e.bf16 @ v) * (inv_s * inv_p). "int8" products:
+    quantize_heads_ref, then int8_products_attention_ref (the two launches of
+    the kernel); under int8 products "exp2p" is "exp2", as in JAX."""
     check_flavour(softmax, attn_math, "flavoured_attention_ref")
-    hd = q.shape[-1]
+    N, hd = q.shape[-2:]
+    if attn_math == "int8":
+        return int8_products_attention_ref(*quantize_heads_ref(q, k, v), N, hd, out_scale,
+                                           softmax)
     exp2 = softmax in ("exp2", "exp2p")
     qs = hd ** -0.5 * LOG2E if exp2 else hd ** -0.5
     inv_p = 1.0 / torch.as_tensor(out_scale, dtype=torch.float32, device=q.device).reshape(())
     expf = torch.exp2 if exp2 else torch.exp
-    if attn_math == "int8":
-        qf, kf, vf = q.float(), k.float(), v.float()
-        sq, sk, sv = _head_scale(qf), _head_scale(kf), _head_scale(vf)
-        qi, ki, vi = (torch.round(t * (1.0 / st)) for t, st in ((qf, sq), (kf, sk), (vf, sv)))
-        logits = _int_products(qi, ki.transpose(-1, -2)) * (float(np.float32(qs)) * (sq * sk))
-        e = expf(logits - torch.amax(logits, dim=-1, keepdim=True))
-        pi = torch.round(e * (1.0 / torch.sum(e, dim=-1, keepdim=True)) * 127.0)
-        res = _int_products(pi, vi) * ((sv * RECIP_127) * inv_p)
+    logits = torch.einsum("bhnd,bhmd->bhnm", (q * nn.weak_scalar(qs, q.dtype)).float(),
+                          k.float())
+    e = expf(logits - torch.amax(logits, dim=-1, keepdim=True))
+    inv_s = 1.0 / torch.sum(e, dim=-1, keepdim=True)
+    if softmax == "exp2p":
+        res = torch.einsum("bhnm,bhmd->bhnd", e.to(v.dtype).float(), v.float())
+        res = res * (inv_s * inv_p)
     else:
-        logits = torch.einsum("bhnd,bhmd->bhnm", (q * nn.weak_scalar(qs, q.dtype)).float(),
-                              k.float())
-        e = expf(logits - torch.amax(logits, dim=-1, keepdim=True))
-        inv_s = 1.0 / torch.sum(e, dim=-1, keepdim=True)
-        if softmax == "exp2p":
-            res = torch.einsum("bhnm,bhmd->bhnd", e.to(v.dtype).float(), v.float())
-            res = res * (inv_s * inv_p)
-        else:
-            p = e * inv_s
-            res = torch.einsum("bhnm,bhmd->bhnd", p.to(v.dtype).float(), v.float()) * inv_p
+        p = e * inv_s
+        res = torch.einsum("bhnm,bhmd->bhnd", p.to(v.dtype).float(), v.float()) * inv_p
     return torch.clamp(torch.round(res), -127, 127).to(torch.int8)
 
 
@@ -189,8 +228,7 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: tor
     or f32) into ``out`` (strides multiples of 8, hd contiguous, 16-byte
     aligned): bf16 (bf16 inputs only) or f32, or int8 quantized by
     ``out_scale``. Another ``softmax`` or ``attn_math`` (K3's) launches
-    csrc/attention_flavours.cu instead: bf16 inputs and an int8 output only,
-    N <= MAX_N_INT8 for the int8 products."""
+    csrc/attention_flavours.cu instead: bf16 inputs and an int8 output only."""
     if not q.is_cuda:
         raise ValueError(f"{what}: unsupported device {q.device}")
     shape = q.shape
@@ -223,34 +261,121 @@ def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: tor
             ost[2], B, H, N, hd, _scale(hd, q.dtype), stream), f"{what}: short_attention_kernel")
 
 
-MAX_N_INT8 = 256  # keys of a head the int8-products kernel holds in shared memory
-
-
 def _launch_flavour(q, k, v, out, out_scale, what, softmax, attn_math) -> None:
     """launch_attention's K3 forms, on checked views: exp2 / exp2p on the
-    flavoured bf16 kernels, the int8 products on their own kernel."""
+    flavoured bf16 kernels, the int8 products on their two launches
+    (_launch_int8_products)."""
     check_flavour(softmax, attn_math, what)
     B, H, N, hd = q.shape
     if q.dtype != torch.bfloat16 or out.dtype != torch.int8 or hd > MAX_HD:
         raise ValueError(f"{what}: softmax {softmax!r} / attn_math {attn_math!r} take bf16 "
                          f"q, k, v (hd <= {MAX_HD}) and an int8 output, got {q.dtype} -> "
                          f"{out.dtype}, hd = {hd}")
-    if attn_math == "int8" and N > MAX_N_INT8:
-        raise ValueError(f"{what}: the int8 attention products take N <= {MAX_N_INT8}, got {N}")
+    if attn_math == "int8":
+        _launch_int8_products(q, k, v, out, out_scale, what, softmax)
+        return
     lib = cuda_build.load("attention_flavours.cu")
     st, ost = q.stride(), out.stride()
     s = _scale_on(out_scale, q.device)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), st[0], st[1], st[2], out.data_ptr(),
-            s.data_ptr(), ost[0], ost[1], ost[2], B, H, N, hd, _flavour_scale(hd, softmax,
-                                                                             attn_math))
     idx = q.get_device()
     with torch.cuda.device(idx):
         stream = torch.cuda.current_stream(idx).cuda_stream
-        if attn_math == "int8":
-            rc = lib.hyt_attention_int8(*args, int(softmax != "exp"), stream)
-        else:
-            rc = lib.hyt_attention_flavour(*args, SOFTMAXES.index(softmax), stream)
+        rc = lib.hyt_attention_flavour(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), st[0], st[1], st[2], out.data_ptr(),
+            s.data_ptr(), ost[0], ost[1], ost[2], B, H, N, hd,
+            _flavour_scale(hd, softmax, attn_math), SOFTMAXES.index(softmax), stream)
     cuda_build.check(rc, f"{what}: attention ({softmax}, {attn_math})")
+
+
+def _int8_scratch(B: int, H: int, N: int, hd: int, dev):
+    """The pre-pass's outputs: the tiles (Qi of every head, then Ki, then
+    Vt, in csrc/attention_flavours.cu's blocked order) and the (B, H, 3)
+    scales."""
+    Nk, Hk, Hv = int8_tile_dims(N, hd)
+    return (torch.empty(B * H * Nk * (2 * Hk + Hv), dtype=torch.int8, device=dev),
+            torch.empty((B, H, 3), dtype=torch.float32, device=dev))
+
+
+def _launch_int8_products(q, k, v, out, out_scale, what, softmax) -> None:
+    """The int8 products on checked views: the quantize pre-pass, then the
+    attention launch, both in csrc/attention_flavours.cu (any N)."""
+    B, H, N, hd = q.shape
+    lib = cuda_build.load("attention_flavours.cu")
+    st, ost = q.stride(), out.stride()
+    s = _scale_on(out_scale, q.device)
+    tiles, scales = _int8_scratch(B, H, N, hd, q.device)
+    idx = q.get_device()
+    with torch.cuda.device(idx):
+        stream = torch.cuda.current_stream(idx).cuda_stream
+        rc = lib.hyt_attention_int8(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), st[0], st[1], st[2], out.data_ptr(),
+            s.data_ptr(), ost[0], ost[1], ost[2], B, H, N, hd,
+            _flavour_scale(hd, softmax, "int8"), int(softmax != "exp"), tiles.data_ptr(),
+            scales.data_ptr(), stream)
+    cuda_build.check(rc, f"{what}: attention ({softmax}, int8)")
+    int8_products_attention.launches += 1
+
+
+def int8_products_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out_scale,
+                            softmax: str = "exp") -> torch.Tensor:
+    """K3's attention step under the int8 products (HYT_ATTN_MATH=int8):
+    q/k/v (B, h, N, hd) bf16 -> (B, h, N, hd) int8 quantized by
+    ``out_scale``, any N. CPU tensors take the plain version
+    (flavoured_attention_ref); CUDA tensors launch the pre-pass and the
+    attention kernel of csrc/attention_flavours.cu (``launches`` counts the
+    pair, on this path and on K3's), or raise. The output is a view of a (B,
+    N, h, hd) tensor."""
+    cuda_build.refuse_grad("int8_products_attention", q, k, v, out_scale)
+    if q.device.type == "cpu":
+        return flavoured_attention_ref(q, k, v, out_scale, softmax, "int8")
+    B, H, N, hd = q.shape
+    out = torch.empty((B, N, H, hd), dtype=torch.int8, device=q.device).transpose(1, 2)
+    launch_attention(q, k, v, out, out_scale, "int8_products_attention", softmax, "int8")
+    return out
+
+
+int8_products_attention.launches = 0
+
+
+def quantize_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The int8 products' pre-pass alone, quantize_heads_ref's outputs: CPU
+    tensors take the plain version; CUDA tensors (bf16, the checks of
+    launch_attention) launch quantize_heads_kernel and return its tiles
+    unblocked (blocked_to_plain). For the checks: no launch is counted."""
+    cuda_build.refuse_grad("quantize_heads", q, k, v)
+    if q.device.type == "cpu":
+        return quantize_heads_ref(q, k, v)
+    B, H, N, hd = q.shape
+    st = q.stride()
+    if (q.dtype != torch.bfloat16 or hd > MAX_HD or hd % 8 or any(t.stride() != st or
+                                                                  t.dtype != q.dtype
+                                                                  for t in (k, v))):
+        raise ValueError(f"quantize_heads: bf16 q, k, v of one stride set, hd <= {MAX_HD} a "
+                         f"multiple of 8, got {q.dtype}, hd = {hd}")
+    tiles, scales = _int8_scratch(B, H, N, hd, q.device)
+    lib = cuda_build.load("attention_flavours.cu")
+    idx = q.get_device()
+    with torch.cuda.device(idx):
+        stream = torch.cuda.current_stream(idx).cuda_stream
+        rc = lib.hyt_quantize_heads(q.data_ptr(), k.data_ptr(), v.data_ptr(), st[0], st[1],
+                                    st[2], B, H, N, hd, tiles.data_ptr(), scales.data_ptr(),
+                                    stream)
+    cuda_build.check(rc, "quantize_heads")
+    return (scales, *blocked_to_plain(tiles, B, H, N, hd))
+
+
+def blocked_to_plain(tiles: torch.Tensor, B: int, H: int, N: int, hd: int):
+    """The pre-pass's tiles in quantize_heads_ref's layout: (qi, ki (B, H,
+    Nk, Hk), vt (B, H, Hv, Nk)). Qi and Ki are stored as row groups of 8 rows
+    of (Hk / 16) core matrices of 8 rows x 16 bytes, Vt as key blocks of
+    I8_KEY_BLOCK keys of (Hv / 8) row groups of such core matrices (the
+    shared-memory order of the attention kernel)."""
+    Nk, Hk, Hv = int8_tile_dims(N, hd)
+    qk = tiles[:2 * B * H * Nk * Hk].view(2, B, H, Nk // 8, Hk // 16, 8, 16)
+    qk = qk.permute(0, 1, 2, 3, 5, 4, 6).reshape(2, B, H, Nk, Hk)
+    vt = tiles[2 * B * H * Nk * Hk:].view(B, H, Nk // I8_KEY_BLOCK, Hv // 8,
+                                          I8_KEY_BLOCK // 16, 8, 16)
+    return qk[0], qk[1], vt.permute(0, 1, 3, 5, 2, 4, 6).reshape(B, H, Hv, Nk)
 
 
 @functools.lru_cache(maxsize=None)

@@ -29,10 +29,13 @@ from hamer_yolo_tpu_torch.ops.mano_lbs import mano_lbs_fused, mano_lbs_fused_ref
 from hamer_yolo_tpu_torch.ops.pointnet import smallest_k
 from hamer_yolo_tpu_torch.ops.nms import (MAX_K, greedy_nms_keep, greedy_nms_keep_mask,
                                           greedy_nms_keep_ref, non_max_suppression)
-from hamer_yolo_tpu_torch.ops.short_attention import (fused_qkv_attention,
+from hamer_yolo_tpu_torch.ops.short_attention import (flavoured_attention_ref,
+                                                      fused_qkv_attention,
                                                       fused_qkv_attention_ref,
                                                       fused_short_attention,
-                                                      fused_short_attention_ref, launch_attention)
+                                                      fused_short_attention_ref,
+                                                      int8_products_attention, launch_attention,
+                                                      quantize_heads, quantize_heads_ref)
 from test_torch_train_pairs import CASES as TRAIN_CASES, card_against_cpu
 
 pytestmark = pytest.mark.cuda
@@ -566,9 +569,20 @@ K3_FORMS = [("exp", "bf16"), ("exp2", "bf16"), ("exp2p", "bf16"), ("exp", "int8"
             ("exp2", "int8")]
 
 
+# (dtype, B, N, K, h): ViT-H and the tiny config in both token dtypes, and
+# 432 tokens (a 384 x 288 crop) in ViT-H's bf16. With f32 tokens at 432
+# every form, the default too, reads 18% of output rows beyond one f32
+# rounding (limit 15%): a row holds 1280 outputs of as many int8 attention
+# values, and more keys flip more of them (ROADMAP F31).
+K3_SHAPES = {"bf16-vith": (torch.bfloat16, 16, 192, 1280, 16),
+             "bf16-tiny": (torch.bfloat16, 4, 12, 64, 4),
+             "f32-vith": (torch.float32, 16, 192, 1280, 16),
+             "f32-tiny": (torch.float32, 4, 12, 64, 4),
+             "bf16-n432": (torch.bfloat16, 2, 432, 1280, 16)}
+
+
 @pytest.mark.parametrize("softmax,attn_math", K3_FORMS, ids=[f"{s}-{m}" for s, m in K3_FORMS])
-@pytest.mark.parametrize("B,N,K,h", [(16, 192, 1280, 16), (4, 12, 64, 4)], ids=["vith", "tiny"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("dtype,B,N,K,h", list(K3_SHAPES.values()), ids=list(K3_SHAPES))
 def test_k3_matches_plain(dev, B, N, K, h, dtype, softmax, attn_math):
     rng = np.random.default_rng(N + K)
     tok = torch.from_numpy(rng.normal(size=(B, N, K)).astype(np.float32)).to(dev).to(dtype)
@@ -587,6 +601,45 @@ def test_k3_matches_plain(dev, B, N, K, h, dtype, softmax, attn_math):
     # the end-to-end limit and each launch against its step's plain version
     # (ops/attn_proj_block.py)
     attn_proj_block.check_against_plain(steps, tok, *args, **form)
+
+
+@pytest.mark.parametrize("B,h,N,hd,mult", list(ATTN_SHAPES.values()), ids=list(ATTN_SHAPES))
+@pytest.mark.parametrize("softmax", ["exp", "exp2"])
+def test_k3_int8_products_match_plain(dev, B, h, N, hd, mult, softmax):
+    """K3's attention step under the int8 products (HYT_ATTN_MATH=int8) at
+    every attention shape: the pre-pass's scales and int8 tiles bit-equal to
+    quantize_heads_ref, the output within check_against_plain's limit for
+    the step (attn_proj_block.int8_products_steps of the same heads), the
+    pre-pass and the attention launch counted once."""
+    rng = np.random.default_rng(N + hd)
+    qkv = _qkv_heads(rng, B, N, h, hd, mult, dev).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    got, ref = quantize_heads(q, k, v), quantize_heads_ref(q, k, v)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("scales", "qi", "ki", "vt"), got, ref):
+        assert a.shape == b.shape and torch.equal(a, b), name
+    sx = torch.tensor(0.011, device=dev)
+    before = int8_products_attention.launches
+    out = int8_products_attention(q, k, v, sx, softmax)
+    torch.cuda.synchronize()
+    assert int8_products_attention.launches == before + 1
+    assert out.shape == (B, h, N, hd) and out.dtype == torch.int8
+    steps = attn_proj_block.int8_products_steps(qkv.reshape(B * N, 3 * h * hd), B, h, sx)
+    attn_proj_block._check_int8_steps(out, flavoured_attention_ref(q, k, v, sx, softmax, "int8"),
+                                      steps, "K3 (int8)")
+
+
+def test_k3_int8_products_take_2048_keys(dev):
+    """N = 2048 (32 key blocks, three sweeps each) launches and agrees."""
+    rng = np.random.default_rng(2048)
+    qkv = _qkv_heads(rng, 1, 2048, 2, 64, 1, dev).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    sx = torch.tensor(0.011, device=dev)
+    out = int8_products_attention(q, k, v, sx)
+    torch.cuda.synchronize()
+    steps = attn_proj_block.int8_products_steps(qkv.reshape(2048, -1), 1, 2, sx)
+    attn_proj_block._check_int8_steps(out, flavoured_attention_ref(q, k, v, sx, "exp", "int8"),
+                                      steps, "K3 (int8)")
 
 
 def test_int8_kernels_reject_what_they_do_not_take(dev):
